@@ -7,7 +7,7 @@ Phases, each of which ends the script with a non-zero exit on failure:
 
 1. print the card (``nvidia-smi`` name and power limit); f32 matmuls and
    convolutions in full f32 (TF32 off);
-2. build every CUDA source of the package with nvcc (timed);
+2. build the package's CUDA source with nvcc (timed);
 3. hold each kernel against its plain PyTorch version on the card at the
    xDeepFM config-3 shapes (B = 8192, D = 16, F = 26, CIN (64, 64)) and
    at ragged shapes, and time kernel, plain version and, where one
@@ -18,7 +18,11 @@ Phases, each of which ends the script with a non-zero exit on failure:
    (``cin_stack_sum``), then with ``cin_sum_channel=False``
    (``cin_flat``), counting kernel launches over each run; logits are
    checked for shape and finiteness, wire against raw, and against the
-   same model run on the CPU through the plain versions;
+   same model run on the CPU through the plain versions; the CIN layer's
+   output on the run's own embeddings is held against its plain version
+   relative to that output's scale (the table's +-1e-3 rows make the CIN
+   terms too small to show in the logits), and the check fails if it
+   could not see any one layer;
 5. print one JSON line per the kernels, the card again, and finally
    ``{"ok": true, "device": {...}}``.
 
@@ -70,19 +74,29 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def cin_flops(m: int, f: int, h: int, k: int, prev_is_x0: bool) -> int:
+    """Least FLOPs of one CIN layer out[m,k] = sum_{f,h} W[k,f,h] x0[m,f]
+    prev[m,h]: the products x0[f] prev[h] once per row, then one
+    multiply-add per (k, product) -- or W first, whichever is less.  When
+    prev is x0 the products are symmetric, F(F+1)/2 per row."""
+    terms = f * (f + 1) // 2 if prev_is_x0 else f * h
+    return min(m * terms + 2 * m * k * terms, 2 * m * k * f * (h + 1))
+
+
 def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, floor: float = 1.0) -> float:
+    """Max |got - want|; fails above REL_TOL * max(floor, max|want|)."""
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    ok = got.shape == want.shape and err <= REL_TOL * max(scale, 1.0)
+    ok = got.shape == want.shape and err <= REL_TOL * max(scale, floor)
     print(f"  {name}: shape {tuple(got.shape)} max_abs_err {err:.3e} "
           f"max|plain| {scale:.3e} max_rel_err {err / max(scale, 1e-30):.3e}"
-          f" (tol {REL_TOL:g} of max(1, max|plain|)) -> "
+          f" (tol {REL_TOL:g} of max({floor:g}, max|plain|)) -> "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
@@ -98,6 +112,7 @@ def main() -> int:
     from rec_now_tpu_torch.embedding.table import EmbeddingTable
     from rec_now_tpu_torch.models import FeatureConfig, XDeepFMModel
     from rec_now_tpu_torch.ops import _build, cin_kernel as ck
+    from rec_now_tpu_torch.ops.cin_op import cin_contract_plain
     from rec_now_tpu_torch.serving import (ServingState, WireScorer,
                                            build_scorer)
     from rec_now_tpu_torch.training.data import SyntheticCriteo
@@ -112,14 +127,12 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s for "
-          f"{', '.join(_build.sources())}")
-    for name in _build.sources():
-        log = _build.library_path(name).with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    _build.load("cin")
+    print(f"build: {time.perf_counter() - t0:.1f} s for csrc/cin.cu")
+    log = _build.library_path("cin").with_suffix(".log")
+    for line in log.read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas cin: {line.strip()}")
 
     # -- 3. kernels vs plain --------------------------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -149,7 +162,9 @@ def main() -> int:
         err = max(err, compare(f"ragged M=12345 Ks={ks}",
                                ck.cin_stack_sum(xr, wr),
                                ck.cin_stack_sum_plain(xr, wr)))
-    flops = (2 * M * KS[0] * F * (F + 1) + 2 * M * F * (KS[0] + 1)
+    # layer 1 on x0 (symmetric products), the last layer collapsed to
+    # sum_f x0[f] (sum_h Wc[h, f] h1[h]), then the channel sums
+    flops = (cin_flops(M, F, F, KS[0], True) + 2 * M * F * (KS[0] + 1)
              + M * (F + KS[0] + 1))
     nbytes = (M * F + M + sum(w.numel() for w in ws)) * 4
     b_ms, b_by = bound_ms(flops, nbytes)
@@ -175,8 +190,9 @@ def main() -> int:
                                                                   w))
         t["library_ms"] += cuda_ms(
             torch, lambda: torch.einsum("mf,mh,kfh->mk", x0, prev, w))
-        t["flops"] += 2 * M * k * F * (h + 1)
-        t["nbytes"] += (M * F + M * h + k * F * h + M * k) * 4
+        t["flops"] += cin_flops(M, F, h, k, prev is x0)
+        t["nbytes"] += (M * F + (0 if prev is x0 else M * h) + k * F * h
+                        + M * k) * 4
     pr = rand(12345, 37)
     w100 = glorot(100, F, 37)
     err = max(err, compare("ragged M=12345 H=37 K=100",
@@ -205,6 +221,56 @@ def main() -> int:
     table_t = table.init(torch.Generator().manual_seed(1))
     print(f"table {tuple(table_t.shape)} "
           f"{table_t.numel() * 4 / 1e6:.1f} MB on {table_t.device}")
+    cpu_table = EmbeddingTable(fc.total_rows, fc.embedding_dim, device="cpu")
+    cpu_table_t = table_t.cpu()
+
+    def check_cin(model, batch) -> None:
+        """The CIN layer on this run's embeddings: kernel vs plain."""
+        ids = fc.global_ids(torch.as_tensor(batch.sparse_ids, device=dev))
+        emb = table.lookup(table_t, ids)                    # (B, F, D)
+        b, f, d = emb.shape
+        ws = model.cin.weights()
+        x0 = emb.transpose(1, 2).contiguous()               # (B, D, F)
+        hs = [x0]                                           # plain layers
+        for w in ws:
+            hs.append(cin_contract_plain(x0, hs[-1], w))
+        if model.cin_sum_channel:
+            # the model's own call (output_input), then the interactions
+            # alone, which every layer must visibly move
+            compare("main-path CIN, output_input=True", model.cin(emb),
+                    torch.cat(hs, -1).sum(-1), floor=0.0)
+            x0f = x0.reshape(b * d, f)
+            want = torch.cat(hs[1:], -1).sum(-1).reshape(-1)
+            compare("main-path CIN, interactions only",
+                    ck.cin_stack_sum(x0f, ws, output_input=False), want,
+                    floor=0.0)
+            tol = REL_TOL * float(want.abs().max())
+            for i, h in enumerate(hs[1:], 1):
+                seen = float(h.sum(-1).abs().max())
+                print(f"    layer {i}: max|channel sum| {seen:.3e} = "
+                      f"{seen / tol:.1f} x tol")
+                if seen <= tol:
+                    fail(f"the CIN check cannot see layer {i}")
+        else:
+            got = model.cin(emb, sum_channel=False).reshape(b, -1, d)
+            got = got.split([h.shape[-1] for h in hs], dim=1)
+            for i in range(1, len(hs)):
+                compare(f"main-path CIN layer {i}", got[i],
+                        hs[i].transpose(1, 2), floor=0.0)
+
+    def check_cpu(sum_channel: bool, batch, logits) -> None:
+        """Card logits vs the same model and table on the CPU."""
+        cpu_model = XDeepFMModel(fc, cin_sum_channel=sum_channel,
+                                 device="cpu", seed=0)
+        state = ServingState(dict(cpu_model.named_parameters()),
+                             cpu_table_t)
+        want = build_scorer(cpu_model, fc, cpu_table, device="cpu")(
+            state, batch.dense, batch.sparse_ids)
+        e = float((logits.cpu() - want).abs().max())
+        print(f"  B={len(batch.dense)} card vs CPU plain: max_abs_err "
+              f"{e:.3e} max|logit| {float(want.abs().max()):.3e}")
+        if e > REL_TOL * max(1.0, float(want.abs().max())):
+            fail("card logits disagree with the CPU reference")
 
     def serve(sum_channel: bool, kernel, per_call: int, reqs):
         model = XDeepFMModel(fc, cin_sum_channel=sum_channel, device=dev,
@@ -249,28 +315,16 @@ def main() -> int:
             ms = statistics.median(ts)
             print(f"  {name}: {ms:.3f} ms/request (median of {len(ts)}) "
                   f"{8192 / ms * 1e3:.0f} examples/s at B=8192 [{card}]")
-        return model, outs
+        # after the count was read: these launches are checks, not serving
+        with torch.inference_mode():
+            check_cin(model, reqs[0])
+        check_cpu(sum_channel, reqs[-1], outs[-1]["raw"])
+        return launches
 
-    model, outs = serve(True, ck.cin_stack_sum, 1,
-                        rng_batches[:5] + [small])
-    kern["cin_stack_sum"]["launches"] = ck.cin_stack_sum.launches
-    # reference: the same model and table on the CPU, plain versions
-    cpu_model = XDeepFMModel(fc, device="cpu", seed=0)
-    cpu_table = EmbeddingTable(fc.total_rows, fc.embedding_dim, device="cpu")
-    cpu_state = ServingState(dict(cpu_model.named_parameters()),
-                             cpu_table.init(torch.Generator().manual_seed(1)))
-    want = build_scorer(cpu_model, fc, cpu_table, device="cpu")(
-        cpu_state, small.dense, small.sparse_ids)
-    got = outs[-1]["raw"].cpu()
-    e = float((got - want).abs().max())
-    print(f"  B=1000 card vs CPU plain: max_abs_err {e:.3e} "
-          f"max|logit| {float(want.abs().max()):.3e}")
-    if e > 1e-4 * max(1.0, float(want.abs().max())):
-        fail("card logits disagree with the CPU reference")
-    del model, outs, cpu_model, cpu_table, cpu_state
-
-    serve(False, ck.cin_flat, 2, rng_batches[5:6] + [small])
-    kern["cin_flat"]["launches"] = ck.cin_flat.launches
+    kern["cin_stack_sum"]["launches"] = serve(
+        True, ck.cin_stack_sum, 1, rng_batches[:5] + [small])
+    kern["cin_flat"]["launches"] = serve(
+        False, ck.cin_flat, 2, rng_batches[5:6] + [small])
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB")
 

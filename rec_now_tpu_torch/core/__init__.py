@@ -1,1 +1,1 @@
-"""Config resolvers (activations, initializers, devices)."""
+"""Initializers and device resolution."""

@@ -1,37 +1,16 @@
-"""Resolvers for activations, initializers and devices.
+"""Initializers and device resolution.
 
 Counterpart of ``rec_now_tpu/core/config.py``, reduced to what the
-ported modules use: the ``relu`` and identity activations, and the
-``glorot_uniform`` and ``zeros`` initializers, drawn from an explicit
-``torch.Generator`` on the CPU so that a seed gives the same weights on
-every device.
+ported modules use: the glorot-uniform and uniform initializers, drawn
+from an explicit ``torch.Generator`` on the CPU so that a seed gives the
+same weights on every device, and :func:`resolve_device`.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Union
+from typing import Union
 
 import torch
-
-Activation = Optional[Union[str, Callable]]
-
-_ACTIVATIONS = {
-    "relu": torch.relu,
-    "linear": lambda x: x,
-    "none": lambda x: x,
-}
-
-
-def get_activation(act: Activation) -> Callable:
-    """Resolve an activation name/callable/None to a callable."""
-    if act is None:
-        return lambda x: x
-    if callable(act):
-        return act
-    key = str(act).lower()
-    if key not in _ACTIVATIONS:
-        raise ValueError(f"unknown activation {act!r}")
-    return _ACTIVATIONS[key]
 
 
 def glorot_uniform(shape, fan_in: int, fan_out: int,
@@ -46,17 +25,6 @@ def uniform(shape, limit: float, generator: torch.Generator
     """U(-limit, limit) float32, on the CPU."""
     u = torch.rand(shape, generator=generator, dtype=torch.float32)
     return u.mul_(2.0 * limit).sub_(limit)
-
-
-def get_initializer(init: str) -> Callable:
-    """Resolve 'glorot_uniform' or 'zeros' to
-    ``fn(shape, fan_in, fan_out, generator) -> CPU tensor``."""
-    key = str(init).lower()
-    if key in ("glorot_uniform", "xavier_uniform"):
-        return glorot_uniform
-    if key == "zeros":
-        return lambda shape, fan_in, fan_out, generator: torch.zeros(shape)
-    raise ValueError(f"unknown initializer {init!r}")
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:

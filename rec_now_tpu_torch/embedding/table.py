@@ -5,7 +5,7 @@ Counterpart of ``rec_now_tpu/embedding/table.py`` and of the one-shard
 The table is a plain row-major (V, D) float32 tensor; the TPU's lane
 packing of ``128 // D`` rows per line is not kept (``convert.
 table_from_packed`` reads a packed JAX table into this layout).  Rows
-start uniform in +-``initializer_scale``, as the JAX table does.
+start uniform in +-``INIT_SCALE``, as the JAX table does.
 """
 from __future__ import annotations
 
@@ -14,6 +14,9 @@ from typing import Union
 import torch
 
 from rec_now_tpu_torch.core.config import resolve_device, uniform
+
+# rows start in U(-1e-3, 1e-3) (rec_now_tpu/embedding/sharded.py:291-293)
+INIT_SCALE = 1e-3
 
 
 class EmbeddingTable:
@@ -26,17 +29,15 @@ class EmbeddingTable:
     """
 
     def __init__(self, vocab_size: int, dim: int,
-                 initializer_scale: float = 1e-3,
                  device: Union[str, torch.device] = "cuda"):
         self.vocab_size = vocab_size
         self.dim = dim
-        self.initializer_scale = initializer_scale
         self.device = resolve_device(device)
 
     def init(self, generator: torch.Generator) -> torch.Tensor:
-        """Rows ~ U(-scale, scale), drawn on the CPU, placed on the device."""
-        t = uniform((self.vocab_size, self.dim), self.initializer_scale,
-                    generator)
+        """Rows ~ U(-INIT_SCALE, INIT_SCALE), drawn on the CPU, placed on
+        the device."""
+        t = uniform((self.vocab_size, self.dim), INIT_SCALE, generator)
         return t.to(self.device)
 
     def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

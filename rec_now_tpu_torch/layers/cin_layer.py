@@ -12,12 +12,12 @@ Symbols: B batch, D embedding dim, F fields, Hs hidden channel sizes.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Sequence, Union
 
 import torch
 from torch import nn
 
-from rec_now_tpu_torch.core.config import get_initializer, resolve_device
+from rec_now_tpu_torch.core.config import glorot_uniform, resolve_device
 from rec_now_tpu_torch.ops.cin_kernel import cin_stack_sum
 from rec_now_tpu_torch.ops.cin_op import cin_contract
 
@@ -26,18 +26,16 @@ class CINLayer(nn.Module):
     """CIN with per-layer weights (H_k, F, H_{k-1})."""
 
     def __init__(self, num_field: int, hidden_sizes: Sequence[int],
-                 initializer: str = "glorot_uniform",
-                 device: Union[str, torch.device] = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: torch.Generator,
+                 device: Union[str, torch.device] = "cuda"):
         super().__init__()
         device = resolve_device(device)
-        gen = generator if generator is not None else torch.Generator()
-        init = get_initializer(initializer)
         self.num_layers = len(hidden_sizes)
         extended = [num_field] + list(hidden_sizes)
         for i in range(1, len(extended)):
             k, h = extended[i], extended[i - 1]
-            flat = init((num_field * h, k), num_field * h, k, gen)
+            flat = glorot_uniform((num_field * h, k), num_field * h, k,
+                                  generator)
             w = flat.t().reshape(k, num_field, h).contiguous()
             setattr(self, f"weight_of_layer{i}", nn.Parameter(w.to(device)))
 

@@ -1,53 +1,45 @@
 """Plain DNN tower (Dense stack), counterpart of
-``rec_now_tpu/models/tower.py``.  Layers are named ``dense_{i}`` as in
-the Flax module, so converted weights land by name."""
+``rec_now_tpu/models/tower.py`` as the xDeepFM model uses it: ReLU
+between layers, none after the last, glorot-uniform weights and zero
+biases.  Layers are named ``dense_{i}`` as in the Flax module, so
+converted weights land by name."""
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Sequence, Union
 
 import torch
 from torch import nn
 
-from rec_now_tpu_torch.core.config import (Activation, get_activation,
-                                           get_initializer, resolve_device)
+from rec_now_tpu_torch.core.config import glorot_uniform, resolve_device
 
 
-def make_linear(in_dim: int, out_dim: int, kernel_init: str,
-                device: torch.device, generator: torch.Generator
-                ) -> nn.Linear:
-    """nn.Linear with Flax's Dense init: ``kernel_init`` weight, zero bias."""
+def make_linear(in_dim: int, out_dim: int, device: torch.device,
+                generator: torch.Generator) -> nn.Linear:
+    """nn.Linear with Flax's default Dense init: glorot weight, zero bias."""
     lin = nn.Linear(in_dim, out_dim, device="meta")
-    w = get_initializer(kernel_init)((in_dim, out_dim), in_dim, out_dim,
-                                     generator)
-    b = get_initializer("zeros")((out_dim,), in_dim, out_dim, generator)
+    w = glorot_uniform((in_dim, out_dim), in_dim, out_dim, generator)
     lin.weight = nn.Parameter(w.t().contiguous().to(device))
-    lin.bias = nn.Parameter(b.to(device))
+    lin.bias = nn.Parameter(torch.zeros(out_dim, device=device))
     return lin
 
 
 class DNNTower(nn.Module):
-    """MLP: Linear stack with activation on all but the last layer."""
+    """MLP: Linear stack with ReLU on all but the last layer."""
 
     def __init__(self, in_dim: int, dims: Sequence[int],
-                 activation: Activation = "relu",
-                 final_activation: Activation = None,
-                 kernel_init: str = "glorot_uniform",
-                 device: Union[str, torch.device] = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: torch.Generator,
+                 device: Union[str, torch.device] = "cuda"):
         super().__init__()
         device = resolve_device(device)
-        gen = generator if generator is not None else torch.Generator()
-        self.act = get_activation(activation)
-        self.final_act = get_activation(final_activation)
         self.num_layers = len(dims)
         for i, dim in enumerate(dims):
             setattr(self, f"dense_{i}",
-                    make_linear(in_dim, dim, kernel_init, device, gen))
+                    make_linear(in_dim, dim, device, generator))
             in_dim = dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"dense_{i}")(x)
             if i < self.num_layers - 1:
-                x = self.act(x)
-        return self.final_act(x)
+                x = torch.relu(x)
+        return x

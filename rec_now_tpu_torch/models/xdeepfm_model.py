@@ -49,7 +49,7 @@ class XDeepFMModel(nn.Module):
         cin_dim = (d if cin_sum_channel
                    else (f + sum(cin_hidden_sizes)) * d)
         head_in = cin_dim + f * (f - 1) // 2 + deep_dims[-1] + fc.num_dense
-        self.head = make_linear(head_in, 1, "glorot_uniform", device, gen)
+        self.head = make_linear(head_in, 1, device, gen)
 
     def forward(self, dense: torch.Tensor,
                 sparse_emb: torch.Tensor) -> torch.Tensor:

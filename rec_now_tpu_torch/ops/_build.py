@@ -11,7 +11,6 @@ changes.  A failed build raises with nvcc's stderr.  ptxas's report
 Usage::
 
     lib = load("cin")                 # builds if needed, then dlopens
-    build_all()                       # one nvcc per source, in parallel
 """
 from __future__ import annotations
 
@@ -21,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -40,11 +39,6 @@ def _nvcc() -> str:
     return path
 
 
-def sources() -> List[str]:
-    """Names of the kernel sources (``csrc/<name>.cu``)."""
-    return sorted(p.stem for p in SRC_DIR.glob("*.cu"))
-
-
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` at its current content goes."""
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()
@@ -52,52 +46,27 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for one source; None when its library is current."""
-    out = library_path(name)
-    if out.exists():
-        return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    return proc, tmp, out
-
-
-def _finish(name: str, job) -> None:
-    proc, tmp, out = job
-    stdout, stderr = proc.communicate()
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                           f"(exit {proc.returncode}):\n{stderr}{stdout}")
-    out.with_suffix(".log").write_text(stderr + stdout)
-    os.replace(tmp, out)
-
-
-def build_all() -> None:
-    """Build every stale source, one nvcc process each, all at once."""
-    jobs = {name: _start(name) for name in sources()}
-    errors = []
-    for name, job in jobs.items():
-        if job is None:
-            continue
-        try:
-            _finish(name, job)
-        except RuntimeError as e:   # wait for the others before raising
-            errors.append(str(e))
-    if errors:
-        raise RuntimeError("\n".join(errors))
-
-
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if stale and return the loaded library."""
     lib = _loaded.get(name)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(library_path(name)))
+        out = library_path(name)
+        if not out.exists():
+            _compile(name, out)
+        lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
     return lib
+
+
+def _compile(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n"
+                           f"{proc.stderr}{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+    os.replace(tmp, out)

@@ -1,9 +1,9 @@
 """Where a serving request's time goes on the card.
 
-    python -m rec_now_tpu_torch.profile_serving [--requests 5] [--batch 8192]
+    python -m rec_now_tpu_torch.profile_serving
 
 Builds full-width xDeepFM (``FeatureConfig()``, ``XDeepFMModel()``, random
-weights from a seed), warms up, then scores ``--requests`` requests per
+weights from a seed), warms up, then scores 5 requests of B = 8,192 per
 front end (raw, u8 wire, f16 wire) under ``torch.profiler``.  Prints, per
 front end, the wall ms per request, the device's busy share of that window
 (sum of kernel times over wall time) and the kernels by total device time.
@@ -11,7 +11,6 @@ Needs a CUDA device.
 """
 from __future__ import annotations
 
-import argparse
 import subprocess
 import time
 
@@ -24,6 +23,8 @@ from rec_now_tpu_torch.models import FeatureConfig, XDeepFMModel
 from rec_now_tpu_torch.serving import ServingState, WireScorer, build_scorer
 from rec_now_tpu_torch.training.data import SyntheticCriteo
 
+REQUESTS, BATCH = 5, 8192
+
 
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -33,10 +34,6 @@ def _device_us(evt) -> float:
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--requests", type=int, default=5)
-    ap.add_argument("--batch", type=int, default=8192)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -51,7 +48,7 @@ def main() -> None:
     state = ServingState(dict(model.named_parameters()),
                          table.init(torch.Generator().manual_seed(1)))
     data = SyntheticCriteo(seed=0)
-    reqs = list(data.batches(args.batch, args.requests + 1, seed=1))
+    reqs = list(data.batches(BATCH, REQUESTS + 1, seed=1))
     fronts = {"raw": build_scorer(model, fc, table),
               "u8": WireScorer(model, fc, table, "u8"),
               "f16": WireScorer(model, fc, table, "f16")}
@@ -72,7 +69,7 @@ def main() -> None:
         busy = sum(_device_us(e) for e in events)
         n = len(reqs) - 1
         print(f"{name}: {wall_us / n / 1e3:.3f} ms/request (profiled, "
-              f"B={args.batch}), device busy {busy / n / 1e3:.3f} ms/request"
+              f"B={BATCH}), device busy {busy / n / 1e3:.3f} ms/request"
               f" = {busy / wall_us:.1%} of wall [{card}]")
         for e in sorted(events, key=_device_us, reverse=True)[:12]:
             print(f"  {_device_us(e) / n / 1e3:8.4f} ms/request "

@@ -83,7 +83,7 @@ class WireScorer:
         self.device = resolve_device(device)
         self.wire = WireFormat(feature_config.num_sparse,
                                feature_config.rows_per_field,
-                               dense_mode=dense_mode, num_shards=1)
+                               dense_mode=dense_mode)
         self.model, self.fc, self.table = model, feature_config, table
 
     def pack(self, dense: np.ndarray, sparse_ids: np.ndarray):

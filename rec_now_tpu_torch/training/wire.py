@@ -2,7 +2,7 @@
 
 Counterpart of the serving half of ``rec_now_tpu/training/wire.py`` in
 its ``packed`` id mode: host-side numpy packing (bit-packed ids in
-uint32 words; f16 dense or per-shard-affine u8 dense) and device-side
+uint32 words; f16 dense or per-feature-affine u8 dense) and device-side
 decoding on tensors.  The host packing is a copy of the JAX package's
 numpy code.  Torch has little uint32 arithmetic, so the decode moves the
 words as int32 (same bytes), widens them to int64 on the device and
@@ -66,59 +66,44 @@ class WireFormat:
     Args:
         num_sparse: sparse fields per example.
         rows_per_field: id space per field (sets bits/id).
-        dense_mode: 'f16' or 'u8' (per-batch-shard per-feature affine).
-        num_shards: batch shards the u8 affine is computed over.
+        dense_mode: 'f16' or 'u8' (per-feature affine over the request).
+
+    The dense scale keeps the JAX wire's (..., shards, 2, F) layout with
+    one shard, so a packed request is the same bytes on both sides.
     """
 
     def __init__(self, num_sparse: int, rows_per_field: int,
-                 dense_mode: str = "f16", num_shards: int = 1):
+                 dense_mode: str = "f16"):
         if dense_mode not in ("f16", "u8"):
             raise ValueError(f"unknown dense_mode {dense_mode!r}")
-        if num_shards < 1:
-            raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.num_sparse = num_sparse
         self.bits = id_bits(rows_per_field)
         self.words = num_words(num_sparse, self.bits)
         self.dense_mode = dense_mode
-        self.num_shards = num_shards
-        self.rows_per_field = rows_per_field
 
-    def _pack_dense(self, dense: np.ndarray, shards: int):
-        """-> (packed dense, (..., shards, 2, F) f32 scale)."""
-        b, f = dense.shape[-2], dense.shape[-1]
-        if b % shards:
-            raise ValueError(
-                f"batch {b} must divide by num_shards {shards}")
+    def _pack_dense(self, dense: np.ndarray):
+        """-> (packed dense, (..., 1, 2, F) f32 scale)."""
+        f = dense.shape[-1]
         if self.dense_mode == "f16":
-            scale = np.zeros(dense.shape[:-2] + (shards, 2, f),
-                             np.float32)
+            scale = np.zeros(dense.shape[:-2] + (1, 2, f), np.float32)
             return dense.astype(np.float16), scale
-        chunked = dense.reshape(dense.shape[:-2]
-                                + (shards, b // shards, f))
-        lo = chunked.min(axis=-2)                    # (..., shards, F)
-        hi = chunked.max(axis=-2)
+        lo = dense.min(axis=-2, keepdims=True)       # (..., 1, F)
+        hi = dense.max(axis=-2, keepdims=True)
         step = (hi - lo) / 255.0
-        q = np.rint((chunked - lo[..., None, :])
-                    / np.where(step > 0, step, 1.0)[..., None, :])
+        q = np.rint((dense - lo) / np.where(step > 0, step, 1.0))
         scale = np.stack([lo, step], axis=-2).astype(np.float32)
-        return q.astype(np.uint8).reshape(dense.shape), scale
+        return q.astype(np.uint8), scale
 
-    def pack_request(self, dense: np.ndarray, sparse_ids: np.ndarray,
-                     num_shards: int = 1):
+    def pack_request(self, dense: np.ndarray, sparse_ids: np.ndarray):
         """Pack a label-free scoring request -> (qdense, scale, words)."""
-        q, scale = self._pack_dense(np.asarray(dense), num_shards)
+        q, scale = self._pack_dense(np.asarray(dense))
         return q, scale, pack_ids(np.asarray(sparse_ids), self.bits)
 
     def decode_dense(self, dense: torch.Tensor,
                      dense_scale: torch.Tensor) -> torch.Tensor:
-        """Dense decode on the device (f16 widen / per-shard u8 affine)."""
+        """Dense decode on the device (f16 widen / u8 affine)."""
         if self.dense_mode != "u8":
             return dense.to(torch.float32)
-        n = dense_scale.shape[-3]
-        b, f = dense.shape[-2], dense.shape[-1]
-        q = dense.reshape(dense.shape[:-2] + (n, b // n, f))
-        lo = dense_scale[..., 0, :]                  # (..., n, F)
+        lo = dense_scale[..., 0, :]                  # (..., 1, F)
         step = dense_scale[..., 1, :]
-        out = (q.to(torch.float32)
-               * step[..., :, None, :] + lo[..., :, None, :])
-        return out.reshape(dense.shape)
+        return dense.to(torch.float32) * step + lo

@@ -37,7 +37,7 @@ def test_cin_layer_matches_flax(hidden, sum_channel, output_input):
     want = np.asarray(flax_mod.apply(params, jnp.asarray(emb),
                                      output_input=output_input,
                                      sum_channel=sum_channel))
-    ours = CINLayer(emb.shape[1], hidden, device="cpu")
+    ours = CINLayer(emb.shape[1], hidden, torch.Generator(), device="cpu")
     ours.load_state_dict(from_jax_params(jax.device_get(params)))
     got = ours(torch.from_numpy(emb), output_input=output_input,
                sum_channel=sum_channel)
@@ -79,7 +79,7 @@ def test_dnn_tower_matches_flax(dims):
     flax_mod = FlaxTower(dims=dims)
     params = flax_mod.init(jax.random.PRNGKey(1), jnp.asarray(x))
     want = np.asarray(flax_mod.apply(params, jnp.asarray(x)))
-    ours = DNNTower(37, dims, device="cpu")
+    ours = DNNTower(37, dims, torch.Generator(), device="cpu")
     ours.load_state_dict(from_jax_params(jax.device_get(params)))
     got = ours(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,

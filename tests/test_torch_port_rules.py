@@ -90,5 +90,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("cin")
-    assert "cin" in _build.sources()
-    assert _build.library_path("cin").suffix == ".so"
+    lib = _build.library_path("cin")
+    assert lib.parent == tmp_path and lib.suffix == ".so"
+    assert not lib.exists() and "cin" not in _build._loaded
