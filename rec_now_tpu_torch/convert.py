@@ -11,6 +11,13 @@ Inputs are numpy arrays (a caller holding JAX arrays passes
   ``deep/dense_0/kernel`` -> ``deep.dense_0.weight``).
 * :func:`table_from_packed` -- the lane-packed, mod-sharded JAX table
   -> the logical (V, D) table.
+* :func:`acc_from_packed` -- the (V/P, P) packed, mod-sharded Adagrad
+  accumulator -> (V,), by the same id map.
+
+A JAX ``TrainState`` at init carries over as ``Trainer.init(gen,
+params=from_jax_params(params), table=ShardedTableState(
+table_from_packed(...), acc_from_packed(...)))``; its Adam state is
+all zeros, as a new ``torch.optim.Adam``'s is.
 """
 from __future__ import annotations
 
@@ -40,22 +47,35 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def table_from_packed(packed: np.ndarray, num_shards: int,
-                      dim: int) -> torch.Tensor:
-    """(V/P, P*D) packed table over ``num_shards`` shards -> (V, D).
+def _packed_rows(vocab: int, pack: int, num_shards: int) -> tuple:
+    """(physical row, lane slot) of every global id 0..V-1.
 
     Global row r lives on shard r % n at local row l = r // n, which is
     physical row (r % n) * (V/n/P) + l // P, lane slot l % P
     (``ShardedEmbeddingTable.debug_read``).
     """
-    arr = np.asarray(packed, dtype=np.float32)
-    pack = arr.shape[1] // dim
-    vocab = arr.shape[0] * pack
     n = num_shards
     if vocab % (n * pack):
-        raise ValueError(f"{arr.shape} rows do not split over {n} shards")
+        raise ValueError(f"{vocab} rows do not split over {n} shards of "
+                         f"{pack}-row lines")
     ids = np.arange(vocab)
     local = ids // n
-    phys = (ids % n) * (vocab // n // pack) + local // pack
-    rows = arr.reshape(-1, pack, dim)[phys, local % pack]
+    return (ids % n) * (vocab // n // pack) + local // pack, local % pack
+
+
+def table_from_packed(packed: np.ndarray, num_shards: int,
+                      dim: int) -> torch.Tensor:
+    """(V/P, P*D) packed table over ``num_shards`` shards -> (V, D)."""
+    arr = np.asarray(packed, dtype=np.float32)
+    pack = arr.shape[1] // dim
+    phys, slot = _packed_rows(arr.shape[0] * pack, pack, num_shards)
+    rows = arr.reshape(-1, pack, dim)[phys, slot]
     return torch.from_numpy(np.ascontiguousarray(rows))
+
+
+def acc_from_packed(packed: np.ndarray, num_shards: int) -> torch.Tensor:
+    """(V/P, P) packed accumulator over ``num_shards`` shards -> (V,)."""
+    arr = np.asarray(packed, dtype=np.float32)
+    pack = arr.shape[1]
+    phys, slot = _packed_rows(arr.shape[0] * pack, pack, num_shards)
+    return torch.from_numpy(np.ascontiguousarray(arr[phys, slot]))

@@ -9,11 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
 from rec_now_tpu_torch.models import FeatureConfig, XDeepFMModel
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops import cin_kernel as ck
+from rec_now_tpu_torch.ops import pairwise_kernel as pk
+from rec_now_tpu_torch.ops import table_update_kernel as tk
 from rec_now_tpu_torch.serving import WireScorer, build_scorer
+from rec_now_tpu_torch.training import Trainer, TrainerConfig
 
 torch.set_num_threads(1)
 
@@ -56,9 +60,16 @@ def test_entry_points_default_to_cuda(monkeypatch):
     for make in (lambda: EmbeddingTable(fc.total_rows, 4),
                  lambda: XDeepFMModel(fc, (4,), deep_dims=(8,)),
                  lambda: build_scorer(cpu_model, fc, cpu_table),
-                 lambda: WireScorer(cpu_model, fc, cpu_table)):
+                 lambda: WireScorer(cpu_model, fc, cpu_table),
+                 lambda: ShardedEmbeddingTable(fc.total_rows, 4),
+                 lambda: Trainer(cpu_model, fc, TrainerConfig())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+    # asked for the CPU, they run there
+    assert ShardedEmbeddingTable(fc.total_rows, 4, device="cpu").device == \
+        torch.device("cpu")
+    assert Trainer(cpu_model, fc, TrainerConfig(),
+                   device="cpu").device == torch.device("cpu")
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
@@ -93,3 +104,51 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     lib = _build.library_path("cin")
     assert lib.parent == tmp_path and lib.suffix == ".so"
     assert not lib.exists() and "cin" not in _build._loaded
+
+
+def _counts():
+    return (ck.cin_flat.launches, ck.cin_stack_sum.launches,
+            ck.cin_flat_bwd.launches, ck.cin_stack_sum_bwd.launches,
+            pk.pair_loss_sum.launches, tk.adagrad_dense_pass.launches)
+
+
+def test_new_wrappers_take_plain_version_on_cpu_only():
+    """The backwards, the pair loss and the Adagrad pass: plain on CPU
+    tensors (no launch counted), an error on any other non-CUDA device."""
+    rng = np.random.RandomState(1)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    x0, prev, w, g = t(29, 5), t(29, 3), t(4, 5, 3), t(29, 4)
+    ws = [t(3, 5, 5), w]
+    for got, want in zip(ck.cin_flat_bwd(x0, prev, w, g),
+                         ck.cin_flat_bwd_plain(x0, prev, w, g)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    gs = t(29)
+    got, want = (ck.cin_stack_sum_bwd(x0, ws, gs),
+                 ck.cin_stack_sum_bwd_plain(x0, ws, gs))
+    for a, b in zip([got[0]] + got[1], [want[0]] + want[1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    x, lab = t(33), torch.from_numpy((rng.rand(33) > 0.5).astype(np.float32))
+    grp = torch.from_numpy(rng.randint(0, 4, 33))
+    for a, b in zip(pk.pair_loss_fused(x, lab, grp, 1.0, -0.5),
+                    pk.pair_loss_fused_plain(x, lab, grp, 1.0, -0.5)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    table, acc, dg = t(16, 8), t(16).abs(), t(16, 8)
+    t2, a2 = table.clone(), acc.clone()
+    tk.adagrad_dense_pass(table, acc, dg, 0.05)
+    tk.adagrad_dense_pass_plain(t2, a2, dg, 0.05)
+    torch.testing.assert_close((table, acc), (t2, a2), rtol=0, atol=0)
+    assert _counts() == (0,) * 6
+
+    def meta(*ts):
+        return [a.to("meta") for a in ts]
+
+    for call in (lambda: ck.cin_flat_bwd(*meta(x0, prev, w, g)),
+                 lambda: ck.cin_stack_sum_bwd(meta(x0)[0], meta(*ws),
+                                              meta(gs)[0]),
+                 lambda: pk.pair_loss_sum(*meta(x, lab, grp)),
+                 lambda: tk.adagrad_dense_pass(*meta(table, acc, dg), 0.05)):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            call()
