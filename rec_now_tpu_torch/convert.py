@@ -3,12 +3,23 @@
 Inputs are numpy arrays (a caller holding JAX arrays passes
 ``jax.device_get(...)``); nothing here imports JAX.
 
-* :func:`from_jax_params` -- a Flax param tree -> a ``state_dict``:
-  ``Dense.kernel`` (in, out) becomes ``nn.Linear.weight`` (out, in),
-  ``bias`` stays, every other leaf (the CIN's (K, F, H) weights) keeps
-  its shape; names join the tree path with dots
-  (``cin/weight_of_layer1`` -> ``cin.weight_of_layer1``,
-  ``deep/dense_0/kernel`` -> ``deep.dense_0.weight``).
+* :func:`from_jax_params` -- a Flax param tree -> a ``state_dict``,
+  by these rules:
+
+  - names join the tree path with dots, and a ``/`` inside a Flax
+    module name (``MMOELayer`` names its banks ``experts/MultiDenseLayer_0``,
+    ``PLELayer`` ``ple_layer_0/task_shared_0/MultiDenseLayer_0``) becomes
+    a dot too: the port nests a module for each part
+    (``mmoe/experts/MultiDenseLayer_0/kernel`` ->
+    ``mmoe.experts.MultiDenseLayer_0.kernel``);
+  - only a 2-D leaf named ``kernel`` (a ``Dense``, (in, out)) becomes
+    ``nn.Linear.weight`` (out, in): ``deep/dense_0/kernel`` ->
+    ``deep.dense_0.weight``;
+  - every other leaf keeps its name and shape: a 3-D ``kernel`` (a
+    ``MultiDenseLayer`` bank, (N, D, U)), ``bias``, the CIN's
+    (K, F, H) weights, and the STAR tower's 2-D ``trunk_kernel`` (D, U),
+    which the port holds as a plain parameter in the JAX layout because
+    it multiplies the (G, D, U) ``parasitic_kernel`` elementwise.
 * :func:`table_from_packed` -- the lane-packed, mod-sharded JAX table
   -> the logical (V, D) table.
 * :func:`acc_from_packed` -- the (V/P, P) packed, mod-sharded Adagrad
@@ -35,11 +46,12 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 
     def walk(tree: Mapping, prefix: str) -> None:
         for name, leaf in tree.items():
+            name = name.replace("/", ".")
             if isinstance(leaf, Mapping):
                 walk(leaf, f"{prefix}{name}.")
                 continue
             arr = np.asarray(leaf, dtype=np.float32)
-            if name == "kernel":
+            if name == "kernel" and arr.ndim == 2:
                 name, arr = "weight", arr.T
             out[prefix + name] = torch.from_numpy(np.array(arr, order="C"))
 

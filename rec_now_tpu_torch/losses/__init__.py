@@ -1,1 +1,2 @@
-"""Losses the trainer calls (pointwise BCE, in-batch pairwise BPR)."""
+"""Losses the trainer calls (pointwise BCE, in-batch pairwise BPR, in-batch
+listwise softmax-CE)."""

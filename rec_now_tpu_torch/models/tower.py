@@ -10,17 +10,7 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
-from rec_now_tpu_torch.core.config import glorot_uniform, resolve_device
-
-
-def make_linear(in_dim: int, out_dim: int, device: torch.device,
-                generator: torch.Generator) -> nn.Linear:
-    """nn.Linear with Flax's default Dense init: glorot weight, zero bias."""
-    lin = nn.Linear(in_dim, out_dim, device="meta")
-    w = glorot_uniform((in_dim, out_dim), in_dim, out_dim, generator)
-    lin.weight = nn.Parameter(w.t().contiguous().to(device))
-    lin.bias = nn.Parameter(torch.zeros(out_dim, device=device))
-    return lin
+from rec_now_tpu_torch.core.config import make_linear, resolve_device
 
 
 class DNNTower(nn.Module):

@@ -13,11 +13,11 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
-from rec_now_tpu_torch.core.config import resolve_device
+from rec_now_tpu_torch.core.config import make_linear, resolve_device
 from rec_now_tpu_torch.layers.cin_layer import CINLayer
 from rec_now_tpu_torch.layers.inner_pnn_layer import InnerPNNLayer
 from rec_now_tpu_torch.models.feature_config import FeatureConfig
-from rec_now_tpu_torch.models.tower import DNNTower, make_linear
+from rec_now_tpu_torch.models.tower import DNNTower
 
 
 class XDeepFMModel(nn.Module):

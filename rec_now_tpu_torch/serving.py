@@ -19,6 +19,10 @@ Example:
                          table.init(torch.Generator().manual_seed(0)))
     scorer = build_scorer(model, fc, table)
     logits = scorer(state, dense, sparse_ids)      # (B,) on the device
+
+A multi-task model (``MultiTaskModel``) scores (T, B): one row of logits
+per task, served from domain 0 as in the JAX scorer, which passes no
+domain.
 """
 from __future__ import annotations
 
@@ -51,9 +55,9 @@ def build_scorer(model, feature_config, table,
                  device: Union[str, torch.device] = "cuda") -> Callable:
     """Scoring function for a model, its feature layout and its table.
 
-    Returns ``scorer(state, dense, sparse_ids) -> (B,) logits`` on
-    ``device``; dense (B, num_dense) and sparse_ids (B, F) may be numpy
-    arrays or tensors.
+    Returns ``scorer(state, dense, sparse_ids) -> logits`` on ``device``,
+    (B,) for a single-task model and (T, B) for a multi-task one; dense
+    (B, num_dense) and sparse_ids (B, F) may be numpy arrays or tensors.
     """
     dev = resolve_device(device)
 
@@ -73,8 +77,9 @@ class WireScorer:
     per-request-affine u8 dense), moves the packed arrays to the device
     and decodes them there.
 
-    Call: ``scorer(state, dense, sparse_ids) -> (B,) logits``; ``pack``
-    and ``score_packed`` expose the two halves.
+    Call: ``scorer(state, dense, sparse_ids) -> logits``, (B,) or
+    (T, B) as :func:`build_scorer`'s; ``pack`` and ``score_packed``
+    expose the two halves.
     """
 
     def __init__(self, model, feature_config, table,

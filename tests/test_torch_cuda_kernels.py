@@ -5,7 +5,9 @@ elsewhere).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda``.
 Shapes are the small odd ones of the JAX kernel tests plus edge cases
 (one field, one channel, K past one 64-channel chunk, ragged M, B and
-V, more rows than one weight-gradient slice).  Tolerance: f32 with a
+V, more rows than one weight-gradient slice) and, for the multi-expert
+dense and the listwise loss, config 4's shapes (the four banks at
+B = 1,000 and 8,192) and degenerate batches.  Tolerance: f32 with a
 different summation order, 1e-5 relative to the largest output (1e-4
 for gradients through the whole model).
 """
@@ -13,6 +15,8 @@ import pytest
 import torch
 
 from rec_now_tpu_torch.ops import cin_kernel as ck
+from rec_now_tpu_torch.ops import listwise_kernel as lk
+from rec_now_tpu_torch.ops import multi_dense_kernel as mk
 from rec_now_tpu_torch.ops import pairwise_kernel as pk
 from rec_now_tpu_torch.ops import table_update_kernel as tk
 
@@ -203,3 +207,123 @@ def test_new_wrappers_reject_bad_inputs(dev):
                         torch.zeros(8, 3, device=dev),
                         torch.zeros(2, 4, 3, device=dev),
                         torch.zeros(8, 5, device=dev))
+
+
+# (N_in, N, B, D, U): config 4's four banks, then ragged ones (B = 1, odd
+# D, U between the tile widths)
+MD_SHAPES = [(1, 4, 1000, 429, 128), (4, 4, 1000, 128, 64),
+             (1, 2, 8192, 429, 4), (1, 2, 1000, 128, 64),
+             (1, 3, 1, 13, 5), (2, 2, 77, 31, 17), (1, 1, 300, 429, 200)]
+
+
+@pytest.mark.parametrize("nx,n,b,d,u", MD_SHAPES)
+@pytest.mark.parametrize("relu", [True, False])
+def test_multi_dense_matches_plain(dev, nx, n, b, d, u, relu):
+    gen = torch.Generator().manual_seed(b + d + u)
+    x = _rand(gen, dev, nx, b, d)
+    w = _rand(gen, dev, n, d, u) / d ** 0.5
+    bias = _rand(gen, dev, n, 1, u)
+    for bb in (bias, None):
+        before = mk.multi_dense_fused.launches
+        got = mk.multi_dense_fused(x, w, bb, relu)
+        assert mk.multi_dense_fused.launches == before + 1
+        _close_rel(got, mk.multi_dense_xla(x, w, bb, "relu" if relu else None))
+
+
+def test_multi_dense_grads_match_the_cpu(dev):
+    gen = torch.Generator().manual_seed(3)
+    x, w = torch.randn(1, 70, 45, generator=gen), torch.randn(3, 45, 9,
+                                                              generator=gen)
+    bias, g = torch.randn(3, 1, 9, generator=gen), torch.randn(
+        3, 70, 9, generator=gen)
+    grads = {}
+    for d in ("cpu", dev):
+        leaves = [t.to(d).requires_grad_() for t in (x, w, bias)]
+        out = mk.multi_dense(*leaves, True)
+        grads[str(d)] = [t.cpu() for t in torch.autograd.grad(
+            out, leaves, g.to(d))]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        _close_rel(got, want, 1e-4)
+
+
+def _lw_batch(gen, b, kind):
+    if kind == "none_valid":
+        lab = torch.ones(b)
+        grp = torch.randint(0, 5, (b,), generator=gen)
+    elif kind == "one_group":
+        lab = (torch.rand(b, generator=gen) > 0.5).float()
+        grp = torch.zeros(b, dtype=torch.int64)
+    elif kind == "singletons":
+        lab = (torch.rand(b, generator=gen) > 0.5).float()
+        grp = torch.arange(b)
+    else:
+        lab = (torch.rand(b, generator=gen) > 0.6).float()
+        grp = torch.randint(0, max(1, b // 7), (b,), generator=gen)
+    return torch.randn(b, generator=gen) * 2, lab, grp
+
+
+@pytest.mark.parametrize("b,kind", [(1, "mixed"), (37, "mixed"),
+                                    (1000, "mixed"), (8192, "mixed"),
+                                    (300, "none_valid"),
+                                    (2100, "one_group"),
+                                    (513, "singletons")])
+def test_listwise_matches_plain(dev, b, kind):
+    gen = torch.Generator().manual_seed(b)
+    x, lab, grp = (t.to(dev) for t in _lw_batch(gen, b, kind))
+    before = lk.listwise_loss_sum.launches
+    loss, cnt, dx = lk.listwise_loss_fused(x, lab, grp)
+    assert lk.listwise_loss_sum.launches == before + 1
+    want = lk.listwise_loss_fused_plain(x, lab, grp)
+    assert float(cnt) == float(want[1])
+    assert torch.isfinite(dx).all()
+    if float(want[1]) == 0:
+        assert float(loss) == 0.0 and not dx.any()
+    else:
+        _close_rel(loss, want[0])
+        _close_rel(dx, want[2])
+    xg = x.clone().requires_grad_()
+    loss2, cnt2 = lk.listwise_loss_sum(xg, lab, grp)
+    assert not cnt2.requires_grad
+    (dxg,) = torch.autograd.grad(loss2 * 3.0, xg)
+    torch.testing.assert_close(dxg, 3.0 * dx, rtol=0, atol=0)
+
+
+def test_multitask_grads_through_the_model_match_the_cpu(dev):
+    """B8's forward and its plain backward inside the model: on the card
+    as on the CPU, for every parameter and the embeddings."""
+    from rec_now_tpu_torch.models import FeatureConfig, MultiTaskModel
+    fc = FeatureConfig(rows_per_field=50, embedding_dim=8)
+    gen = torch.Generator().manual_seed(6)
+    emb = torch.randn(96, fc.num_sparse, 8, generator=gen)
+    dense = torch.randn(96, fc.num_dense, generator=gen)
+    dom = torch.randint(0, 4, (96,), generator=gen)
+    grads = {}
+    for d in ("cpu", dev):
+        model = MultiTaskModel(fc, mmoe_dims=(32, 16), ple_dims=(16,),
+                               tower_dim=8, device=d, seed=2)
+        e = emb.to(d).requires_grad_()
+        out = model(dense.to(d), e, dom.to(d))
+        params = list(model.parameters())
+        grads[str(d)] = [t.cpu() for t in torch.autograd.grad(
+            (out * torch.linspace(-1, 2, 96, device=d)).sum(), [e] + params)]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        _close_rel(got, want, 1e-4)
+
+
+def test_slice3_wrappers_reject_bad_inputs(dev):
+    x = torch.zeros(1, 8, 5, device=dev)
+    with pytest.raises(ValueError):      # D mismatch
+        mk.multi_dense_fused(x, torch.zeros(2, 4, 3, device=dev), None, True)
+    with pytest.raises(ValueError):      # 3 inputs for 2 experts
+        mk.multi_dense_fused(torch.zeros(3, 8, 5, device=dev),
+                             torch.zeros(2, 5, 3, device=dev), None, True)
+    with pytest.raises(ValueError):      # bias not (N, 1, U)
+        mk.multi_dense_fused(x, torch.zeros(2, 5, 3, device=dev),
+                             torch.zeros(2, 3, device=dev), False)
+    with pytest.raises(TypeError):
+        mk.multi_dense_fused(x.double(), torch.zeros(
+            2, 5, 3, device=dev, dtype=torch.float64), None, False)
+    with pytest.raises(ValueError):
+        lk.listwise_loss_fused(torch.zeros(8, device=dev),
+                               torch.zeros(7, device=dev),
+                               torch.zeros(8, device=dev))

@@ -11,9 +11,12 @@ import torch
 
 from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
-from rec_now_tpu_torch.models import FeatureConfig, XDeepFMModel
+from rec_now_tpu_torch.models import (FeatureConfig, MultiTaskModel,
+                                      XDeepFMModel)
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops import cin_kernel as ck
+from rec_now_tpu_torch.ops import listwise_kernel as lk
+from rec_now_tpu_torch.ops import multi_dense_kernel as mk
 from rec_now_tpu_torch.ops import pairwise_kernel as pk
 from rec_now_tpu_torch.ops import table_update_kernel as tk
 from rec_now_tpu_torch.serving import WireScorer, build_scorer
@@ -47,7 +50,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 25
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -57,12 +60,17 @@ def test_entry_points_default_to_cuda(monkeypatch):
     fc = FeatureConfig(rows_per_field=16, embedding_dim=4)
     cpu_model = XDeepFMModel(fc, (4,), deep_dims=(8,), device="cpu")
     cpu_table = EmbeddingTable(fc.total_rows, 4, device="cpu")
+    mt = dict(mmoe_dims=(8, 4), ple_dims=(4,), tower_dim=2)
+    cpu_mt = MultiTaskModel(fc, **mt, device="cpu")
+    cfg4 = TrainerConfig(listwise_weight=0.5, num_tasks=2)
     for make in (lambda: EmbeddingTable(fc.total_rows, 4),
                  lambda: XDeepFMModel(fc, (4,), deep_dims=(8,)),
+                 lambda: MultiTaskModel(fc, **mt),
                  lambda: build_scorer(cpu_model, fc, cpu_table),
                  lambda: WireScorer(cpu_model, fc, cpu_table),
                  lambda: ShardedEmbeddingTable(fc.total_rows, 4),
-                 lambda: Trainer(cpu_model, fc, TrainerConfig())):
+                 lambda: Trainer(cpu_model, fc, TrainerConfig()),
+                 lambda: Trainer(cpu_mt, fc, cfg4)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for the CPU, they run there
@@ -70,6 +78,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         torch.device("cpu")
     assert Trainer(cpu_model, fc, TrainerConfig(),
                    device="cpu").device == torch.device("cpu")
+    assert Trainer(cpu_mt, fc, cfg4, device="cpu").device == \
+        torch.device("cpu")
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
@@ -150,5 +160,39 @@ def test_new_wrappers_take_plain_version_on_cpu_only():
                                               meta(gs)[0]),
                  lambda: pk.pair_loss_sum(*meta(x, lab, grp)),
                  lambda: tk.adagrad_dense_pass(*meta(table, acc, dg), 0.05)):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            call()
+
+
+def test_slice3_wrappers_take_plain_version_on_cpu_only():
+    """B8 and B6: plain on CPU tensors (no launch counted), an error on
+    any other non-CUDA device."""
+    rng = np.random.RandomState(2)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    x, w, b = t(1, 9, 7), t(3, 7, 4), t(3, 1, 4)
+    before = (mk.multi_dense_fused.launches, lk.listwise_loss_sum.launches)
+    torch.testing.assert_close(mk.multi_dense_fused(x, w, b, True),
+                               mk.multi_dense_xla(x, w, b, "relu"),
+                               rtol=0, atol=0)
+    lg, lab = t(21), torch.from_numpy((rng.rand(21) > 0.5).astype(np.float32))
+    grp = torch.from_numpy(rng.randint(0, 3, 21))
+    for a, c in zip(lk.listwise_loss_fused(lg, lab, grp),
+                    lk.listwise_loss_fused_plain(lg, lab, grp)):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    lk.listwise_loss_sum(lg, lab, grp)
+    mk.multi_dense(x, w, b, False)
+    assert (mk.multi_dense_fused.launches,
+            lk.listwise_loss_sum.launches) == before == (0, 0)
+
+    def meta(*ts):
+        return [a.to("meta") for a in ts]
+
+    for call in (lambda: mk.multi_dense_fused(*meta(x, w, b), True),
+                 lambda: mk.multi_dense(*meta(x, w, b), False),
+                 lambda: lk.listwise_loss_fused(*meta(lg, lab, grp)),
+                 lambda: lk.listwise_loss_sum(*meta(lg, lab, grp))):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
