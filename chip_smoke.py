@@ -14,21 +14,28 @@ Phases, each of which ends the script with a non-zero exit on failure:
    the pair loss on a ``SyntheticCriteo`` batch; the Adagrad pass over
    the 2.6M x 16 table), at config 4's (the multi-expert dense at its
    four distinct banks, B = 8192; the listwise loss on the same batch
-   and on degenerate ones) and at ragged shapes, and time kernel, plain
-   version and, where one exists, a single PyTorch call computing the
-   same function (CUDA events, median of 20);
+   and on degenerate ones), at config 2's (lazy Adam over the 2.6M x 16
+   table with the touched rows of a B = 8192 batch, t = 1 and 1000; the
+   pair counts and the general pair loss on a B = 8192 batch with graded
+   labels, two groups and a 0/1 mask) and at ragged shapes, and time
+   kernel, plain version and, where one exists, a single PyTorch call
+   computing the same function (CUDA events, median of 20); then time
+   the table's dense and sparse update paths, which sets ``auto``;
 Phases 4-6 go through one table of runs, the port's paths: config 3
 (xDeepFM: 26 x 100,000 x 16 table on the card, CIN (64, 64), deep
 (256, 128), ``TrainerConfig(pairwise_weight=1.0,
 click_occurance_power=-0.5)``) with the channel-summed CIN
 (``cin_stack_sum``) and with ``cin_sum_channel=False`` (``cin_flat``),
-then config 4 (``MultiTaskModel()``, MMoE + PLE + STAR towers,
+config 4 (``MultiTaskModel()``, MMoE + PLE + STAR towers,
 ``TrainerConfig(pointwise_weight=1.0, listwise_weight=0.5,
-num_tasks=2)``).  Each run names its model, trainer config, loss keys,
-the launches it expects per request and per step, and its own kernel
-checks.  Every serving or training loop sets all eight launch counts to
-0 just before it and reads them just after, and fails unless each is
-exact (0 for a kernel the run does not name).
+num_tasks=2)``), then config 2 (``DCNv2Model()``, SENET + DCN-mix +
+deep (256, 128), ``TrainerConfig(pointwise_weight=1.0,
+pairwise_weight=0.5, click_occurance_power=-0.5,
+sparse_optimizer="adam", sparse_lr=1e-3)``).  Each run names its model,
+trainer config, loss keys, the launches it expects per request and per
+step, and its own kernel checks.  Every serving or training loop sets all
+twelve launch counts to 0 just before it and reads them just after, and
+fails unless each is exact (0 for a kernel the run does not name).
 
 4. serve each run at full width through ``build_scorer`` and
    ``WireScorer`` (u8, f16): logits of the expected shape ((B,), or
@@ -41,17 +48,27 @@ exact (0 for a kernel the run does not name).
 5. each run's first training step (B = 2048, full-width model and table)
    on the card against the same step on the CPU: the losses, every
    gradient and every param after Adam, the touched rows and
-   accumulators; then each kernel on that step's own tensors against its
-   plain version, relative to that output's scale, failing unless each
-   compared quantity is larger than its tolerance: the CIN backward's dx0
-   and dW of every layer, or the six multi-expert dense calls; the
-   ranking loss's dlogits (pair or listwise); the updated rows;
+   accumulators (under Adam: m, v and the count); then each kernel on that
+   step's own tensors against its plain version, relative to that
+   output's scale, failing unless each compared quantity is larger than
+   its tolerance: the CIN backward's dx0 and dW of every layer, or the six
+   multi-expert dense calls; the ranking loss's dlogits (pair or
+   listwise); the updated rows (and m, v); under Adam, the same step with
+   ``sparse_update_mode="sparse"`` against the dense one;
 6. train each run at full width (B = 8192): warm-up steps, then timed
    steps (host clock, each ending in ``torch.cuda.synchronize()``);
    every loss finite and > 0; the step is split into each kernel's time
    as phase 3 measured it (an estimate: ``profile_training`` gives the
    step's own device times);
-7. print one JSON line for the kernels, the card again, and finally
+7. the public ``pairwise_loss`` as an entry point at B = 8192 on the card
+   against the CPU's (B, B) path (loss, pair count, dlogits): graded
+   labels with two groups, a mask and power -0.5 (``pair_row_counts``,
+   ``same_group_matvec``, ``pair_loss_sum`` once each), the same with the
+   wrong-order filter, binary labels with one group and
+   ``binary_labels=True`` (``pair_loss_sum`` alone); then
+   ``group_pair_counts_binary`` once, against ``pair_row_counts`` ->
+   ``same_group_matvec``;
+8. print one JSON line for the kernels, the card again, and finally
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -59,6 +76,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -74,6 +92,10 @@ PEAK_BYTES = 3.35e12
 # order over up to F * H = 1,664 terms per channel (and, for the weight
 # gradients, over M = 131,072 rows in 1,024-row slices).
 REL_TOL = 1e-4
+# auto's dense/sparse limit of the table vs the timed paths: at the limit
+# the two may differ by this share (on the H100 the sparse path's time
+# moved by up to 17% between runs, the dense path's by less than 5%)
+UPDATE_GAP_TOL = 0.25
 CIN_TPU = "rec_now_tpu/ops/pallas/cin_kernel.py"
 PAIR_TPU = "rec_now_tpu/ops/pallas/pairwise_kernel.py"
 TABLE_TPU = "rec_now_tpu/ops/pallas/table_update_kernel.py"
@@ -162,17 +184,25 @@ def cin_stack_bwd_flops(m: int, f: int, ks) -> int:
             + sum(layer_bwd(i) + m * ks[i] for i in mid))
 
 
+def sort_ops(b: int, keys: int = 1) -> float:
+    """Compares of a sort of b samples on ``keys`` keys: the least work
+    that brings each group (or each (group, label) run) together, where
+    the kernels test every (i, j) instead."""
+    return keys * b * math.log2(max(b, 2))
+
+
 def pair_ops(labels, groups) -> int:
-    """Least operations of the fused pair loss on this batch: one group
-    test per (i, j), two counts per same-group pair (the occurrence
-    weight), and per valid pair the gap, softplus (exp, log1p, max, add),
-    sigmoid (exp, add, divide) and four weighted sums: 12."""
+    """Least operations of the fused pair loss on this batch: a sort by
+    group, one pass over each group for the occurrence weight (pos and
+    tot adds, pos * (tot - pos), its power, the row's weight: 5 a sample),
+    and per valid pair the gap, softplus (exp, log1p, max, add), sigmoid
+    (exp, add, divide) and four weighted sums: 12."""
     import numpy as np
     _, inv = np.unique(groups, return_inverse=True)
     tot = np.bincount(inv)
     pos = np.bincount(inv, weights=labels)
     b = len(labels)
-    return int(b * b + 2 * (tot ** 2).sum() + 12 * (pos * (tot - pos)).sum())
+    return int(sort_ops(b) + 5 * b + 12 * (pos * (tot - pos)).sum())
 
 
 def multi_dense_work(nx: int, n: int, b: int, d: int, u: int):
@@ -184,14 +214,14 @@ def multi_dense_work(nx: int, n: int, b: int, d: int, u: int):
 
 
 def listwise_ops(labels) -> int:
-    """Least operations of the fused listwise loss on this batch: one
-    group test per (i, j); per sample, once in its group's softmax, the
-    running max's compare, the exp, the exp-sum add, the label-sum add,
-    the label * logit multiply-add and the two flag tests (7), its share
-    of its group's log and loss (at most 1), and its gradient (the
-    softmax's exp and divide, p's divide, the subtract: 4): 12."""
+    """Least operations of the fused listwise loss on this batch: a sort
+    by group; per sample, once in its group's softmax, the running max's
+    compare, the exp, the exp-sum add, the label-sum add, the label *
+    logit multiply-add and the two flag tests (7), its share of its
+    group's log and loss (at most 1), and its gradient (the softmax's exp
+    and divide, p's divide, the subtract: 4): 12."""
     b = len(labels)
-    return int(b * b + 12 * b)
+    return int(sort_ops(b) + 12 * b)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -240,8 +270,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rec_now_tpu_torch.embedding.table import EmbeddingTable
     from rec_now_tpu_torch.layers.multi_dense_layer import MultiDenseLayer
-    from rec_now_tpu_torch.models import (FeatureConfig, MultiTaskModel,
-                                          XDeepFMModel)
+    from rec_now_tpu_torch.losses.pairwise import pairwise_loss
+    from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
+                                          MultiTaskModel, XDeepFMModel)
     from rec_now_tpu_torch.ops import _build, cin_kernel as ck
     from rec_now_tpu_torch.ops import listwise_kernel as lk
     from rec_now_tpu_torch.ops import multi_dense_kernel as mk
@@ -250,8 +281,7 @@ def main() -> int:
     from rec_now_tpu_torch.ops.cin_op import cin_contract_plain
     from rec_now_tpu_torch.serving import (ServingState, WireScorer,
                                            build_scorer)
-    from rec_now_tpu_torch.embedding.sharded import (INITIAL_ACCUMULATOR,
-                                                     ShardedTableState)
+    from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
     from rec_now_tpu_torch.training import SyntheticCriteo, Trainer, \
         TrainerConfig
 
@@ -433,6 +463,7 @@ def main() -> int:
         if float(got[1]) != float(want[1]):
             fail(f"pair count {float(got[1])} != {float(want[1])}")
         err = max(err, compare_all(f"B={len(xs)} power={power}", got, want))
+    err_pair = err
     b_ms, b_by = bound_ms(pair_ops(pb.labels, pb.group_ids), 16 * 8192 + 8)
     kern["pair_loss_sum"] = dict(
         name="pair_loss_sum", route="cuda",
@@ -542,11 +573,198 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: lk.listwise_loss_fused_plain(
             xl, lab, grp)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # -- config 2's kernels: lazy Adam (B10), the pair counts (B7a/b/c) and
+    # the general pair loss (B3) --------------------------------------------
+    fc = FeatureConfig()
+    ids8k = fc.global_ids(torch.as_tensor(pb.sparse_ids, device=dev)
+                          ).reshape(-1)
+    print("adam_dense_pass vs plain:")
+    err = 0.0
+    vfull = fc.total_rows
+    touched_full = torch.zeros(vfull, dtype=torch.bool, device=dev)
+    touched_full.index_fill_(0, ids8k, True)
+    n_touched = int(touched_full.sum())
+    print(f"  V={vfull}: a B=8192 batch's {ids8k.numel()} ids touch "
+          f"{n_touched} rows ({n_touched / vfull:.2%})")
+    ragged = []
+    for v, d in ((12345, 16), (1001, 8)):
+        ragged.append((v, d, (torch.rand(v, generator=gen) < 0.3).to(dev)))
+    for v, d, tch in [(vfull, 16, touched_full)] + ragged:
+        for t in (1, 1000):
+            tb, m1 = rand(v, d, scale=1e-3), rand(v, d, scale=1e-3)
+            v1 = rand(v, d, scale=1e-3).square()
+            dg = rand(v, d, scale=1e-3) * tch[:, None]
+            dg[::7] = 0.0              # touched rows with a zero gradient
+            cnt = torch.tensor(t, dtype=torch.int32, device=dev)
+            before = [x.clone() for x in (tb, m1, v1)]
+            want = [x.clone() for x in (tb, m1, v1)]
+            tk.adam_dense_pass(tb, m1, v1, dg, tch, cnt, 1e-3)
+            tk.adam_dense_pass_plain(*want, dg, tch, cnt, 1e-3, 0.9, 0.999,
+                                     1e-7)
+            for name, got, ref, old in zip(("rows", "m", "v"), (tb, m1, v1),
+                                           want, before):
+                err = max(err, compare(f"V={v} D={d} t={t} {name}", got,
+                                       ref, 0.0))
+                if not torch.equal(got[~tch], old[~tch]):
+                    fail(f"adam_dense_pass changed an untouched {name}")
+                visible(f"the touched {name}' change", ref[tch] - old[tch],
+                        float(ref.abs().max()))
+    # bytes this batch's data needs: every row's flag, then table, m, v and
+    # g read and table, m, v written for each touched row; ~14 operations a
+    # touched element
+    b_ms, b_by = bound_ms(14 * n_touched * 16,
+                          vfull + n_touched * 7 * 16 * 4 + 4)
+    tb, m1 = rand(vfull, 16, scale=1e-3), rand(vfull, 16, scale=1e-3)
+    v1, dg = rand(vfull, 16, scale=1e-3).square(), rand(vfull, 16)
+    cnt = torch.tensor(1, dtype=torch.int32, device=dev)
+    kern["adam_dense_pass"] = dict(
+        name="adam_dense_pass", route="cuda",
+        source="rec_now_tpu_torch/csrc/table_update.cu",
+        replaces=f"{TABLE_TPU}:186", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: tk.adam_dense_pass(
+            tb, m1, v1, dg, touched_full, cnt, 1e-3)),
+        plain_ms=cuda_ms(torch, lambda: tk.adam_dense_pass_plain(
+            tb, m1, v1, dg, touched_full, cnt, 1e-3, 0.9, 0.999, 1e-7)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del tb, m1, v1, dg, before, want
+
+    print("pair counts and the general pair loss vs plain:")
+    graded = torch.as_tensor(pb.labels + pb.cvr_labels, device=dev)
+    dom = torch.as_tensor(pb.domain_idx, device=dev)
+    mask = (torch.rand(8192, generator=gen) > 0.1).float().to(dev)
+    two = [grp, dom]
+    print(f"  B=8192, labels {{0, 1, 2}}, groups and domain: "
+          f"{int(mask.sum())} samples unmasked")
+    gcases = [("B=8192 graded, 2 groups, mask", xl, graded, two, mask),
+              ("B=8191", xl[:8191], graded[:8191], [grp[:8191], dom[:8191]],
+               mask[:8191]),
+              ("B=1", xl[:1], graded[:1], [grp[:1], dom[:1]], mask[:1])]
+    errs = {"pair_row_counts": 0.0, "same_group_matvec": 0.0,
+            "group_pair_counts_binary": 0.0, "pair_loss_sum": err_pair}
+    for what, xs, ls, gs, ms in gcases:
+        for wrong in (False, True):
+            got = pk.pair_row_counts(xs, ls, gs, ms, wrong)
+            want = pk.pair_row_counts_plain(xs, ls, gs, ms, wrong)
+            errs["pair_row_counts"] = max(errs["pair_row_counts"], compare(
+                f"pair_row_counts {what} wrong_order={wrong}", got, want,
+                0.0, rel=0.0))
+            gpc = pk.same_group_matvec(gs[0], want)
+            wgpc = pk.same_group_matvec_plain(gs[0], want)
+            errs["same_group_matvec"] = max(
+                errs["same_group_matvec"], compare(
+                    f"same_group_matvec {what} wrong_order={wrong}", gpc,
+                    wgpc, 0.0, rel=0.0))
+            rw = torch.where(wgpc > 0, wgpc.clamp_min(1e-30) ** -0.5,
+                             torch.zeros_like(wgpc))
+            got = pk.pair_loss_fused(xs, ls, gs, 1.0, row_weights=rw,
+                                     sample_mask=ms, wrong_order=wrong)
+            want = pk.pair_loss_fused_plain(xs, ls, gs, 1.0, row_weights=rw,
+                                            sample_mask=ms,
+                                            wrong_order=wrong)
+            if float(got[1]) != float(want[1]):
+                fail(f"general pair count {float(got[1])} != "
+                     f"{float(want[1])}")
+            print(f"  {what} wrong_order={wrong}: {int(want[1])} pairs")
+            errs["pair_loss_sum"] = max(errs["pair_loss_sum"], compare_all(
+                f"pair_loss_sum {what} wrong_order={wrong}", got, want))
+        clicks = (ls > 1.5).float()     # a click and a conversion: binary
+        got = pk.group_pair_counts_binary(gs[0], clicks, ms)
+        want = pk.group_pair_counts_binary_plain(gs[0], clicks, ms)
+        via = pk.same_group_matvec_plain(gs[0], pk.pair_row_counts_plain(
+            xs, clicks, gs[0], ms))
+        errs["group_pair_counts_binary"] = max(
+            errs["group_pair_counts_binary"],
+            compare(f"group_pair_counts_binary {what}", got, want, 0.0,
+                    rel=0.0),
+            compare(f"group_pair_counts_binary {what} vs B7a -> B7b", got,
+                    via, 0.0, rel=0.0))
+    counts_full = pk.pair_row_counts_plain(xl, graded, two, mask)
+    gpc_full = pk.same_group_matvec_plain(grp, counts_full)
+    rw_full = torch.where(gpc_full > 0, gpc_full.clamp_min(1e-30) ** -0.5,
+                          torch.zeros_like(gpc_full))
+    nb = 8192 * 4
+    n_valid = float(pk.pair_loss_fused_plain(xl, graded, two, 1.0,
+                                             sample_mask=mask)[1])
+    # least work, with no (i, j) sweep: B7a a sort on (group, domain,
+    # label) of the unmasked samples, then each sample's mask test and the
+    # count of its group's lower labels (4); B7b a sort by group, a
+    # segment add and a write back per sample (2); B7c a sort by group,
+    # mask * label, the pos and tot adds, pos * (tot - pos) (5 a sample)
+    work = {
+        "pair_row_counts": (sort_ops(8192, 3) + 4 * 8192, 6 * nb),
+        "same_group_matvec": (sort_ops(8192) + 2 * 8192, 3 * nb),
+        "group_pair_counts_binary": (sort_ops(8192) + 5 * 8192, 4 * nb),
+    }
+    calls = {
+        "pair_row_counts": (
+            lambda: pk.pair_row_counts(xl, graded, two, mask),
+            lambda: pk.pair_row_counts_plain(xl, graded, two, mask)),
+        "same_group_matvec": (
+            lambda: pk.same_group_matvec(grp, counts_full),
+            lambda: pk.same_group_matvec_plain(grp, counts_full)),
+        "group_pair_counts_binary": (
+            lambda: pk.group_pair_counts_binary(grp, lab, mask),
+            lambda: pk.group_pair_counts_binary_plain(grp, lab, mask))}
+    for name, line in (("pair_row_counts", 170), ("same_group_matvec", 190),
+                       ("group_pair_counts_binary", 227)):
+        b_ms, b_by = bound_ms(*work[name])
+        kern[name] = dict(
+            name=name, route="cuda",
+            source="rec_now_tpu_torch/csrc/pairwise.cu",
+            replaces=f"{PAIR_TPU}:{line}", max_abs_err=errs[name],
+            ms=cuda_ms(torch, calls[name][0]),
+            plain_ms=cuda_ms(torch, calls[name][1]),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    kern["pair_loss_sum"]["max_abs_err"] = errs["pair_loss_sum"]
+    gen_ms = cuda_ms(torch, lambda: pk.pair_loss_fused(
+        xl, graded, two, 1.0, row_weights=rw_full, sample_mask=mask))
+    gen_plain = cuda_ms(torch, lambda: pk.pair_loss_fused_plain(
+        xl, graded, two, 1.0, row_weights=rw_full, sample_mask=mask))
+    # a sort on (group, domain, label), the mask test a sample, 12 a
+    # valid pair (pair_ops)
+    g_ms, g_by = bound_ms(sort_ops(8192, 3) + 8192 + 12 * n_valid,
+                          7 * nb + 8)
+    print(f"  pair_loss_sum, general form (graded labels, 2 groups, row "
+          f"weights, mask; {int(n_valid)} pairs): {gen_ms:.4f} ms kernel, "
+          f"{gen_plain:.4f} ms plain, bound {g_ms:.6f} ms ({g_by}) "
+          f"[{card}]")
+
+    print("update paths of the table (auto):")
+    grads8k = rand(ids8k.numel(), 16, scale=1e-3)
+    upd = {}
+    for opt in ("adagrad", "adam"):
+        for mode, v in (("dense", vfull), ("dense", 4 * vfull),
+                        ("sparse", vfull)):
+            tbl = ShardedEmbeddingTable(v, 16, device=dev, optimizer=opt,
+                                        update_mode=mode)
+            st = tbl.state_from(rand(v, 16, scale=1e-3))
+            upd[opt, mode, v] = cuda_ms(torch, lambda: tbl.apply_grads(
+                st, ids8k, grads8k, 1e-3), reps=10)
+            del st
+        d1, d4 = upd[opt, "dense", vfull], upd[opt, "dense", 4 * vfull]
+        sparse = upd[opt, "sparse", vfull]
+        slope = (d4 - d1) / (3 * vfull)              # ms a row
+        cross = (sparse - (d1 - slope * vfull)) / slope
+        limit = ShardedEmbeddingTable.DENSE_UPDATE_MAX_TABLE_BYTES[opt]
+        # at its limit auto switches paths: the two must cost about the
+        # same there, or auto takes the slower one on one side of it
+        dense_at = d1 + slope * (limit / 64 - vfull)
+        gap = max(dense_at, sparse) / min(dense_at, sparse) - 1
+        print(f"  {opt}: dense {d1:.4f} ms at V={vfull}, {d4:.4f} ms at "
+              f"V={4 * vfull}; sparse {sparse:.4f} ms for {ids8k.numel()} "
+              f"ids; the two cross at V = {cross:,.0f} rows of D = 16, a "
+              f"table of {cross * 64 / 2 ** 20:,.0f} MiB; at auto's limit "
+              f"({limit / 2 ** 20:,.0f} MiB) dense {dense_at:.4f} ms, the "
+              f"paths {gap:.1%} apart (tol {UPDATE_GAP_TOL:.0%}) [{card}]")
+        if gap > UPDATE_GAP_TOL:
+            fail(f"{opt}: auto's limit is off the measured crossing")
+    torch.cuda.empty_cache()
+
     for v in kern.values():
         print(f"  {v['name']}: {v['ms']:.4f} ms kernel, {v['plain_ms']:.4f} "
-              f"ms plain, library {v['library_ms']}, bound {v['bound_ms']:.4f}"
+              f"ms plain, library {v['library_ms']}, bound {v['bound_ms']:.6f}"
               f" ms ({v['bound_by']}) at full width [{card}]")
-    del x0, ws, xr, pr, g, gr, tb, ac, dg, t2, a2, x, xe, w, bias
+    del x0, ws, xr, pr, g, gr, ac, t2, a2, x, xe, w, bias
     torch.cuda.empty_cache()
 
     # -- 4-6. serve, check one step, train: config 3 in both CIN modes, then
@@ -570,7 +788,11 @@ def main() -> int:
                "pair_loss_sum": pk.pair_loss_sum,
                "adagrad_dense_pass": tk.adagrad_dense_pass,
                "multi_dense": mk.multi_dense_fused,
-               "listwise_loss_sum": lk.listwise_loss_sum}
+               "listwise_loss_sum": lk.listwise_loss_sum,
+               "adam_dense_pass": tk.adam_dense_pass,
+               "pair_row_counts": pk.pair_row_counts,
+               "same_group_matvec": pk.same_group_matvec,
+               "group_pair_counts_binary": pk.group_pair_counts_binary}
     for v in kern.values():
         v["launches"] = v["launches_per_step"] = 0
 
@@ -718,6 +940,17 @@ def main() -> int:
              check_step=check_banks_step,
              train={"multi_dense": 6, "listwise_loss_sum": 1,
                     "adagrad_dense_pass": 1},
+             steps=(2, 10)),
+        dict(what="config 2 (DCNv2Model) + lazy Adam",
+             make=lambda device: DCNv2Model(fc, device=device, seed=0),
+             heads=None, reqs=rng_batches[:5] + [small], serve={},
+             check_serve=None,
+             cfg=TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
+                               click_occurance_power=-0.5,
+                               sparse_optimizer="adam", sparse_lr=1e-3),
+             keys={"loss", "pointwise", "pairwise"}, taps=lambda m: [],
+             check_step=lambda taps: None,
+             train={"pair_loss_sum": 1, "adam_dense_pass": 1},
              steps=(2, 10)))
 
     # -- 4. serve at full width ----------------------------------------------
@@ -786,20 +1019,18 @@ def main() -> int:
         serve(run)
 
     # -- 5. one training step: card vs CPU, kernels on its own tensors -------
-    tstate0 = ShardedTableState(table_t, torch.full(
-        (fc.total_rows,), INITIAL_ACCUMULATOR, device=dev))
     step_batch = next(data.batches(2048, 1, seed=3))
 
-    def one_step(run, device):
+    def one_step(run, device, cfg=None):
         """The run's first step on ``device`` from the seed's weights and
-        table; returns what it saw and produced: the logits, each tapped
-        module's input, weights before the step and output gradient, the
-        table's ids and gradients, the metrics, grads, params and state."""
+        table (``cfg`` in place of the run's own); returns what it saw and
+        produced: the logits, each tapped module's input, weights before
+        the step and output gradient, the table's ids and gradients, the
+        metrics, grads, params and state."""
         model = run["make"](device)
-        trainer = Trainer(model, fc, run["cfg"], device=device)
-        state = trainer.init(None, table=ShardedTableState(
-            tstate0.table.to(device, copy=True),
-            tstate0.accumulator.to(device, copy=True)))
+        trainer = Trainer(model, fc, cfg or run["cfg"], device=device)
+        state = trainer.init(None, table=trainer.table.state_from(
+            table_t.to(device, copy=True)))
         seen = {"taps": []}
 
         def on_model(mod, args, out):
@@ -851,11 +1082,17 @@ def main() -> int:
         # an accumulator grows by mean g^2 on 0.1, often by less than an
         # f32 ulp (7.5e-9): held to a few ulps of 0.1
         acc_tol = 2.0 ** -22
+        adam = cfg.sparse_optimizer == "adam"
         rows = torch.unique(cpu["gids"])
-        for what, rel in (("table", REL_TOL), ("accumulator", acc_tol)):
+        parts = ((("table", REL_TOL), ("m", REL_TOL), ("v", REL_TOL)) if adam
+                 else (("table", REL_TOL), ("accumulator", acc_tol)))
+        for what, rel in parts:
             got = getattr(card["state"].table, what)[rows.to(dev)].cpu()
             want = getattr(cpu["state"].table, what)[rows]
             compare(f"{len(rows)} touched rows' {what}", got, want, 0.0, rel)
+        if adam and not int(card["state"].table.count) == int(
+                cpu["state"].table.count) == 1:
+            fail("the Adam count is not 1 after the first step")
 
         print("  the kernels on this step's own tensors (card):")
         run["check_step"](card["taps"])
@@ -878,21 +1115,47 @@ def main() -> int:
             fail(f"{name} count {float(got[1])} vs plain {float(want[1])}")
         print(f"    {name}: count {int(want[1])}")
         compare_all(f"{name} (loss, count, dlogits)", got, want)
-        dense_g = torch.zeros_like(tstate0.table)
-        dense_g.index_add_(0, card["gids"].reshape(-1),
-                           card["demb"].reshape(-1, fc.embedding_dim))
-        tb, ac = tstate0.table.clone(), tstate0.accumulator.clone()
+        gids = card["gids"].reshape(-1)
+        dense_g = torch.zeros_like(table_t)
+        dense_g.index_add_(0, gids, card["demb"].reshape(-1, fc.embedding_dim))
+        rows = torch.unique(gids)
+        st0 = ShardedEmbeddingTable(
+            fc.total_rows, fc.embedding_dim, device=dev,
+            optimizer=cfg.sparse_optimizer).state_from(table_t)
+        if adam:
+            touched = torch.zeros(len(table_t), dtype=torch.bool, device=dev)
+            touched.index_fill_(0, gids, True)
+            cnt = torch.ones((), dtype=torch.int32, device=dev)
+            got = [table_t.clone(), st0.m.clone(), st0.v.clone()]
+            want = [x.clone() for x in got]
+            tk.adam_dense_pass(*got, dense_g, touched, cnt, cfg.sparse_lr)
+            tk.adam_dense_pass_plain(*want, dense_g, touched, cnt,
+                                     cfg.sparse_lr, 0.9, 0.999, 1e-7)
+            for name, a, b, old in zip(("rows", "m", "v"), got, want,
+                                       (table_t, st0.m, st0.v)):
+                compare(f"adam_dense_pass updated {name}", a[rows], b[rows],
+                        0.0)
+                visible(f"the {name}' update", b[rows] - old[rows],
+                        float(b[rows].abs().max()))
+            # the same step through the sparse path, on the card
+            sparse = one_step(run, dev, dataclasses.replace(
+                cfg, sparse_update_mode="sparse"))
+            for what in ("table", "m", "v"):
+                compare(f"sparse vs dense update: touched rows' {what}",
+                        getattr(sparse["state"].table, what)[rows],
+                        getattr(card["state"].table, what)[rows], 0.0)
+            return
+        tb, ac = table_t.clone(), st0.accumulator.clone()
         t2, a2 = tb.clone(), ac.clone()
         tk.adagrad_dense_pass(tb, ac, dense_g, cfg.sparse_lr)
         tk.adagrad_dense_pass_plain(t2, a2, dense_g, cfg.sparse_lr)
-        rows = torch.unique(card["gids"])
         compare("adagrad_dense_pass updated rows", tb[rows], t2[rows], 0.0)
-        visible("the rows' update", t2[rows] - tstate0.table[rows],
+        visible("the rows' update", t2[rows] - table_t[rows],
                 float(t2[rows].abs().max()))
         compare("adagrad_dense_pass accumulators", ac[rows], a2[rows], 0.0,
                 rel=acc_tol)
         visible("the accumulators' increase",
-                a2[rows] - tstate0.accumulator[rows],
+                a2[rows] - st0.accumulator[rows],
                 float(a2[rows].abs().max()), rel=acc_tol)
 
     for run in runs:
@@ -955,7 +1218,59 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
           f" GB")
 
-    # -- 7. result -------------------------------------------------------------
+    # -- 7. the public pairwise loss as an entry point ------------------------
+    lb = next(data.batches(8192, 1, seed=7))
+    x_cpu = torch.randn(8192, generator=gen) * 2
+    mask_cpu = (torch.rand(8192, generator=gen) > 0.1).float()
+    groups2 = [torch.as_tensor(lb.group_ids), torch.as_tensor(lb.domain_idx)]
+    entry_cases = (
+        ("graded labels, 2 groups, mask, power -0.5", False,
+         torch.as_tensor(lb.labels + lb.cvr_labels), groups2, False,
+         {"pair_row_counts": 1, "same_group_matvec": 1, "pair_loss_sum": 1}),
+        ("the same with the wrong-order filter", True,
+         torch.as_tensor(lb.labels + lb.cvr_labels), groups2, False,
+         {"pair_row_counts": 1, "same_group_matvec": 1, "pair_loss_sum": 1}),
+        ("binary labels, 1 group, binary_labels=True", False,
+         torch.as_tensor(lb.labels), groups2[:1], True,
+         {"pair_loss_sum": 1}))
+    for what, wrong, labels, groups, binary, per in entry_cases:
+        out = {}
+        for d in (dev, "cpu"):
+            xd = x_cpu.to(d).requires_grad_()
+
+            def call():
+                loss, cnt = pairwise_loss(
+                    xd, labels.to(d), [g.to(d) for g in groups],
+                    only_use_wrong_order_pair=wrong, return_num_pair=True,
+                    click_occurance_power=-0.5, mask=mask_cpu.to(d),
+                    binary_labels=binary)
+                return (loss,) + (cnt,) + torch.autograd.grad(loss, xd)
+
+            out[d] = (counted(f"pairwise_loss B=8192, {what}", 1, per, call)
+                      if d == dev else call())
+        got, want = out[dev], out["cpu"]
+        if float(got[1]) != float(want[1]) or float(want[1]) == 0:
+            fail(f"pairwise_loss {what}: count {float(got[1])} vs CPU "
+                 f"{float(want[1])}")
+        print(f"  {int(want[1])} pairs; loss card {float(got[0]):.7f} cpu "
+              f"{float(want[0]):.7f}")
+        compare(f"pairwise_loss {what}: loss", got[0].detach().cpu(),
+                want[0].detach(), 0.0)
+        compare(f"pairwise_loss {what}: dlogits", got[2].cpu(), want[2],
+                0.0)
+    lab_d = torch.as_tensor(lb.labels, device=dev)
+    g_d, m_d = groups2[0].to(dev), mask_cpu.to(dev)
+    gpc = counted("group_pair_counts_binary B=8192", 1,
+                  {"group_pair_counts_binary": 1},
+                  lambda: pk.group_pair_counts_binary(g_d, lab_d, m_d))
+    via = pk.same_group_matvec(g_d, pk.pair_row_counts(x_cpu.to(dev), lab_d,
+                                                       g_d, m_d))
+    compare("group_pair_counts_binary vs pair_row_counts -> "
+            "same_group_matvec", gpc, via, 0.0, rel=0.0)
+    if not float(gpc.max()) > 0:
+        fail("group_pair_counts_binary found no pair")
+
+    # -- 8. result -------------------------------------------------------------
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_step")

@@ -24,11 +24,15 @@ Inputs are numpy arrays (a caller holding JAX arrays passes
   -> the logical (V, D) table.
 * :func:`acc_from_packed` -- the (V/P, P) packed, mod-sharded Adagrad
   accumulator -> (V,), by the same id map.
+* :func:`table_state_from_jax` -- a whole JAX ``ShardedTableState``
+  (table, accumulator and, under lazy Adam, the moments ``m`` / ``v``,
+  which share the table's packed layout, and the step ``count``) -> the
+  port's ``ShardedTableState``.
 
 A JAX ``TrainState`` at init carries over as ``Trainer.init(gen,
-params=from_jax_params(params), table=ShardedTableState(
-table_from_packed(...), acc_from_packed(...)))``; its Adam state is
-all zeros, as a new ``torch.optim.Adam``'s is.
+params=from_jax_params(params), table=table_state_from_jax(
+jax.device_get(state.table), 1, dim))``; its dense Adam state is all
+zeros, as a new ``torch.optim.Adam``'s is.
 """
 from __future__ import annotations
 
@@ -36,6 +40,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from rec_now_tpu_torch.embedding.sharded import ShardedTableState
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -91,3 +97,18 @@ def acc_from_packed(packed: np.ndarray, num_shards: int) -> torch.Tensor:
     pack = arr.shape[1]
     phys, slot = _packed_rows(arr.shape[0] * pack, pack, num_shards)
     return torch.from_numpy(np.ascontiguousarray(arr[phys, slot]))
+
+
+def table_state_from_jax(state, num_shards: int,
+                         dim: int) -> ShardedTableState:
+    """A JAX ``ShardedTableState`` of numpy arrays (``jax.device_get``)
+    -> the port's: logical (V, D) table, (V,) accumulator and, where the
+    JAX state has them, (V, D) ``m`` and ``v`` and an int32 ``count``."""
+    table = table_from_packed(state.table, num_shards, dim)
+    acc = acc_from_packed(state.accumulator, num_shards)
+    if state.m is None:
+        return ShardedTableState(table, acc)
+    return ShardedTableState(
+        table, acc, table_from_packed(state.m, num_shards, dim),
+        table_from_packed(state.v, num_shards, dim),
+        torch.tensor(int(np.asarray(state.count)), dtype=torch.int32))

@@ -1,8 +1,8 @@
 """Initializers, activations and device resolution.
 
 Counterpart of ``rec_now_tpu/core/config.py``, reduced to what the
-ported modules use: the glorot-uniform (also with per-expert fans, as
-``glorot_uniform_nd(1, 2)``), uniform, ones and zeros initializers, drawn
+ported modules use: the glorot-uniform (also with chosen fan axes, as
+``glorot_uniform_nd``), uniform, ones and zeros initializers, drawn
 from an explicit ``torch.Generator`` on the CPU so that a seed gives the
 same weights on every device; :func:`make_linear`, an ``nn.Linear`` with
 Flax's default ``Dense`` init; :func:`get_activation` for the
@@ -18,14 +18,15 @@ from torch import nn
 
 _ACTIVATIONS = {
     "relu": torch.relu,
+    "tanh": torch.tanh,
     "linear": lambda x: x,
     "none": lambda x: x,
 }
 
 
 def get_activation(act: Optional[str]) -> Callable:
-    """An activation name (``"relu"``, ``"linear"``/``"none"``) or None
-    -> a callable; None is the identity."""
+    """An activation name (``"relu"``, ``"tanh"``, ``"linear"``/``"none"``)
+    or None -> a callable; None is the identity."""
     if act is None:
         return _ACTIVATIONS["linear"]
     key = str(act).lower()
@@ -41,10 +42,19 @@ def glorot_uniform(shape, fan_in: int, fan_out: int,
     return uniform(shape, limit, generator)
 
 
-def glorot_uniform_nd(shape, generator: torch.Generator) -> torch.Tensor:
-    """Glorot-uniform for (N, D, U) expert-bank kernels with the fans of
-    one expert, in = D and out = U (``glorot_uniform_nd(1, 2)``)."""
-    return glorot_uniform(shape, shape[1], shape[2], generator)
+def glorot_uniform_nd(shape, generator: torch.Generator, in_axis: int = -2,
+                      out_axis: int = -1) -> torch.Tensor:
+    """Glorot-uniform with Flax's fans for an n-D kernel: every axis other
+    than ``in_axis`` and ``out_axis`` is receptive field, so fan_in =
+    shape[in_axis] * field and fan_out = shape[out_axis] * field
+    (``variance_scaling(1, "fan_avg", "uniform", in_axis, out_axis)``, as
+    the JAX package's ``glorot_uniform_nd`` and, with the last two axes,
+    Flax's ``glorot_uniform`` build it).  An (N, D, U) expert bank thus
+    has fans D * N and U * N; DCN-mix's (L, N, D, S) kernels D * L * N and
+    S * L * N, its (L, D, N) gates D * L and N * L."""
+    field = math.prod(shape) // shape[in_axis] // shape[out_axis]
+    return glorot_uniform(shape, shape[in_axis] * field,
+                          shape[out_axis] * field, generator)
 
 
 def ones(shape) -> torch.Tensor:

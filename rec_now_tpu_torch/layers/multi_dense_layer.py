@@ -3,7 +3,8 @@
 Counterpart of ``rec_now_tpu/layers/multi_dense_layer.py``
 (``MultiDenseLayer``, :24-63): the expert-bank primitive behind MMoE and
 PLE.  Parameters keep the JAX names and layout, ``kernel`` (N, D, U)
-glorot-uniform with the fans of one expert (D, U), and ``bias``
+glorot-uniform with Flax's fans (D * N, U * N: the expert axis counts as
+receptive field, as in ``glorot_uniform_nd(1, 2)``), and ``bias``
 (N, 1, U) zeros; the contraction is :func:`multi_dense_apply` (kernel
 B8 on CUDA tensors).
 

@@ -1,2 +1,3 @@
-"""Losses the trainer calls (pointwise BCE, in-batch pairwise BPR, in-batch
-listwise softmax-CE)."""
+"""Losses: pointwise BCE, the in-batch pairwise BPR loss (``pairwise_loss``,
+every option of the JAX kernel path) and the in-batch listwise
+softmax-CE."""

@@ -1,9 +1,11 @@
 """Where a serving request's time goes on the card.
 
-    python -m rec_now_tpu_torch.profile_serving [--model xdeepfm|multitask]
+    python -m rec_now_tpu_torch.profile_serving \
+        [--model xdeepfm|multitask|dcnv2]
 
 Builds a full-width model (``FeatureConfig()``; ``XDeepFMModel()``,
-config 3, or ``MultiTaskModel()``, config 4; random weights from a
+config 3, ``MultiTaskModel()``, config 4, or ``DCNv2Model()``, config 2;
+random weights from a
 seed), warms up, then scores 5 requests of B = 8,192 per
 front end (raw, u8 wire, f16 wire) under ``torch.profiler``.  Prints, per
 front end, the wall ms per request, the device's busy share of that window
@@ -21,13 +23,14 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
-from rec_now_tpu_torch.models import (FeatureConfig, MultiTaskModel,
-                                      XDeepFMModel)
+from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
+                                      MultiTaskModel, XDeepFMModel)
 from rec_now_tpu_torch.serving import ServingState, WireScorer, build_scorer
 from rec_now_tpu_torch.training.data import SyntheticCriteo
 
 REQUESTS, BATCH = 5, 8192
-MODELS = {"xdeepfm": XDeepFMModel, "multitask": MultiTaskModel}
+MODELS = {"xdeepfm": XDeepFMModel, "multitask": MultiTaskModel,
+          "dcnv2": DCNv2Model}
 
 
 def _device_us(evt) -> float:

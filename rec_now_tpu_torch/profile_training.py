@@ -1,13 +1,15 @@
 """Where a training step's time goes on the card.
 
-    python -m rec_now_tpu_torch.profile_training [--model xdeepfm|multitask]
+    python -m rec_now_tpu_torch.profile_training \
+        [--model xdeepfm|multitask|dcnv2]
 
 Trains at full width (``FeatureConfig()``, random weights from a seed,
 B = 8,192) either config 3 (``XDeepFMModel()``,
 ``TrainerConfig(pairwise_weight=1.0, click_occurance_power=-0.5)``) with
 ``cin_sum_channel=True`` and then ``False``, or config 4
 (``MultiTaskModel()``, ``TrainerConfig(pointwise_weight=1.0,
-listwise_weight=0.5, num_tasks=2)``): two warm-up steps and one profiled
+listwise_weight=0.5, num_tasks=2)``), or config 2 (``DCNv2Model()`` with
+lazy sparse Adam, :data:`CONFIG2`): two warm-up steps and one profiled
 and dropped, then 5 steps under ``torch.profiler``.
 Prints, per run, the wall ms per step, the device's busy share of
 that window (sum of kernel and copy times over wall time) and the device
@@ -23,17 +25,24 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from rec_now_tpu_torch.models import (FeatureConfig, MultiTaskModel,
-                                      XDeepFMModel)
+from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
+                                      MultiTaskModel, XDeepFMModel)
 from rec_now_tpu_torch.profile_serving import _device_us
 from rec_now_tpu_torch.training import SyntheticCriteo, Trainer, TrainerConfig
 
 STEPS, WARMUP, BATCH = 5, 2, 8192
+# config 2's trainer, as __graft_entry__.py's "2:dcnv2+adam" sets it
+CONFIG2 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
+                        click_occurance_power=-0.5, sparse_optimizer="adam",
+                        sparse_lr=1e-3)
 
 
 def _runs(model: str, fc: FeatureConfig):
     """(label, model, trainer config) of each profiled run, built as it
     comes."""
+    if model == "dcnv2":
+        yield "dcnv2+adam", DCNv2Model(fc, seed=0), CONFIG2
+        return
     if model == "multitask":
         yield ("multitask", MultiTaskModel(fc, seed=0),
                TrainerConfig(pointwise_weight=1.0, listwise_weight=0.5,
@@ -47,7 +56,7 @@ def _runs(model: str, fc: FeatureConfig):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("xdeepfm", "multitask"),
+    ap.add_argument("--model", choices=("xdeepfm", "multitask", "dcnv2"),
                     default="xdeepfm")
     args = ap.parse_args()
     if not torch.cuda.is_available():

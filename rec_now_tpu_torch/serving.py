@@ -20,7 +20,9 @@ Example:
     scorer = build_scorer(model, fc, table)
     logits = scorer(state, dense, sparse_ids)      # (B,) on the device
 
-A multi-task model (``MultiTaskModel``) scores (T, B): one row of logits
+Any ported model serves this way: ``XDeepFMModel`` (config 3) and
+``DCNv2Model`` (config 2) score (B,).  A multi-task model
+(``MultiTaskModel``) scores (T, B): one row of logits
 per task, served from domain 0 as in the JAX scorer, which passes no
 domain.
 """

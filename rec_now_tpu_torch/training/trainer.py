@@ -1,6 +1,6 @@
 """One-device training: lookup -> model -> pointwise + in-batch ranking
-losses -> Adam on the dense params, row-wise Adagrad on the embedding
-rows.
+losses -> Adam on the dense params, row-wise Adagrad or lazy sparse Adam on
+the embedding rows.
 
 Counterpart of ``rec_now_tpu/training/trainer.py`` (``TrainerConfig``,
 ``TrainState``, ``Trainer.put`` / ``init`` / ``train_step`` /
@@ -11,7 +11,8 @@ A step works as ``_step_body`` (:353-391):
 2. the looked-up rows become a leaf that requires grad;
 3. the loss is ``_loss_fn``'s (:320-350): the mean pointwise sigmoid
    cross-entropy times ``pointwise_weight``, plus ``pairwise_weight *
-   loss_sum / (n_pair + 1e-10)`` of the in-batch pairwise BPR loss, plus
+   loss_sum / (n_pair + 1e-10)`` of the in-batch pairwise BPR loss (with
+   ``binary_labels=True``: the labels are clicks, :264-275), plus
    ``listwise_weight`` times the in-batch listwise loss's mean over its
    valid groups (0 without one, :288-307).  With ``num_tasks > 1`` the
    model gives (T, B) logits: task 0's drive those losses, and task 1's
@@ -21,7 +22,10 @@ A step works as ``_step_body`` (:353-391):
 4. ``torch.autograd.grad`` gives the params' and the rows' gradients;
 5. ``torch.optim.Adam(lr=dense_lr)`` updates the params (optax.adam's
    math: b1 0.9, b2 0.999, eps 1e-8);
-6. ``table.apply_grads`` runs dense-apply Adagrad on the rows.
+6. ``table.apply_grads`` updates the rows: ``sparse_optimizer``
+   ``"adagrad"`` (row-wise) or ``"adam"`` (lazy: only the looked-up rows
+   and their moments move), by the path ``sparse_update_mode`` picks
+   (``"auto"``, ``"dense"``, ``"sparse"``; ``embedding/sharded.py``).
 
 The model's parameters, the Adam state and the table are updated in
 place (JAX donates its state instead).  Metrics stay tensors on the
@@ -69,6 +73,8 @@ class TrainerConfig:
     pairwise_factor: float = 1.0
     dense_lr: float = 1e-3
     sparse_lr: float = 0.05
+    sparse_optimizer: str = "adagrad"   # "adagrad" | "adam" (lazy, rowwise)
+    sparse_update_mode: str = "auto"    # "auto" | "sparse" | "dense"
     num_tasks: int = 1          # >1: multi-task (CTR + CVR) heads
 
 
@@ -76,7 +82,7 @@ class TrainState(NamedTuple):
     """Everything a step changes (in place)."""
     params: Dict[str, torch.Tensor]      # the model's parameters by name
     opt: torch.optim.Adam                # Adam over ``params``
-    table: ShardedTableState
+    table: ShardedTableState             # with m, v, count under Adam
     step: torch.Tensor                   # () int64 on the device
 
 
@@ -99,9 +105,10 @@ class Trainer:
         self.model = model
         self.fc = feature_config
         self.cfg = config
-        self.table = ShardedEmbeddingTable(feature_config.total_rows,
-                                           feature_config.embedding_dim,
-                                           device=self.device)
+        self.table = ShardedEmbeddingTable(
+            feature_config.total_rows, feature_config.embedding_dim,
+            device=self.device, optimizer=config.sparse_optimizer,
+            update_mode=config.sparse_update_mode)
         # the per-sample domain goes only to models that route on it
         # (MultiTaskModel's STAR towers)
         self._takes_domain = "domain_idx" in inspect.signature(
@@ -164,7 +171,9 @@ class Trainer:
         if cfg.pairwise_weight != 0.0:
             pl_sum, n_pair = pairwise_loss(
                 logits, labels, groups, factor=cfg.pairwise_factor,
-                click_occurance_power=cfg.click_occurance_power)
+                click_occurance_power=cfg.click_occurance_power,
+                return_num_pair=True, reduce_mean=False,
+                binary_labels=True)
             pair = pl_sum / (n_pair + 1e-10)
             metrics["pairwise"] = pair.detach()
             loss = loss + cfg.pairwise_weight * pair

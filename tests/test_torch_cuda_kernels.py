@@ -7,13 +7,17 @@ Shapes are the small odd ones of the JAX kernel tests plus edge cases
 (one field, one channel, K past one 64-channel chunk, ragged M, B and
 V, more rows than one weight-gradient slice) and, for the multi-expert
 dense and the listwise loss, config 4's shapes (the four banks at
-B = 1,000 and 8,192) and degenerate batches.  Tolerance: f32 with a
+B = 1,000 and 8,192) and degenerate batches; for lazy Adam (B10) ragged V,
+every D it takes and t = 1 and 1,000; for the pair counts (B7a/b/c) and
+the general pair loss (B3) graded labels, two groups, a 0/1 mask and the
+wrong-order filter at B = 1, 8,191 and 8,192.  Tolerance: f32 with a
 different summation order, 1e-5 relative to the largest output (1e-4
 for gradients through the whole model).
 """
 import pytest
 import torch
 
+from rec_now_tpu_torch.losses.pairwise import pairwise_loss
 from rec_now_tpu_torch.ops import cin_kernel as ck
 from rec_now_tpu_torch.ops import listwise_kernel as lk
 from rec_now_tpu_torch.ops import multi_dense_kernel as mk
@@ -327,3 +331,139 @@ def test_slice3_wrappers_reject_bad_inputs(dev):
         lk.listwise_loss_fused(torch.zeros(8, device=dev),
                                torch.zeros(7, device=dev),
                                torch.zeros(8, device=dev))
+
+
+@pytest.mark.parametrize("v,d", [(1, 4), (777, 8), (12345, 16), (1000, 32),
+                                 (301, 64), (300, 128)])
+@pytest.mark.parametrize("t", [1, 1000])
+def test_adam_dense_pass_matches_plain(dev, v, d, t):
+    gen = torch.Generator().manual_seed(v + d + t)
+    table = _rand(gen, dev, v, d)
+    m = _rand(gen, dev, v, d) * 1e-3
+    vv = _rand(gen, dev, v, d).square() * 1e-6
+    touched = (torch.arange(v) % 3 != 1).to(dev)
+    g = _rand(gen, dev, v, d) * touched[:, None]
+    g[::6] = 0.0                 # touched rows with a zero gradient
+    count = torch.tensor(t, dtype=torch.int32, device=dev)
+    want = [x.clone() for x in (table, m, vv)]
+    before = tk.adam_dense_pass.launches
+    tk.adam_dense_pass(table, m, vv, g, touched, count, 1e-3)
+    assert tk.adam_dense_pass.launches == before + 1
+    tk.adam_dense_pass_plain(*want, g, touched, count, 1e-3, 0.9, 0.999,
+                             1e-7)
+    for got, ref in zip((table, m, vv), want):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-7)
+        assert torch.equal(got[~touched], ref[~touched])
+    assert int(count) == t
+
+
+def _general_batch(b, seed, dev):
+    """Graded labels {0, 1, 2}, two group conditions, a 0/1 mask."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, generator=gen) * 2
+    lab = torch.randint(0, 3, (b,), generator=gen).float()
+    g1 = torch.randint(0, max(1, b // 6), (b,), generator=gen)
+    g2 = torch.randint(0, 2, (b,), generator=gen)
+    mask = (torch.rand(b, generator=gen) > 0.2).float()
+    return [t.to(dev) for t in (x, lab, g1, g2, mask)]
+
+
+@pytest.mark.parametrize("b", [1, 37, 8191, 8192])
+@pytest.mark.parametrize("wrong_order", [False, True])
+def test_pair_counts_and_general_loss_match_plain(dev, b, wrong_order):
+    x, lab, g1, g2, mask = _general_batch(b, b, dev)
+    groups = [g1, g2]
+    counts = pk.pair_row_counts(x, lab, groups, mask, wrong_order)
+    torch.testing.assert_close(
+        counts, pk.pair_row_counts_plain(x, lab, groups, mask, wrong_order),
+        rtol=0, atol=0)
+    gpc = pk.same_group_matvec(g1, counts)
+    torch.testing.assert_close(gpc, pk.same_group_matvec_plain(g1, counts),
+                               rtol=0, atol=0)
+    w = torch.where(gpc > 0, gpc.clamp_min(1e-30) ** -0.5,
+                    torch.zeros_like(gpc))
+    before = pk.pair_loss_sum.launches
+    got = pk.pair_loss_fused(x, lab, groups, 0.8, row_weights=w,
+                             sample_mask=mask, wrong_order=wrong_order)
+    assert pk.pair_loss_sum.launches == before + 1
+    want = pk.pair_loss_fused_plain(x, lab, groups, 0.8, row_weights=w,
+                                    sample_mask=mask,
+                                    wrong_order=wrong_order)
+    assert float(got[1]) == float(want[1]) == float(counts.sum())
+    if float(want[1]):
+        _close_rel(got[0], want[0])
+        _close_rel(got[2], want[2])
+    else:
+        assert float(got[0]) == 0.0 and not got[2].any()
+
+
+@pytest.mark.parametrize("b", [1, 8191, 8192])
+def test_binary_counts_and_in_kernel_weight_match_plain(dev, b):
+    x, lab, g1, _, mask = _general_batch(b, b + 1, dev)
+    clicks = (lab > 1).float()
+    before = pk.group_pair_counts_binary.launches
+    got = pk.group_pair_counts_binary(g1, clicks, mask)
+    assert pk.group_pair_counts_binary.launches == before + 1
+    want = pk.group_pair_counts_binary_plain(g1, clicks, mask)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # the same counts by the general route, B7a then B7b
+    via = pk.same_group_matvec(g1, pk.pair_row_counts(x, clicks, g1, mask))
+    torch.testing.assert_close(got, via, rtol=0, atol=0)
+    loss, cnt, dx = pk.pair_loss_fused(x, clicks, g1, 1.0, -0.5,
+                                       sample_mask=mask)
+    ref = pk.pair_loss_fused_plain(x, clicks, g1, 1.0, -0.5,
+                                   sample_mask=mask)
+    assert float(cnt) == float(ref[1])
+    if float(ref[1]):
+        _close_rel(loss, ref[0])
+        _close_rel(dx, ref[2])
+
+
+@pytest.mark.parametrize("case", ["graded", "wrong_order", "binary"])
+def test_pairwise_loss_on_the_card_matches_the_cpu(dev, case):
+    """The public loss: the card's dispatch (B7a -> B7b -> B3, or B3 with
+    the in-kernel weight) against the CPU's (B, B) math under autograd."""
+    x, lab, g1, g2, mask = _general_batch(2048, 7, dev)
+    kw = dict(click_occurance_power=-0.5, mask=mask, return_num_pair=True)
+    if case == "binary":
+        lab, groups = (lab > 1).float(), g1
+        kw["binary_labels"] = True
+    else:
+        groups = [g1, g2]
+        kw["only_use_wrong_order_pair"] = case == "wrong_order"
+    out = {}
+    before = (pk.pair_row_counts.launches, pk.same_group_matvec.launches,
+              pk.pair_loss_sum.launches)
+    for d in (dev, "cpu"):
+        xd = x.to(d).requires_grad_()
+        gd = ([g.to(d) for g in groups] if isinstance(groups, list)
+              else groups.to(d))
+        loss, cnt = pairwise_loss(xd, lab.to(d), gd, **{
+            k: (v.to(d) if isinstance(v, torch.Tensor) else v)
+            for k, v in kw.items()})
+        (dx,) = torch.autograd.grad(loss, xd)
+        out[str(d)] = (loss.detach().cpu(), cnt.cpu(), dx.cpu())
+    b7 = 0 if case == "binary" else 1
+    assert (pk.pair_row_counts.launches, pk.same_group_matvec.launches,
+            pk.pair_loss_sum.launches) == (before[0] + b7, before[1] + b7,
+                                           before[2] + 1)
+    got, want = out[str(dev)], out["cpu"]
+    assert float(got[1]) == float(want[1]) > 0
+    _close_rel(got[0], want[0], 1e-5)
+    _close_rel(got[2], want[2], 1e-4)
+
+
+def test_slice4_wrappers_reject_bad_inputs(dev):
+    z = torch.zeros(8, 8, device=dev)
+    t = torch.zeros(8, dtype=torch.bool, device=dev)
+    c = torch.ones((), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):      # D = 12
+        tk.adam_dense_pass(*(torch.zeros(8, 12, device=dev),) * 4, t, c,
+                           1e-3)
+    with pytest.raises(TypeError):       # a float touched flag
+        tk.adam_dense_pass(z, z.clone(), z.clone(), z.clone(), t.float(), c,
+                           1e-3)
+    with pytest.raises(ValueError):      # five group conditions
+        pk.pair_row_counts(z[0], z[0], [t.int()] * 5)
+    with pytest.raises(ValueError):      # occurrence weight with two groups
+        pk.pair_loss_fused(z[0], z[0], [t.int()] * 2, 1.0, -0.5)

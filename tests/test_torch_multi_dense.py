@@ -72,7 +72,7 @@ def test_two_dim_input_is_shared():
     want = multi_dense_apply(_t(x), _t(w), _t(bias), "relu")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown activation"):
-        multi_dense_apply(_t(x), _t(w), _t(bias), "tanh")
+        multi_dense_apply(_t(x), _t(w), _t(bias), "swish")
 
 
 @pytest.mark.parametrize("shape", SHAPES[:3])
@@ -135,10 +135,14 @@ def test_layer_from_converted_weights(shared, act):
     port.load_state_dict(sd)
     got = port(_t(x)).detach().numpy()
     np.testing.assert_allclose(got, want, **TOL)
-    # the port's own init: per-expert glorot fans (D, U), zero bias
+    # the port's own init: Flax's glorot fans, where the expert axis is
+    # receptive field (D * N, U * N), as Flax's own init shows; zero bias
     fresh = MultiDenseLayer(d, u, n, torch.Generator().manual_seed(0),
                             device="cpu")
-    limit = np.sqrt(6.0 / (d + u))
+    limit = np.sqrt(6.0 / ((d + u) * n))
+    flax_k = np.asarray(layer.init(jax.random.PRNGKey(1), x)["params"]
+                        ["kernel"])
+    assert limit >= np.abs(flax_k).max() > 0.8 * limit
     k = fresh.kernel.detach()
     assert k.shape == (n, d, u)
     assert limit >= float(k.abs().max()) > 0.8 * limit

@@ -6,7 +6,9 @@ off the TPU) and against JAX ``pairwise_loss`` (XLA), for occurrence
 power 0 and -0.5: loss sum, pair count and dlogits; then the port's
 ``pairwise_loss`` (the CPU (B, B) math under autograd) and
 ``pair_loss_sum`` (the autograd.Function on the plain version) against
-the same.  Binary labels and one group, as the trainer calls it.  f32 on
+the same.  Binary labels and one group, as the trainer calls it (the
+public ``pairwise_loss`` with ``return_num_pair=True, reduce_mean=False``);
+``tests/test_torch_pairwise_general.py`` covers the other options.  f32 on
 both sides: rtol 1e-5 on the sums, atol 1e-6 on dlogits (terms of order
 1, summed in another order).
 """
@@ -53,6 +55,13 @@ def _torch(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+def _trainer_call(x, lab, grp, factor, power):
+    """The port's public loss as the trainer calls it: (sum, count)."""
+    return pairwise_loss(x, lab, grp, factor=factor,
+                         click_occurance_power=power, return_num_pair=True,
+                         reduce_mean=False, binary_labels=True)
+
+
 @pytest.mark.parametrize("power", [0.0, -0.5])
 @pytest.mark.parametrize("b,factor", [(64, 1.0), (48, 0.7)])
 def test_plain_matches_jax_pallas_interpret(power, b, factor):
@@ -79,7 +88,7 @@ def test_plain_and_losses_match_jax_xla(power, b):
     np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
     assert float(cnt) == want_cnt
     np.testing.assert_allclose(dx.numpy(), want_dx, atol=1e-6)
-    for fn in (pairwise_loss, pk.pair_loss_sum):
+    for fn in (_trainer_call, pk.pair_loss_sum):
         xt = torch.from_numpy(x).requires_grad_()
         loss, cnt = fn(xt, torch.from_numpy(lab), torch.from_numpy(grp),
                        1.0, power)
@@ -90,7 +99,8 @@ def test_plain_and_losses_match_jax_xla(power, b):
         np.testing.assert_allclose(dx.numpy(), want_dx, atol=1e-6)
 
 
-@pytest.mark.parametrize("fn", [pairwise_loss, pk.pair_loss_sum])
+@pytest.mark.parametrize("fn", [_trainer_call, pk.pair_loss_sum],
+                         ids=["pairwise_loss", "pair_loss_sum"])
 def test_no_pairs_gives_zero_loss_and_zero_finite_grads(fn):
     """Every sample in its own group, or all labels equal: no valid
     pair, loss 0, count 0, grads all zero and finite (power -0.5 would

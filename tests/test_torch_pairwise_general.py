@@ -1,0 +1,238 @@
+"""Port vs JAX: the public in-batch pairwise loss with every option of
+the kernel path, and its counting kernels (B7a/b/c) and general loss
+kernel (B3) through their plain versions.
+
+* The plain ``pair_row_counts``, ``same_group_matvec`` and
+  ``group_pair_counts_binary`` against the JAX Pallas kernels,
+  interpreted off the TPU (exact: small integer counts).
+* The port's ``pairwise_loss`` -- loss, pair count and dlogits by
+  autograd -- against JAX ``pairwise_loss`` (its (B, B) XLA path) over a
+  grid: labels binary or graded {0, 1, 2}; one group or two AND-combined;
+  no mask or a 0/1 mask with zeros; the wrong-order filter off and on;
+  occurrence power -0.5, 0 and 0.5; ``binary_labels`` on binary labels.
+  Both the CPU path (the (B, B) math) and the card's dispatch
+  (``_pairwise_loss_kernels``: B7a -> B7b -> B3, or B3 with the in-kernel
+  weight), which on CPU tensors runs the kernels' plain versions.
+* The card's dispatch against JAX ``pairwise_loss_pallas`` (interpreted).
+* A fractional mask: the public loss on the CPU counts a sample where
+  mask > 0.5, as ``pairwise_loss_pallas`` and the port's kernels do.
+* The general plain ``pair_loss_fused_plain`` against JAX
+  ``_pair_loss_fused_impl`` (interpreted), with row weights, a mask, two
+  groups and the wrong-order filter.
+* Edge cases: B = 1; B = 37 (not a multiple of 8); no valid pair gives
+  loss 0, count 0 and zero, finite dlogits.
+
+f32 on both sides, summed in other orders: the mean loss rtol 1e-5,
+dlogits atol 1e-6 (terms of order 1 / n_pair), the counts exact.
+"""
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rec_now_tpu.losses.pairwise import pairwise_loss as jax_pairwise_loss
+from rec_now_tpu.ops.pallas import pairwise_kernel as jpk
+from rec_now_tpu_torch.losses.pairwise import (_pairwise_loss_kernels,
+                                               pairwise_loss)
+from rec_now_tpu_torch.ops import pairwise_kernel as pk
+
+torch.set_num_threads(1)
+
+
+def _batch(b, seed, graded=True, two_groups=True, masked=True):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(b) * 2).astype(np.float32)
+    lab = rng.randint(0, 3 if graded else 2, b).astype(np.float32)
+    groups = [rng.randint(0, max(1, b // 6), b).astype(np.int32)]
+    if two_groups:
+        groups.append(rng.randint(0, 2, b).astype(np.int32))
+    mask = ((rng.rand(b) > 0.25).astype(np.float32) if masked else None)
+    return x, lab, groups, mask
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _jax(x, lab, groups, mask, **kw):
+    """JAX pairwise_loss (mean, count) and d mean / d logits."""
+    jg = [jnp.asarray(g) for g in groups]
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def f(xx):
+        return jax_pairwise_loss(xx, jnp.asarray(lab), jg, mask=jm,
+                                 return_num_pair=True, **kw)
+    loss, cnt = f(jnp.asarray(x))
+    dx = jax.grad(lambda xx: f(xx)[0])(jnp.asarray(x))
+    return float(loss), float(cnt), np.asarray(dx)
+
+
+def _port(fn, x, lab, groups, mask, **kw):
+    xt = torch.from_numpy(x).requires_grad_()
+    loss, cnt = fn(xt, _t(lab), [_t(g) for g in groups], _t(mask), **kw)
+    (dx,) = torch.autograd.grad(loss, xt, allow_unused=True)
+    dx = torch.zeros_like(xt) if dx is None else dx
+    assert not cnt.requires_grad
+    return float(loss.detach()), float(cnt), dx.numpy()
+
+
+def _public(x, lab, groups, mask, wrong, power, binary):
+    return pairwise_loss(x, lab, groups, mask=mask, return_num_pair=True,
+                         only_use_wrong_order_pair=wrong,
+                         click_occurance_power=power, binary_labels=binary)
+
+
+def _dispatch(x, lab, groups, mask, wrong, power, binary):
+    loss, cnt = _pairwise_loss_kernels(x, lab, groups, 1.0, wrong, power,
+                                       mask, binary)
+    return loss / (cnt + 1e-10), cnt
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-7)
+    assert got[1] == want[1]
+    np.testing.assert_allclose(got[2], want[2], atol=1e-6)
+
+
+GRID = list(itertools.product([False, True], [False, True], [False, True],
+                              [False, True], [-0.5, 0.0, 0.5]))
+
+
+@pytest.mark.parametrize("graded,two,masked,wrong,power", GRID)
+def test_pairwise_loss_matches_jax(graded, two, masked, wrong, power):
+    x, lab, groups, mask = _batch(61, 3, graded, two, masked)
+    want = _jax(x, lab, groups, mask, only_use_wrong_order_pair=wrong,
+                click_occurance_power=power)
+    assert want[1] > 0
+    # binary_labels is a promise only binary labels may make
+    for binary in ([False, True] if not graded else [False]):
+        for fn in (_public, _dispatch):
+            _close(_port(fn, x, lab, groups, mask, wrong=wrong, power=power,
+                         binary=binary), want)
+
+
+@pytest.mark.parametrize("wrong,binary", [(False, True), (False, False),
+                                          (True, False)])
+def test_dispatch_matches_jax_pallas_interpret(wrong, binary):
+    x, lab, groups, mask = _batch(64, 5, graded=not binary,
+                                  two_groups=not binary)
+    jg = [jnp.asarray(g) for g in groups]
+
+    def f(xx):
+        return jpk.pairwise_loss_pallas(
+            xx, jnp.asarray(lab), jg, only_use_wrong_order_pair=wrong,
+            return_num_pair=True, click_occurance_power=-0.5,
+            mask=jnp.asarray(mask), binary_labels=binary)
+    loss, cnt = f(jnp.asarray(x))
+    dx = jax.grad(lambda xx: f(xx)[0])(jnp.asarray(x))
+    _close(_port(_dispatch, x, lab, groups, mask, wrong=wrong, power=-0.5,
+                 binary=binary), (float(loss), float(cnt), np.asarray(dx)))
+
+
+@pytest.mark.parametrize("wrong", [False, True])
+def test_fractional_mask_counts_above_half(wrong):
+    # the public loss takes a sample where mask > 0.5 on the CPU path too,
+    # as the kernels (and JAX's kernel path) do
+    x, lab, groups, _ = _batch(64, 7)
+    frac = np.random.RandomState(2).choice(
+        np.float32([0.0, 0.3, 0.5, 0.7, 1.0]), 64)
+    jg = [jnp.asarray(g) for g in groups]
+
+    def f(xx):
+        return jpk.pairwise_loss_pallas(
+            xx, jnp.asarray(lab), jg, only_use_wrong_order_pair=wrong,
+            return_num_pair=True, click_occurance_power=-0.5,
+            mask=jnp.asarray(frac))
+    loss, cnt = f(jnp.asarray(x))
+    dx = jax.grad(lambda xx: f(xx)[0])(jnp.asarray(x))
+    want = (float(loss), float(cnt), np.asarray(dx))
+    binary = (frac > 0.5).astype(np.float32)
+    for mask in (frac, binary):
+        _close(_port(_public, x, lab, groups, mask, wrong=wrong, power=-0.5,
+                     binary=False), want)
+    # the fractional samples matter: counting them as valid changes the pairs
+    assert _port(_public, x, lab, groups, (frac > 0).astype(np.float32),
+                 wrong=wrong, power=-0.5, binary=False)[1] != want[1]
+
+
+@pytest.mark.parametrize("b", [40, 64])
+@pytest.mark.parametrize("wrong", [False, True])
+def test_counts_match_jax_pallas_interpret(b, wrong):
+    x, lab, groups, mask = _batch(b, b)
+    jg = tuple(jnp.asarray(g) for g in groups)
+    want = np.asarray(jpk.pair_row_counts(jnp.asarray(x), jnp.asarray(lab),
+                                          jg, jnp.asarray(mask), wrong))
+    counts = pk.pair_row_counts(_t(x), _t(lab), [_t(g) for g in groups],
+                                _t(mask), wrong)
+    np.testing.assert_array_equal(counts.numpy(), want)
+    assert want.sum() > 0
+    want = np.asarray(jpk.same_group_matvec(jg[0], jnp.asarray(want)))
+    got = pk.same_group_matvec(_t(groups[0]), counts)
+    np.testing.assert_array_equal(got.numpy(), want)
+    clicks = (lab > 1).astype(np.float32)
+    want = np.asarray(jpk.group_pair_counts_binary(
+        jg[0], jnp.asarray(clicks), jnp.asarray(mask)))
+    got = pk.group_pair_counts_binary(_t(groups[0]), _t(clicks), _t(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # on binary labels the closed form is the B7a -> B7b composition ...
+    via = pk.same_group_matvec(_t(groups[0]), pk.pair_row_counts(
+        _t(x), _t(clicks), _t(groups[0]), _t(mask)))
+    np.testing.assert_array_equal(got.numpy(), via.numpy())
+    # ... and on graded labels it is not: only B7a -> B7b is right there
+    graded = pk.group_pair_counts_binary(_t(groups[0]), _t(lab), _t(mask))
+    right = pk.same_group_matvec(_t(groups[0]), pk.pair_row_counts(
+        _t(x), _t(lab), _t(groups[0]), _t(mask)))
+    assert not torch.equal(graded, right)
+
+
+@pytest.mark.parametrize("wrong", [False, True])
+@pytest.mark.parametrize("power", [0.0, -0.5])
+def test_general_plain_matches_jax_pallas_interpret(wrong, power):
+    b = 48
+    x, lab, groups, mask = _batch(b, 9, graded=power == 0.0,
+                                  two_groups=power == 0.0)
+    if wrong and power:
+        groups = groups[:1]
+        wrong = False          # the in-kernel weight forbids the filter
+    w = (np.random.RandomState(1).rand(b) + 0.5).astype(np.float32)
+    loss, cnt, dx = jpk._pair_loss_fused_impl(
+        jnp.asarray(x), jnp.asarray(lab), tuple(jnp.asarray(g)
+                                                for g in groups),
+        jnp.asarray(w), jnp.asarray(mask), 0.7, wrong, power)
+    got = pk.pair_loss_fused_plain(
+        _t(x), _t(lab), [_t(g) for g in groups], 0.7, power,
+        row_weights=_t(w), sample_mask=_t(mask), wrong_order=wrong)
+    np.testing.assert_allclose(float(got[0]), float(loss), rtol=1e-5)
+    assert float(got[1]) == float(cnt) > 0
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(dx), atol=1e-6)
+    with pytest.raises(ValueError, match="single group"):
+        pk.pair_loss_fused_plain(_t(x), _t(lab), [_t(groups[0])] * 2, 1.0,
+                                 -0.5)
+
+
+@pytest.mark.parametrize("b", [1, 37])
+@pytest.mark.parametrize("fn", [_public, _dispatch])
+def test_edge_batches(b, fn):
+    x, lab, groups, mask = _batch(b, 11)
+    want = _jax(x, lab, groups, mask, click_occurance_power=-0.5)
+    got = _port(fn, x, lab, groups, mask, wrong=False, power=-0.5,
+                binary=False)
+    _close(got, want)
+    # no valid pair: all labels equal
+    same = np.ones_like(lab)
+    got = _port(fn, x, same, groups, mask, wrong=True, power=-0.5,
+                binary=False)
+    assert got[0] == 0.0 and got[1] == 0.0
+    assert np.isfinite(got[2]).all() and not got[2].any()
+
+
+def test_options_without_a_kernel_path_raise():
+    x, lab, groups, _ = _batch(16, 0)
+    args = (_t(x), _t(lab), [_t(g) for g in groups])
+    for kw in (dict(label_pair_to_weight_func=lambda a, b: a - b),
+               dict(pairloss_func=lambda *a, **k: 0.0), dict(margin=1.0)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            pairwise_loss(*args, **kw)

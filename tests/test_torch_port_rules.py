@@ -11,8 +11,8 @@ import torch
 
 from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
-from rec_now_tpu_torch.models import (FeatureConfig, MultiTaskModel,
-                                      XDeepFMModel)
+from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
+                                      MultiTaskModel, XDeepFMModel)
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops import cin_kernel as ck
 from rec_now_tpu_torch.ops import listwise_kernel as lk
@@ -63,7 +63,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
     mt = dict(mmoe_dims=(8, 4), ple_dims=(4,), tower_dim=2)
     cpu_mt = MultiTaskModel(fc, **mt, device="cpu")
     cfg4 = TrainerConfig(listwise_weight=0.5, num_tasks=2)
+    cfg2 = TrainerConfig(pairwise_weight=0.5, sparse_optimizer="adam")
+    cpu_dcn = DCNv2Model(fc, deep_dims=(8,), dcn_sub_dim=2, device="cpu")
     for make in (lambda: EmbeddingTable(fc.total_rows, 4),
+                 lambda: DCNv2Model(fc, deep_dims=(8,), dcn_sub_dim=2),
+                 lambda: ShardedEmbeddingTable(fc.total_rows, 4,
+                                               optimizer="adam"),
+                 lambda: Trainer(cpu_dcn, fc, cfg2),
+                 lambda: build_scorer(cpu_dcn, fc, cpu_table),
                  lambda: XDeepFMModel(fc, (4,), deep_dims=(8,)),
                  lambda: MultiTaskModel(fc, **mt),
                  lambda: build_scorer(cpu_model, fc, cpu_table),
@@ -80,6 +87,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
                    device="cpu").device == torch.device("cpu")
     assert Trainer(cpu_mt, fc, cfg4, device="cpu").device == \
         torch.device("cpu")
+    assert Trainer(cpu_dcn, fc, cfg2, device="cpu").table.optimizer == "adam"
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
@@ -194,5 +202,49 @@ def test_slice3_wrappers_take_plain_version_on_cpu_only():
                  lambda: mk.multi_dense(*meta(x, w, b), False),
                  lambda: lk.listwise_loss_fused(*meta(lg, lab, grp)),
                  lambda: lk.listwise_loss_sum(*meta(lg, lab, grp))):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            call()
+
+
+def test_slice4_wrappers_take_plain_version_on_cpu_only():
+    """B10 and B7a/b/c: plain on CPU tensors (no launch counted), an error
+    on any other non-CUDA device."""
+    rng = np.random.RandomState(3)
+
+    def t(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    table, m, v, g = t(12, 4), t(12, 4), t(12, 4).abs(), t(12, 4)
+    touched = torch.from_numpy(rng.rand(12) > 0.5)
+    count = torch.tensor(3, dtype=torch.int32)
+    want = [x.clone() for x in (table, m, v)]
+    tk.adam_dense_pass(table, m, v, g, touched, count, 1e-3)
+    tk.adam_dense_pass_plain(*want, g, touched, count, 1e-3, 0.9, 0.999,
+                             1e-7)
+    torch.testing.assert_close((table, m, v), tuple(want), rtol=0, atol=0)
+    x, lab = t(19), torch.from_numpy(rng.randint(0, 3, 19).astype(np.float32))
+    grp = [torch.from_numpy(rng.randint(0, 3, 19)) for _ in range(2)]
+    mask = torch.from_numpy((rng.rand(19) > 0.3).astype(np.float32))
+    torch.testing.assert_close(
+        pk.pair_row_counts(x, lab, grp, mask, True),
+        pk.pair_row_counts_plain(x, lab, grp, mask, True), rtol=0, atol=0)
+    torch.testing.assert_close(pk.same_group_matvec(grp[0], x),
+                               pk.same_group_matvec_plain(grp[0], x),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        pk.group_pair_counts_binary(grp[0], lab, mask),
+        pk.group_pair_counts_binary_plain(grp[0], lab, mask), rtol=0, atol=0)
+    assert (tk.adam_dense_pass.launches, pk.pair_row_counts.launches,
+            pk.same_group_matvec.launches,
+            pk.group_pair_counts_binary.launches) == (0, 0, 0, 0)
+
+    def meta(*ts):
+        return [a.to("meta") for a in ts]
+
+    for call in (lambda: tk.adam_dense_pass(*meta(table, m, v, g, touched,
+                                                  count), 1e-3),
+                 lambda: pk.pair_row_counts(*meta(x, lab), grp),
+                 lambda: pk.same_group_matvec(*meta(grp[0], x)),
+                 lambda: pk.group_pair_counts_binary(*meta(grp[0], lab))):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
