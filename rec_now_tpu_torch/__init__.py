@@ -1,18 +1,21 @@
 """PyTorch / CUDA port of ``rec_now_tpu`` for NVIDIA Hopper (H100).
 
-Covers serving and one-device training of DCN-v2 + SENET (config 2, with
-lazy sparse Adam on the rows), xDeepFM (config 3) and the MMoE + PLE +
-STAR multitask model (config 4) today: feature layout, (V, D) embedding
-table with row-wise Adagrad or lazy Adam (dense-apply or sparse), SENET,
-DCN-mix, CIN, inner-PNN, DNN tower, the multi-expert dense, MMoE, PLE,
-the Parasitic STAR tower, the pointwise, in-batch pairwise (the public
-``pairwise_loss`` with every option of the JAX kernel path) and listwise
-losses, ``Trainer``, the request wire, and ``build_scorer`` /
-``WireScorer`` / ``export_serving`` / ``load_serving``.  The Pallas TPU
-kernels on these paths are hand-written CUDA kernels in ``csrc/`` (CIN
-forward and backward, the multi-expert dense, the pair loss and its
-three counting kernels, the listwise loss, the Adagrad and Adam table
-passes).  Entry points run on CUDA unless the caller passes
+Covers serving and one-device training of FM (config 1), DCN-v2 + SENET
+(config 2, with lazy sparse Adam on the rows), xDeepFM (config 3) and the
+MMoE + PLE + STAR multitask model (config 4) today: feature layout,
+(V, D) embedding table with row-wise Adagrad or lazy Adam (dense-apply or
+sparse), FM, SENET, DCN-mix, CIN, inner-PNN, DNN tower, the multi-expert
+dense, MMoE, PLE, the Parasitic STAR tower, the pointwise, in-batch
+pairwise (the public ``pairwise_loss`` with every option of the JAX
+kernel path) and listwise losses, ``Trainer`` with the windowed loop over
+the compressed wire, exact and device-resident eval metrics, prefetching,
+checkpoints, the training CLI (``python -m rec_now_tpu_torch.train``),
+and ``build_scorer`` / ``WireScorer`` / ``export_serving`` /
+``load_serving``.  Every Pallas TPU kernel of the JAX package is a
+hand-written CUDA kernel in ``csrc/`` (CIN forward and backward, the
+multi-expert dense, the pair loss and its three counting kernels, the
+listwise loss, the Adagrad and Adam table passes, the row gather and the
+row scatter-add).  Entry points run on CUDA unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper takes its plain
 PyTorch version.
 """

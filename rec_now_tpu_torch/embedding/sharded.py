@@ -12,16 +12,24 @@ lane packing is not kept (``convert`` reads a packed JAX state).
 Two update paths, chosen by ``update_mode`` as in JAX (:598-608):
 
 * **dense** -- scatter-add the batch's (N, D) row gradients into a zeroed
-  f32 (V, D) buffer (``index_add_``: duplicates sum), then one pass over
-  the whole table in place: Adagrad (kernel B9) or, with a touched flag
-  made from the ids, lazy Adam (kernel B10).  The buffer stays f32: the
-  TPU's bf16 buffer (:672-673) is a TPU layout choice.
+  f32 (V, D) buffer (kernel B12, ``scatter_add_rows``: duplicates sum),
+  then one pass over the whole table in place: Adagrad (kernel B9) or,
+  with a touched flag made from the ids, lazy Adam (kernel B10).  The
+  buffer stays f32: the TPU's bf16 buffer (:672-673) is a TPU layout
+  choice.
 * **sparse** -- JAX's static-shape dedup (:553-573: stable sort,
-  first-of-segment flags, ``cumsum``, a segment sum by ``index_add_``, a
-  sentinel for the unused segments), then the update of the distinct rows
-  alone, written back as a delta by ``index_add_`` as JAX does (:827-834);
-  the sentinel segments add zeros.  No kernel in JAX, plain PyTorch here
-  on both devices; nothing waits for the card (no ``torch.unique``).
+  first-of-segment flags, ``cumsum``, a segment sum by B12, the sentinel
+  row V for the unused segments), then the update of the distinct rows
+  alone: their moments fetched by B11 (the sentinel clamps to row V - 1),
+  and a delta written back by B12 as JAX does (:827-834), which drops the
+  sentinel rows as JAX's scatter drops them (:234-236).  The (V,)
+  Adagrad accumulator's scatter and gather stay plain, as JAX's
+  ``_expand_scalar`` / ``_fetch_scalars`` are not Pallas.  Nothing waits
+  for the card (no ``torch.unique``).
+
+Kernel launches per step: lookup 1 x B11 (``table.lookup``); dense, 1 x
+B12; sparse Adagrad, 2 x B12 (dedup, table); sparse Adam, 2 more x B11
+(m, v) and 4 x B12 (dedup, table, m, v).
 
 A row that was looked up is touched whatever its summed gradient: under
 Adam its moments decay and it moves by ``lr * m_hat / (sqrt(v_hat) +
@@ -36,9 +44,9 @@ for one B = 8,192 batch of 26 fields (212,992 ids).  A dense pass grows
 with V (the zero-filled buffer, and Adagrad's read and write of every
 row; lazy Adam reads only a flag of an untouched row), the sparse path
 with the batch's ids (its sort and scatters).  ``chip_smoke.py`` phase 3
-times both, prints where they cross and holds these limits to it;
-PERF.md §6 has the derivation.  JAX's single 512 MiB limit on the
-streamed bytes was set for the TPU.  No configuration of the repo has a
+times both and prints where they cross, which moves with the host (the
+sparse path is ~30 host-bound launches); PERF.md §6 has the readings.
+JAX's single 512 MiB limit on the streamed bytes was set for the TPU.  No configuration of the repo has a
 table past these limits, so ``auto`` never reaches sparse there: the
 sparse path is kept for parity with JAX's ``update_mode`` option.
 
@@ -57,6 +65,8 @@ import torch
 
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
 from rec_now_tpu_torch.ops import table_update_kernel
+from rec_now_tpu_torch.ops.expand_kernel import scatter_add_rows
+from rec_now_tpu_torch.ops.gather_kernel import gather_rows
 
 # Adagrad's initial accumulator (sharded.py:122, the JAX default)
 INITIAL_ACCUMULATOR = 0.1
@@ -86,12 +96,14 @@ class ShardedEmbeddingTable:
     """
 
     # dense-apply is chosen up to these table bytes (module docstring):
-    # measured crossings 713-876 MiB (Adagrad) and 3.23-4.00 GiB (Adam) on
-    # the H100 (the sparse path's time moves most between runs), taken
-    # near their middle; chip_smoke.py fails if a path is more than 25%
-    # slower than the other at the limit
-    DENSE_UPDATE_MAX_TABLE_BYTES = {"adagrad": 768 * 2 ** 20,
-                                    "adam": 3584 * 2 ** 20}
+    # inside the crossings measured on the H100 since the sparse path's
+    # gathers and write-backs run B11 / B12 and drop its sentinel rows
+    # (before, index_add_ sent them to row V - 1): 532-911 MiB (Adagrad;
+    # 713-876 before) and 1,340-3,908 MiB (Adam; 3.23-4.00 GiB before)
+    # over nine runs, the sparse path's time moving with the host, so no
+    # fixed limit is right on every host
+    DENSE_UPDATE_MAX_TABLE_BYTES = {"adagrad": 640 * 2 ** 20,
+                                    "adam": 1800 * 2 ** 20}
 
     def __init__(self, vocab_size: int, dim: int,
                  device: Union[str, torch.device] = "cuda",
@@ -139,13 +151,13 @@ class ShardedEmbeddingTable:
         """One optimizer step on the rows from gradients w.r.t. the
         looked-up rows (``ids.shape + (D,)``), duplicates summed first.
         Updates ``state`` in place (Adam's count too) and returns it."""
-        ids = ids.reshape(-1)
+        ids = ids.reshape(-1).to(torch.int64)
         grads = grads.reshape(-1, self.dim).to(torch.float32)
         if self.optimizer == "adam":
             state.count.add_(1)              # before the update (:738)
         if self.update_mode == "dense":
-            dense_g = torch.zeros_like(state.table)
-            dense_g.index_add_(0, ids, grads)
+            dense_g = scatter_add_rows(torch.zeros_like(state.table), ids,
+                                       grads)
             if self.optimizer == "adam":
                 touched = torch.zeros(self.vocab_size, dtype=torch.bool,
                                       device=ids.device)
@@ -167,44 +179,49 @@ class ShardedEmbeddingTable:
     def _dedup_rows(self, ids: torch.Tensor, grads: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Static-shape dedup (``sharded.py:553-573``): (rows (N,), the
-        distinct ids first and then row V - 1 for each unused segment,
-        row_grad (N, D) their summed gradients (zeros for the unused),
-        valid (N, 1) float 1 for a distinct id, 0 for an unused segment).
-        """
+        distinct ids first and then the out-of-range sentinel V for each
+        unused segment, row_grad (N, D) their summed gradients (zeros for
+        the unused), valid (N, 1) float 1 for a distinct id, 0 for an
+        unused segment)."""
         n = ids.shape[0]
         order = torch.argsort(ids, stable=True)
         sid = ids[order]
         first = torch.ones(n, dtype=torch.bool, device=ids.device)
         first[1:] = sid[1:] != sid[:-1]
         seg = torch.cumsum(first, 0) - 1
-        row_grad = torch.zeros_like(grads).index_add_(0, seg, grads[order])
+        row_grad = scatter_add_rows(torch.zeros_like(grads), seg,
+                                    grads[order])
         rep = torch.full((n,), self.vocab_size, dtype=sid.dtype,
                          device=ids.device).scatter_(0, seg, sid)
         valid = (rep < self.vocab_size).to(grads.dtype)[:, None]
-        return rep.clamp_max(self.vocab_size - 1), row_grad, valid
+        return rep, row_grad, valid
 
     def _adam_sparse(self, state: ShardedTableState, rows: torch.Tensor,
                      row_grad: torch.Tensor, valid: torch.Tensor,
                      lr: float) -> None:
-        """``sharded.py:809-834`` on the deduped rows."""
+        """``sharded.py:809-834`` on the deduped rows (the sentinel V
+        reads row V - 1 and its write-backs are dropped)."""
         b1, b2, eps = self.beta1, self.beta2, self.eps
-        m_rows, v_rows = state.m[rows], state.v[rows]
+        m_rows, v_rows = gather_rows(state.m, rows), gather_rows(state.v, rows)
         m_new = b1 * m_rows + (1 - b1) * row_grad
         v_new = b2 * v_rows + (1 - b2) * row_grad.square()
         t = state.count.to(torch.float32)
         mhat = m_new / (1 - b1 ** t)
         vhat = v_new / (1 - b2 ** t)
         update = lr * mhat / (vhat.sqrt() + eps)
-        state.table.index_add_(0, rows, -update * valid)
-        state.m.index_add_(0, rows, (m_new - m_rows) * valid)
-        state.v.index_add_(0, rows, (v_new - v_rows) * valid)
+        scatter_add_rows(state.table, rows, -update * valid)
+        scatter_add_rows(state.m, rows, (m_new - m_rows) * valid)
+        scatter_add_rows(state.v, rows, (v_new - v_rows) * valid)
 
     def _adagrad_sparse(self, state: ShardedTableState, rows: torch.Tensor,
                         row_grad: torch.Tensor, valid: torch.Tensor,
                         lr: float) -> None:
-        """``sharded.py:624-650`` with exact dedup on the deduped rows."""
+        """``sharded.py:624-650`` with exact dedup on the deduped rows; the
+        (V,) accumulator's scatter and gather are plain (the sentinel's
+        zero lands on row V - 1)."""
         sq = row_grad.square().mean(dim=1) * valid[:, 0]
-        state.accumulator.index_add_(0, rows, sq)
-        acc_rows = state.accumulator[rows]
+        in_range = rows.clamp_max(self.vocab_size - 1)
+        state.accumulator.index_add_(0, in_range, sq)
+        acc_rows = state.accumulator[in_range]
         scale = lr / acc_rows.clamp_min(1e-12).sqrt()[:, None] * valid
-        state.table.index_add_(0, rows, -scale * row_grad)
+        scatter_add_rows(state.table, rows, -scale * row_grad)

@@ -14,6 +14,7 @@ from typing import Union
 import torch
 
 from rec_now_tpu_torch.core.config import resolve_device, uniform
+from rec_now_tpu_torch.ops.gather_kernel import gather_rows
 
 # rows start in U(-1e-3, 1e-3) (rec_now_tpu/embedding/sharded.py:291-293)
 INIT_SCALE = 1e-3
@@ -42,5 +43,4 @@ class EmbeddingTable:
 
     def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Gather rows: int ids of any shape -> ids.shape + (D,)."""
-        rows = torch.index_select(table, 0, ids.reshape(-1))
-        return rows.reshape(tuple(ids.shape) + (table.shape[1],))
+        return gather_rows(table, ids)

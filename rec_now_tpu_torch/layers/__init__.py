@@ -1,2 +1,2 @@
-"""Layers: interactions (CIN, inner-PNN, SENET, DCN-mix) and the multitask
-banks (multi-expert dense, MMoE, PLE, Parasitic STAR)."""
+"""Layers: interactions (FM, CIN, inner-PNN, SENET, DCN-mix) and the
+multitask banks (multi-expert dense, MMoE, PLE, Parasitic STAR)."""

@@ -33,7 +33,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("cin", "pairwise", "table_update", "multi_dense", "listwise")
+SOURCES = ("cin", "pairwise", "table_update", "multi_dense", "listwise",
+           "gather", "wire")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

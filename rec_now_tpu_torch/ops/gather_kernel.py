@@ -1,0 +1,84 @@
+"""Row gather from the embedding table (kernel B11, ``csrc/gather.cu``),
+its wrapper and plain version.
+
+Counterpart of ``rec_now_tpu/ops/pallas/gather_kernel.py``
+``packed_gather`` on the logical (R, D) table: the TPU's lane packing is
+not kept, so its line DMA plus lane select becomes a row gather::
+
+    out[k] = table[clamp(ids[k], 0, R - 1)]
+
+Ids outside [0, R) clamp into it, as the JAX kernel clamps the physical
+row (at one row per line the same thing).  Forward only, as in JAX: the
+wrapper raises for a table that requires grad rather than hand back rows
+with no ``grad_fn`` (the trainer makes the looked-up rows a leaf of their
+own and passes their gradient to the table explicitly).
+
+:func:`gather_rows` takes the plain version for CPU tensors and launches
+the kernel for CUDA tensors; ``gather_rows.launches`` counts launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rec_now_tpu_torch.ops import _build
+from rec_now_tpu_torch.ops._build import check_input, check_rc, is_cpu
+
+
+def gather_rows_plain(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[clamp(ids, 0, R - 1)]``: ids.shape + (D,)."""
+    return table[ids.clamp(0, table.shape[0] - 1)]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("gather")
+    if not getattr(lib, "_typed", False):
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gather_rows_f32.argtypes = [ptr, i64, i32, ptr, i32, i64, ptr,
+                                        i32, ptr]
+        lib.gather_rows_f32.restype = i32
+        lib.scatter_add_rows_f32.argtypes = [ptr, i64, i32, ptr, i32, i64,
+                                             ptr, i32, ptr]
+        lib.scatter_add_rows_f32.restype = i32
+        lib._typed = True
+    return lib
+
+
+def check_ids(ids: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``ids`` flattened and contiguous; raise unless int32 or int64 on
+    ``device``."""
+    if ids.device != device:
+        raise ValueError(f"ids are on {ids.device}, expected {device}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    return ids.reshape(-1).contiguous()
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of a (R, D) float32 table at int32 / int64 ``ids`` of any
+    shape -> ids.shape + (D,); ids outside [0, R) clamp into it."""
+    if table.requires_grad:
+        raise ValueError("gather_rows is forward only (as packed_gather): "
+                         "pass a table that does not require grad")
+    if is_cpu(table, "gather_rows"):
+        return gather_rows_plain(table, ids)
+    dev = table.device
+    check_input("table", table, 2, dev)
+    flat = check_ids(ids, dev)
+    rows, d = table.shape
+    if rows == 0:
+        raise ValueError("gather_rows needs a table with at least one row")
+    out = torch.empty((flat.numel(), d), dtype=torch.float32, device=dev)
+    if out.numel():                    # a grid of 0 blocks is a launch error
+        lib = _lib()
+        rc = lib.gather_rows_f32(table.data_ptr(), rows, d, flat.data_ptr(),
+                                 int(flat.dtype == torch.int64), flat.numel(),
+                                 out.data_ptr(), dev.index,
+                                 _build.stream_of(table))
+        check_rc(lib, rc, "gather_rows")
+        gather_rows.launches += 1
+    return out.reshape(tuple(ids.shape) + (d,))
+
+
+gather_rows.launches = 0

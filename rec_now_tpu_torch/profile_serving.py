@@ -1,15 +1,16 @@
 """Where a serving request's time goes on the card.
 
     python -m rec_now_tpu_torch.profile_serving \
-        [--model xdeepfm|multitask|dcnv2]
+        [--model xdeepfm|multitask|dcnv2|fm]
 
 Builds a full-width model (``FeatureConfig()``; ``XDeepFMModel()``,
-config 3, ``MultiTaskModel()``, config 4, or ``DCNv2Model()``, config 2;
-random weights from a
-seed), warms up, then scores 5 requests of B = 8,192 per
-front end (raw, u8 wire, f16 wire) under ``torch.profiler``.  Prints, per
-front end, the wall ms per request, the device's busy share of that window
-(sum of kernel times over wall time) and the kernels by total device time.
+config 3, ``MultiTaskModel()``, config 4, ``DCNv2Model()``, config 2, or
+``FMModel()``, config 1; random weights from a seed), warms up, then
+scores 5 requests of B = 8,192 per front end (raw, u8 wire, f16 wire)
+under ``torch.profiler``.  Prints, per front end, the wall ms per request,
+the device's busy share of that window (sum of kernel times over wall
+time), the port's kernel launches per request by the wrappers' counts
+(the row gather B11 among them) and the device work by total time.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -23,14 +24,40 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
-from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
+from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig, FMModel,
                                       MultiTaskModel, XDeepFMModel)
+from rec_now_tpu_torch.ops import cin_kernel as ck
+from rec_now_tpu_torch.ops import expand_kernel as ek
+from rec_now_tpu_torch.ops import gather_kernel as gk
+from rec_now_tpu_torch.ops import listwise_kernel as lk
+from rec_now_tpu_torch.ops import multi_dense_kernel as mk
+from rec_now_tpu_torch.ops import pairwise_kernel as pk
+from rec_now_tpu_torch.ops import table_update_kernel as tk
 from rec_now_tpu_torch.serving import ServingState, WireScorer, build_scorer
 from rec_now_tpu_torch.training.data import SyntheticCriteo
 
 REQUESTS, BATCH = 5, 8192
 MODELS = {"xdeepfm": XDeepFMModel, "multitask": MultiTaskModel,
-          "dcnv2": DCNv2Model}
+          "dcnv2": DCNv2Model, "fm": FMModel}
+# the port's kernel wrappers, each counting its launches
+WRAPPERS = (ck.cin_stack_sum, ck.cin_flat, ck.cin_stack_sum_bwd,
+            ck.cin_flat_bwd, pk.pair_loss_sum, pk.pair_row_counts,
+            pk.same_group_matvec, pk.group_pair_counts_binary,
+            lk.listwise_loss_sum, mk.multi_dense_fused,
+            tk.adagrad_dense_pass, tk.adam_dense_pass, gk.gather_rows,
+            ek.scatter_add_rows)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches_per(units: int) -> str:
+    """The wrappers' launch counts since :func:`reset_launches`, per
+    unit, of the kernels that launched."""
+    return ", ".join(f"{fn.__name__} {fn.launches / units:g}"
+                     for fn in WRAPPERS if fn.launches)
 
 
 def _device_us(evt) -> float:
@@ -65,6 +92,7 @@ def main() -> None:
     for name, fn in fronts.items():
         fn(state, reqs[0].dense, reqs[0].sparse_ids)         # warm-up
         torch.cuda.synchronize()
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -84,6 +112,7 @@ def main() -> None:
         print(f"{args.model} {name}: {wall_us / n / 1e3:.3f} ms/request (profiled, "
               f"B={BATCH}), device busy {busy / n / 1e3:.3f} ms/request"
               f" = {busy / wall_us:.1%} of wall [{card}]")
+        print(f"  port kernels per request: {launches_per(n)}")
         for e in sorted(events, key=_device_us, reverse=True)[:12]:
             print(f"  {_device_us(e) / n / 1e3:8.4f} ms/request "
                   f"x{e.count // n:<3d} {e.key[:90]}")

@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python -m rec_now_tpu_torch.profile_training \
-        [--model xdeepfm|multitask|dcnv2]
+        [--model xdeepfm|multitask|dcnv2|fm]
 
 Trains at full width (``FeatureConfig()``, random weights from a seed,
 B = 8,192) either config 3 (``XDeepFMModel()``,
@@ -9,11 +9,14 @@ B = 8,192) either config 3 (``XDeepFMModel()``,
 ``cin_sum_channel=True`` and then ``False``, or config 4
 (``MultiTaskModel()``, ``TrainerConfig(pointwise_weight=1.0,
 listwise_weight=0.5, num_tasks=2)``), or config 2 (``DCNv2Model()`` with
-lazy sparse Adam, :data:`CONFIG2`): two warm-up steps and one profiled
-and dropped, then 5 steps under ``torch.profiler``.
+lazy sparse Adam, :data:`CONFIG2`), or config 1 (``FMModel()``, the
+CLI's defaults: pointwise loss, Adagrad rows): two warm-up steps and one
+profiled and dropped, then 5 steps under ``torch.profiler``.
 Prints, per run, the wall ms per step, the device's busy share of
-that window (sum of kernel and copy times over wall time) and the device
-work by total time.  Needs a CUDA device.
+that window (sum of kernel and copy times over wall time), the port's
+kernel launches per step by the wrappers' counts (the row gather B11 and
+the row scatter-add B12 among them) and the device work by total time.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -25,9 +28,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
+from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig, FMModel,
                                       MultiTaskModel, XDeepFMModel)
-from rec_now_tpu_torch.profile_serving import _device_us
+from rec_now_tpu_torch.profile_serving import (_device_us, launches_per,
+                                               reset_launches)
 from rec_now_tpu_torch.training import SyntheticCriteo, Trainer, TrainerConfig
 
 STEPS, WARMUP, BATCH = 5, 2, 8192
@@ -43,6 +47,9 @@ def _runs(model: str, fc: FeatureConfig):
     if model == "dcnv2":
         yield "dcnv2+adam", DCNv2Model(fc, seed=0), CONFIG2
         return
+    if model == "fm":
+        yield "fm", FMModel(fc, seed=0), TrainerConfig()
+        return
     if model == "multitask":
         yield ("multitask", MultiTaskModel(fc, seed=0),
                TrainerConfig(pointwise_weight=1.0, listwise_weight=0.5,
@@ -56,8 +63,8 @@ def _runs(model: str, fc: FeatureConfig):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("xdeepfm", "multitask", "dcnv2"),
-                    default="xdeepfm")
+    ap.add_argument("--model", default="xdeepfm",
+                    choices=("xdeepfm", "multitask", "dcnv2", "fm"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
@@ -81,6 +88,7 @@ def main() -> None:
                                  ProfilerActivity.CUDA]):
             state, _ = trainer.train_step(state, *trainer.put(batches[0]))
         torch.cuda.synchronize()
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -101,6 +109,7 @@ def main() -> None:
               f"{busy / STEPS / 1e3:.3f} ms/step = {busy / wall_us:.1%} of "
               f"wall, {sum(e.count for e in events) // STEPS} device "
               f"launches/step [{card}]")
+        print(f"  port kernels per step: {launches_per(STEPS)}")
         for e in sorted(events, key=_device_us, reverse=True)[:16]:
             print(f"  {_device_us(e) / STEPS / 1e3:8.4f} ms/step "
                   f"x{e.count // STEPS:<3d} {e.key[:90]}")

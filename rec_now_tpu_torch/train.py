@@ -1,0 +1,250 @@
+"""CLI training entry point.
+
+Counterpart of ``rec_now_tpu/train.py``: the same flags and JSON lines,
+plus ``--device`` (``cuda`` unless asked otherwise; ``cpu`` runs the
+plain PyTorch path).
+
+Usage:
+    python -m rec_now_tpu_torch.train --model dcnv2 --steps 1000 \\
+        --batch-size 8192 --pairwise-weight 0.5 --eval-batches 8 \\
+        --scan-window 5 --wire-dense-mode u8 --eval-mode device \\
+        --checkpoint-dir /path/to/ckpt
+
+Models: fm | dcnv2 | xdeepfm | multitask (the four benchmark families),
+trained on the synthetic planted-model stream.  ``--scan-window W > 1``
+runs the windowed loop: a worker thread packs W host batches into the
+compressed wire and moves them to the device while the loop runs the
+previous window (``Trainer.train_many_packed``); otherwise one step per
+batch, placed ahead by a worker thread.  Prints a JSON line every
+``--log-every`` steps (at window granularity in the windowed loop), one
+per eval, and the final eval.  Flags whose path is not ported yet stop
+with "not ported yet" and the roadmap item: ``--data-file``,
+``--eval-file`` (A16), ``--multihost``, ``--sparse-route-mode routed``
+and ``--route-cap-factor`` / ``--route-ov-cap`` off their defaults
+(A11), ``--wire-id-mode hot8`` (A17).
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import math
+import sys
+import time
+from typing import Optional, Sequence
+
+
+def build_model(name: str, fc, device, seed: int):
+    """(model, num_tasks) of a ``--model`` choice at its default widths."""
+    from rec_now_tpu_torch.models import (DCNv2Model, FMModel,
+                                          MultiTaskModel, XDeepFMModel)
+    families = {"fm": (FMModel, 1), "dcnv2": (DCNv2Model, 1),
+                "xdeepfm": (XDeepFMModel, 1), "multitask": (MultiTaskModel, 2)}
+    if name not in families:
+        raise SystemExit(f"unknown model {name!r}")
+    cls, tasks = families[name]
+    return cls(fc, device=device, seed=seed), tasks
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """The JAX CLI's flags and ``--device``; a flag whose path is not
+    ported raises ``SystemExit``."""
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--model", default="dcnv2",
+                   choices=["fm", "dcnv2", "xdeepfm", "multitask"])
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (cpu: the plain "
+                        "PyTorch path, no kernels)")
+    p.add_argument("--steps", type=int, default=200)
+    p.add_argument("--batch-size", type=int, default=4096)
+    p.add_argument("--rows-per-field", type=int, default=100_000)
+    p.add_argument("--embedding-dim", type=int, default=16)
+    p.add_argument("--dense-lr", type=float, default=1e-3)
+    p.add_argument("--sparse-lr", type=float, default=0.05)
+    p.add_argument("--sparse-optimizer", default="adagrad",
+                   choices=["adagrad", "adam"])
+    p.add_argument("--sparse-update-mode", default="auto",
+                   choices=["auto", "sparse", "dense"])
+    p.add_argument("--sparse-route-mode", default="auto",
+                   choices=["auto", "allgather", "routed"],
+                   help="one device: auto and allgather exchange nothing; "
+                        "routed is not ported yet")
+    p.add_argument("--route-strict", action="store_true",
+                   help="fail when the exchange drops ids: one device "
+                        "exchanges none, so it never fails")
+    p.add_argument("--route-cap-factor", type=float, default=2.0,
+                   help="routed exchange only: not ported yet, so only the "
+                        "default is accepted")
+    p.add_argument("--route-ov-cap", type=int, default=0,
+                   help="routed exchange only: not ported yet, so only the "
+                        "default is accepted")
+    p.add_argument("--scan-window", type=int, default=0,
+                   help="steps per packed window (0 or 1: one step per "
+                        "batch)")
+    p.add_argument("--pointwise-weight", type=float, default=1.0)
+    p.add_argument("--pairwise-weight", type=float, default=0.0)
+    p.add_argument("--listwise-weight", type=float, default=0.0)
+    p.add_argument("--occurance-power", type=float, default=0.0)
+    p.add_argument("--wire-dense-mode", choices=("f16", "u8"), default="f16")
+    p.add_argument("--wire-id-mode", choices=("packed", "hot8"),
+                   default="packed")
+    p.add_argument("--eval-batches", type=int, default=4)
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="eval cadence in steps (0 = only at the end)")
+    p.add_argument("--eval-mode", choices=("exact", "device"),
+                   default="exact",
+                   help="exact: host-side sorted AUC + corpus GAUC; "
+                        "device: bucketed AUC + corpus GAUC histograms "
+                        "on the device")
+    p.add_argument("--eval-group-slots", type=int, default=0,
+                   help="device-eval corpus-GAUC group slots; 0 sizes "
+                        "them from --num-groups (capped at 65536)")
+    p.add_argument("--eval-group-buckets", type=int, default=512)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data-file", default=None)
+    p.add_argument("--eval-file", default=None)
+    p.add_argument("--num-groups", type=int, default=50_000)
+    p.add_argument("--multihost", action="store_true")
+    args = p.parse_args(argv)
+    for flag, on, item in (
+            ("--data-file", args.data_file, "A16"),
+            ("--eval-file", args.eval_file, "A16"),
+            ("--multihost", args.multihost, "A11"),
+            ("--sparse-route-mode routed",
+             args.sparse_route_mode == "routed", "A11"),
+            ("--route-cap-factor", args.route_cap_factor != 2.0, "A11"),
+            ("--route-ov-cap", args.route_ov_cap != 0, "A11"),
+            ("--wire-id-mode hot8", args.wire_id_mode == "hot8", "A17")):
+        if on:
+            raise SystemExit(f"{flag}: not ported yet (ROADMAP {item})")
+    return args
+
+
+def make_trainer(args: argparse.Namespace):
+    """The trainer ``args`` describe, with its model, on ``--device``."""
+    from rec_now_tpu_torch.models import FeatureConfig
+    from rec_now_tpu_torch.training import Trainer, TrainerConfig
+    fc = FeatureConfig(rows_per_field=args.rows_per_field,
+                       embedding_dim=args.embedding_dim)
+    model, num_tasks = build_model(args.model, fc, args.device, args.seed)
+    cfg = TrainerConfig(
+        pointwise_weight=args.pointwise_weight,
+        pairwise_weight=args.pairwise_weight,
+        listwise_weight=args.listwise_weight,
+        click_occurance_power=args.occurance_power,
+        dense_lr=args.dense_lr, sparse_lr=args.sparse_lr,
+        sparse_optimizer=args.sparse_optimizer,
+        sparse_update_mode=args.sparse_update_mode,
+        wire_dense_mode=args.wire_dense_mode,
+        num_tasks=num_tasks)
+    return Trainer(model, fc, cfg, device=args.device)
+
+
+def init_state(trainer, args: argparse.Namespace):
+    """The run's initial state: the model's seeded weights and a table
+    drawn from ``--seed``."""
+    import torch
+    return trainer.init(torch.Generator().manual_seed(args.seed))
+
+
+def data_streams(args: argparse.Namespace):
+    """(training batches, eval-batch maker) of the synthetic stream."""
+    from rec_now_tpu_torch.training import SyntheticCriteo
+    data = SyntheticCriteo(rows_per_field=args.rows_per_field,
+                           seed=args.seed)
+    train = data.batches(args.batch_size, args.steps, seed=args.seed + 1)
+    return train, lambda: data.batches(args.batch_size, args.eval_batches,
+                                       seed=args.seed + 999)
+
+
+def eval_slots(args: argparse.Namespace) -> int:
+    """Device-eval group slots: ``--eval-group-slots``, or enough for
+    --num-groups distinct groups to map exactly (capped at 65536)."""
+    if args.eval_group_slots:
+        return args.eval_group_slots
+    want = max(args.num_groups, 1024) * 8 // 7 + 1
+    return min(0x10000, 1 << math.ceil(math.log2(want)))
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    args = parse_args(argv)
+    from rec_now_tpu_torch.training.checkpoint import CheckpointManager
+    from rec_now_tpu_torch.training.prefetch import (DevicePrefetcher,
+                                                     WindowPrefetcher)
+
+    trainer = make_trainer(args)
+    batches, make_eval_batches = data_streams(args)
+    state = init_state(trainer, args)
+    ckpt = (CheckpointManager(args.checkpoint_dir)
+            if args.checkpoint_dir else None)
+    if args.eval_mode == "device":
+        eval_fn = functools.partial(trainer.evaluate_device,
+                                    num_group_slots=eval_slots(args),
+                                    group_buckets=args.eval_group_buckets)
+    else:
+        eval_fn = trainer.evaluate
+
+    def run_eval(step: int) -> None:
+        res = eval_fn(state, make_eval_batches())
+        print(json.dumps({"step": step, "eval": res,
+                          "eval_mode": args.eval_mode}), flush=True)
+
+    def log(step: int, metrics) -> None:
+        # the floats wait for the step's work, so the rate counts it
+        line = {k: round(float(v), 5) for k, v in metrics.items()}
+        # one device exchanges no ids, so none is dropped
+        line.setdefault("sparse_dropped", 0.0)
+        eps = args.batch_size * step / (time.perf_counter() - t0)
+        line.update(step=step, examples_per_sec=round(eps, 1))
+        print(json.dumps(line), flush=True)
+
+    def crossed(every: int, prev: int, step: int) -> bool:
+        return bool(every) and step // every > prev // every
+
+    t0 = time.perf_counter()
+    if args.scan_window > 1:
+        # each window's host batches are packed and moved on a worker
+        # thread while the loop runs the previous window; log, eval and
+        # checkpoint fire at window granularity when the step crosses
+        # their cadence
+        step = 0
+        with WindowPrefetcher(batches, trainer.put_packed_window,
+                              args.scan_window) as wins:
+            for dev_win, n_steps in wins:
+                state, seq = trainer.train_many_packed(state, dev_win)
+                prev, step = step, step + n_steps
+                if crossed(args.log_every, prev, step):
+                    log(step, {k: v[-1] for k, v in seq.items()})
+                if crossed(args.eval_every, prev, step):
+                    run_eval(step)
+                if ckpt and crossed(args.checkpoint_every, prev, step):
+                    ckpt.save(step, state)
+    else:
+        with DevicePrefetcher(batches, trainer.put) as prefetched:
+            for i, dev_batch in enumerate(prefetched):
+                state, metrics = trainer.train_step(state, *dev_batch)
+                step = i + 1
+                if args.log_every and step % args.log_every == 0:
+                    log(step, metrics)
+                if args.eval_every and step % args.eval_every == 0:
+                    run_eval(step)
+                if ckpt and args.checkpoint_every \
+                        and step % args.checkpoint_every == 0:
+                    ckpt.save(step, state)
+
+    res = eval_fn(state, make_eval_batches())
+    print(json.dumps({"final_eval": res, "steps": args.steps,
+                      "model": args.model, "eval_mode": args.eval_mode}),
+          flush=True)
+    if ckpt:
+        ckpt.save(args.steps, state)
+        ckpt.wait()
+        ckpt.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

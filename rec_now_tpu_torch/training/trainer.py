@@ -34,6 +34,18 @@ device: nothing in a step waits for the card.
 ``put`` gives the JAX tuple ``(dense, ids, labels, groups, cvr,
 domain)`` and ``train_step`` takes it.
 
+The windowed loop (``trainer.py:443-622``): ``put_packed_window`` packs a
+window of host batches in the compressed wire (``training/wire.py``; on
+the card by its C++ pack) and moves it to the device; on the card the
+copy runs on a side stream from pinned memory and the call returns once
+it has landed, so a prefetch thread (``training/prefetch.py``) carries
+the wait while the loop thread computes.  ``train_many_packed`` then runs
+the window's steps in order,
+each decoding its own slice on the device (a loop of steps in place of
+JAX's ``lax.scan``).  Evaluation is exact on the host (``evaluate``) or
+device-resident over the packed wire (``evaluate_device``, bucketed AUC
+and corpus or in-batch GAUC, ``training/metrics.py``).
+
 Example:
     trainer = Trainer(XDeepFMModel(fc), fc, TrainerConfig(
         pairwise_weight=1.0, click_occurance_power=-0.5))
@@ -44,9 +56,12 @@ Example:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import inspect
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, Dict, Iterable, List, Mapping, NamedTuple,
+                    Optional, Tuple, Union)
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -60,6 +75,14 @@ from rec_now_tpu_torch.losses.pointwise import \
     sigmoid_cross_entropy_with_logits
 from rec_now_tpu_torch.models.feature_config import FeatureConfig
 from rec_now_tpu_torch.training.data import Batch
+from rec_now_tpu_torch.training.metrics import (CorpusGroupIndexer,
+                                                DeviceGroupedAUC,
+                                                DeviceStreamingAUC,
+                                                StreamingGAUC,
+                                                batch_gauc_stats)
+from rec_now_tpu_torch.training.prefetch import WindowPrefetcher
+from rec_now_tpu_torch.training.wire import (PackedBatch, WireFormat,
+                                             to_tensors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +99,7 @@ class TrainerConfig:
     sparse_optimizer: str = "adagrad"   # "adagrad" | "adam" (lazy, rowwise)
     sparse_update_mode: str = "auto"    # "auto" | "sparse" | "dense"
     num_tasks: int = 1          # >1: multi-task (CTR + CVR) heads
+    wire_dense_mode: str = "f16"        # "f16" | "u8" (training/wire.py)
 
 
 class TrainState(NamedTuple):
@@ -113,6 +137,13 @@ class Trainer:
         # (MultiTaskModel's STAR towers)
         self._takes_domain = "domain_idx" in inspect.signature(
             model.forward).parameters
+        self._wire: Optional[WireFormat] = None
+        # packed windows land through a side stream; the stream that
+        # computes on them is the one current when the trainer was built
+        self._side = self._compute = None
+        if self.device.type == "cuda":
+            self._side = torch.cuda.Stream(self.device)
+            self._compute = torch.cuda.current_stream(self.device)
 
     def put(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
         """A host batch -> (dense, sparse_ids, labels, group_ids,
@@ -223,3 +254,221 @@ class Trainer:
             emb = self.table.lookup(state.table, self.fc.global_ids(ids))
             return self._forward(state.params, dense, emb, domain)
 
+    def train_many(self, state: TrainState, batches: Iterable[Batch]
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Several steps on host batches; metrics stacked over the steps."""
+        seq = []
+        for batch in batches:
+            state, metrics = self.train_step(state, *self.put(batch))
+            seq.append(metrics)
+        return state, _stack(seq)
+
+    # -- packed wire path ---------------------------------------------------
+    @property
+    def wire(self) -> WireFormat:
+        """The wire bound to this trainer's feature layout (one shard)."""
+        if self._wire is None:
+            self._wire = WireFormat(self.fc.num_sparse,
+                                    self.fc.rows_per_field,
+                                    dense_mode=self.cfg.wire_dense_mode)
+        return self._wire
+
+    def put_packed_window(self, batches: Iterable[Batch],
+                          raw_groups: bool = False) -> PackedBatch:
+        """Pack a window of host batches and move it to the device; on the
+        card the pack is the C++ one (the same bytes, with the interpreter
+        lock released), the copy runs on a side stream from pinned memory
+        and this returns when it has landed.  ``raw_groups`` ships group
+        ids unremapped (pre-mapped corpus slots, the device-GAUC eval)."""
+        dev = self.device
+        if dev.type != "cuda":
+            packed = self.wire.pack_window(list(batches),
+                                           raw_groups=raw_groups)
+            return PackedBatch(*[t.to(dev) for t in to_tensors(packed)])
+        packed = to_tensors(self.wire.pack_window_native(
+            list(batches), raw_groups=raw_groups))
+        with torch.cuda.device(dev):
+            # staged by numpy's copy: torch's (pin_memory) wakes its
+            # OpenMP team, whose spinning threads take the cores the loop
+            # thread dispatches from
+            pinned = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                      for t in packed]
+            for p, t in zip(pinned, packed):
+                np.copyto(p.numpy(), t.numpy())
+            with torch.cuda.stream(self._side):
+                out = [t.to(dev, non_blocking=True) for t in pinned]
+                landed = torch.cuda.Event()
+                landed.record(self._side)
+            # made on the side stream, read on the compute stream: the
+            # allocator must not hand the memory back to the side stream
+            # before the compute stream's reads are done
+            for t in out:
+                t.record_stream(self._compute)
+            landed.synchronize()
+        return PackedBatch(*out)
+
+    def _steps_of(self, packed: PackedBatch):
+        """Each step's decoded slice of a device window, in order: the
+        window is decoded at once (one set of launches, not one a step)."""
+        decoded = self.wire.decode(packed)
+        for s in range(packed.dense.shape[0]):
+            yield tuple(x[s] for x in decoded)
+
+    def train_many_packed(self, state: TrainState, packed: PackedBatch
+                          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Run a device-resident packed window's steps in order; metrics
+        stacked over the steps."""
+        seq = []
+        for step in self._steps_of(packed):
+            state, metrics = self.train_step(state, *step)
+            seq.append(metrics)
+        return state, _stack(seq)
+
+    def train_pipelined(self, state: TrainState,
+                        host_batches: Iterable[Batch], window: int = 5
+                        ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Windowed training with window k + 1 packed and moved on a worker
+        thread while window k runs; returns the final state and the last
+        window's stacked metrics."""
+        metrics = None
+        with WindowPrefetcher(host_batches, self.put_packed_window, window,
+                              parse_ahead=False) as wins:
+            for dev_win, _ in wins:
+                state, metrics = self.train_many_packed(state, dev_win)
+        return state, metrics
+
+    # -- loops --------------------------------------------------------------
+    def fit(self, state: TrainState, batches: Iterable[Batch],
+            log_every: int = 0,
+            log_fn: Optional[Callable[[int, Dict], None]] = None
+            ) -> Tuple[TrainState, Dict[str, float]]:
+        """Run the stream of host batches; return the final state and the
+        last logged (or final) metrics as floats."""
+        last, metrics = {}, {}
+        for i, batch in enumerate(batches):
+            state, metrics = self.train_step(state, *self.put(batch))
+            if log_every and (i + 1) % log_every == 0:
+                last = {k: float(v) for k, v in metrics.items()}
+                if log_fn:
+                    log_fn(i + 1, last)
+        if not last:
+            last = {k: float(v) for k, v in metrics.items()}
+        return state, last
+
+    def evaluate(self, state: TrainState,
+                 batches: Iterable[Batch]) -> Dict[str, float]:
+        """Exact AUC / corpus GAUC over an eval stream, accumulated on the
+        host; a multi-task model adds ``cvr_auc`` / ``cvr_gauc``."""
+        acc = StreamingGAUC()
+        cvr_acc = StreamingGAUC() if self.cfg.num_tasks > 1 else None
+        for batch in batches:
+            dense, ids, _, _, _, domain = self.put(batch)
+            logits = self.eval_step(state, dense, ids, domain).cpu().numpy()
+            if logits.ndim == 2:                           # multi-task
+                if cvr_acc is not None:
+                    cvr_acc.update(batch.group_ids, batch.cvr_labels,
+                                   logits[1])
+                logits = logits[0]
+            acc.update(batch.group_ids, batch.labels, logits)
+        result = acc.result()
+        if cvr_acc is not None:
+            cvr_res = cvr_acc.result()
+            result["cvr_auc"] = cvr_res["auc"]
+            result["cvr_gauc"] = cvr_res["gauc"]
+        return result
+
+    def evaluate_device(self, state: TrainState, batches: Iterable[Batch],
+                        window: int = 8, num_buckets: int = 4096,
+                        gauc: str = "corpus", num_group_slots: int = 8192,
+                        group_buckets: int = 512) -> Dict[str, float]:
+        """Device-resident eval over the packed wire: bucketed AUC
+        histograms and, with ``gauc='corpus'``, per-group score histograms
+        indexed by host-assigned corpus slots (exact grouping while the
+        eval set has fewer than 7/8 of ``num_group_slots`` groups), or
+        with ``gauc='inbatch'`` the pair-weighted in-batch GAUC sums.
+        Window k + 1 is packed and moved on a worker thread while window k
+        runs; the host fetches 2 K floats (and the (3, G) group stats).
+
+        Returns {'auc', 'gauc_mode', 'num_pos', 'num_neg', 'gauc'
+        [, 'gauc_groups'][, 'gauc_overflow'][, 'cvr_auc', 'cvr_gauc']}.
+        """
+        if gauc not in ("corpus", "inbatch"):
+            raise ValueError(f"unknown gauc mode {gauc!r}")
+        if num_group_slots > 0x10000:
+            raise ValueError(
+                "corpus group slots travel the uint16 group wire: "
+                f"num_group_slots must be <= 65536, got {num_group_slots}")
+        corpus = gauc == "corpus"
+        multi = self.cfg.num_tasks > 1
+        batches = list(batches)
+        if not batches:
+            raise ValueError("evaluate_device needs at least one batch")
+        indexer = None
+        if corpus:
+            indexer = CorpusGroupIndexer(num_group_slots)
+            batches = [b._replace(group_ids=indexer.assign(b.group_ids))
+                       for b in batches]
+        dev = self.device
+        hist = torch.zeros((2, num_buckets), device=dev)
+        cvr_hist = torch.zeros((2, num_buckets), device=dev)
+        if corpus:
+            ghist = DeviceGroupedAUC.init(num_group_slots, group_buckets, dev)
+            cvr_ghist = (DeviceGroupedAUC.init(num_group_slots,
+                                               group_buckets, dev)
+                         if multi else None)
+        else:
+            win = torch.zeros((), device=dev)
+            total = torch.zeros((), device=dev)
+        put = functools.partial(self.put_packed_window, raw_groups=corpus)
+        with WindowPrefetcher(batches, put, window,
+                              parse_ahead=False) as wins:
+            for packed, _ in wins:
+                for dense, ids, labels, groups, cvr, domain in \
+                        self._steps_of(packed):
+                    logits = self.eval_step(state, dense, ids, domain)
+                    main = logits[0] if multi else logits
+                    DeviceStreamingAUC.accumulate(hist, labels, main)
+                    if corpus:
+                        DeviceGroupedAUC.accumulate(ghist, groups, labels,
+                                                    main, group_buckets)
+                    else:
+                        w, t = batch_gauc_stats(labels, main, groups)
+                        win += w
+                        total += t
+                    if multi:
+                        DeviceStreamingAUC.accumulate(cvr_hist, cvr,
+                                                      logits[1])
+                        if corpus:
+                            DeviceGroupedAUC.accumulate(
+                                cvr_ghist, groups, cvr, logits[1],
+                                group_buckets)
+        h = hist.cpu().numpy()
+        result = {"auc": DeviceStreamingAUC.auc_from_hist(h),
+                  "gauc_mode": gauc,
+                  "num_pos": float(h[0].sum()),
+                  "num_neg": float(h[1].sum())}
+        if corpus:
+            # (2 G, K) -> (3, G) on the device: the host fetch is O(G)
+            gr = DeviceGroupedAUC.gauc_from_stats(
+                DeviceGroupedAUC.finish(ghist).cpu().numpy())
+            result["gauc"] = gr["gauc"]
+            result["gauc_groups"] = gr["num_groups"]
+            if indexer.overflowed:
+                result["gauc_overflow"] = float(indexer.overflowed)
+        else:
+            result["gauc"] = (float(win / total) if float(total) > 0
+                              else 0.5)
+        if multi:
+            result["cvr_auc"] = DeviceStreamingAUC.auc_from_hist(
+                cvr_hist.cpu().numpy())
+            if corpus:
+                result["cvr_gauc"] = DeviceGroupedAUC.gauc_from_stats(
+                    DeviceGroupedAUC.finish(cvr_ghist).cpu().numpy())["gauc"]
+        return result
+
+
+def _stack(seq: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """Per-step metric dicts -> one dict of (steps,) tensors."""
+    if not seq:
+        return {}
+    return {k: torch.stack([m[k] for m in seq]) for k in seq[0]}

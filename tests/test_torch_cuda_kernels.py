@@ -10,10 +10,18 @@ dense and the listwise loss, config 4's shapes (the four banks at
 B = 1,000 and 8,192) and degenerate batches; for lazy Adam (B10) ragged V,
 every D it takes and t = 1 and 1,000; for the pair counts (B7a/b/c) and
 the general pair loss (B3) graded labels, two groups, a 0/1 mask and the
-wrong-order filter at B = 1, 8,191 and 8,192.  Tolerance: f32 with a
-different summation order, 1e-5 relative to the largest output (1e-4
-for gradients through the whole model).
+wrong-order filter at B = 1, 8,191 and 8,192; for the row gather (B11)
+and the row scatter-add (B12) int32 and int64 ids, ragged and empty N,
+ids out of range, D = 5 and a misaligned table (the scalar loop) and the
+full 2.6M x 16 table with a B = 8,192 batch's count of ids; the
+windowed training loop (packed windows moved on a side stream) against
+put + train_step; and the wire's C++ window pack against its numpy pack
+(byte-equal).  Tolerance: f32 with a different summation order, 1e-5
+relative to the largest output (1e-4 for gradients through the whole
+model and for the windowed loop's losses); B11 exact; B12 1e-6 of each
+element's summed |terms| (atomics add in no fixed order).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -467,3 +475,145 @@ def test_slice4_wrappers_reject_bad_inputs(dev):
         pk.pair_row_counts(z[0], z[0], [t.int()] * 5)
     with pytest.raises(ValueError):      # occurrence weight with two groups
         pk.pair_loss_fused(z[0], z[0], [t.int()] * 2, 1.0, -0.5)
+
+
+# -- B11 (row gather) and B12 (row scatter-add) --------------------------
+
+@pytest.mark.parametrize("v,d,n", [(1, 4, 7), (1000, 16, 1500),
+                                   (2_600_000, 16, 212_992), (777, 5, 333),
+                                   (300, 128, 4097), (50, 16, 0)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_gather_rows_matches_plain_exactly(dev, v, d, n, dtype):
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    gen = torch.Generator().manual_seed(v + d + n)
+    table = _rand(gen, dev, v, d)
+    ids = torch.randint(-3, v + 3, (n,), generator=gen).to(dtype).to(dev)
+    before = gk.gather_rows.launches
+    got = gk.gather_rows(table, ids)
+    assert torch.equal(got, gk.gather_rows_plain(table, ids))
+    assert gk.gather_rows.launches == before + (1 if n else 0)
+    # a view that starts off the 16-byte grid takes the scalar loop
+    off = _rand(gen, dev, v * d + 1)[1:].view(v, d)
+    assert torch.equal(gk.gather_rows(off, ids),
+                       gk.gather_rows_plain(off, ids))
+    shaped = ids[:n - n % 4].reshape(-1, 2, 2)
+    assert gk.gather_rows(table, shaped).shape == tuple(shaped.shape) + (d,)
+
+
+@pytest.mark.parametrize("v,d,n", [(1, 4, 7), (1000, 16, 1500),
+                                   (2_600_000, 16, 212_992), (777, 5, 333),
+                                   (50, 16, 0)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_scatter_add_rows_matches_plain(dev, v, d, n, dtype):
+    from rec_now_tpu_torch.ops import expand_kernel as ek
+    gen = torch.Generator().manual_seed(v + d + n + 1)
+    ids = torch.randint(-3, v + 3, (n,), generator=gen)
+    ids[::3] = v // 2                          # a hot row
+    ids[1::5] = v                              # sentinel rows: dropped
+    ids, vals = ids.to(dtype).to(dev), _rand(gen, dev, n, d)
+    out = _rand(gen, dev, v, d)
+    want = out.clone()
+    before = ek.scatter_add_rows.launches
+    assert ek.scatter_add_rows(out, ids, vals) is out
+    assert ek.scatter_add_rows.launches == before + (1 if n else 0)
+    ek.scatter_add_rows_plain(want, ids, vals)
+    # atomics add in no fixed order: 1e-6 of the summed |vals| per element
+    keep = (ids >= 0) & (ids < v)
+    scale = torch.zeros_like(out).index_add_(0, ids[keep],
+                                             vals[keep].abs())
+    assert float((out - want).abs().max()) <= 1e-6 * float(
+        (scale + want.abs()).max())
+
+
+def test_gather_scatter_reject_bad_inputs(dev):
+    from rec_now_tpu_torch.ops import expand_kernel as ek
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    table = torch.zeros(8, 4, device=dev)
+    ids = torch.zeros(3, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):       # float ids
+        gk.gather_rows(table, ids.float())
+    with pytest.raises(ValueError):      # ids on the CPU
+        gk.gather_rows(table, ids.cpu())
+    with pytest.raises(ValueError):      # an empty table
+        gk.gather_rows(table[:0], ids)
+    with pytest.raises(ValueError, match="forward only"):
+        gk.gather_rows(table.clone().requires_grad_(), ids)
+    with pytest.raises(ValueError):      # vals of another width
+        ek.scatter_add_rows(table, ids, torch.zeros(3, 5, device=dev))
+    with pytest.raises(TypeError):       # f64 vals
+        ek.scatter_add_rows(table, ids, torch.zeros(3, 4, device=dev,
+                                                    dtype=torch.float64))
+
+
+def test_windowed_loop_on_the_card_matches_put_and_train_step(dev):
+    """The packed window moved on the side stream and decoded on the card
+    gives the steps that put + train_step give on the same decoded
+    batches (f16 dense: lossless for the synthetic stream's values)."""
+    from rec_now_tpu_torch.models import DCNv2Model, FeatureConfig
+    from rec_now_tpu_torch.training import (SyntheticCriteo, Trainer,
+                                            TrainerConfig)
+    fc = FeatureConfig(rows_per_field=1000, embedding_dim=8)
+    cfg = TrainerConfig(pairwise_weight=0.5, click_occurance_power=-0.5)
+    batches = list(SyntheticCriteo(rows_per_field=1000).batches(512, 6))
+    runs = []
+    for windowed in (True, False):
+        trainer = Trainer(DCNv2Model(fc, deep_dims=(32,), device=dev), fc,
+                          cfg, device=dev)
+        state = trainer.init(torch.Generator().manual_seed(0))
+        losses = []
+        if windowed:
+            state, m = trainer.train_pipelined(state, iter(batches), 3)
+            losses = m["loss"]
+        else:
+            for b in batches:
+                b = b._replace(dense=b.dense.astype(np.float16).astype(
+                    np.float32))
+                state, m = trainer.train_step(state, *trainer.put(b))
+                losses.append(m["loss"])
+            losses = torch.stack(losses[3:])
+        runs.append((losses, state))
+    (lw, sw), (ls, ss) = runs
+    torch.testing.assert_close(lw, ls, rtol=1e-4, atol=0)
+    torch.testing.assert_close(sw.table.table, ss.table.table, rtol=1e-4,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["u8", "f16"])
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("rows", [3, 1000, 100_000, 2 ** 32])
+def test_native_wire_pack_matches_numpy(dev, mode, shards, rows):
+    """The C++ window pack (csrc/wire.cu, what put_packed_window runs on
+    the card) gives pack_window's bytes: int32 and int64 ids, groups and
+    domains, ids and groups out of range, a constant feature (step 0),
+    signed labels, domains that wrap in uint8, raw groups; domain >= 64
+    and a non-f32 dense raise."""
+    from rec_now_tpu_torch.training import SyntheticCriteo
+    from rec_now_tpu_torch.training.wire import WireFormat
+    rng = np.random.default_rng(rows + shards)
+    wire = WireFormat(26, rows, dense_mode=mode, num_shards=shards)
+    base = list(SyntheticCriteo(rows_per_field=min(rows, 1000)).batches(
+        512, 3))
+    wide = [b._replace(
+        dense=(b.dense * 1e3).astype(np.float32),
+        sparse_ids=rng.integers(-2 ** 40, 2 ** 40, b.sparse_ids.shape),
+        group_ids=rng.integers(-5, 60000, 512),
+        labels=rng.integers(-1, 2, 512).astype(np.float32),
+        domain_idx=rng.integers(0, 64, 512) + 256) for b in base]
+    for b in wide:
+        b.dense[:, 0] = 3.5
+    for batches in (base, wide):
+        for raw in (False, True):
+            if raw:
+                batches = [b._replace(group_ids=np.abs(b.group_ids))
+                           for b in batches]
+            want = wire.pack_window(batches, raw_groups=raw)
+            got = wire.pack_window_native(batches, raw_groups=raw)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="domain"):
+        wire.pack_window_native([base[0]._replace(
+            domain_idx=base[0].domain_idx + 64)])
+    with pytest.raises(TypeError, match="dense"):
+        wire.pack_window_native([base[0]._replace(
+            dense=base[0].dense.astype(np.float64))])

@@ -248,3 +248,53 @@ def test_slice4_wrappers_take_plain_version_on_cpu_only():
                  lambda: pk.group_pair_counts_binary(*meta(grp[0], lab))):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
+
+
+def test_slice5_wrappers_take_plain_version_on_cpu_only():
+    """B11 and B12: plain on CPU tensors (no launch counted), an error on
+    any other non-CUDA device; B11 refuses a table that requires grad
+    rather than hand back rows without a gradient, and B12 tensors that
+    require grad."""
+    from rec_now_tpu_torch.ops import expand_kernel as ek
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    rng = np.random.RandomState(4)
+    table = torch.from_numpy(rng.randn(20, 4).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(-3, 25, (6, 5)))
+    torch.testing.assert_close(gk.gather_rows(table, ids),
+                               gk.gather_rows_plain(table, ids),
+                               rtol=0, atol=0)
+    out, want = torch.zeros(20, 4), torch.zeros(20, 4)
+    flat, vals = ids.reshape(-1), torch.randn(30, 4)
+    ek.scatter_add_rows(out, flat, vals)
+    ek.scatter_add_rows_plain(want, flat, vals)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    assert (gk.gather_rows.launches, ek.scatter_add_rows.launches) == (0, 0)
+    with pytest.raises(ValueError, match="forward only"):
+        gk.gather_rows(table.clone().requires_grad_(), ids)
+    with pytest.raises(ValueError, match="no gradient"):
+        ek.scatter_add_rows(out, flat, vals.requires_grad_())
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        gk.gather_rows(table.to("meta"), ids.to("meta"))
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        ek.scatter_add_rows(out.to("meta"), flat.to("meta"),
+                            vals.detach().to("meta"))
+
+
+def test_slice5_entry_points_default_to_cuda(monkeypatch):
+    """The FM model, the device metrics and the training CLI raise on a
+    host without CUDA unless asked for the CPU."""
+    from rec_now_tpu_torch import train as cli
+    from rec_now_tpu_torch.models import FMModel
+    from rec_now_tpu_torch.training.metrics import (DeviceGroupedAUC,
+                                                    DeviceStreamingAUC)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fc = FeatureConfig(rows_per_field=16, embedding_dim=4)
+    for make in (lambda: FMModel(fc),
+                 lambda: DeviceStreamingAUC(64),
+                 lambda: DeviceGroupedAUC.init(8, 16),
+                 lambda: cli.main(["--model", "fm", "--steps", "1",
+                                   "--rows-per-field", "16"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()
+    assert FMModel(fc, device="cpu").bias.device == torch.device("cpu")
+    assert DeviceStreamingAUC(64, device="cpu").hist.shape == (2, 64)
