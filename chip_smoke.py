@@ -21,11 +21,17 @@ Phases, each of which ends the script with a non-zero exit on failure:
    and the row scatter-add (B12, within 1e-6 of each output's summed
    scale) on the 2.6M x 16 table with a B = 8192 batch's 212,992 ids (the
    dense buffer, the sparse path's dedup and its sentinel-heavy
-   write-backs, ragged, empty and out-of-range ids), and at ragged
-   shapes, and time kernel, plain version and, where one exists, a
-   single PyTorch call computing the same function (CUDA events, median
-   of 20); then time the table's dense and sparse update paths (the
-   median of interleaved rounds), which sets ``auto``;
+   write-backs, ragged, empty and out-of-range ids, vals off the 16-byte
+   grid), and at ragged shapes and the multi-expert dense's dispatch
+   edges (N * U = 16 and 17, a small per-expert bank, W too deep for the
+   gate kernel, x off the 16-byte grid), and time kernel, plain version
+   and, where one exists, a single PyTorch call computing the same
+   function (CUDA events, median of 20; each multi-expert dense bank
+   beside its bound on the unit that runs it: split TF32 on the tensor
+   cores, or f32 for the gate kernel); the wrappers' host microseconds
+   per launch (``rec_now_tpu_torch.profile_launch``); then time the
+   table's dense and sparse update paths (the median of interleaved
+   rounds), which sets ``auto``;
 Phases 4-6 go through one table of runs, the port's paths: config 3
 (xDeepFM: 26 x 100,000 x 16 table on the card, CIN (64, 64), deep
 (256, 128), ``TrainerConfig(pairwise_weight=1.0,
@@ -59,7 +65,9 @@ gradients once (B12).
    step's own tensors against its plain version, relative to that
    output's scale, failing unless each compared quantity is larger than
    its tolerance: the CIN backward's dx0 and dW of every layer, or the six
-   multi-expert dense calls; the ranking loss's dlogits (pair or
+   multi-expert dense calls (each also with x off the 16-byte grid, and
+   a shared input as one copy per expert); the ranking loss's dlogits
+   (pair or
    listwise); the updated rows (and m, v); under Adam, the same step with
    ``sparse_update_mode="sparse"`` against the dense one;
 6. train each run at full width (B = 8192): warm-up steps, then timed
@@ -118,8 +126,10 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, TF32
+# on the tensor cores (dense), HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # f32 kernel vs plain f32 einsum: the same products summed in another
 # order over up to F * H = 1,664 terms per channel (and, for the weight
@@ -153,11 +163,18 @@ FM_STEPS, FM_EVAL = 10, 4
 # steps of each in-process loop timing (after the first window)
 LOOP_STEPS = 30
 # config 4's six multi-expert dense launches per forward at B = 8192:
-# (name, inputs' leading dim, experts, D, U, ReLU, launches)
+# (name, inputs' leading dim, experts, D, U, ReLU, launches); then, at
+# 0 launches per forward (checked and timed, not summed), the dispatch
+# edges of csrc/multi_dense.cu at the same B: a shared input with N * U =
+# 16 (the gate kernel) and 17 (the split-TF32 tile), and the gate bank's
+# shape as a per-expert input (the tile)
 MD_BANKS = (("MMoE experts layer 0", 1, 4, 429, 128, True, 1),
             ("MMoE experts layer 1", 4, 4, 128, 64, False, 1),
             ("MMoE gates", 1, 2, 429, 4, False, 1),
-            ("PLE experts", 1, 2, 128, 64, False, 3))
+            ("PLE experts", 1, 2, 128, 64, False, 3),
+            ("edge: shared, N*U = 16", 1, 4, 429, 4, False, 0),
+            ("edge: shared, N*U = 17", 1, 1, 429, 17, False, 0),
+            ("edge: per-expert, N*U = 8", 2, 2, 429, 4, False, 0))
 # launches that phase 3's "ms" of a kernel covers: one forward's
 MS_COVERS = {"cin_flat": 2, "cin_flat_bwd": 2, "multi_dense": 6}
 
@@ -298,8 +315,8 @@ def listwise_ops(labels) -> int:
     return int(sort_ops(b) + 12 * b)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -348,6 +365,14 @@ def compare_sum(name: str, got, want, scale: float,
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return err
+
+
+def misaligned(t):
+    """A copy of ``t`` whose storage starts 4 bytes off the 16-byte grid:
+    the kernels' 4-byte paths."""
+    import torch
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
 
 
 def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
@@ -420,7 +445,9 @@ def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
                ("ragged N=1500 int32", tfull, ids8k[:1500].int(),
                 vals[:1500]),
                ("ids out of range (dropped)", tfull, wild, vals[:7] + 1.0),
-               ("D=5", small, ids8k[:333] % 800, rand(333, 5)))
+               ("D=5", small, ids8k[:333] % 800, rand(333, 5)),
+               ("vals off the 16-byte grid (scalar loop), B=8192 batch",
+                torch.zeros_like(tfull), ids8k, misaligned(grads8k)))
     err = 0.0
     for what, start, ids, v in s_cases:
         got, want = start.clone(), start.clone()
@@ -474,6 +501,12 @@ def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
             torch, lambda: buf.index_add_(0, clamped, wb))}
     print("  device time by torch.profiler, B=8192 batch: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in dev_ms.items()) + f" [{card}]")
+    # the wrappers' host path (B8, B11, B12 and their library calls)
+    from rec_now_tpu_torch.profile_launch import wrapper_host_us
+    print("host path, us per call at a tiny size, the median of 5 rounds "
+          "of 2,000 (rec_now_tpu_torch.profile_launch): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in wrapper_host_us().items())
+          + f" [{card}]")
 
 
 def cli_launches(per_step: dict, steps: int, eval_batches: int) -> dict:
@@ -986,8 +1019,9 @@ def main() -> int:
             tb, ac, dg, 0.05)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
     print("multi_dense vs plain:")
-    err, t = 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0,
-                       nbytes=0)
+    err = 0.0
+    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_ops=0.0, t_bytes=0.0,
+             flops=0, nbytes=0)
     for name, nx, n, d, u, relu, times in MD_BANKS:
         act = "relu" if relu else None
         x = rand(nx, B, d)
@@ -1002,15 +1036,33 @@ def main() -> int:
         pms = cuda_ms(torch, lambda: mk.multi_dense_xla(x, w, bias, act))
         lms = cuda_ms(torch, lambda: torch.baddbmm(bias, xe, w))
         fl, nb = multi_dense_work(nx, n, B, d, u)
-        print(f"  {name}: {ms:.4f} ms kernel, {pms:.4f} ms plain, "
-              f"{lms:.4f} ms torch.baddbmm, bound "
-              f"{bound_ms(fl, nb)[0]:.4f} ms, x{times} per forward")
+        # the tile runs three TF32 products per multiply-add on the
+        # tensor cores; the gate kernel f32 FMAs
+        gate = mk.takes_gate_kernel(nx, n, d, u)
+        ops, peak, kind = ((fl, PEAK_F32_FLOPS, "f32") if gate
+                           else (3 * fl, PEAK_TF32_FLOPS, "ops, split TF32"))
+        b_ms, b_by = bound_ms(ops, nb, peak)
+        print(f"  {name}: {'gate kernel' if gate else 'split-TF32 tile'} "
+              f"{ms:.4f} ms, {pms:.4f} ms plain, {lms:.4f} ms torch.baddbmm;"
+              f" bound {b_ms:.4f} ms ({kind if b_by == 'operations' else b_by}"
+              f") = {b_ms / ms:.1%} of the kernel's time; f32 SIMT bound "
+              f"{bound_ms(fl, nb)[0]:.4f} ms; x{times} per forward [{card}]")
+        if b_ms > ms:
+            fail(f"multi_dense {name} ran under its bound: the bound or "
+                 f"the count is wrong")
         for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                       ("t_ops", ops / peak), ("t_bytes", nb / PEAK_BYTES),
                        ("flops", fl), ("nbytes", nb)):
             t[key] += times * v
+    # ragged shapes (B = 1, odd D, U between the tile widths) and the
+    # dispatch edges at other B: N * U = 16 with W too deep for the gate
+    # kernel's shared memory (the tile), a per-expert input with N * U = 8
+    # (the tile), D % 4 == 0 with U % 4 == 0 (16-byte copies) per expert
     for nx, n, b, d, u in ((1, 4, 1, 429, 128), (4, 4, 1000, 128, 64),
                            (1, 2, 1000, 429, 4), (1, 3, 777, 77, 17),
-                           (3, 3, 1001, 45, 200), (1, 1, 1, 13, 5)):
+                           (3, 3, 1001, 45, 200), (1, 1, 1, 13, 5),
+                           (1, 4, 1000, 5000, 4), (2, 2, 500, 429, 4),
+                           (3, 3, 257, 64, 200)):
         x = rand(nx, b, d)
         w, bias = rand(n, d, u, scale=d ** -0.5), rand(n, 1, u)
         for relu in (True, False):
@@ -1019,9 +1071,20 @@ def main() -> int:
                 mk.multi_dense_fused(x, w, bias, relu),
                 mk.multi_dense_xla(x, w, bias, "relu" if relu else None),
                 floor=0.0))
-    b_ms, b_by = bound_ms(t["flops"], t["nbytes"])
+        # x off the 16-byte grid: the tile's 4-byte copies
+        err = max(err, compare(
+            f"ragged ({nx}, {b}, {d}) x ({n}, {d}, {u}), x misaligned",
+            mk.multi_dense_fused(misaligned(x), w, bias, False),
+            mk.multi_dense_xla(x, w, bias, None), floor=0.0))
+    t_ops, t_bytes = t["t_ops"], t["t_bytes"]
+    b_ms = max(t_ops, t_bytes) * 1e3
+    b_by = "operations" if t_ops >= t_bytes else "bytes"
     print(f"  one forward's six launches: {t['flops'] / 1e9:.3f} GFLOP, "
-          f"{t['nbytes'] / 1e6:.1f} MB")
+          f"{t['nbytes'] / 1e6:.1f} MB: kernel {t['ms']:.4f} ms, "
+          f"torch.baddbmm {t['library_ms']:.4f} ms; bound {b_ms:.4f} ms "
+          f"(ops, split TF32 {t_ops * 1e3:.4f}; bytes {t_bytes * 1e3:.4f}) "
+          f"= {b_ms / t['ms']:.1%}; f32 SIMT bound "
+          f"{bound_ms(t['flops'], t['nbytes'])[0]:.4f} ms [{card}]")
     kern["multi_dense"] = dict(
         name="multi_dense", route="cuda",
         source="rec_now_tpu_torch/csrc/multi_dense.cu",
@@ -1395,6 +1458,17 @@ def main() -> int:
             compare(f"multi_dense call {i} ({tuple(x.shape)} x "
                     f"{tuple(w.shape)}, relu={relu})",
                     mk.multi_dense_fused(x, w, bias, relu), want, floor=0.0)
+            # the same call through the kernel's other paths: x off the
+            # 16-byte grid (4-byte copies), and a shared input as one copy
+            # per expert (the tile, where the gate kernel took the call)
+            others = [("x misaligned", misaligned(x))]
+            if x.shape[0] == 1 and w.shape[0] > 1:
+                others.append(("x per expert", x.expand(
+                    w.shape[0], -1, -1).contiguous()))
+            for what, xo in others:
+                compare(f"multi_dense call {i}, {what}",
+                        mk.multi_dense_fused(xo, w, bias, relu), want,
+                        floor=0.0)
             visible(f"call {i}'s product",
                     mk.multi_dense_xla(x, w, None, None),
                     float(want.abs().max()))

@@ -538,6 +538,18 @@ int to_khf(const float* W, int K, int F, int H, float* Wt, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// Makes `device` current, setting it only when it is not (cudaSetDevice
+// costs host time even then), and first clears an unread error of an
+// earlier runtime call, so that the check after the launch reports the
+// launch alone.
+cudaError_t use_device(int device) {
+  cudaGetLastError();
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess || current == device) return e;
+  return cudaSetDevice(device);
+}
+
 #define CIN_TRY(expr)                     \
   do {                                    \
     const int rc_ = (expr);               \
@@ -557,9 +569,8 @@ const char* error_string(int code) {
 int cin_flat_f32(const float* x0, const float* prev, const float* W,
                  float* scratch, float* out, int M, int F, int H, int K,
                  int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = to_fhk(W, K, F * H, scratch, s);
   if (rc != cudaSuccess) return rc;
@@ -575,9 +586,8 @@ int cin_stack_sum_f32(const float* x0, const float* const* weights,
                       int M, int F, int output_input, int device,
                       void* stream) {
   if (n_layers < 1 || n_layers - 1 > kMaxLayers) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_mid = n_layers - 1;
   int h_max = 0;
@@ -625,8 +635,7 @@ int cin_flat_bwd_f32(const float* x0, const float* prev, const float* W,
                      const float* g, float* scratch, float* dx0,
                      float* dprev, float* dW, int M, int F, int H, int K,
                      int device, void* stream) {
-  CIN_TRY(cudaSetDevice(device));
-  cudaGetLastError();
+  CIN_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w_khf = scratch;
   float* part = scratch + (size_t)K * F * H;
@@ -667,8 +676,7 @@ int cin_stack_sum_bwd_f32(const float* x0, const float* g,
                           float* const* dws, float* dwc, int M, int F,
                           int output_input, int device, void* stream) {
   if (n_layers < 1 || n_layers - 1 > kMaxLayers) return cudaErrorInvalidValue;
-  CIN_TRY(cudaSetDevice(device));
-  cudaGetLastError();
+  CIN_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_mid = n_layers - 1;
   int hin[kMaxLayers + 1];

@@ -163,6 +163,18 @@ lw_finalize_kernel(const float* __restrict__ x, const float* __restrict__ lab,
   }
 }
 
+// Makes `device` current, setting it only when it is not (cudaSetDevice
+// costs host time even then), and first clears an unread error of an
+// earlier runtime call, so that the check after the launch reports the
+// launch alone.
+cudaError_t use_device(int device) {
+  cudaGetLastError();
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess || current == device) return e;
+  return cudaSetDevice(device);
+}
+
 }  // namespace
 
 extern "C" {
@@ -184,9 +196,8 @@ int listwise_f32(const float* logits, const float* labels, const int* groups,
                  int B, float th, void* scratch, float* out, float* dx,
                  int device, void* stream) {
   if (B < 1) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  cudaGetLastError();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int splits = listwise_splits(B);
   const int row_blocks = (B + kThreads - 1) / kThreads;

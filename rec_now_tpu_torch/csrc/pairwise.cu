@@ -335,6 +335,18 @@ int splits_for(int B) {
   return s < kMaxSplits ? s : kMaxSplits;
 }
 
+// Makes `device` current, setting it only when it is not (cudaSetDevice
+// costs host time even then), and first clears an unread error of an
+// earlier runtime call, so that the check after the launch reports the
+// launch alone.
+cudaError_t use_device(int device) {
+  cudaGetLastError();
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess || current == device) return e;
+  return cudaSetDevice(device);
+}
+
 struct Launch {
   dim3 sweep;
   int rows, splits, cols_per;
@@ -343,9 +355,8 @@ struct Launch {
 
 cudaError_t begin(int B, int ng, int device, void* stream, Launch* l) {
   if (B < 1 || ng < 1 || ng > kMaxGroups) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  const cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  cudaGetLastError();
   l->rows = (B + kThreads - 1) / kThreads;
   l->splits = splits_for(B);
   l->cols_per = (B + l->splits - 1) / l->splits;

@@ -115,6 +115,18 @@ adam_kernel(float4* __restrict__ table, float4* __restrict__ m,
   v[idx] = vv;
 }
 
+// Makes `device` current, setting it only when it is not (cudaSetDevice
+// costs host time even then), and first clears an unread error of an
+// earlier runtime call, so that the check after the launch reports the
+// launch alone.
+cudaError_t use_device(int device) {
+  cudaGetLastError();
+  int current = -1;
+  const cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess || current == device) return e;
+  return cudaSetDevice(device);
+}
+
 }  // namespace
 
 extern "C" {
@@ -128,9 +140,8 @@ const char* error_string(int code) {
 int adagrad_dense_f32(float* table, float* acc, const float* g, long long V,
                       int D, float lr, float eps, int device, void* stream) {
   if (D % 4 != 0 || 32 % (D / 4) != 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  cudaGetLastError();
   const long long n4 = V * (D / 4);
   if (n4 == 0) return cudaSuccess;
   const long long blocks = (n4 + kThreads - 1) / kThreads;
@@ -151,9 +162,8 @@ int adam_dense_f32(float* table, float* m, float* v, const float* g,
                    float b2, float omb2, float eps, int device,
                    void* stream) {
   if (D % 4 != 0 || 32 % (D / 4) != 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  cudaGetLastError();
   const long long n4 = V * (D / 4);
   if (n4 == 0) return cudaSuccess;
   const long long blocks = (n4 + kThreads - 1) / kThreads;

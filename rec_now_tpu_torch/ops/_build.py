@@ -10,7 +10,10 @@ library as ``<name>-<hash>.log``.
 
 Also here: the checks every kernel wrapper makes before it hands
 pointers to a library (:func:`is_cpu`, :func:`check_input`,
-:func:`check_rc`).
+:func:`check_rc`) and the stream it launches on (:func:`stream_of`).
+They run before every launch, so each reads only cheap tensor
+attributes: a CUDA tensor is still checked for device, type, rank and
+contiguity, and raises on a mismatch.
 
 Usage::
 
@@ -117,19 +120,21 @@ def _finish(name: str, proc: subprocess.Popen, out: Path, log: Path) -> None:
 def is_cpu(x: torch.Tensor, what: str) -> bool:
     """True for a CPU tensor (the plain version runs), False for CUDA;
     any other device raises."""
-    if x.device.type == "cpu":
+    if x.is_cuda:
+        return False
+    if x.is_cpu:
         return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on CUDA or CPU, not {x.device}")
-    return False
+    raise ValueError(f"{what} runs on CUDA or CPU, not {x.device}")
 
 
 def check_input(name: str, t: torch.Tensor, ndim: int,
                 device: torch.device,
                 dtype: torch.dtype = torch.float32) -> None:
     """Raise unless ``t`` is a contiguous ``ndim``-D ``dtype`` tensor on
-    ``device``."""
-    if t.device != device:
+    the CUDA ``device``.  The device is compared by index
+    (``Tensor.get_device()``, -1 off CUDA): reading ``Tensor.device``
+    builds a ``torch.device`` each time."""
+    if t.get_device() != device.index:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -148,5 +153,6 @@ def check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 def stream_of(x: torch.Tensor) -> int:
     """The current CUDA stream of ``x``'s device, as the C entry points
-    take it."""
-    return torch.cuda.current_stream(x.device).cuda_stream
+    take it: PyTorch's raw handle, which ``torch.cuda.current_stream``
+    would wrap in a new ``Stream`` object on every call."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())

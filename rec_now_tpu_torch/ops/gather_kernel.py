@@ -46,12 +46,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_ids(ids: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``ids`` flattened and contiguous; raise unless int32 or int64 on
-    ``device``."""
-    if ids.device != device:
+    """``ids`` flattened and contiguous (itself when it already is); raise
+    unless int32 or int64 on the CUDA ``device``."""
+    if ids.get_device() != device.index:
         raise ValueError(f"ids are on {ids.device}, expected {device}")
     if ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    if ids.dim() == 1 and ids.is_contiguous():
+        return ids
     return ids.reshape(-1).contiguous()
 
 
@@ -69,7 +71,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     rows, d = table.shape
     if rows == 0:
         raise ValueError("gather_rows needs a table with at least one row")
-    out = torch.empty((flat.numel(), d), dtype=torch.float32, device=dev)
+    out = table.new_empty((flat.numel(), d))    # f32 on the table's device
     if out.numel():                    # a grid of 0 blocks is a launch error
         lib = _lib()
         rc = lib.gather_rows_f32(table.data_ptr(), rows, d, flat.data_ptr(),
@@ -78,7 +80,7 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                  _build.stream_of(table))
         check_rc(lib, rc, "gather_rows")
         gather_rows.launches += 1
-    return out.reshape(tuple(ids.shape) + (d,))
+    return out if ids.dim() == 1 else out.reshape(tuple(ids.shape) + (d,))
 
 
 gather_rows.launches = 0

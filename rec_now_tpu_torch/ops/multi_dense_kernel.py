@@ -82,12 +82,19 @@ def _lib() -> ctypes.CDLL:
         lib.multi_dense_f32.argtypes = ([ptr, i32, ptr, ptr, ptr]
                                         + [i32] * 6 + [ptr])
         lib.multi_dense_f32.restype = i32
+        lib.multi_dense_gate_columns.argtypes = [i32] * 4
+        lib.multi_dense_gate_columns.restype = i32
         lib._typed = True
     return lib
 
 
-def _check(inputs, kernel, bias) -> Tuple[int, int, int, int]:
-    dev = inputs.device
+def takes_gate_kernel(nx: int, n: int, d: int, u: int) -> bool:
+    """True where the card runs a (nx, B, d) x (n, d, u) call on the f32
+    gate kernel, False where on the split-TF32 tile (builds the library)."""
+    return _lib().multi_dense_gate_columns(nx, n, d, u) > 0
+
+
+def _check(inputs, kernel, bias, dev) -> Tuple[int, int, int, int]:
     check_input("inputs", inputs, 3, dev)
     check_input("kernel", kernel, 3, dev)
     n, d, u = kernel.shape
@@ -109,8 +116,9 @@ def multi_dense_fused(inputs: torch.Tensor, kernel: torch.Tensor,
     if is_cpu(inputs, "multi_dense"):
         return multi_dense_xla(inputs, kernel, bias,
                                "relu" if relu else None)
-    n, b, d, u = _check(inputs, kernel, bias)
-    out = torch.empty((n, b, u), dtype=torch.float32, device=inputs.device)
+    dev = inputs.device
+    n, b, d, u = _check(inputs, kernel, bias, dev)
+    out = inputs.new_empty((n, b, u))           # f32 on inputs' device
     if b == 0:
         return out
     lib = _lib()
@@ -118,7 +126,7 @@ def multi_dense_fused(inputs: torch.Tensor, kernel: torch.Tensor,
                              kernel.data_ptr(),
                              None if bias is None else bias.data_ptr(),
                              out.data_ptr(), n, b, d, u, int(relu),
-                             inputs.device.index, _build.stream_of(inputs))
+                             dev.index, _build.stream_of(inputs))
     check_rc(lib, rc, "multi_dense")
     multi_dense_fused.launches += 1
     return out

@@ -10,7 +10,8 @@ scores 5 requests of B = 8,192 per front end (raw, u8 wire, f16 wire)
 under ``torch.profiler``.  Prints, per front end, the wall ms per request,
 the device's busy share of that window (sum of kernel times over wall
 time), the port's kernel launches per request by the wrappers' counts
-(the row gather B11 among them) and the device work by total time.
+(the row gather B11 among them), the device work by total time, and the
+multi-expert dense's kernels summed (config 4).
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -116,6 +117,11 @@ def main() -> None:
         for e in sorted(events, key=_device_us, reverse=True)[:12]:
             print(f"  {_device_us(e) / n / 1e3:8.4f} ms/request "
                   f"x{e.count // n:<3d} {e.key[:90]}")
+        md = [e for e in events if "multi_dense" in e.key]
+        if md:
+            print(f"  multi_dense's kernels: "
+                  f"{sum(_device_us(e) for e in md) / n / 1e3:.4f} "
+                  f"ms/request over {sum(e.count for e in md) // n} launches")
 
 
 if __name__ == "__main__":

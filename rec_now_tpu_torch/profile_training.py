@@ -15,8 +15,8 @@ profiled and dropped, then 5 steps under ``torch.profiler``.
 Prints, per run, the wall ms per step, the device's busy share of
 that window (sum of kernel and copy times over wall time), the port's
 kernel launches per step by the wrappers' counts (the row gather B11 and
-the row scatter-add B12 among them) and the device work by total time.
-Needs a CUDA device.
+the row scatter-add B12 among them), the device work by total time, and
+the multi-expert dense's kernels summed (config 4).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -113,6 +113,12 @@ def main() -> None:
         for e in sorted(events, key=_device_us, reverse=True)[:16]:
             print(f"  {_device_us(e) / STEPS / 1e3:8.4f} ms/step "
                   f"x{e.count // STEPS:<3d} {e.key[:90]}")
+        md = [e for e in events if "multi_dense" in e.key]
+        if md:
+            print(f"  multi_dense's kernels: "
+                  f"{sum(_device_us(e) for e in md) / STEPS / 1e3:.4f} "
+                  f"ms/step over {sum(e.count for e in md) // STEPS} "
+                  f"launches")
         del trainer, state, model
 
 

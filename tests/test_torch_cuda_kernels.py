@@ -7,17 +7,22 @@ Shapes are the small odd ones of the JAX kernel tests plus edge cases
 (one field, one channel, K past one 64-channel chunk, ragged M, B and
 V, more rows than one weight-gradient slice) and, for the multi-expert
 dense and the listwise loss, config 4's shapes (the four banks at
-B = 1,000 and 8,192) and degenerate batches; for lazy Adam (B10) ragged V,
+B = 1,000 and 8,192) and degenerate batches, and each dispatch edge of
+the multi-expert dense (N * U = 16 and 17 on a shared input, a small
+per-expert bank, W too deep for the gate kernel, x off the 16-byte grid);
+for lazy Adam (B10) ragged V,
 every D it takes and t = 1 and 1,000; for the pair counts (B7a/b/c) and
 the general pair loss (B3) graded labels, two groups, a 0/1 mask and the
 wrong-order filter at B = 1, 8,191 and 8,192; for the row gather (B11)
 and the row scatter-add (B12) int32 and int64 ids, ragged and empty N,
-ids out of range, D = 5 and a misaligned table (the scalar loop) and the
-full 2.6M x 16 table with a B = 8,192 batch's count of ids; the
-windowed training loop (packed windows moved on a side stream) against
-put + train_step; and the wire's C++ window pack against its numpy pack
-(byte-equal).  Tolerance: f32 with a different summation order, 1e-5
-relative to the largest output (1e-4 for gradients through the whole
+ids out of range, D = 5, a misaligned table or vals (the scalar loops),
+D = 128 (float4 atomics) and the full 2.6M x 16 table with a B = 8,192
+batch's count of ids; the windowed training loop (packed windows moved
+on a side stream) against put + train_step; and the wire's C++ window
+pack against its numpy pack (byte-equal).  Tolerance: f32 with a
+different summation order (the multi-expert dense's tile in split TF32,
+as close as f32), 1e-5 relative to the largest output (1e-4 for
+gradients through the whole
 model and for the windowed loop's losses); B11 exact; B12 1e-6 of each
 element's summed |terms| (atomics add in no fixed order).
 """
@@ -222,10 +227,16 @@ def test_new_wrappers_reject_bad_inputs(dev):
 
 
 # (N_in, N, B, D, U): config 4's four banks, then ragged ones (B = 1, odd
-# D, U between the tile widths)
+# D, U between the tile widths), then the kernel's dispatch edges: a shared
+# input with N * U = 16 (the gate kernel) and 17 (the tensor-core tile), a
+# per-expert input with N * U = 8 (the tile), N * U = 16 with D too deep
+# for the gate kernel's shared memory (the tile), D % 4 == 0 with U % 4 == 0
+# (16-byte copies) on a per-expert input
 MD_SHAPES = [(1, 4, 1000, 429, 128), (4, 4, 1000, 128, 64),
              (1, 2, 8192, 429, 4), (1, 2, 1000, 128, 64),
-             (1, 3, 1, 13, 5), (2, 2, 77, 31, 17), (1, 1, 300, 429, 200)]
+             (1, 3, 1, 13, 5), (2, 2, 77, 31, 17), (1, 1, 300, 429, 200),
+             (1, 4, 1000, 45, 4), (1, 1, 300, 77, 17), (2, 2, 500, 429, 4),
+             (1, 4, 300, 5000, 4), (3, 3, 257, 64, 200)]
 
 
 @pytest.mark.parametrize("nx,n,b,d,u", MD_SHAPES)
@@ -235,11 +246,17 @@ def test_multi_dense_matches_plain(dev, nx, n, b, d, u, relu):
     x = _rand(gen, dev, nx, b, d)
     w = _rand(gen, dev, n, d, u) / d ** 0.5
     bias = _rand(gen, dev, n, 1, u)
+    act = "relu" if relu else None
     for bb in (bias, None):
         before = mk.multi_dense_fused.launches
         got = mk.multi_dense_fused(x, w, bb, relu)
         assert mk.multi_dense_fused.launches == before + 1
-        _close_rel(got, mk.multi_dense_xla(x, w, bb, "relu" if relu else None))
+        _close_rel(got, mk.multi_dense_xla(x, w, bb, act))
+    # x off the 16-byte grid: the tile copies it 4 bytes a thread
+    off = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape)
+    off.copy_(x)
+    _close_rel(mk.multi_dense_fused(off, w, bias, relu),
+               mk.multi_dense_xla(x, w, bias, act))
 
 
 def test_multi_dense_grads_match_the_cpu(dev):
@@ -502,7 +519,7 @@ def test_gather_rows_matches_plain_exactly(dev, v, d, n, dtype):
 
 @pytest.mark.parametrize("v,d,n", [(1, 4, 7), (1000, 16, 1500),
                                    (2_600_000, 16, 212_992), (777, 5, 333),
-                                   (50, 16, 0)])
+                                   (50, 16, 0), (300, 128, 4097)])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_scatter_add_rows_matches_plain(dev, v, d, n, dtype):
     from rec_now_tpu_torch.ops import expand_kernel as ek
@@ -521,8 +538,16 @@ def test_scatter_add_rows_matches_plain(dev, v, d, n, dtype):
     keep = (ids >= 0) & (ids < v)
     scale = torch.zeros_like(out).index_add_(0, ids[keep],
                                              vals[keep].abs())
-    assert float((out - want).abs().max()) <= 1e-6 * float(
-        (scale + want.abs()).max())
+    tol = 1e-6 * float((scale + want.abs()).max())
+    assert float((out - want).abs().max()) <= tol
+    # vals off the 16-byte grid: the scalar loop, where D % 4 == 0 takes
+    # float4 atomics above
+    off = torch.empty(vals.numel() + 1, device=dev)[1:].view(vals.shape)
+    off.copy_(vals)
+    out2 = want.clone()
+    ek.scatter_add_rows(out2, ids, off)
+    ek.scatter_add_rows_plain(want, ids, vals)
+    assert float((out2 - want).abs().max()) <= tol
 
 
 def test_gather_scatter_reject_bad_inputs(dev):

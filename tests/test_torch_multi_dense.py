@@ -6,11 +6,13 @@ formula), the kernel's plain version, and the kernel's
 card, here with the plain forward) against the JAX package's
 ``multi_dense_pallas`` (interpreted on the CPU), ``multi_dense_xla`` and
 ``jax.vjp`` of ``_multi_dense_fused``; then ``MultiDenseLayer`` from
-converted Flax weights.  Shapes cover a shared and a per-expert input,
-ReLU and none, with and without bias, U = 4 (the gate bank), odd D and a
-B that is not a multiple of the TPU's 8-row tiling.  f32 on the CPU on
-both sides, summed in other orders over at most D = 45 terms (outputs)
-and B = 37 rows (weight gradients): rtol 1e-5, atol 1e-6.
+converted Flax weights; and the split-TF32 arithmetic of the card's
+kernel, emulated in torch, against f64.  Shapes cover a shared and a
+per-expert input, ReLU and none, with and without bias, U = 4 (the gate
+bank), odd D and a B that is not a multiple of the TPU's 8-row tiling.
+f32 on the CPU on both sides, summed in other orders over at most D = 45
+terms (outputs) and B = 37 rows (weight gradients): rtol 1e-5, atol
+1e-6.
 """
 import jax
 import jax.numpy as jnp
@@ -112,6 +114,51 @@ def test_gradients_without_bias():
                               _t(g))
     for a, e in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(e), **TOL)
+
+
+def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 (10 mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds: 0x1000 added to the bit pattern, then
+    the low 13 bits cleared."""
+    return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# config 4's four banks (inputs' leading dim, experts, D, U)
+CONFIG4_BANKS = [(1, 4, 429, 128), (4, 4, 128, 64), (1, 2, 429, 4),
+                 (1, 2, 128, 64)]
+
+
+@pytest.mark.parametrize("nx,n,d,u", CONFIG4_BANKS)
+def test_split_tf32_is_as_close_to_f64_as_f32(nx, n, d, u):
+    """The card's expert-bank kernel takes its products on the tensor
+    cores in split TF32: v = hi + lo, hi = rna(v), lo = rna(v - hi), and
+    the sum lo*hi + hi*lo + hi*hi.  Emulated here (each product of two
+    TF32 values is exact in f32), it lands within 1e-5 of max|out| of the
+    f64 product on config 4's banks at B = 256, as plain f32 does; one
+    TF32 pass (hi*hi) lands above 1e-4, the tolerance the port holds the
+    kernel to, which is why the kernel splits."""
+    rng = np.random.RandomState(d + u)
+    x = torch.from_numpy(rng.randn(nx, 256, d).astype(np.float32))
+    w = torch.from_numpy((rng.randn(n, d, u) / np.sqrt(d)).astype(np.float32))
+    want = torch.matmul(x.double(), w.double())
+    xh, wh = _tf32_rna(x), _tf32_rna(w)
+    xl, wl = _tf32_rna(x - xh), _tf32_rna(w - wh)
+    # hi + lo keeps 22 of the 24 bits of each operand
+    assert bool(((xh + xl - x).abs() <= x.abs() * 2.0 ** -21).all())
+    split = (torch.matmul(xl, wh) + torch.matmul(xh, wl)
+             + torch.matmul(xh, wh))
+    scale = float(want.abs().max())
+
+    def err(got):
+        return float((got.double() - want).abs().max()) / scale
+
+    assert err(split) <= 1e-5
+    assert err(torch.matmul(x, w)) <= 1e-5
+    assert err(torch.matmul(xh, wh)) > 1e-4
+    # the rounding keeps 10 mantissa bits and is ties-away
+    assert not (xh.view(torch.int32) & 0x1FFF).any()
+    half = torch.tensor([1.0 + 2.0 ** -11], dtype=torch.float32)
+    assert float(_tf32_rna(half)) == 1.0 + 2.0 ** -10
 
 
 @pytest.mark.parametrize("shared", [True, False])
