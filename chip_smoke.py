@@ -211,6 +211,12 @@ def profiled_ms(torch, fn, reps: int = 20) -> float:
     card, summed by ``torch.profiler`` over ``reps`` calls.  cuda_ms's
     events also time the host's launch path, which a kernel of a few
     microseconds does not hide."""
+    return sum(profiled_by_name(torch, fn, reps).values())
+
+
+def profiled_by_name(torch, fn, reps: int = 20) -> dict:
+    """Device ms of one ``fn()`` by the name of each kernel or copy it
+    runs on the card (``torch.profiler`` over ``reps`` calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -220,13 +226,14 @@ def profiled_ms(torch, fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    ms = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and not getattr(
                 e, "is_user_annotation", False):
-            us += float(getattr(e, "self_device_time_total", None)
-                        or getattr(e, "self_cuda_time_total", 0.0))
-    return us / reps / 1e3
+            ms[e.key] = ms.get(e.key, 0.0) + float(
+                getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3
+    return ms
 
 
 def cin_flops(m: int, f: int, h: int, k: int, prev_is_x0: bool) -> int:
@@ -501,7 +508,7 @@ def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
             torch, lambda: buf.index_add_(0, clamped, wb))}
     print("  device time by torch.profiler, B=8192 batch: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in dev_ms.items()) + f" [{card}]")
-    # the wrappers' host path (B8, B11, B12 and their library calls)
+    # the wrappers' host path (B8, B11, B12 and their library calls; B5)
     from rec_now_tpu_torch.profile_launch import wrapper_host_us
     print("host path, us per call at a tiny size, the median of 5 rounds "
           "of 2,000 (rec_now_tpu_torch.profile_launch): " + ", ".join(
@@ -950,6 +957,20 @@ def main() -> int:
         t["flops"] += cin_flat_bwd_flops(M, F, h, k, same)
         io = M * F + (0 if same else M * h) + w.numel()   # read and written
         t["nbytes"] += (2 * io + M * k + (M * h if same else 0)) * 4
+        # the device time of its two kernels, each beside its least work:
+        # the row kernel A = g W and both epilogues, the weight gradient
+        # (its partial sums included)
+        by = profiled_by_name(torch, lambda: ck.cin_flat_bwd(x0, prev, w, gk))
+        rows = sum(v for n, v in by.items() if "cin_bwd_rows" in n)
+        terms = F * (F + 1) // 2 if same else F * h
+        parts = (("row kernel", rows, 2 * M * k * F * h + 4 * M * F * h),
+                 ("dW kernel + partial sums", sum(by.values()) - rows,
+                  M * terms + 2 * M * k * terms))
+        print(f"  B5 split, H={h} K={k}, device ms by torch.profiler: "
+              + "; ".join(f"{what} {v:.4f} (bound {bound_ms(fl, 0)[0]:.4f}"
+                          + (f", {100 * bound_ms(fl, 0)[0] / v:.1f}%)" if v
+                             else ", not measured)")
+                          for what, v, fl in parts) + f" [{card}]")
     g100 = rand(12345, 100)
     err = max(err, compare_all("ragged M=12345 H=37 K=100",
                                ck.cin_flat_bwd(xr, pr, w100, g100),

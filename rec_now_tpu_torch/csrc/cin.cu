@@ -10,11 +10,13 @@
 //       with the last layer collapsed, Wc = sum_k W_n[k] (exact, see
 //       cin_kernel.py:307-316).
 //   * cin_flat_bwd_f32      <- _cin_flat_bwd / _cin_bwd_tile_kernel
+//       dx0 and dprev through A = g W in one row kernel
+//       (cin_bwd_rows_kernel), dW in one weight-gradient kernel over the
+//       flattened (f, h) axis (cin_wgrad_kernel); see "Backward" below.
 //   * cin_stack_sum_bwd_f32 <- _cin_stack_bwd / _stack_bwd_kernel
-//       dx0 (and dprev) as layer contractions with permuted operands, the
-//       weight gradients as a row reduction (cin_dw_kernel) in two passes;
-//       see "Backward" below.  Both are bound by f32 FMA issue, like the
-//       forward.
+//       dx0 (and the hidden gradients) as layer contractions with permuted
+//       operands, the weight gradients through cin_wgrad_kernel.
+//   Both backwards are bound by f32 FMA issue, like the forward.
 //
 // Taken from the math, not from the TPU blocks: the TPU kernel turns the
 // broadcast of x0 over channels and the reduction over fields into 0/1
@@ -53,6 +55,15 @@
 // keeps the comparison with the PyTorch reference tight.
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cstdint>
+
+#define CIN_TRY(expr)                     \
+  do {                                    \
+    const int rc_ = (expr);               \
+    if (rc_ != cudaSuccess) return rc_;   \
+  } while (0)
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -75,15 +86,32 @@ __host__ __device__ constexpr int tile_ld(int rt) {  // 16-byte rows
 }
 
 // Copy rows [m0, m0 + bm) of a row-major (M, C) matrix into a transposed
-// shared tile dst[c * ld + m]; rows past M read as zero.
+// shared tile dst[c * ld + m]; rows past M read as zero.  Each thread
+// keeps kBatch loads in flight: a kernel stages its tiles before any work
+// it could hide them behind.
+constexpr int kBatch = 8;
 __device__ __forceinline__ void load_tile_t(const float* __restrict__ src,
                                             int M, int C, int m0, int bm,
                                             int ld, float* __restrict__ dst) {
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int m = idx / C;
-    const int c = idx - m * C;
-    dst[c * ld + m] =
-        (m0 + m < M) ? src[(size_t)(m0 + m) * C + c] : 0.f;
+  const int n = bm * C;
+  for (int base = threadIdx.x; base < n; base += kBatch * kThreads) {
+    float v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * kThreads;
+      const int m = idx / C;
+      v[u] = (idx < n && m0 + m < M)
+                 ? __ldg(src + (size_t)(m0 + m) * C + (idx - m * C))
+                 : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int idx = base + u * kThreads;
+      if (idx < n) {
+        const int m = idx / C;
+        dst[(idx - m * C) * ld + m] = v[u];
+      }
+    }
   }
 }
 
@@ -328,14 +356,58 @@ size_t stack_smem(int rt, int F, int h_max) {
           (size_t)kWarps * 32 * rt) * sizeof(float);
 }
 
+// Device attributes and kernel attributes are read and set once per
+// device (they cost host time on every launch otherwise); devices past
+// kMaxDevices are queried every time.
+constexpr int kMaxDevices = 64;
+
+// What query(&v) gives for `device`, cached in slots[device]; 0 when the
+// query fails.
+template <typename Query>
+int per_device(int device, std::atomic<int>* slots, Query query) {
+  const bool cached = device >= 0 && device < kMaxDevices;
+  int v = cached ? slots[device].load(std::memory_order_relaxed) : 0;
+  if (v > 0) return v;
+  if (query(&v) != cudaSuccess) return 0;
+  if (cached) slots[device].store(v, std::memory_order_relaxed);
+  return v;
+}
+
+int optin_smem(int device) {
+  static std::atomic<int> slots[kMaxDevices];
+  return per_device(device, slots, [&](int* v) {
+    return cudaDeviceGetAttribute(
+        v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device); });
+}
+
+int sm_count(int device) {
+  static std::atomic<int> slots[kMaxDevices];
+  return per_device(device, slots, [&](int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount,
+                                  device); });
+}
+
+// Lets `kernel` take up to the device's opt-in shared memory; done[] is
+// the caller's flag per device, one array per kernel.
+cudaError_t allow_optin_smem(const void* kernel, int device,
+                             std::atomic<bool>* done) {
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached && done[device].load(std::memory_order_acquire))
+    return cudaSuccess;
+  const int cap = optin_smem(device);
+  if (cap == 0) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+  if (e == cudaSuccess && cached)
+    done[device].store(true, std::memory_order_release);
+  return e;
+}
+
 // Largest rows-per-thread (8, 4, 2, 1) whose tiles fit the opt-in shared
 // memory, or 0.
 template <typename SmemFn>
 int pick_rt(int device, SmemFn smem) {
-  int cap = 0;
-  if (cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess)
-    return 0;
+  const int cap = optin_smem(device);
   for (int rt = 8; rt >= 1; rt /= 2)
     if (smem(rt) <= (size_t)cap) return rt;
   return 0;
@@ -344,12 +416,10 @@ int pick_rt(int device, SmemFn smem) {
 template <int RT>
 int launch_flat(const float* x0, const float* prev, const float* Wt,
                 float* out, int M, int F, int H, int K, int accumulate,
-                const float* add_row, cudaStream_t s) {
+                const float* add_row, int device, cudaStream_t s) {
+  static std::atomic<bool> done[kMaxDevices];
+  CIN_TRY(allow_optin_smem((const void*)cin_flat_kernel<RT>, device, done));
   const size_t smem = flat_smem(RT, F, H);
-  cudaError_t e = cudaFuncSetAttribute(
-      cin_flat_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   const int grid = (M + 32 * RT - 1) / (32 * RT);
   cin_flat_kernel<RT><<<grid, kThreads, smem, s>>>(x0, prev, Wt, out, M, F,
                                                    H, K, accumulate, add_row);
@@ -365,26 +435,24 @@ int layer(const float* x0, int F, const float* prev, int H, const float* Wt,
   if (rt == 0) return cudaErrorInvalidValue;
   if (rt == 8)
     return launch_flat<8>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                          s);
+                          device, s);
   if (rt == 4)
     return launch_flat<4>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                          s);
+                          device, s);
   if (rt == 2)
     return launch_flat<2>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                          s);
+                          device, s);
   return launch_flat<1>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                        s);
+                        device, s);
 }
 
 template <int RT>
 int launch_stack(const float* x0, const StackWeights& sw, int n_mid,
                  const float* wc, float* out, int M, int F, int h_max,
-                 int output_input, cudaStream_t s) {
+                 int output_input, int device, cudaStream_t s) {
+  static std::atomic<bool> done[kMaxDevices];
+  CIN_TRY(allow_optin_smem((const void*)cin_stack_kernel<RT>, device, done));
   const size_t smem = stack_smem(RT, F, h_max);
-  cudaError_t e = cudaFuncSetAttribute(
-      cin_stack_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
   const int grid = (M + 32 * RT - 1) / (32 * RT);
   cin_stack_kernel<RT><<<grid, kThreads, smem, s>>>(x0, sw, n_mid, wc, out, M,
                                                     F, h_max, output_input);
@@ -392,98 +460,412 @@ int launch_stack(const float* x0, const StackWeights& sw, int n_mid,
 }
 
 // ---------------------------------------------------------------------------
-// Backward.  Every d/d(x0), d/d(prev) term is again a layer contraction,
-// with other operands in the x0 / prev / W roles of cin_flat_kernel:
-//   dx0[m, f]   = sum_{k,h} g[m,k] prev[m,h] W[k,f,h]
-//               = layer(x0' = g, prev' = prev, W'[f][k][h] = W[k,f,h]),
-//                 i.e. Wt' (F'=K, H'=H, K'=F) = W laid out (K, H, F);
-//   dprev[m, h] = sum_{k,f} g[m,k] x0[m,f] W[k,f,h]
-//               = layer(x0' = g, prev' = x0, Wt' = W as stored (K, F, H)).
-// The weight gradient is a reduction over rows,
-//   dW[k, f, h] = sum_m g[m,k] x0[m,f] prev[m,h],
+// Backward.  With A[m, f, h] = sum_k g[m,k] W[k,f,h] (one multiply-add per
+// (channel, f, h) a row),
+//   dx0[m, f]   = sum_h A[m,f,h] prev[m,h],
+//   dprev[m, h] = sum_f A[m,f,h] x0[m,f]
+// cost one multiply-add per (f, h) each, so cin_flat_bwd_f32 forms A once
+// in registers and never again (cin_bwd_rows_kernel).  The weight
+// gradient is a reduction over rows of the flattened products,
+//   dW[k, n] = sum_m g[m,k] u[m,n],  u[m, f*H + h] = x0[m,f] prev[m,h],
 // which the TPU sums on its sequential grid (cin_kernel.py:210, :421).
-// Here blocks run in parallel: cin_dw_kernel gives each block a slice of
-// rows and a (4 fields x 64 channels x 64 prev channels) output tile held
-// in registers (8 x 8 per thread), writes one partial per row slice, and
+// Here blocks run in parallel: cin_wgrad_kernel gives each block a slice
+// of rows and a (64 channels x 128 flattened columns) output tile, forms u
+// once per staged row, writes one partial per row slice, and
 // reduce_kernel sums the partials in a fixed order (no atomics, so the
-// result does not change from run to run).
+// result does not change from run to run).  Both are f32 FMA-bound like
+// the forward: config 3's two layers take ~75 GFLOP of least work on
+// ~204 MB of input and output (1.11 ms at 67 TFLOP/s, 61 us at 3.35 TB/s),
+// so both kernels keep register tiles (8 x 4 a thread) fed from shared
+// memory, as an SGEMM micro-kernel does.  cin_stack_sum_bwd_f32's
+// dx0 and hidden gradients stay layer contractions with other operands
+// in the x0 / prev / W roles of cin_flat_kernel:
+//   dx0[m, f]   = layer(x0' = g, prev' = prev, Wt' = W laid out (K, H, F)),
+//   dprev[m, h] = layer(x0' = g, prev' = x0, Wt' = W as stored (K, F, H)).
 // ---------------------------------------------------------------------------
 
-constexpr int DW_FC = 4;        // fields per block
-constexpr int DW_KB = 64;       // channels per block
-constexpr int DW_HB = 64;       // prev channels per block
-constexpr int DW_RB = 32;       // rows staged in shared memory at a time
-constexpr int DW_ROWS = 1024;   // rows per partial
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(full ? 4 : 0));
+}
 
-// part[s][k][f][h] = sum over rows m of slice s of A[m,k] X[m,f] P[m,h].
-__global__ void __launch_bounds__(kThreads)
-cin_dw_kernel(const float* __restrict__ A, int K, const float* __restrict__ X,
-              int F, const float* __restrict__ P, int H, int M,
-              float* __restrict__ part) {
-  __shared__ __align__(16) float as[DW_RB][DW_KB];
-  __shared__ __align__(16) float ps[DW_RB][DW_HB];
-  __shared__ float xs[DW_RB][DW_FC];
-  const int nk = (K + DW_KB - 1) / DW_KB;
-  const int nh = (H + DW_HB - 1) / DW_HB;
-  int tile = blockIdx.x;
-  const int k0 = (tile % nk) * DW_KB;
-  tile /= nk;
-  const int h0 = (tile % nh) * DW_HB;
-  const int f0 = (tile / nh) * DW_FC;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N));
+}
+
+// The row kernel.  A block owns BM = 16 * RT rows, staged transposed
+// ([channel][row]) once: g (K x BM), x0 (F x BM), prev (H x BM).  The
+// prev channels go in passes of up to RB_PASS; in a pass of width hw a
+// thread owns RT rows x RB_CT consecutive h of one field:
+//   cg = t % S (S = hw / RB_CT rounded up to a power of two), rg = the
+//   row group, fl = t / (16 S) the field within a chunk of FPC = 16 / S
+//   fields,
+// so a chunk's 16 * FPC * S = 256 (rows, field, h) blocks cover all
+// threads, lanes of one (rows, field) are S consecutive lanes of a warp
+// and no output axis pads past a multiple of RB_CT.  W is read as
+// stored, (K, F*H), in chunks of FPC whole fields x RB_KT channels,
+// double-buffered by cp.async (16 bytes a copy where H % 4 == 0 and W is
+// aligned, else 4) into [k][fl * HP + h] (HP = RB_CT * S, the pad
+// zero-filled).  Per field chunk a thread sums A over k in registers,
+// then
+//   dprev block += A * x0[rows, f]   (registers, the same (rows, h) in
+//                                     every chunk of the pass),
+//   dx0[rows, f] = sum over its S lanes of A * prev[rows, h]   (shuffles;
+//                  the first lane writes it, adding to earlier passes'),
+// and at the pass's end each thread writes its dprev block, or, where a
+// chunk holds several fields, the FPC fields' blocks are first added in
+// field order through shared memory.  dx0 and dprev are written in a
+// fixed order.  At config 3's shapes the tiles take 98 KB (layer 2) and
+// 78 KB (layer 1), so two blocks share an SM, one's tile loads hidden
+// behind the other's work.
+constexpr int RB_CT = 4;                    // h per thread
+constexpr int RB_COLS = 64;                 // W columns per chunk: FPC * HP
+constexpr int RB_KT = 32;                   // channels per chunk
+constexpr int RB_PASS = 64;                 // h per pass
+constexpr int RB_STAGE = RB_KT * RB_COLS;   // floats per chunk buffer
+constexpr int RB_SUM = RB_PASS / 2;         // h of a pass summed in smem
+
+__host__ __device__ constexpr int rows_ld(int rt) { return 16 * rt + 4; }
+
+// The chunk buffers, which hold the pass's dprev sum at its end.
+__host__ __device__ constexpr int rows_wreg(int rt) {
+  return 2 * RB_STAGE > RB_SUM * rows_ld(rt) ? 2 * RB_STAGE
+                                             : RB_SUM * rows_ld(rt);
+}
+
+size_t rows_smem(int rt, int F, int H, int K) {
+  return (rows_wreg(rt) + (size_t)(K + F + H) * rows_ld(rt)) * sizeof(float);
+}
+
+template <int RT>
+__global__ void __launch_bounds__(kThreads, 2)
+cin_bwd_rows_kernel(const float* __restrict__ x0,
+                    const float* __restrict__ prev,
+                    const float* __restrict__ W, const float* __restrict__ g,
+                    float* __restrict__ dx0, float* __restrict__ dprev,
+                    int M, int F, int H, int K, int vec) {
+  constexpr int BM = 16 * RT;
+  constexpr int LD = rows_ld(RT);
+  extern __shared__ float4 smem4[];
+  float* wbuf = reinterpret_cast<float*>(smem4);   // chunks, then dprev
+  float* gs = wbuf + rows_wreg(RT);                // K x LD
+  float* x0s = gs + K * LD;                        // F x LD
+  float* prevs = x0s + F * LD;                     // H x LD
   const int t = threadIdx.x;
-  const int fl = t >> 6;            // field of this thread
-  const int kb = (t >> 3) & 7;      // its 8 channels
-  const int hb = t & 7;             // its 8 prev channels
-  float acc[8][8];
+  const int m0 = blockIdx.x * BM;
+  const int FH = F * H;
+  load_tile_t(g, M, K, m0, BM, LD, gs);
+  load_tile_t(x0, M, F, m0, BM, LD, x0s);
+  load_tile_t(prev, M, H, m0, BM, LD, prevs);
+  const int nkt = (K + RB_KT - 1) / RB_KT;
+
+  for (int h0 = 0; h0 < H; h0 += RB_PASS) {
+    const int hw = min(RB_PASS, H - h0);
+    int S = 1;
+    while (S * RB_CT < hw) S <<= 1;
+    const int FPC = 16 / S;
+    const int HP = RB_CT * S;
+    const int cg = t & (S - 1);
+    const int rg = (t / S) & 15;
+    const int fl = t / (16 * S);
+    const int nsteps = ((F + FPC - 1) / FPC) * nkt;
+
+    // chunk `step` (fields (step / nkt) * FPC .., channels
+    // (step % nkt) * RB_KT ..) into buffer `buf`
+    auto stage = [&](int step, int buf) {
+      float* dst = wbuf + buf * RB_STAGE;
+      const int f0 = (step / nkt) * FPC;
+      const int k0 = (step % nkt) * RB_KT;
+      if (vec) {
+        for (int idx = t; idx < RB_STAGE / 4; idx += kThreads) {
+          const int k = idx / (RB_COLS / 4);
+          const int q = idx % (RB_COLS / 4);          // quad of the row
+          const int f = f0 + q / S;
+          const int h = (q % S) * 4;
+          const bool ok = k0 + k < K && f < F && h < hw;
+          cp_async16(dst + k * RB_COLS + q * 4,
+                     ok ? W + (size_t)(k0 + k) * FH + f * H + h0 + h : W, ok);
+        }
+      } else {
+        for (int idx = t; idx < RB_STAGE; idx += kThreads) {
+          const int k = idx / RB_COLS;
+          const int col = idx % RB_COLS;
+          const int f = f0 + col / HP;
+          const int h = col % HP;
+          const bool ok = k0 + k < K && f < F && h < hw;
+          cp_async4(dst + idx,
+                    ok ? W + (size_t)(k0 + k) * FH + f * H + h0 + h : W, ok);
+        }
+      }
+      cp_async_commit();
+    };
+
+    float dp[RT][RB_CT], acc[RT][RB_CT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < RB_CT; ++j) dp[i][j] = 0.f;
+    stage(0, 0);
+    for (int step = 0; step < nsteps; ++step) {
+      if (step + 1 < nsteps) {
+        stage(step + 1, (step + 1) & 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int kt = step % nkt;
+      if (kt == 0) {
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < RB_CT; ++j) acc[i][j] = 0.f;
+      }
+      const float* wp = wbuf + (step & 1) * RB_STAGE + fl * HP + cg * RB_CT;
+      const float* gp = gs + kt * RB_KT * LD + rg * RT;
+      const int kn = min(RB_KT, K - kt * RB_KT);
+#pragma unroll 8
+      for (int k = 0; k < kn; ++k) {
+        const float4 w4 = *reinterpret_cast<const float4*>(wp + k * RB_COLS);
+        const float w[RB_CT] = {w4.x, w4.y, w4.z, w4.w};
+        float gv[RT];
+        load_rows<RT>(gp + k * LD, gv);
+#pragma unroll
+        for (int i = 0; i < RT; ++i)
+#pragma unroll
+          for (int j = 0; j < RB_CT; ++j)
+            acc[i][j] = fmaf(gv[i], w[j], acc[i][j]);
+      }
+      const int f = (step / nkt) * FPC + fl;
+      // uniform across a warp where S > 1 (a warp holds one field)
+      if (kt == nkt - 1 && f < F) {
+        float xv[RT], part[RT];
+        load_rows<RT>(x0s + f * LD + rg * RT, xv);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) part[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < RB_CT; ++j) {
+          const int h = cg * RB_CT + j;
+          if (h < hw) {
+            float pv[RT];
+            load_rows<RT>(prevs + (h0 + h) * LD + rg * RT, pv);
+#pragma unroll
+            for (int i = 0; i < RT; ++i) {
+              part[i] = fmaf(acc[i][j], pv[i], part[i]);
+              dp[i][j] = fmaf(acc[i][j], xv[i], dp[i][j]);
+            }
+          }
+        }
+        for (int o = S / 2; o > 0; o >>= 1)
+#pragma unroll
+          for (int i = 0; i < RT; ++i)
+            part[i] += __shfl_xor_sync(0xffffffffu, part[i], o);
+        if (cg == 0) {
+#pragma unroll
+          for (int i = 0; i < RT; ++i) {
+            const int m = m0 + rg * RT + i;
+            if (m < M) {
+              float* d = dx0 + (size_t)m * F + f;
+              *d = (h0 ? *d : 0.f) + part[i];
+            }
+          }
+        }
+      }
+      __syncthreads();   // buffer step & 1 is refilled next step
+    }
+
+    if (FPC == 1) {      // the thread's block is the pass's dprev there
+      const bool v4 = H % 4 == 0 && cg * RB_CT + 3 < hw &&
+                      reinterpret_cast<uintptr_t>(dprev) % 16 == 0;
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int m = m0 + rg * RT + i;
+        if (m >= M) continue;
+        float* d = dprev + (size_t)m * H + h0 + cg * RB_CT;
+        if (v4) {
+          *reinterpret_cast<float4*>(d) =
+              make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < RB_CT; ++j)
+            if (cg * RB_CT + j < hw) d[j] = dp[i][j];
+        }
+      }
+      continue;          // wbuf is restaged after the loop's last barrier
+    }
+    // the FPC fields' blocks added in field order (HP <= RB_SUM here)
+    float* dps = wbuf;   // [h][row], RB_SUM x LD
+    for (int r = 0; r < FPC; ++r) {
+      if (fl == r) {
+#pragma unroll
+        for (int j = 0; j < RB_CT; ++j) {
+          float* d = dps + (cg * RB_CT + j) * LD + rg * RT;
+#pragma unroll
+          for (int i = 0; i < RT; ++i) d[i] = (r ? d[i] : 0.f) + dp[i][j];
+        }
+      }
+      __syncthreads();
+    }
+    for (int idx = t; idx < BM * hw; idx += kThreads) {
+      const int m = idx / hw;
+      const int h = idx - m * hw;
+      if (m0 + m < M) dprev[(size_t)(m0 + m) * H + h0 + h] = dps[h * LD + m];
+    }
+    __syncthreads();   // wbuf is staged again by the next pass
+  }
+}
+
+template <int RT>
+int launch_rows(const float* x0, const float* prev, const float* W,
+                const float* g, float* dx0, float* dprev, int M, int F,
+                int H, int K, int vec, int device, cudaStream_t s) {
+  static std::atomic<bool> done[kMaxDevices];
+  CIN_TRY(allow_optin_smem((const void*)cin_bwd_rows_kernel<RT>, device,
+                           done));
+  const int grid = (M + 16 * RT - 1) / (16 * RT);
+  cin_bwd_rows_kernel<RT><<<grid, kThreads, rows_smem(RT, F, H, K), s>>>(
+      x0, prev, W, g, dx0, dprev, M, F, H, K, vec);
+  return cudaGetLastError();
+}
+
+// dx0 (M, F) and dprev (M, H) of one layer for g (M, K).
+int bwd_rows(const float* x0, const float* prev, const float* W,
+             const float* g, float* dx0, float* dprev, int M, int F, int H,
+             int K, int device, cudaStream_t s) {
+  if (M == 0) return cudaSuccess;
+  const int rt = pick_rt(device, [&](int r) {
+    return rows_smem(r, F, H, K); });
+  if (rt == 0) return cudaErrorInvalidValue;
+  const int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
+  if (rt == 8)
+    return launch_rows<8>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec,
+                          device, s);
+  if (rt == 4)
+    return launch_rows<4>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec,
+                          device, s);
+  if (rt == 2)
+    return launch_rows<2>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec,
+                          device, s);
+  return launch_rows<1>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec, device,
+                        s);
+}
+
+// The weight-gradient kernel.  Block (tile, split) computes
+//   part[split][k][n] = sum over rows m of its slice of A[m,k] U[m,n],
+//   U[m, f*H + h] = X[m,f] P[m,h],
+// for a WG_KT x WG_NT tile of (k, n): nothing pads past the ragged last
+// tile of the flattened F*H axis.  Each thread stages one fixed column of
+// U (its f, h found once) for every other row, forming the product as it
+// stages, and holds 8 channels x 4 columns in registers; the next WG_RB
+// rows are fetched into registers while the current ones are multiplied.
+// The partials are written as float4 where N % 4 == 0 and the scratch is
+// 16-byte aligned (cin_stack_sum_bwd_f32 hands in an offset of its own).
+constexpr int WG_KT = 64;    // channels per tile
+constexpr int WG_NT = 128;   // flattened (f, h) columns per tile
+constexpr int WG_RB = 32;    // rows staged at a time
+constexpr int WG_UP = WG_RB * WG_NT / kThreads;   // U values a thread stages
+constexpr int WG_AP = WG_RB * WG_KT / kThreads;   // A values a thread stages
+
+__global__ void __launch_bounds__(kThreads)
+cin_wgrad_kernel(const float* __restrict__ A, int K,
+                 const float* __restrict__ X, int F,
+                 const float* __restrict__ P, int H, int M, int rows,
+                 float* __restrict__ part) {
+  __shared__ __align__(16) float as[WG_RB][WG_KT + 4];
+  __shared__ __align__(16) float us[WG_RB][WG_NT + 4];
+  const int N = F * H;
+  const int nn = (N + WG_NT - 1) / WG_NT;
+  const int n0 = (blockIdx.x % nn) * WG_NT;
+  const int k0 = (blockIdx.x / nn) * WG_KT;
+  const int t = threadIdx.x;
+  const int uc = t % WG_NT, ur = t / WG_NT;   // staging: column, first row
+  const int un = n0 + uc;
+  const bool u_ok = un < N;
+  const int uf = u_ok ? un / H : 0;
+  const int uh = u_ok ? un - uf * H : 0;
+  const int ac = t % WG_KT, ar = t / WG_KT;
+  const bool a_ok = k0 + ac < K;
+  // compute: 8 channels (kg) x 4 columns (ng); a warp holds 4 kg x 8 ng,
+  // so its reads of both operands are mostly broadcasts
+  const int lane = t % 32, warp = t / 32;
+  const int kg = (warp & 1) * 4 + lane / 8;
+  const int ng = (warp >> 1) * 8 + lane % 8;
+  const int m_begin = blockIdx.y * rows;
+  const int m_end = min(M, m_begin + rows);
+  float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  const int m_begin = blockIdx.y * DW_ROWS;
-  const int m_end = min(M, m_begin + DW_ROWS);
-  for (int r0 = m_begin; r0 < m_end; r0 += DW_RB) {
-    __syncthreads();
-    for (int idx = t; idx < DW_RB * DW_KB; idx += kThreads) {
-      const int r = idx / DW_KB;
-      const int c = idx - r * DW_KB;
-      const int m = r0 + r;
-      as[r][c] = (m < m_end && k0 + c < K) ? A[(size_t)m * K + k0 + c] : 0.f;
-      ps[r][c] = (m < m_end && h0 + c < H) ? P[(size_t)m * H + h0 + c] : 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // raw x0 and prev values: their product is formed when they are
+  // stored, so no instruction waits on the loads before the multiply loop
+  float px[WG_UP], pp[WG_UP], pa[WG_AP];
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int i = 0; i < WG_UP; ++i) {
+      const int m = r0 + ur + i * (kThreads / WG_NT);
+      const bool ok = u_ok && m < m_end;
+      px[i] = ok ? __ldg(X + (size_t)m * F + uf) : 0.f;
+      pp[i] = ok ? __ldg(P + (size_t)m * H + uh) : 0.f;
     }
-    if (t < DW_RB * DW_FC) {
-      const int r = t / DW_FC;
-      const int c = t - r * DW_FC;
-      const int m = r0 + r;
-      xs[r][c] = (m < m_end && f0 + c < F) ? X[(size_t)m * F + f0 + c] : 0.f;
+#pragma unroll
+    for (int i = 0; i < WG_AP; ++i) {
+      const int m = r0 + ar + i * (kThreads / WG_KT);
+      pa[i] = (a_ok && m < m_end) ? __ldg(A + (size_t)m * K + k0 + ac) : 0.f;
     }
+  };
+  if (m_begin < m_end) fetch(m_begin);
+  for (int r0 = m_begin; r0 < m_end; r0 += WG_RB) {
     __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < DW_RB; ++r) {
-      const float xv = xs[r][fl];
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[r][kb * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[r][kb * 8 + 4]);
-      const float4 p0 = *reinterpret_cast<const float4*>(&ps[r][hb * 8]);
-      const float4 p1 = *reinterpret_cast<const float4*>(&ps[r][hb * 8 + 4]);
+#pragma unroll
+    for (int i = 0; i < WG_UP; ++i)
+      us[ur + i * (kThreads / WG_NT)][uc] = px[i] * pp[i];
+#pragma unroll
+    for (int i = 0; i < WG_AP; ++i) as[ar + i * (kThreads / WG_KT)][ac] = pa[i];
+    __syncthreads();
+    if (r0 + WG_RB < m_end) fetch(r0 + WG_RB);
+#pragma unroll
+    for (int r = 0; r < WG_RB; ++r) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&as[r][kg * 8]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&as[r][kg * 8 + 4]);
+      const float4 u4 = *reinterpret_cast<const float4*>(&us[r][ng * 4]);
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float p[8] = {xv * p0.x, xv * p0.y, xv * p0.z, xv * p0.w,
-                          xv * p1.x, xv * p1.y, xv * p1.z, xv * p1.w};
+      const float u[4] = {u4.x, u4.y, u4.z, u4.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], p[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], u[j], acc[i][j]);
     }
   }
-  const int f = f0 + fl;
-  if (f >= F) return;
-  float* dst = part + (size_t)blockIdx.y * K * F * H;
+  float* dst = part + (size_t)blockIdx.y * K * N;
+  const int n = n0 + ng * 4;
+  const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(dst) % 16 == 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int k = k0 + kb * 8 + i;
+    const int k = k0 + kg * 8 + i;
     if (k >= K) continue;
+    float* o = dst + (size_t)k * N + n;
+    if (vec && n + 3 < N) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int h = h0 + hb * 8 + j;
-      if (h < H) dst[((size_t)k * F + f) * H + h] = acc[i][j];
+      for (int j = 0; j < 4; ++j)
+        if (n + j < N) o[j] = acc[i][j];
     }
   }
 }
@@ -499,21 +881,45 @@ __global__ void reduce_kernel(const float* __restrict__ part, int splits,
   }
 }
 
-int dw_splits(int M) { return (M + DW_ROWS - 1) / DW_ROWS; }
+// Blocks of cin_wgrad_kernel resident on one SM, cached per device; 0
+// when the query fails.
+int wgrad_resident(int device) {
+  static std::atomic<int> slots[kMaxDevices];
+  return per_device(device, slots, [](int* v) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(v, cin_wgrad_kernel,
+                                                         kThreads, 0); });
+}
+
+// Row slices of one weight gradient (K, N = F*H) over M rows: as many
+// blocks as the card holds at once (one full wave, each block the same
+// rows, so no tail and the fewest partials), at most one a WG_RB rows;
+// 0 when M is 0, -1 when the device cannot be read.
+int wgrad_splits(int M, int K, int N, int device) {
+  if (M == 0) return 0;
+  const int slots = sm_count(device) * wgrad_resident(device);
+  if (slots == 0) return -1;
+  const int tiles = ((N + WG_NT - 1) / WG_NT) * ((K + WG_KT - 1) / WG_KT);
+  const int want = slots / tiles;
+  const int most = (M + WG_RB - 1) / WG_RB;
+  return want < 1 ? 1 : (want > most ? most : want);
+}
 
 // out (K, F, H) = sum_m A[m,k] X[m,f] P[m,h]; part holds
-// dw_splits(M) * K * F * H floats.
+// wgrad_splits(M, K, F * H, device) * K * F * H floats.
 int weight_grad(const float* A, int K, const float* X, int F, const float* P,
-                int H, int M, float* part, float* out, cudaStream_t s) {
-  const size_t n = (size_t)K * F * H;
-  const int splits = dw_splits(M);
+                int H, int M, float* part, float* out, int device,
+                cudaStream_t s) {
+  const int N = F * H;
+  const size_t n = (size_t)K * N;
+  const int splits = wgrad_splits(M, K, N, device);
+  if (splits < 0) return cudaErrorInvalidValue;
   if (splits == 0) return cudaMemsetAsync(out, 0, n * sizeof(float), s);
-  const int tiles = ((F + DW_FC - 1) / DW_FC) * ((H + DW_HB - 1) / DW_HB) *
-                    ((K + DW_KB - 1) / DW_KB);
-  cin_dw_kernel<<<dim3(tiles, splits), kThreads, 0, s>>>(A, K, X, F, P, H, M,
-                                                         part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  const int per = (M + splits - 1) / splits;
+  const int rows = (per + WG_RB - 1) / WG_RB * WG_RB;
+  const int tiles = ((N + WG_NT - 1) / WG_NT) * ((K + WG_KT - 1) / WG_KT);
+  cin_wgrad_kernel<<<dim3(tiles, splits), kThreads, 0, s>>>(A, K, X, F, P, H,
+                                                            M, rows, part);
+  CIN_TRY(cudaGetLastError());
   const size_t want = (n + 255) / 256;
   const int blocks = (int)(want < 4096 ? want : 4096);
   reduce_kernel<<<blocks, 256, 0, s>>>(part, splits, n, out);
@@ -549,12 +955,6 @@ cudaError_t use_device(int device) {
   if (e != cudaSuccess || current == device) return e;
   return cudaSetDevice(device);
 }
-
-#define CIN_TRY(expr)                     \
-  do {                                    \
-    const int rc_ = (expr);               \
-    if (rc_ != cudaSuccess) return rc_;   \
-  } while (0)
 
 }  // namespace
 
@@ -612,55 +1012,62 @@ int cin_stack_sum_f32(const float* x0, const float* const* weights,
   if (e != cudaSuccess) return e;
   if (rt == 8)
     return launch_stack<8>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                           output_input, s);
+                           output_input, device, s);
   if (rt == 4)
     return launch_stack<4>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                           output_input, s);
+                           output_input, device, s);
   if (rt == 2)
     return launch_stack<2>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                           output_input, s);
+                           output_input, device, s);
   return launch_stack<1>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                         output_input, s);
+                         output_input, device, s);
 }
 
-// Floats of part-sum scratch that cin_flat_bwd_f32 and
-// cin_stack_sum_bwd_f32 need for one weight gradient of n = K * F * H
-// values over M rows.
-long long cin_dw_scratch(int M, long long n) { return dw_splits(M) * n; }
+// Floats of partial sums that one weight gradient of K x N values over M
+// rows needs (cin_flat_bwd_f32's scratch, with N = F * H), or -1 when
+// the device cannot be read.
+long long cin_dw_scratch(int M, int K, int N, int device) {
+  const int splits = wgrad_splits(M, K, N, device);
+  return splits < 0 ? -1 : (long long)splits * K * N;
+}
 
 // The backward of cin_flat_f32: x0 (M, F), prev (M, H), W (K, F, H),
 // g (M, K) -> dx0 (M, F), dprev (M, H), dW (K, F, H).  scratch holds
-// K * F * H + cin_dw_scratch(M, K * F * H) floats.
+// cin_dw_scratch(M, K, F * H, device) floats.
 int cin_flat_bwd_f32(const float* x0, const float* prev, const float* W,
                      const float* g, float* scratch, float* dx0,
                      float* dprev, float* dW, int M, int F, int H, int K,
                      int device, void* stream) {
   CIN_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w_khf = scratch;
-  float* part = scratch + (size_t)K * F * H;
-  CIN_TRY(to_khf(W, K, F, H, w_khf, s));
-  CIN_TRY(layer(g, K, prev, H, w_khf, F, dx0, M, 0, nullptr, device, s));
-  CIN_TRY(layer(g, K, x0, F, W, H, dprev, M, 0, nullptr, device, s));
-  return weight_grad(g, K, x0, F, prev, H, M, part, dW, s);
+  CIN_TRY(bwd_rows(x0, prev, W, g, dx0, dprev, M, F, H, K, device, s));
+  return weight_grad(g, K, x0, F, prev, H, M, scratch, dW, device, s);
 }
 
-// Floats of scratch cin_stack_sum_bwd_f32 needs for these layers.
-long long cin_stack_bwd_scratch(const int* ks, int n_layers, int M, int F) {
+// Floats of scratch cin_stack_sum_bwd_f32 needs for these layers, or -1
+// when the device cannot be read.
+long long cin_stack_bwd_scratch(const int* ks, int n_layers, int M, int F,
+                                int device) {
   const int n_mid = n_layers - 1;
-  long long total = 0, hid = 0, h_max = 0, dw_max = 0;
+  long long total = 0, hid = 0, h_max = 0;
   int h = F;
+  // the collapsed layer's weight gradient: K' = F, N = H_{n-1} (below)
   for (int l = 0; l < n_mid; ++l) {
     total += 2LL * ks[l] * F * h;            // (F, H, K) and (K, H, F)
     hid += ks[l];
     h_max = ks[l] > h_max ? ks[l] : h_max;
-    const long long n = (long long)ks[l] * F * h;
+    h = ks[l];
+  }
+  long long dw_max = cin_dw_scratch(M, F, h, device);
+  h = F;
+  for (int l = 0; l < n_mid; ++l) {
+    const long long n = cin_dw_scratch(M, ks[l], F * h, device);
     dw_max = n > dw_max ? n : dw_max;
     h = ks[l];
   }
+  if (dw_max < 0) return -1;
   total += 2LL * F * h;                      // Wc and its transpose
-  dw_max = (long long)F * h > dw_max ? (long long)F * h : dw_max;
-  return total + (long long)M * (hid + 2 * h_max) + dw_splits(M) * dw_max;
+  return total + (long long)M * (hid + 2 * h_max) + dw_max;
 }
 
 // The backward of cin_stack_sum_f32 (replaces _cin_stack_bwd,
@@ -725,7 +1132,7 @@ int cin_stack_sum_bwd_f32(const float* x0, const float* g,
   // collapsed last layer: out += sum_f x0[f] sum_h Wc[f,h] h_last[h]
   CIN_TRY(layer(g, 1, h_last, hl, wct, F, dx0, M, 0,
                 output_input ? g : nullptr, device, s));
-  CIN_TRY(weight_grad(x0, F, g, 1, h_last, hl, M, part, dwc, s));
+  CIN_TRY(weight_grad(x0, F, g, 1, h_last, hl, M, part, dwc, device, s));
   if (n_mid == 0)                            // h_last is x0 itself
     return layer(g, 1, x0, F, wc, F, dx0, M, 1, nullptr, device, s);
   int cur = 0;
@@ -735,7 +1142,8 @@ int cin_stack_sum_bwd_f32(const float* x0, const float* g,
     const float* prev = l ? hid[l - 1] : x0;
     CIN_TRY(layer(dh, ks[l], prev, hin[l], w_khf[l], F, dx0, M, 1, nullptr,
                   device, s));
-    CIN_TRY(weight_grad(dh, ks[l], x0, F, prev, hin[l], M, part, dws[l], s));
+    CIN_TRY(weight_grad(dh, ks[l], x0, F, prev, hin[l], M, part, dws[l],
+                        device, s));
     if (l == 0) {                            // prev is x0
       CIN_TRY(layer(dh, ks[l], x0, F, weights[l], F, dx0, M, 1, nullptr,
                     device, s));

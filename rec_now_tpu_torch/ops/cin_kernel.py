@@ -54,9 +54,25 @@ def cin_stack_sum_plain(x0: torch.Tensor, weights: Sequence[torch.Tensor],
 def cin_flat_bwd_plain(x0: torch.Tensor, prev: torch.Tensor,
                        weight: torch.Tensor, g: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The layer's gradients for the output gradient g (M, K), written
-    out: ``dx0[m,f] = sum_{k,h} g W prev``, ``dprev[m,h] = sum_{k,f} g W
-    x0``, ``dW[k,f,h] = sum_m g x0 prev``."""
+    """The layer's gradients for the output gradient g (M, K), in the
+    kernel's order: ``A[m,f,h] = sum_k g W``, then ``dx0 = sum_h A
+    prev``, ``dprev = sum_f A x0``, and ``dW[k, n] = sum_m g[m,k]
+    u[m,n]`` over the flattened products ``u[m, f*H + h] = x0[m,f]
+    prev[m,h]``."""
+    m, f = x0.shape
+    k, _, h = weight.shape
+    a = torch.einsum("mk,kfh->mfh", g, weight)
+    dx0 = torch.einsum("mfh,mh->mf", a, prev)
+    dprev = torch.einsum("mfh,mf->mh", a, x0)
+    u = (x0[:, :, None] * prev[:, None, :]).reshape(m, f * h)
+    return dx0, dprev, (g.t() @ u).reshape(k, f, h)
+
+
+def _layer_bwd_by_contraction(x0, prev, weight, g):
+    """One layer's gradients as ``cin_stack_sum_bwd``'s kernel forms
+    them, each input gradient a layer contraction with permuted operands:
+    ``dx0[m,f] = sum_{k,h} g W prev``, ``dprev[m,h] = sum_{k,f} g W x0``,
+    ``dW[k,f,h] = sum_m g x0 prev``."""
     dx0 = torch.einsum("mkf,mk->mf",
                        torch.einsum("mh,kfh->mkf", prev, weight), g)
     dprev = torch.einsum("mkh,mk->mh",
@@ -86,7 +102,8 @@ def cin_stack_sum_bwd_plain(x0: torch.Tensor,
     dh = gc * (x0 @ wc)                                     # into h_{n-1}
     dws = []
     for i in range(len(weights) - 2, -1, -1):
-        ddx0, dh, dw = cin_flat_bwd_plain(x0, hs[i], weights[i], dh + gc)
+        ddx0, dh, dw = _layer_bwd_by_contraction(x0, hs[i], weights[i],
+                                                 dh + gc)
         dx0 = dx0 + ddx0
         dws.insert(0, dw)
     dx0 = dx0 + dh                                          # h_0 is x0
@@ -103,11 +120,11 @@ def _lib() -> ctypes.CDLL:
         lib.cin_stack_sum_f32.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
                                           i32, i32, i32, ptr]
         lib.cin_stack_sum_f32.restype = i32
-        lib.cin_dw_scratch.argtypes = [i32, i64]
+        lib.cin_dw_scratch.argtypes = [i32] * 4
         lib.cin_dw_scratch.restype = i64
         lib.cin_flat_bwd_f32.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
         lib.cin_flat_bwd_f32.restype = i32
-        lib.cin_stack_bwd_scratch.argtypes = [ptr, i32, i32, i32]
+        lib.cin_stack_bwd_scratch.argtypes = [ptr] + [i32] * 4
         lib.cin_stack_bwd_scratch.restype = i64
         lib.cin_stack_sum_bwd_f32.argtypes = ([ptr] * 4 + [i32] + [ptr] * 4
                                               + [i32] * 4 + [ptr])
@@ -118,6 +135,13 @@ def _lib() -> ctypes.CDLL:
 
 def _empty(x: torch.Tensor, *shape: int) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+
+def _scratch_size(n: int) -> int:
+    if n < 0:
+        raise RuntimeError("the CIN backward could not read the device's "
+                           "SM count or occupancy")
+    return n
 
 
 def _check_flat(x0, prev, weight) -> Tuple[int, int, int, int]:
@@ -247,12 +271,14 @@ def cin_flat_bwd(x0: torch.Tensor, prev: torch.Tensor, weight: torch.Tensor,
     if tuple(g.shape) != (m, k):
         raise ValueError(f"g has shape {tuple(g.shape)}, expected {(m, k)}")
     lib = _lib()
+    dev = x0.device.index
     dx0, dprev, dw = _empty(x0, m, f), _empty(x0, m, h), _empty(x0, k, f, h)
-    scratch = _empty(x0, k * f * h + lib.cin_dw_scratch(m, k * f * h))
+    # the weight gradient's partial sums, one per row slice
+    scratch = _empty(x0, _scratch_size(lib.cin_dw_scratch(m, k, f * h, dev)))
     rc = lib.cin_flat_bwd_f32(
         x0.data_ptr(), prev.data_ptr(), weight.data_ptr(), g.data_ptr(),
         scratch.data_ptr(), dx0.data_ptr(), dprev.data_ptr(), dw.data_ptr(),
-        m, f, h, k, x0.device.index, _build.stream_of(x0))
+        m, f, h, k, dev, _build.stream_of(x0))
     check_rc(lib, rc, "cin_flat_bwd")
     cin_flat_bwd.launches += 1
     return dx0, dprev, dw
@@ -278,7 +304,8 @@ def cin_stack_sum_bwd(x0: torch.Tensor, weights: Sequence[torch.Tensor],
     n = len(weights)
     ks = (ctypes.c_int * n)(*[w.shape[0] for w in weights])
     lib = _lib()
-    scratch = _empty(x0, lib.cin_stack_bwd_scratch(ks, n, m, f))
+    scratch = _empty(x0, _scratch_size(
+        lib.cin_stack_bwd_scratch(ks, n, m, f, x0.device.index)))
     dx0 = _empty(x0, m, f)
     dws = [torch.empty_like(w) for w in weights[:-1]]
     dwc = _empty(x0, f, weights[-1].shape[2])

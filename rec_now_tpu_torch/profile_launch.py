@@ -6,7 +6,9 @@ Times the host path of the multi-expert dense (B8, ``multi_dense_fused``),
 the row gather (B11, ``gather_rows``) and the row scatter-add (B12,
 ``scatter_add_rows``) wrappers, and of the one PyTorch call that computes
 each function (``torch.baddbmm``, ``torch.index_select``,
-``Tensor.index_add_``): ``time.perf_counter`` over 10,000 calls of each
+``Tensor.index_add_``), and of the CIN layer's backward (B5,
+``cin_flat_bwd``: three kernel launches, no single PyTorch call to set
+beside it).  ``time.perf_counter`` over 10,000 calls of each
 at a tiny size, in 5 interleaved rounds of 2,000 after 200 warm-up calls,
 with no synchronisation inside a round, so each call's time is what the
 host spends to check its inputs and enqueue its kernel (the card finishes
@@ -25,6 +27,7 @@ from typing import Callable, Dict
 
 import torch
 
+from rec_now_tpu_torch.ops import cin_kernel as ck
 from rec_now_tpu_torch.ops import expand_kernel as ek
 from rec_now_tpu_torch.ops import gather_kernel as gk
 from rec_now_tpu_torch.ops import multi_dense_kernel as mk
@@ -65,7 +68,11 @@ def _tiny(dev: torch.device):
                 vals=torch.randn(32, 16, generator=gen).to(dev),
                 x=torch.randn(1, 8, 16, generator=gen).to(dev),
                 w=torch.randn(2, 16, 4, generator=gen).to(dev),
-                bias=torch.randn(2, 1, 4, generator=gen).to(dev))
+                bias=torch.randn(2, 1, 4, generator=gen).to(dev),
+                x0=torch.randn(8, 4, generator=gen).to(dev),
+                prev=torch.randn(8, 3, generator=gen).to(dev),
+                wc=torch.randn(2, 4, 3, generator=gen).to(dev),
+                g=torch.randn(8, 2, generator=gen).to(dev))
 
 
 def wrapper_host_us() -> Dict[str, float]:
@@ -75,13 +82,15 @@ def wrapper_host_us() -> Dict[str, float]:
     table, ids, vals = t["table"], t["ids"], t["vals"]
     x, w, bias = t["x"], t["w"], t["bias"]
     xe = x.expand(2, 8, 16)
+    x0, prev, wc, g = t["x0"], t["prev"], t["wc"], t["g"]
     return median_host_us({
         "multi_dense_fused": lambda: mk.multi_dense_fused(x, w, bias, False),
         "torch.baddbmm": lambda: torch.baddbmm(bias, xe, w),
         "gather_rows": lambda: gk.gather_rows(table, ids),
         "torch.index_select": lambda: torch.index_select(table, 0, ids),
         "scatter_add_rows": lambda: ek.scatter_add_rows(table, ids, vals),
-        "Tensor.index_add_": lambda: table.index_add_(0, ids, vals)})
+        "Tensor.index_add_": lambda: table.index_add_(0, ids, vals),
+        "cin_flat_bwd": lambda: ck.cin_flat_bwd(x0, prev, wc, g)})
 
 
 def main() -> None:

@@ -5,7 +5,9 @@ elsewhere).  Run on the card with
 ``python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda``.
 Shapes are the small odd ones of the JAX kernel tests plus edge cases
 (one field, one channel, K past one 64-channel chunk, ragged M, B and
-V, more rows than one weight-gradient slice) and, for the multi-expert
+V, more rows than one weight-gradient slice; for the CIN layer's
+backward also prev = x0, F * H % 4 != 0, H past one 64-wide pass, M = 0
+and two calls equal bit for bit) and, for the multi-expert
 dense and the listwise loss, config 4's shapes (the four banks at
 B = 1,000 and 8,192) and degenerate batches, and each dispatch edge of
 the multi-expert dense (N * U = 16 and 17 on a shared input, a small
@@ -107,18 +109,43 @@ def _close_rel(got, want, rel=1e-5):
     assert float((got - want).abs().max()) <= rel * float(want.abs().max())
 
 
-@pytest.mark.parametrize("m,f,h,k", [(32, 5, 6, 7), (15, 4, 4, 4),
-                                     (1, 1, 1, 1), (300, 26, 26, 64),
-                                     (129, 3, 70, 130), (2100, 26, 64, 64)])
-def test_cin_flat_bwd_matches_plain(dev, m, f, h, k):
+# (m, f, h, k, prev is x0): small odd shapes; config 3's layers (H = 26
+# at an M off the 128-row tile, and prev = x0 as in layer 1); F * H % 4
+# != 0 (4-byte weight copies); K = 1; K = 130 past two 64-channel
+# chunks, with H = 70 past one 64-wide pass
+@pytest.mark.parametrize("m,f,h,k,prev_is_x0", [
+    (32, 5, 6, 7, False), (15, 4, 4, 4, False), (1, 1, 1, 1, False),
+    (300, 26, 26, 64, False), (129, 3, 70, 130, False),
+    (2100, 26, 64, 64, False), (2100, 26, 26, 64, False),
+    (300, 5, 7, 9, False), (50, 6, 8, 1, False), (300, 26, 64, 130, False),
+    (15, 4, 4, 4, True), (300, 26, 26, 64, True), (2100, 26, 26, 64, True)])
+def test_cin_flat_bwd_matches_plain(dev, m, f, h, k, prev_is_x0):
     gen = torch.Generator().manual_seed(m + 3 * k)
     x0, prev = _rand(gen, dev, m, f), _rand(gen, dev, m, h)
+    prev = x0 if prev_is_x0 else prev
     w, g = _rand(gen, dev, k, f, h), _rand(gen, dev, m, k)
     before = ck.cin_flat_bwd.launches
     got = ck.cin_flat_bwd(x0, prev, w, g)
     assert ck.cin_flat_bwd.launches == before + 1
     for a, b in zip(got, ck.cin_flat_bwd_plain(x0, prev, w, g)):
         _close_rel(a, b)
+
+
+def test_cin_flat_bwd_empty_and_repeatable(dev):
+    """M = 0 gives empty input gradients and a zero dW; two calls on the
+    same inputs give the same bits (fixed summation order, no atomics)."""
+    x0, prev = torch.zeros(0, 5, device=dev), torch.zeros(0, 7, device=dev)
+    w, g = torch.ones(3, 5, 7, device=dev), torch.zeros(0, 3, device=dev)
+    dx0, dprev, dw = ck.cin_flat_bwd(x0, prev, w, g)
+    assert dx0.shape == (0, 5) and dprev.shape == (0, 7)
+    assert torch.equal(dw, torch.zeros(3, 5, 7, device=dev))
+    gen = torch.Generator().manual_seed(5)
+    x0, prev = _rand(gen, dev, 2100, 26), _rand(gen, dev, 2100, 64)
+    w, g = _rand(gen, dev, 64, 26, 64), _rand(gen, dev, 2100, 64)
+    first = ck.cin_flat_bwd(x0, prev, w, g)
+    again = ck.cin_flat_bwd(x0, prev, w, g)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("hidden", [(5,), (5, 4), (5, 4, 6), (1, 65)])
