@@ -27,8 +27,12 @@ Phases, each of which ends the script with a non-zero exit on failure:
    gate kernel, x off the 16-byte grid), and time kernel, plain version
    and, where one exists, a single PyTorch call computing the same
    function (CUDA events, median of 20; each multi-expert dense bank
-   beside its bound on the unit that runs it: split TF32 on the tensor
-   cores, or f32 for the gate kernel); the wrappers' host microseconds
+   and each CIN layer beside its bound on the unit that runs it: split
+   TF32 on the tensor cores (the CIN layer also at the f32 rate), or f32
+   for the gate kernel); the CIN backwards' device time by part
+   (``torch.profiler``: B5's row and weight-gradient kernels per layer;
+   B4's recompute, row kernel, weight gradients and collapsed layer),
+   each beside its least work; the wrappers' host microseconds
    per launch (``rec_now_tpu_torch.profile_launch``); then time the
    table's dense and sparse update paths (the median of interleaved
    rounds), which sets ``auto``;
@@ -214,9 +218,10 @@ def profiled_ms(torch, fn, reps: int = 20) -> float:
     return sum(profiled_by_name(torch, fn, reps).values())
 
 
-def profiled_by_name(torch, fn, reps: int = 20) -> dict:
-    """Device ms of one ``fn()`` by the name of each kernel or copy it
-    runs on the card (``torch.profiler`` over ``reps`` calls)."""
+def profiled_sequence(torch, fn, reps: int = 20) -> list:
+    """(name, device ms) of each kernel or copy that ``reps`` calls of
+    ``fn()`` run on the card, in the order they started
+    (``torch.profiler``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -226,13 +231,19 @@ def profiled_by_name(torch, fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)),
+                    key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def profiled_by_name(torch, fn, reps: int = 20) -> dict:
+    """Device ms of one ``fn()`` by the name of each kernel or copy it
+    runs on the card (profiled_sequence summed by name)."""
     ms = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not getattr(
-                e, "is_user_annotation", False):
-            ms[e.key] = ms.get(e.key, 0.0) + float(
-                getattr(e, "self_device_time_total", None)
-                or getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3
+    for name, t in profiled_sequence(torch, fn, reps):
+        ms[name] = ms.get(name, 0.0) + t / reps
     return ms
 
 
@@ -256,30 +267,85 @@ def cin_flat_bwd_flops(m: int, f: int, h: int, k: int,
     return m * terms + 2 * m * k * terms + 2 * m * k * f * h + 4 * m * f * h
 
 
-def cin_stack_bwd_flops(m: int, f: int, ks) -> int:
-    """Least FLOPs of the stack's backward for g (M,): the non-last layers
-    recomputed (cin_flops); the collapsed last layer, z = h_{n-1} Wc^T,
-    dh_{n-1} = x0 Wc and dWc = (g x0)^T h_{n-1} at 2 M F H each plus the
-    g scalings (3 M F + M H); then each non-last layer's backward after g
-    is added to its hidden gradient (M K).  Layer 1's prev is x0 and the
-    stack returns dx0 alone, so its two input terms merge:
-    dx0 = (A + A^T) x0 with A = sum_k g W1 -- W1 + W1^T formed once per
-    call (K F^2), A on the F(F+1)/2 symmetric pairs, then one multiply-add
-    per (f, h); dW1 on the symmetric products.  Layers above it take
-    cin_flat_bwd_flops."""
+def cin_stack_bwd_parts(m: int, f: int, ks) -> dict:
+    """Least device ms of the stack's backward for g (M,), by the part of
+    the kernel that does the work, each part's FLOPs at the peak rate of
+    the unit that runs them.  On the tensor cores in split TF32 (three
+    products per multiply-add): the non-last layers recomputed
+    (cin_flops) and the collapsed last layer's two contractions,
+    z = h_{n-1} Wc^T and dh_{n-1} = x0 Wc, at 2 M F H each.  In f32 FMAs:
+    dWc = (g x0)^T h_{n-1} (2 M F H) and the g scalings (3 M F + M H);
+    then each non-last layer's input gradients (the row kernel), g added
+    to its hidden gradient (M K), and its weight gradient
+    (cin_flat_bwd_flops split so).  Layer 1's prev is x0 and the stack
+    returns dx0 alone, so its two input terms merge: dx0 = (A + A^T) x0
+    with A = sum_k g W1 -- W1 + W1^T formed once per call (K F^2), A on
+    the F(F+1)/2 symmetric pairs, then one multiply-add per (f, h); dW1 on
+    the symmetric products."""
+    def tc(flops):
+        return bound_ms(3 * flops, 0, PEAK_TF32_FLOPS)[0]
+
+    def fma(flops):
+        return bound_ms(flops, 0)[0]
+
     hs = [f] + list(ks[:-1])
     mid = range(len(ks) - 1)
     sym = f * (f + 1) // 2
-
-    def layer_bwd(i: int) -> int:
+    rows = dw = 0
+    for i in mid:
+        k, h = ks[i], hs[i]
         if i:
-            return cin_flat_bwd_flops(m, f, hs[i], ks[i], False)
-        return (ks[0] * f * f + m * sym + 2 * m * ks[0] * sym
-                + 2 * m * ks[0] * sym + 2 * m * f * f)
+            rows += 2 * m * k * f * h + 4 * m * f * h + m * k
+            dw += m * f * h + 2 * m * k * f * h
+        else:
+            rows += k * f * f + 2 * m * k * sym + 2 * m * f * f + m * k
+            dw += m * sym + 2 * m * k * sym
+    return {"recompute": tc(sum(cin_flops(m, f, hs[i], ks[i], i == 0)
+                                for i in mid)),
+            "rows": fma(rows), "dw": fma(dw),
+            "collapsed": tc(4 * m * f * hs[-1])
+            + fma(2 * m * f * hs[-1] + 3 * m * f + m * hs[-1])}
 
-    return (sum(cin_flops(m, f, hs[i], ks[i], i == 0) for i in mid)
-            + 6 * m * f * hs[-1] + 3 * m * f + m * hs[-1]
-            + sum(layer_bwd(i) + m * ks[i] for i in mid))
+
+def b4_split(seq, n_mid: int, calls: int) -> dict:
+    """Device ms of cin_stack_sum_bwd's parts from the kernels of
+    ``calls`` calls in the order they ran (profiled_sequence).  A call
+    launches, by name: collapse_kernel once; cin_layer_tc_kernel n_mid
+    times for the recompute, then twice for the collapsed layer (the
+    shapes here fit one launch a layer); cin_wgrad_kernel n_mid + 1
+    times, dWc first, each followed by the reduce_kernel of its partial
+    sums; cin_bwd_rows_kernel n_mid times.  Any other kernel, or another
+    count, fails."""
+    out = dict(recompute=0.0, rows=0.0, dw=0.0, collapsed=0.0)
+    per_call = {"collapse_kernel": 1, "cin_layer_tc_kernel": n_mid + 2,
+                "cin_wgrad_kernel": n_mid + 1, "reduce_kernel": n_mid + 1,
+                "cin_bwd_rows_kernel": n_mid}
+    seen = dict.fromkeys(per_call, 0)
+    layers = grads = 0
+    part = "collapsed"
+    for name, ms in seq:
+        kind = [k for k in per_call if k in name]
+        if len(kind) != 1:
+            fail(f"cin_stack_sum_bwd ran an unexpected kernel: {name}")
+        kind = kind[0]
+        seen[kind] += 1
+        if kind == "collapse_kernel":
+            layers = grads = 0
+            part = "collapsed"
+        elif kind == "cin_layer_tc_kernel":
+            part = "recompute" if layers < n_mid else "collapsed"
+            layers += 1
+        elif kind == "cin_wgrad_kernel":
+            part = "dw" if grads else "collapsed"
+            grads += 1
+        elif kind == "cin_bwd_rows_kernel":
+            part = "rows"
+        out[part] += ms        # reduce_kernel: with its weight gradient
+    want = {k: calls * n for k, n in per_call.items()}
+    if seen != want:
+        fail(f"cin_stack_sum_bwd launched {seen} in {calls} calls, "
+             f"expected {want}")
+    return out
 
 
 def sort_ops(b: int, keys: int = 1) -> float:
@@ -881,20 +947,31 @@ def main() -> int:
         err = max(err, compare(f"M={M} H={h} K={k}",
                                ck.cin_flat(x0, prev, w),
                                ck.cin_flat_plain(x0, prev, w)))
-        t["ms"] += cuda_ms(torch, lambda: ck.cin_flat(x0, prev, w))
+        ms = cuda_ms(torch, lambda: ck.cin_flat(x0, prev, w))
+        lib = cuda_ms(
+            torch, lambda: torch.einsum("mf,mh,kfh->mk", x0, prev, w))
+        t["ms"] += ms
         t["plain_ms"] += cuda_ms(torch, lambda: ck.cin_flat_plain(x0, prev,
                                                                   w))
-        t["library_ms"] += cuda_ms(
-            torch, lambda: torch.einsum("mf,mh,kfh->mk", x0, prev, w))
-        t["flops"] += cin_flops(M, F, h, k, prev is x0)
-        t["nbytes"] += (M * F + (0 if prev is x0 else M * h) + k * F * h
-                        + M * k) * 4
+        t["library_ms"] += lib
+        flops = cin_flops(M, F, h, k, prev is x0)
+        nbytes = (M * F + (0 if prev is x0 else M * h) + k * F * h
+                  + M * k) * 4
+        t["flops"] += flops
+        t["nbytes"] += nbytes
+        # split TF32: three tensor-core products per multiply-add
+        tc, f32 = (bound_ms(3 * flops, nbytes, PEAK_TF32_FLOPS)[0],
+                   bound_ms(flops, nbytes)[0])
+        print(f"  B2 layer H={h} K={k}: {ms:.4f} ms by events, bound "
+              f"{tc:.4f} split TF32 ({100 * tc / ms:.1f}%), {f32:.4f} at "
+              f"the f32 rate ({100 * f32 / ms:.1f}%); torch.einsum "
+              f"{lib:.4f} [{card}]")
     pr = rand(12345, 37)
     w100 = glorot(100, F, 37)
     err = max(err, compare("ragged M=12345 H=37 K=100",
                            ck.cin_flat(xr, pr, w100),
                            ck.cin_flat_plain(xr, pr, w100)))
-    b_ms, b_by = bound_ms(t["flops"], t["nbytes"])
+    b_ms, b_by = bound_ms(3 * t["flops"], t["nbytes"], PEAK_TF32_FLOPS)
     kern["cin_flat"] = dict(
         name="cin_flat", route="cuda", source="rec_now_tpu_torch/csrc/cin.cu",
         replaces=f"{CIN_TPU}:153", max_abs_err=err, ms=t["ms"],
@@ -925,7 +1002,11 @@ def main() -> int:
                                    [got[0]] + got[1], [want[0]] + want[1]))
     nbytes = (2 * M * F + M + 2 * sum(w.numel() for w in ws[:-1])
               + ws[-1].numel() + F * KS[0]) * 4
-    b_ms, b_by = bound_ms(cin_stack_bwd_flops(M, F, KS), nbytes)
+    # each part's operations at the rate of the unit that runs them
+    least = cin_stack_bwd_parts(M, F, KS)
+    t_ops, t_bytes = sum(least.values()), bound_ms(0, nbytes)[0]
+    b_ms, b_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
     kern["cin_stack_sum_bwd"] = dict(
         name="cin_stack_sum_bwd", route="cuda",
         source="rec_now_tpu_torch/csrc/cin.cu",
@@ -936,6 +1017,20 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(torch, einsum_grads(
             lambda a, *w: ck.cin_stack_sum_plain(a, w), [x0] + ws, g)))
+    # its device split, each part beside its least work
+    reps = 20
+    seq = profiled_sequence(torch, lambda: ck.cin_stack_sum_bwd(x0, ws, g),
+                            reps)
+    split = b4_split(seq, len(KS) - 1, reps)
+    print(f"  B4 split, Ks={KS}, device ms by torch.profiler: " + "; ".join(
+        f"{what} {split[key] / reps:.4f} (bound {least[key]:.4f}"
+        + (f", {100 * least[key] * reps / split[key]:.1f}%)"
+           if split[key] else ", not measured)")
+        for key, what in (("recompute", "recompute"),
+                          ("rows", "row kernel"),
+                          ("dw", "dW kernel + partial sums"),
+                          ("collapsed", "collapsed layer, Wc and dWc")))
+        + f"; total {sum(split.values()) / reps:.4f} [{card}]")
 
     print("cin_flat_bwd vs plain:")
     err, t = 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0,

@@ -3,56 +3,49 @@
 // Replaces four Pallas TPU kernels of rec_now_tpu/ops/pallas/cin_kernel.py:
 //   * cin_flat_f32      <- _cin_flat_fwd_impl / _cin_tile_kernel
 //       one CIN layer  out[m, k] = sum_{f,h} W[k,f,h] * x0[m,f] * prev[m,h]
+//       on the tensor cores in split TF32 (cin_layer_tc_kernel).
 //   * cin_stack_sum_f32 <- _cin_stack_fwd_impl / _stack_fwd_kernel
 //       the whole stack plus channel sum
 //       out[m] = [sum_f x0[m,f]] + sum_{i<n} sum_k h_i[m,k]
 //                + sum_f x0[m,f] * sum_h Wc[f,h] * h_{n-1}[m,h]
 //       with the last layer collapsed, Wc = sum_k W_n[k] (exact, see
-//       cin_kernel.py:307-316).
+//       cin_kernel.py:307-316); f32 FMA (cin_stack_kernel).
 //   * cin_flat_bwd_f32      <- _cin_flat_bwd / _cin_bwd_tile_kernel
 //       dx0 and dprev through A = g W in one row kernel
 //       (cin_bwd_rows_kernel), dW in one weight-gradient kernel over the
 //       flattened (f, h) axis (cin_wgrad_kernel); see "Backward" below.
 //   * cin_stack_sum_bwd_f32 <- _cin_stack_bwd / _stack_bwd_kernel
-//       dx0 (and the hidden gradients) as layer contractions with permuted
-//       operands, the weight gradients through cin_wgrad_kernel.
-//   Both backwards are bound by f32 FMA issue, like the forward.
+//       the hidden layers recomputed once by cin_layer_tc_kernel, each
+//       layer's input gradients through the row kernel and its weight
+//       gradient through cin_wgrad_kernel.
 //
 // Taken from the math, not from the TPU blocks: the TPU kernel turns the
 // broadcast of x0 over channels and the reduction over fields into 0/1
 // matmuls (R, SEL) to avoid lane shuffles.  Here x0[m, f] is a plain
-// shared-memory read, so a row's work is
-//     t[k]   = sum_h W[k, f, h] * prev[h]        (per field f)
-//     acc[k] += x0[f] * t[k]
-// and no (M, F, K) or (M, F, H) intermediate ever leaves the SM.
+// shared-memory read, and no (M, F, K) or (M, F, H) intermediate ever
+// leaves the SM.
 //
-// What bounds it: at config 3 (M = 8192*16 rows, F = 26, Ks = (64, 64))
-// the stack does ~5.9 G multiply-adds over ~14 MB of input, ~840 FLOP per
-// byte, so it is bound by arithmetic (f32 FMA, not the tensor cores:
-// 67 TFLOP/s on an H100 SXM -> ~0.18 ms; memory floor ~4 us).  The design
-// therefore aims at FMA issue rate, as an SGEMM micro-kernel does:
-//   * the layer is a product over the (f, h) pairs,
-//       out[m, k] = sum_{f,h} (x0[m, f] * prev[m, h]) * W[k, f, h],
-//     so each thread keeps an RT x KT (8 x 8 at config 3) block of
-//     rows x channels in registers and, per (f, h), does RT multiplies
-//     and RT*KT FMAs against two float4 loads of its rows' prev values
-//     and two float4 broadcasts of the 8 weights;
-//   * a block owns BM = 32*RT consecutive rows (lane l has rows
-//     l*RT .. l*RT+RT-1) and KC = 64 channels (one warp per 8); the x0
-//     and hidden tiles live in shared memory transposed, [channel][row],
-//     so a warp's row reads are contiguous; the stack's hidden layers
-//     never touch device memory;
-//   * weights stream through a fixed 16 KB shared chunk of
-//     (FC fields x HC prev channels x KC channels), so any K, F, H fits
-//     (config 3's layer-2 weight alone is 426 KB).  A small kernel first
-//     lays each weight out as (F, H, K), so consecutive threads load
-//     consecutive channels: coalesced reads and conflict-free shared
-//     stores.  The next chunk is fetched into registers while the
-//     current one is multiplied;
-//   * RT (8, 4, 2 or 1) is the largest whose tiles fit the 227 KB opt-in
-//     shared memory.
-// bf16/TF32 tensor cores (wgmma) are not used: the plain f32 arithmetic
-// keeps the comparison with the PyTorch reference tight.
+// What bounds them: at config 3 (M = 8192*16 rows, F = 26, Ks = (64, 64))
+// every kernel here does hundreds of operations per byte it must move, so
+// each is bound by arithmetic.
+//   * The forward layer is a GEMM over the flattened (f, h) axis with a
+//     cheap A operand, x0[m,f] * prev[m,h], so it runs on the tensor cores
+//     in split TF32: three TF32 products per multiply-add at 495 TFLOP/s
+//     have 2.5x the 67 TFLOP/s of f32 FMA.  Config 3's two layers are
+//     33.8 GFLOP of least work: 0.205 ms at the split-TF32 rate, 0.509 at
+//     the f32 rate.  Against the plain f32 version it lands 4.0e-7 (layer
+//     1) and 6.0e-7 (layer 2) of max|plain| away at config 3's shapes
+//     (chip_smoke.py phase 3, H100), as close as another f32 summation
+//     order.
+//   * The row kernel and the weight-gradient kernel of the backwards, and
+//     the stack kernel, are f32 FMA-bound: register tiles fed from shared
+//     memory, as an SGEMM micro-kernel does.
+//   * cin_stack_kernel keeps each thread's RT x KT (8 x 8 at config 3)
+//     block of rows x channels in registers and, per (f, h), does RT
+//     multiplies and RT*KT FMAs; its weights stream through a fixed 16 KB
+//     shared chunk, laid out (F, H, K) by a small kernel first (to_fhk);
+//     RT (8, 4, 2 or 1) is the largest whose tiles fit the opt-in shared
+//     memory.  Its hidden layers never touch device memory.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -63,6 +56,11 @@
     const int rc_ = (expr);               \
     if (rc_ != cudaSuccess) return rc_;   \
   } while (0)
+
+// Floats of partial sums that one weight gradient of K x N values over M
+// rows needs (cin_flat_bwd_f32's scratch, with N = F * H), or -1 when
+// the device cannot be read.
+extern "C" long long cin_dw_scratch(int M, int K, int N, int device);
 
 namespace {
 
@@ -212,45 +210,6 @@ __device__ __forceinline__ void layer_chunk(
   }
 }
 
-// out[m, k] (=, or += with accumulate) sum_{f,h} W[k,f,h] x0[m,f] prev[m,h]
-// (+ add_row[m] when add_row is given).  The backward reuses it with other
-// operands in the x0 / prev / W roles (see cin_flat_bwd_f32).
-template <int RT>
-__global__ void __launch_bounds__(kThreads)
-cin_flat_kernel(const float* __restrict__ x0, const float* __restrict__ prev,
-                const float* __restrict__ Wt, float* __restrict__ out, int M,
-                int F, int H, int K, int accumulate,
-                const float* __restrict__ add_row) {
-  constexpr int BM = 32 * RT;
-  constexpr int LD = tile_ld(RT);
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);   // 16-byte aligned
-  float* x0s = ws + kWChunk;
-  float* prevs = x0s + F * LD;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * BM;
-  load_tile_t(x0, M, F, m0, BM, LD, x0s);
-  load_tile_t(prev, M, H, m0, BM, LD, prevs);
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    float acc[RT][KT];
-    layer_chunk<RT>(x0s, F, prevs, H, Wt, K, k0, ws, acc);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int m = m0 + lane * RT + i;
-      if (m >= M) continue;
-      const float base = add_row ? add_row[m] : 0.f;
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const int k = k0 + warp * KT + j;
-        if (k >= K) continue;
-        float* o = out + (size_t)m * K + k;
-        *o = (accumulate ? *o : 0.f) + (acc[i][j] + base);
-      }
-    }
-  }
-}
-
 template <int RT>
 __global__ void __launch_bounds__(kThreads)
 cin_stack_kernel(const float* __restrict__ x0, StackWeights sw, int n_mid,
@@ -322,14 +281,18 @@ cin_stack_kernel(const float* __restrict__ x0, StackWeights sw, int n_mid,
   }
 }
 
-// wc[f, h] = sum_k W[k, f, h]: the channel-collapsed last layer.
-__global__ void collapse_kernel(const float* __restrict__ W, int K, int FH,
-                                float* __restrict__ wc) {
+// wc[f, h] = sum_k W[k, f, h]: the channel-collapsed last layer of F x H;
+// also its transpose wct[h, f] where wct is given.
+__global__ void collapse_kernel(const float* __restrict__ W, int K, int F,
+                                int H, float* __restrict__ wc,
+                                float* __restrict__ wct) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int FH = F * H;
   if (idx >= FH) return;
   float s = 0.f;
   for (int k = 0; k < K; ++k) s += W[(size_t)k * FH + idx];
   wc[idx] = s;
+  if (wct) wct[(idx % H) * F + idx / H] = s;
 }
 
 // Wt[(f * H + h) * K + k] = W[k, f, h]: the layout layer_chunk streams.
@@ -345,10 +308,6 @@ int to_fhk(const float* W, int K, int FH, float* Wt, cudaStream_t s) {
   const size_t n = (size_t)K * FH;
   to_fhk_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(W, K, FH, Wt);
   return cudaGetLastError();
-}
-
-size_t flat_smem(int rt, int F, int H) {
-  return (kWChunk + (size_t)(F + H) * tile_ld(rt)) * sizeof(float);
 }
 
 size_t stack_smem(int rt, int F, int h_max) {
@@ -414,39 +373,6 @@ int pick_rt(int device, SmemFn smem) {
 }
 
 template <int RT>
-int launch_flat(const float* x0, const float* prev, const float* Wt,
-                float* out, int M, int F, int H, int K, int accumulate,
-                const float* add_row, int device, cudaStream_t s) {
-  static std::atomic<bool> done[kMaxDevices];
-  CIN_TRY(allow_optin_smem((const void*)cin_flat_kernel<RT>, device, done));
-  const size_t smem = flat_smem(RT, F, H);
-  const int grid = (M + 32 * RT - 1) / (32 * RT);
-  cin_flat_kernel<RT><<<grid, kThreads, smem, s>>>(x0, prev, Wt, out, M, F,
-                                                   H, K, accumulate, add_row);
-  return cudaGetLastError();
-}
-
-// One layer contraction with Wt laid out (F, H, K); see cin_flat_kernel.
-int layer(const float* x0, int F, const float* prev, int H, const float* Wt,
-          int K, float* out, int M, int accumulate, const float* add_row,
-          int device, cudaStream_t s) {
-  if (M == 0) return cudaSuccess;
-  const int rt = pick_rt(device, [&](int r) { return flat_smem(r, F, H); });
-  if (rt == 0) return cudaErrorInvalidValue;
-  if (rt == 8)
-    return launch_flat<8>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                          device, s);
-  if (rt == 4)
-    return launch_flat<4>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                          device, s);
-  if (rt == 2)
-    return launch_flat<2>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                          device, s);
-  return launch_flat<1>(x0, prev, Wt, out, M, F, H, K, accumulate, add_row,
-                        device, s);
-}
-
-template <int RT>
 int launch_stack(const float* x0, const StackWeights& sw, int n_mid,
                  const float* wc, float* out, int M, int F, int h_max,
                  int output_input, int device, cudaStream_t s) {
@@ -459,31 +385,7 @@ int launch_stack(const float* x0, const StackWeights& sw, int n_mid,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Backward.  With A[m, f, h] = sum_k g[m,k] W[k,f,h] (one multiply-add per
-// (channel, f, h) a row),
-//   dx0[m, f]   = sum_h A[m,f,h] prev[m,h],
-//   dprev[m, h] = sum_f A[m,f,h] x0[m,f]
-// cost one multiply-add per (f, h) each, so cin_flat_bwd_f32 forms A once
-// in registers and never again (cin_bwd_rows_kernel).  The weight
-// gradient is a reduction over rows of the flattened products,
-//   dW[k, n] = sum_m g[m,k] u[m,n],  u[m, f*H + h] = x0[m,f] prev[m,h],
-// which the TPU sums on its sequential grid (cin_kernel.py:210, :421).
-// Here blocks run in parallel: cin_wgrad_kernel gives each block a slice
-// of rows and a (64 channels x 128 flattened columns) output tile, forms u
-// once per staged row, writes one partial per row slice, and
-// reduce_kernel sums the partials in a fixed order (no atomics, so the
-// result does not change from run to run).  Both are f32 FMA-bound like
-// the forward: config 3's two layers take ~75 GFLOP of least work on
-// ~204 MB of input and output (1.11 ms at 67 TFLOP/s, 61 us at 3.35 TB/s),
-// so both kernels keep register tiles (8 x 4 a thread) fed from shared
-// memory, as an SGEMM micro-kernel does.  cin_stack_sum_bwd_f32's
-// dx0 and hidden gradients stay layer contractions with other operands
-// in the x0 / prev / W roles of cin_flat_kernel:
-//   dx0[m, f]   = layer(x0' = g, prev' = prev, Wt' = W laid out (K, H, F)),
-//   dprev[m, h] = layer(x0' = g, prev' = x0, Wt' = W as stored (K, F, H)).
-// ---------------------------------------------------------------------------
-
+// copy 4 (16) bytes to shared memory, or zeros when !full
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool full) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -506,6 +408,349 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N));
 }
+
+// ---------------------------------------------------------------------------
+// The forward layer on the tensor cores (cin_layer_tc_kernel; cin_flat_f32
+// and every layer() call of the backward; replaces _cin_flat_fwd_impl,
+// cin_kernel.py:138-181).  Bound by operations: three TF32 products per
+// multiply-add on the tensor cores.  The layer is a skinny GEMM,
+//     out[m, k] = sum_n a[m, n] W[k, n],  a[m, f*H + h] = x0[m,f] prev[m,h],
+// M rows x K channels over the flattened (f, h) axis (676 or 1,664 deep at
+// config 3), whose A operand is cheap to form on the fly.  A block owns
+// BM = 64 * MT rows and all channels in passes of 64: it stages its x0
+// (BM x F) and prev (BM x H) tiles once, as stored, and streams W as
+// stored, (K, F*H), one field (and up to 64 h) at a time through a
+// 3-stage cp.async ring: for channel k the h of one field are contiguous,
+// which is the `col` B operand of mma.sync m16n8k8, so W is never
+// re-laid out.  Each 8-deep k-step takes 8 h of one field: a thread forms
+// its A fragment in registers as x0[row, f] * prev[row, h], splits it and
+// the W fragment into TF32 hi + lo (split_tf32), and runs lo*hi + hi*lo +
+// hi*hi into a fresh register quad that is then added to the running f32
+// sum (the tensor cores truncate each accumulation; see
+// csrc/multi_dense.cu).  8 warps: 4 along the rows (16 * MT each) x 2
+// along a pass's 64 channels (32 each); a warp whose channels all lie past
+// K skips its products.  Rows of x0, prev and W in shared memory are
+// padded to a multiple of 8 plus 4 floats, so the fragment reads of a warp
+// hit 32 distinct banks; an H that is not a multiple of 8 (26 at layer 1)
+// is zero-filled up to the next one (32: 81% of the lanes busy).  Copies
+// are 16 bytes where a row's width is a multiple of 4 floats and the
+// pointer is 16-byte aligned, 8 bytes where it is even (layer 1's 26),
+// else 4; each thread steps through its copies without a division.
+constexpr int TC_KC = 64;                   // channels per pass
+constexpr int TC_HC = 64;                   // h per W stage
+constexpr int TC_STAGES = 3;
+constexpr int TC_LDW = TC_HC + 4;           // W stage row stride
+constexpr int TC_WSTAGE = TC_KC * TC_LDW;   // floats per W stage
+
+__host__ __device__ constexpr int tc_ld(int n) { return (n + 7) / 8 * 8 + 4; }
+
+size_t tc_smem(int bm, int F, int H) {
+  return ((size_t)TC_STAGES * TC_WSTAGE +
+          (size_t)bm * (tc_ld(F) + tc_ld(H))) * sizeof(float);
+}
+
+// Floats a copy can take from rows `ld` floats apart that start at `p`:
+// 4, 2 or 1.  layer()'s slices of such rows start and end on multiples
+// of 4 floats (but for the rows' own end), so they take the same.
+int copy_floats(const float* p, int ld) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (ld % 4 == 0 && a % 16 == 0) return 4;
+  if (ld % 2 == 0 && a % 8 == 0) return 2;
+  return 1;
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src,
+                                          bool full) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
+               :: "r"(s), "l"(src), "r"(full ? 8 : 0));
+}
+
+// Copies a rows x cols block of a row-major source (row r at
+// src + r * src_ld) to dst + r * dst_ld, v floats (4, 2 or 1, dividing
+// cols, cols_ok and src_ld) a copy; rows from rows_ok and columns from
+// cols_ok on read as zero.
+__device__ __forceinline__ void stage_block(float* dst, int dst_ld,
+                                            const float* src, size_t src_ld,
+                                            int rows, int rows_ok, int cols,
+                                            int cols_ok, int v) {
+  const int qn = cols / v;                   // copies a row
+  int r = threadIdx.x / qn, q = threadIdx.x - r * qn;
+  const int dr = kThreads / qn, dq = kThreads - dr * qn;
+  while (r < rows) {
+    const int c = q * v;
+    const bool ok = r < rows_ok && c < cols_ok;
+    const float* s = ok ? src + r * src_ld + c : src;
+    if (v == 4)
+      cp_async16(dst + r * dst_ld + c, s, ok);
+    else if (v == 2)
+      cp_async8(dst + r * dst_ld + c, s, ok);
+    else
+      cp_async4(dst + r * dst_ld + c, s, ok);
+    r += dr;
+    q += dq;
+    if (q >= qn) {
+      q -= qn;
+      ++r;
+    }
+  }
+}
+
+// v = hi + lo: hi is v rounded to TF32 by two integer operations (half a
+// TF32 ulp added, the low 13 bits cleared; cvt.rna.tf32.f32 compiles to
+// four, with an infinity test that these finite values do not need), and
+// lo = v - hi is exact in f32, its low bits ignored by the tensor cores.
+// Each product's error stays below 2^-21 of it, near f32's 2^-24.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a * b, the same with a zero accumulator
+__device__ __forceinline__ void mma_tf32_new(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+// A W stage's place: the pass's first channel, the field, the first h.
+struct TcStep {
+  int k0, f, h0;
+  __device__ __forceinline__ void next(int F, int H) {
+    h0 += TC_HC;
+    if (h0 >= H) {
+      h0 = 0;
+      if (++f == F) {
+        f = 0;
+        k0 += TC_KC;
+      }
+    }
+  }
+};
+
+// out[m, k] (=, or += with accumulate) sum_{f,h} W[k,f,h] x0[m,f] prev[m,h]
+// (+ add_row[m] when add_row is given) over F fields and H h: x0 rows
+// ldx apart, prev rows ldp apart, W[k,f,h] at W + k * ldwk + f * ldp + h
+// (as stored, unless layer() hands in a slice); vx, vp, vw: floats a copy
+// of x0, prev, W (copy_floats).
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 2)
+cin_layer_tc_kernel(const float* __restrict__ x0, int ldx,
+                    const float* __restrict__ prev, int ldp,
+                    const float* __restrict__ W, size_t ldwk,
+                    float* __restrict__ out, int M, int F, int H, int K,
+                    int accumulate, const float* __restrict__ add_row,
+                    int vx, int vp, int vw) {
+  constexpr int BM = 64 * MT;
+  extern __shared__ float4 smem4[];
+  const int LDX = tc_ld(F), LDP = tc_ld(H);
+  float* wring = reinterpret_cast<float*>(smem4);   // [stage][k][h]
+  float* x0s = wring + TC_STAGES * TC_WSTAGE;       // [row][f]
+  float* prevs = x0s + BM * LDX;                    // [row][h]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;            // mma group, thread
+  const int wm = warp & 3, wn = warp >> 2;
+  const int m0 = blockIdx.x * BM;
+  const int nsteps =
+      (K + TC_KC - 1) / TC_KC * F * ((H + TC_HC - 1) / TC_HC);
+
+  // the x0 and prev tiles, rows past M and h past H zero
+  stage_block(x0s, LDX, x0 + (size_t)m0 * ldx, ldx, BM, M - m0,
+              (F + vx - 1) / vx * vx, F, vx);
+  stage_block(prevs, LDP, prev + (size_t)m0 * ldp, ldp, BM, M - m0,
+              (H + 7) & ~7, H, vp);
+  // W stage s (channels past K and h past H zero) into its ring slot
+  auto stage = [&](const TcStep& s, int slot) {
+    const int hw = min(TC_HC, H - s.h0);
+    stage_block(wring + slot * TC_WSTAGE, TC_LDW,
+                W + s.k0 * ldwk + (size_t)s.f * ldp + s.h0, ldwk, TC_KC,
+                K - s.k0, (hw + 7) & ~7, hw, vw);
+  };
+  TcStep cur = {0, 0, 0}, nxt = {0, 0, 0};
+  stage(nxt, 0);
+  cp_async_commit();                 // group 0: the tiles and stage 0
+  nxt.next(F, H);
+  if (nsteps > 1) stage(nxt, 1);
+  cp_async_commit();
+  nxt.next(F, H);
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  const int rb = wm * 16 * MT;       // the warp's first row in the tile
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<1>();              // stage `step` has landed
+    __syncthreads();                 // ... for all; stage step - 1 is done
+    if (step + 2 < nsteps) stage(nxt, (step + 2) % TC_STAGES);
+    cp_async_commit();
+    nxt.next(F, H);
+
+    if (cur.k0 + wn * 32 < K) {
+      const int nks = (min(TC_HC, H - cur.h0) + 7) / 8;
+      float xa[MT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        xa[i][0] = x0s[(rb + i * 16 + g) * LDX + cur.f];
+        xa[i][1] = x0s[(rb + i * 16 + g + 8) * LDX + cur.f];
+      }
+      const float* pp = prevs + (rb + g) * LDP + cur.h0 + t;
+      const float* wp = wring + (step % TC_STAGES) * TC_WSTAGE +
+                        (wn * 32 + g) * TC_LDW + t;
+#pragma unroll 2
+      for (int ks = 0; ks < nks; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          const float* p = pp + i * 16 * LDP + ks * 8;
+          split_tf32(xa[i][0] * p[0], ah[i][0], al[i][0]);  // row g, h t
+          split_tf32(xa[i][1] * p[8 * LDP], ah[i][1], al[i][1]);  // g + 8
+          split_tf32(xa[i][0] * p[4], ah[i][2], al[i][2]);  // h t + 4
+          split_tf32(xa[i][1] * p[8 * LDP + 4], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          const float* w = wp + j * 8 * TC_LDW + ks * 8;
+          split_tf32(w[0], bh[0], bl[0]);                   // h t
+          split_tf32(w[4], bh[1], bl[1]);                   // h t + 4
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            float part[4];           // this k-step's 8 terms, 3 products
+            mma_tf32_new(part, al[i], bh);
+            mma_tf32(part, ah[i], bl);
+            mma_tf32(part, ah[i], bh);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
+          }
+        }
+      }
+    }
+
+    if (cur.f == F - 1 && cur.h0 + TC_HC >= H) {   // the pass's last stage
+      // c0, c1 at (row g, channels 2t, 2t + 1), c2, c3 at row g + 8
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = m0 + rb + i * 16 + g + half * 8;
+          if (m >= M) continue;
+          const float base = add_row ? add_row[m] : 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = cur.k0 + wn * 32 + j * 8 + 2 * t + e;
+              if (k >= K) continue;
+              float* o = out + (size_t)m * K + k;
+              *o = (accumulate ? *o : 0.f) + (acc[i][j][2 * half + e] + base);
+            }
+        }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    }
+    cur.next(F, H);
+  }
+  cp_async_wait<0>();                // no copy outlives the block
+}
+
+// Launches cin_layer_tc_kernel on x0 (M, F) rows ldx apart, prev (M, H)
+// rows ldp apart and a (K, F, H) block of a weight whose fields are ldp
+// apart and channels ldwk apart.
+template <int MT>
+int launch_tc(const float* x0, int ldx, const float* prev, int ldp,
+              const float* W, size_t ldwk, float* out, int M, int F, int H,
+              int K, int accumulate, const float* add_row, int device,
+              cudaStream_t s) {
+  static std::atomic<bool> done[kMaxDevices];
+  CIN_TRY(allow_optin_smem((const void*)cin_layer_tc_kernel<MT>, device,
+                           done));
+  const int grid = (M + 64 * MT - 1) / (64 * MT);
+  cin_layer_tc_kernel<MT><<<grid, kThreads, tc_smem(64 * MT, F, H), s>>>(
+      x0, ldx, prev, ldp, W, ldwk, out, M, F, H, K, accumulate, add_row,
+      copy_floats(x0, ldx), copy_floats(prev, ldp), copy_floats(W, ldp));
+  return cudaGetLastError();
+}
+
+constexpr int TC_SLICE = 256;   // fields or h per launch of a wide layer
+
+// One layer, W (K, F, H) as stored; see cin_layer_tc_kernel.  128-row
+// blocks where their tiles fit the opt-in shared memory, else 64.  A
+// layer whose x0 and prev tiles do not fit 64 rows (F + H past ~690 on an
+// H100) runs as launches over TC_SLICE x TC_SLICE blocks of (f, h), in a
+// fixed order, each adding into out: the block's pointers are offsets
+// into the tensors as stored (slices of 256 keep them on the copies'
+// grid).
+int layer(const float* x0, int F, const float* prev, int H, const float* W,
+          int K, float* out, int M, int accumulate, const float* add_row,
+          int device, cudaStream_t s) {
+  if (M == 0 || K == 0) return cudaSuccess;
+  if (F < 1 || H < 1) return cudaErrorInvalidValue;
+  const size_t cap = optin_smem(device);
+  const size_t fh = (size_t)F * H;
+  if (tc_smem(128, F, H) <= cap)
+    return launch_tc<2>(x0, F, prev, H, W, fh, out, M, F, H, K, accumulate,
+                        add_row, device, s);
+  if (tc_smem(64, F, H) <= cap)
+    return launch_tc<1>(x0, F, prev, H, W, fh, out, M, F, H, K, accumulate,
+                        add_row, device, s);
+  if (tc_smem(64, TC_SLICE, TC_SLICE) > cap) return cudaErrorInvalidValue;
+  for (int f0 = 0; f0 < F; f0 += TC_SLICE)
+    for (int h0 = 0; h0 < H; h0 += TC_SLICE) {
+      const bool first = f0 == 0 && h0 == 0;
+      CIN_TRY(launch_tc<1>(x0 + f0, F, prev + h0, H, W + (size_t)f0 * H + h0,
+                           fh, out, M, F - f0 < TC_SLICE ? F - f0 : TC_SLICE,
+                           H - h0 < TC_SLICE ? H - h0 : TC_SLICE, K,
+                           first ? accumulate : 1, first ? add_row : nullptr,
+                           device, s));
+    }
+  return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// Backward.  With A[m, f, h] = sum_k g[m,k] W[k,f,h] (one multiply-add per
+// (channel, f, h) a row),
+//   dx0[m, f]   = sum_h A[m,f,h] prev[m,h],
+//   dprev[m, h] = sum_f A[m,f,h] x0[m,f]
+// cost one multiply-add per (f, h) each, so cin_flat_bwd_f32 forms A once
+// in registers and never again (cin_bwd_rows_kernel).  The weight
+// gradient is a reduction over rows of the flattened products,
+//   dW[k, n] = sum_m g[m,k] u[m,n],  u[m, f*H + h] = x0[m,f] prev[m,h],
+// which the TPU sums on its sequential grid (cin_kernel.py:210, :421).
+// Here blocks run in parallel: cin_wgrad_kernel gives each block a slice
+// of rows and a (64 channels x 128 flattened columns) output tile, forms u
+// once per staged row, writes one partial per row slice, and
+// reduce_kernel sums the partials in a fixed order (no atomics, so the
+// result does not change from run to run).  Both are f32 FMA-bound like
+// the forward: config 3's two layers take ~75 GFLOP of least work on
+// ~204 MB of input and output (1.11 ms at 67 TFLOP/s, 61 us at 3.35 TB/s),
+// so both kernels keep register tiles (8 x 4 a thread) fed from shared
+// memory, as an SGEMM micro-kernel does.  cin_stack_sum_bwd_f32 runs each
+// non-last layer's backward through the same two kernels, the row
+// kernel's epilogue accumulating into dx0 (RowsEpilogue).
+// ---------------------------------------------------------------------------
 
 // The row kernel.  A block owns BM = 16 * RT rows, staged transposed
 // ([channel][row]) once: g (K x BM), x0 (F x BM), prev (H x BM).  The
@@ -557,7 +802,8 @@ cin_bwd_rows_kernel(const float* __restrict__ x0,
                     const float* __restrict__ prev,
                     const float* __restrict__ W, const float* __restrict__ g,
                     float* __restrict__ dx0, float* __restrict__ dprev,
-                    int M, int F, int H, int K, int vec) {
+                    int M, int F, int H, int K, int vec, int accumulate,
+                    const float* __restrict__ add_row, int prev_is_x0) {
   constexpr int BM = 16 * RT;
   constexpr int LD = rows_ld(RT);
   extern __shared__ float4 smem4[];
@@ -680,7 +926,7 @@ cin_bwd_rows_kernel(const float* __restrict__ x0,
             const int m = m0 + rg * RT + i;
             if (m < M) {
               float* d = dx0 + (size_t)m * F + f;
-              *d = (h0 ? *d : 0.f) + part[i];
+              *d = (h0 || accumulate ? *d : 0.f) + part[i];
             }
           }
         }
@@ -688,21 +934,31 @@ cin_bwd_rows_kernel(const float* __restrict__ x0,
       __syncthreads();   // buffer step & 1 is refilled next step
     }
 
+    // dprev (+ add_row), or, where prev is x0, dx0 += dprev: the block's
+    // own rows, after the barrier that ends the loop's dx0 writes
+    float* dst = prev_is_x0 ? dx0 : dprev;
     if (FPC == 1) {      // the thread's block is the pass's dprev there
       const bool v4 = H % 4 == 0 && cg * RB_CT + 3 < hw &&
-                      reinterpret_cast<uintptr_t>(dprev) % 16 == 0;
+                      reinterpret_cast<uintptr_t>(dst) % 16 == 0;
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
         const int m = m0 + rg * RT + i;
         if (m >= M) continue;
-        float* d = dprev + (size_t)m * H + h0 + cg * RB_CT;
+        const float base = add_row ? add_row[m] : 0.f;
+        float* d = dst + (size_t)m * H + h0 + cg * RB_CT;
         if (v4) {
-          *reinterpret_cast<float4*>(d) =
-              make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+          float4 v = make_float4(dp[i][0] + base, dp[i][1] + base,
+                                 dp[i][2] + base, dp[i][3] + base);
+          if (prev_is_x0) {
+            const float4 o = *reinterpret_cast<const float4*>(d);
+            v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+          }
+          *reinterpret_cast<float4*>(d) = v;
         } else {
 #pragma unroll
           for (int j = 0; j < RB_CT; ++j)
-            if (cg * RB_CT + j < hw) d[j] = dp[i][j];
+            if (cg * RB_CT + j < hw)
+              d[j] = (prev_is_x0 ? d[j] : 0.f) + (dp[i][j] + base);
         }
       }
       continue;          // wbuf is restaged after the loop's last barrier
@@ -723,45 +979,64 @@ cin_bwd_rows_kernel(const float* __restrict__ x0,
     for (int idx = t; idx < BM * hw; idx += kThreads) {
       const int m = idx / hw;
       const int h = idx - m * hw;
-      if (m0 + m < M) dprev[(size_t)(m0 + m) * H + h0 + h] = dps[h * LD + m];
+      if (m0 + m < M) {
+        float* d = dst + (size_t)(m0 + m) * H + h0 + h;
+        *d = (prev_is_x0 ? *d : 0.f) +
+             (dps[h * LD + m] + (add_row ? add_row[m0 + m] : 0.f));
+      }
     }
     __syncthreads();   // wbuf is staged again by the next pass
   }
 }
 
+// How the row kernel's epilogue writes (cin_flat_bwd_f32 takes the
+// defaults; cin_stack_sum_bwd_f32 the rest):
+//   accumulate  dx0 += its part (later layers add to what the collapsed
+//               layer and the layers above wrote);
+//   add_row     dprev[m, :] += add_row[m] (g from the channel sum);
+//   prev_is_x0  dprev is x0's gradient too: dx0 += dprev, dprev unused.
+struct RowsEpilogue {
+  int accumulate = 0;
+  const float* add_row = nullptr;
+  int prev_is_x0 = 0;
+};
+
 template <int RT>
 int launch_rows(const float* x0, const float* prev, const float* W,
                 const float* g, float* dx0, float* dprev, int M, int F,
-                int H, int K, int vec, int device, cudaStream_t s) {
+                int H, int K, int vec, const RowsEpilogue& ep, int device,
+                cudaStream_t s) {
   static std::atomic<bool> done[kMaxDevices];
   CIN_TRY(allow_optin_smem((const void*)cin_bwd_rows_kernel<RT>, device,
                            done));
   const int grid = (M + 16 * RT - 1) / (16 * RT);
   cin_bwd_rows_kernel<RT><<<grid, kThreads, rows_smem(RT, F, H, K), s>>>(
-      x0, prev, W, g, dx0, dprev, M, F, H, K, vec);
+      x0, prev, W, g, dx0, dprev, M, F, H, K, vec, ep.accumulate,
+      ep.add_row, ep.prev_is_x0);
   return cudaGetLastError();
 }
 
-// dx0 (M, F) and dprev (M, H) of one layer for g (M, K).
+// dx0 (M, F) and dprev (M, H) of one layer for g (M, K), written as `ep`
+// says.
 int bwd_rows(const float* x0, const float* prev, const float* W,
              const float* g, float* dx0, float* dprev, int M, int F, int H,
-             int K, int device, cudaStream_t s) {
+             int K, const RowsEpilogue& ep, int device, cudaStream_t s) {
   if (M == 0) return cudaSuccess;
   const int rt = pick_rt(device, [&](int r) {
     return rows_smem(r, F, H, K); });
   if (rt == 0) return cudaErrorInvalidValue;
   const int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(W) % 16 == 0;
   if (rt == 8)
-    return launch_rows<8>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec,
+    return launch_rows<8>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec, ep,
                           device, s);
   if (rt == 4)
-    return launch_rows<4>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec,
+    return launch_rows<4>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec, ep,
                           device, s);
   if (rt == 2)
-    return launch_rows<2>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec,
+    return launch_rows<2>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec, ep,
                           device, s);
-  return launch_rows<1>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec, device,
-                        s);
+  return launch_rows<1>(x0, prev, W, g, dx0, dprev, M, F, H, K, vec, ep,
+                        device, s);
 }
 
 // The weight-gradient kernel.  Block (tile, split) computes
@@ -926,22 +1201,51 @@ int weight_grad(const float* A, int K, const float* X, int F, const float* P,
   return cudaGetLastError();
 }
 
-// Wt[(k * H + h) * F + f] = W[(k * F + f) * H + h]: (K, F, H) -> (K, H, F).
-__global__ void to_khf_kernel(const float* __restrict__ W, int K, int F,
-                              int H, float* __restrict__ Wt) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)K * F * H) return;
-  const int f = (int)(idx % F);
-  const size_t kh = idx / F;
-  const int h = (int)(kh % H);
-  const int k = (int)(kh / H);
-  Wt[idx] = W[((size_t)k * F + f) * H + h];
-}
+// cin_stack_sum_bwd_f32's scratch, carved in this order, each part
+// starting on a 16-byte boundary: Wc and its transpose, the hidden
+// layers (M x K_l each), two hidden-gradient buffers (M x max K_l), the
+// weight gradients' partial sums.
+struct StackBwdScratch {
+  float* wc;
+  float* wct;
+  float* hid[kMaxLayers];
+  float* dh[2];
+  float* part;
+};
 
-int to_khf(const float* W, int K, int F, int H, float* Wt, cudaStream_t s) {
-  const size_t n = (size_t)K * F * H;
-  to_khf_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(W, K, F, H, Wt);
-  return cudaGetLastError();
+size_t align4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// Carves `base` into sc (with base nullptr, counts alone) and returns
+// the floats it takes, or -1 when the device cannot be read.
+long long carve_stack_bwd(float* base, const int* ks, int n_layers, int M,
+                          int F, int device, StackBwdScratch* sc) {
+  const int n_mid = n_layers - 1;
+  size_t off = 0;
+  auto take = [&](size_t n) {
+    float* p = base ? base + off : nullptr;
+    off += align4(n);
+    return p;
+  };
+  int h = F;
+  // the collapsed layer's weight gradient: K' = F, N = H_{n-1}
+  long long dw_max =
+      cin_dw_scratch(M, F, n_mid ? ks[n_mid - 1] : F, device);
+  if (dw_max < 0) return -1;
+  long long h_max = 0;
+  for (int l = 0; l < n_mid; ++l) {
+    const long long n = cin_dw_scratch(M, ks[l], F * h, device);
+    if (n < 0) return -1;
+    dw_max = n > dw_max ? n : dw_max;
+    h_max = ks[l] > h_max ? ks[l] : h_max;
+    h = ks[l];
+  }
+  sc->wc = take((size_t)F * h);
+  sc->wct = take((size_t)F * h);
+  for (int l = 0; l < n_mid; ++l) sc->hid[l] = take((size_t)M * ks[l]);
+  sc->dh[0] = take((size_t)M * h_max);
+  sc->dh[1] = take((size_t)M * h_max);
+  sc->part = take((size_t)dw_max);
+  return (long long)off;
 }
 
 // Makes `device` current, setting it only when it is not (cudaSetDevice
@@ -964,17 +1268,14 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x0 (M, F), prev (M, H), W (K, F, H) -> out (M, K); all f32, contiguous;
-// scratch holds K * F * H floats.  Returns a cudaError_t (0 on success).
+// x0 (M, F), prev (M, H), W (K, F, H) -> out (M, K); all f32, contiguous.
+// Returns a cudaError_t (0 on success).
 int cin_flat_f32(const float* x0, const float* prev, const float* W,
-                 float* scratch, float* out, int M, int F, int H, int K,
-                 int device, void* stream) {
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = to_fhk(W, K, F * H, scratch, s);
-  if (rc != cudaSuccess) return rc;
-  return layer(x0, F, prev, H, scratch, K, out, M, 0, nullptr, device, s);
+                 float* out, int M, int F, int H, int K, int device,
+                 void* stream) {
+  CIN_TRY(use_device(device));
+  return layer(x0, F, prev, H, W, K, out, M, 0, nullptr, device,
+               static_cast<cudaStream_t>(stream));
 }
 
 // x0 (M, F); weights[i] (ks[i], F, H_{i-1}) with H_0 = F, i < n_layers;
@@ -1007,7 +1308,7 @@ int cin_stack_sum_f32(const float* x0, const float* const* weights,
   }
   const int fh = F * h;
   collapse_kernel<<<(fh + 255) / 256, 256, 0, s>>>(weights[n_mid], ks[n_mid],
-                                                    fh, scratch);
+                                                    F, h, scratch, nullptr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   if (rt == 8)
@@ -1023,9 +1324,6 @@ int cin_stack_sum_f32(const float* x0, const float* const* weights,
                          output_input, device, s);
 }
 
-// Floats of partial sums that one weight gradient of K x N values over M
-// rows needs (cin_flat_bwd_f32's scratch, with N = F * H), or -1 when
-// the device cannot be read.
 long long cin_dw_scratch(int M, int K, int N, int device) {
   const int splits = wgrad_splits(M, K, N, device);
   return splits < 0 ? -1 : (long long)splits * K * N;
@@ -1040,7 +1338,8 @@ int cin_flat_bwd_f32(const float* x0, const float* prev, const float* W,
                      int device, void* stream) {
   CIN_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CIN_TRY(bwd_rows(x0, prev, W, g, dx0, dprev, M, F, H, K, device, s));
+  CIN_TRY(bwd_rows(x0, prev, W, g, dx0, dprev, M, F, H, K, RowsEpilogue(),
+                   device, s));
   return weight_grad(g, K, x0, F, prev, H, M, scratch, dW, device, s);
 }
 
@@ -1048,35 +1347,22 @@ int cin_flat_bwd_f32(const float* x0, const float* prev, const float* W,
 // when the device cannot be read.
 long long cin_stack_bwd_scratch(const int* ks, int n_layers, int M, int F,
                                 int device) {
-  const int n_mid = n_layers - 1;
-  long long total = 0, hid = 0, h_max = 0;
-  int h = F;
-  // the collapsed layer's weight gradient: K' = F, N = H_{n-1} (below)
-  for (int l = 0; l < n_mid; ++l) {
-    total += 2LL * ks[l] * F * h;            // (F, H, K) and (K, H, F)
-    hid += ks[l];
-    h_max = ks[l] > h_max ? ks[l] : h_max;
-    h = ks[l];
-  }
-  long long dw_max = cin_dw_scratch(M, F, h, device);
-  h = F;
-  for (int l = 0; l < n_mid; ++l) {
-    const long long n = cin_dw_scratch(M, ks[l], F * h, device);
-    dw_max = n > dw_max ? n : dw_max;
-    h = ks[l];
-  }
-  if (dw_max < 0) return -1;
-  total += 2LL * F * h;                      // Wc and its transpose
-  return total + (long long)M * (hid + 2 * h_max) + dw_max;
+  if (n_layers < 1 || n_layers - 1 > kMaxLayers) return -1;
+  StackBwdScratch sc;
+  return carve_stack_bwd(nullptr, ks, n_layers, M, F, device, &sc);
 }
 
 // The backward of cin_stack_sum_f32 (replaces _cin_stack_bwd,
 // cin_kernel.py:519-568): x0 (M, F), the layers' weights, g (M,) ->
 // dx0 (M, F), dws[l] (K_l, F, H_{l-1}) for the non-last layers and
 // dwc (F, H_{n-1}), the gradient every channel of the last layer shares.
-// The hidden layers are recomputed into scratch (M x K_l each); the
-// gradient into each hidden layer is g from the channel sum plus what
-// flows back from the layer above.
+// The hidden layers are recomputed into scratch (M x K_l each), once.
+// Then, from the top: the collapsed last layer writes dx0 and the
+// gradient into h_{n-1} (g from the channel sum included); each layer
+// below takes its weight gradient from cin_wgrad_kernel and its input
+// gradients from one row-kernel launch, which adds into dx0 and writes
+// the next hidden gradient (+ g) or, at layer 1, where prev is x0, adds
+// both input gradients into dx0.
 int cin_stack_sum_bwd_f32(const float* x0, const float* g,
                           const float* const* weights, const int* ks,
                           int n_layers, float* scratch, float* dx0,
@@ -1090,66 +1376,43 @@ int cin_stack_sum_bwd_f32(const float* x0, const float* g,
   hin[0] = F;
   for (int l = 0; l < n_mid; ++l) hin[l + 1] = ks[l];
   const int hl = hin[n_mid];
-  long long h_max = 0;
-  for (int l = 0; l < n_mid; ++l) h_max = ks[l] > h_max ? ks[l] : h_max;
+  StackBwdScratch sc;
+  if (carve_stack_bwd(scratch, ks, n_layers, M, F, device, &sc) < 0)
+    return cudaErrorInvalidValue;
 
-  // scratch: relaid weights, Wc, Wc^T, hiddens, two dh buffers, partials
-  const float* w_fhk[kMaxLayers];
-  const float* w_khf[kMaxLayers];
-  float* hid[kMaxLayers];
-  float* p = scratch;
-  for (int l = 0; l < n_mid; ++l) {
-    const size_t n = (size_t)ks[l] * F * hin[l];
-    CIN_TRY(to_fhk(weights[l], ks[l], F * hin[l], p, s));
-    w_fhk[l] = p;
-    p += n;
-    CIN_TRY(to_khf(weights[l], ks[l], F, hin[l], p, s));
-    w_khf[l] = p;
-    p += n;
-  }
-  float* wc = p;
-  p += (size_t)F * hl;
-  float* wct = p;
-  p += (size_t)F * hl;
   collapse_kernel<<<(F * hl + 255) / 256, 256, 0, s>>>(
-      weights[n_mid], ks[n_mid], F * hl, wc);
+      weights[n_mid], ks[n_mid], F, hl, sc.wc, sc.wct);
   CIN_TRY(cudaGetLastError());
-  CIN_TRY(to_khf(wc, 1, F, hl, wct, s));     // (F, H) -> (H, F)
-  for (int l = 0; l < n_mid; ++l) {
-    hid[l] = p;
-    p += (size_t)M * ks[l];
-  }
-  float* dh_buf[2] = {p, p + (size_t)M * h_max};
-  p += 2 * (size_t)M * h_max;
-  float* part = p;
+  for (int l = 0; l < n_mid; ++l)            // the hidden layers, once
+    CIN_TRY(layer(x0, F, l ? sc.hid[l - 1] : x0, hin[l], weights[l], ks[l],
+                  sc.hid[l], M, 0, nullptr, device, s));
+  const float* h_last = n_mid ? sc.hid[n_mid - 1] : x0;
 
-  // recompute the hidden layers
-  for (int l = 0; l < n_mid; ++l)
-    CIN_TRY(layer(x0, F, l ? hid[l - 1] : x0, hin[l], w_fhk[l], ks[l],
-                  hid[l], M, 0, nullptr, device, s));
-  const float* h_last = n_mid ? hid[n_mid - 1] : x0;
-
-  // collapsed last layer: out += sum_f x0[f] sum_h Wc[f,h] h_last[h]
-  CIN_TRY(layer(g, 1, h_last, hl, wct, F, dx0, M, 0,
+  // the collapsed last layer, out += sum_f x0[f] sum_h Wc[f,h] h_last[h],
+  // as layers of one field g: dx0 = g (h_last Wc^T) (+ g) with Wc as
+  // (F, 1, H_{n-1}); dWc = (g x0)^T h_last
+  CIN_TRY(layer(g, 1, h_last, hl, sc.wc, F, dx0, M, 0,
                 output_input ? g : nullptr, device, s));
-  CIN_TRY(weight_grad(x0, F, g, 1, h_last, hl, M, part, dwc, device, s));
+  CIN_TRY(weight_grad(x0, F, g, 1, h_last, hl, M, sc.part, dwc, device, s));
   if (n_mid == 0)                            // h_last is x0 itself
-    return layer(g, 1, x0, F, wc, F, dx0, M, 1, nullptr, device, s);
-  int cur = 0;
-  CIN_TRY(layer(g, 1, x0, F, wc, hl, dh_buf[cur], M, 0, g, device, s));
+    return layer(g, 1, x0, F, sc.wct, F, dx0, M, 1, nullptr, device, s);
+  int cur = 0;                               // dh_{n-1} = g (x0 Wc) + g
+  CIN_TRY(layer(g, 1, x0, F, sc.wct, hl, sc.dh[cur], M, 0, g, device, s));
   for (int l = n_mid - 1; l >= 0; --l) {
-    const float* dh = dh_buf[cur];
-    const float* prev = l ? hid[l - 1] : x0;
-    CIN_TRY(layer(dh, ks[l], prev, hin[l], w_khf[l], F, dx0, M, 1, nullptr,
-                  device, s));
-    CIN_TRY(weight_grad(dh, ks[l], x0, F, prev, hin[l], M, part, dws[l],
+    const float* dh = sc.dh[cur];
+    const float* prev = l ? sc.hid[l - 1] : x0;
+    CIN_TRY(weight_grad(dh, ks[l], x0, F, prev, hin[l], M, sc.part, dws[l],
                         device, s));
-    if (l == 0) {                            // prev is x0
-      CIN_TRY(layer(dh, ks[l], x0, F, weights[l], F, dx0, M, 1, nullptr,
-                    device, s));
+    RowsEpilogue ep;
+    ep.accumulate = 1;
+    if (l == 0) {
+      ep.prev_is_x0 = 1;
+      CIN_TRY(bwd_rows(x0, x0, weights[0], dh, dx0, nullptr, M, F, F, ks[0],
+                       ep, device, s));
     } else {                                 // + g: h_l's channel sum
-      CIN_TRY(layer(dh, ks[l], x0, F, weights[l], hin[l], dh_buf[1 - cur], M,
-                    0, g, device, s));
+      ep.add_row = g;
+      CIN_TRY(bwd_rows(x0, prev, weights[l], dh, dx0, sc.dh[1 - cur], M, F,
+                       hin[l], ks[l], ep, device, s));
       cur = 1 - cur;
     }
   }

@@ -68,28 +68,21 @@ def cin_flat_bwd_plain(x0: torch.Tensor, prev: torch.Tensor,
     return dx0, dprev, (g.t() @ u).reshape(k, f, h)
 
 
-def _layer_bwd_by_contraction(x0, prev, weight, g):
-    """One layer's gradients as ``cin_stack_sum_bwd``'s kernel forms
-    them, each input gradient a layer contraction with permuted operands:
-    ``dx0[m,f] = sum_{k,h} g W prev``, ``dprev[m,h] = sum_{k,f} g W x0``,
-    ``dW[k,f,h] = sum_m g x0 prev``."""
-    dx0 = torch.einsum("mkf,mk->mf",
-                       torch.einsum("mh,kfh->mkf", prev, weight), g)
-    dprev = torch.einsum("mkh,mk->mh",
-                         torch.einsum("mf,kfh->mkh", x0, weight), g)
-    dw = torch.einsum("mkf,mh->kfh", g[:, :, None] * x0[:, None, :], prev)
-    return dx0, dprev, dw
-
-
 def cin_stack_sum_bwd_plain(x0: torch.Tensor,
                             weights: Sequence[torch.Tensor],
                             g: torch.Tensor, output_input: bool = True
                             ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """The stack's gradients for g (M,), written out: the hidden layers
-    recomputed, the collapsed last layer (``out += sum_f x0 (Wc h_{n-1})``,
-    so ``dWc = (g x0)^T h_{n-1}``, the same for every channel), then each
-    layer's gradient from the top, each hidden layer also taking g from
-    the channel sum.  Returns (dx0 (M, F), [dW per layer])."""
+    """The stack's gradients for g (M,), in the kernel's order: the
+    hidden layers recomputed, the collapsed last layer (``out += sum_f x0
+    (Wc h_{n-1})``, so ``dWc = (g x0)^T h_{n-1}``, the same for every
+    channel), then each layer's gradients from the top through
+    :func:`cin_flat_bwd_plain`'s ``A = g W``, each hidden layer's
+    gradient also taking g from the channel sum; layer 1's prev is x0, so
+    both its input gradients go to dx0.  Each layer's gradients are taken
+    in float64 and cast back: in f32 the A-first order rounds away from
+    autograd's through the plain forward by up to an ulp of the summed
+    terms, which a cancelling element shows.  Returns (dx0 (M, F), [dW per
+    layer])."""
     hs = [x0]
     for w in weights[:-1]:
         hs.append(cin_flat_plain(x0, hs[-1], w))
@@ -102,8 +95,9 @@ def cin_stack_sum_bwd_plain(x0: torch.Tensor,
     dh = gc * (x0 @ wc)                                     # into h_{n-1}
     dws = []
     for i in range(len(weights) - 2, -1, -1):
-        ddx0, dh, dw = _layer_bwd_by_contraction(x0, hs[i], weights[i],
-                                                 dh + gc)
+        ddx0, dh, dw = (t.to(x0.dtype) for t in cin_flat_bwd_plain(
+            x0.double(), hs[i].double(), weights[i].double(),
+            (dh + gc).double()))
         dx0 = dx0 + ddx0
         dws.insert(0, dw)
     dx0 = dx0 + dh                                          # h_0 is x0
@@ -114,8 +108,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("cin")
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cin_flat_f32.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, i32, ptr]
+        lib.cin_flat_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.cin_flat_f32.restype = i32
         lib.cin_stack_sum_f32.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
                                           i32, i32, i32, ptr]
@@ -175,12 +168,10 @@ def _flat_fwd_cuda(x0, prev, weight) -> torch.Tensor:
     out = _empty(x0, m, k)
     if m == 0:
         return out
-    # the kernel streams the weight as (F, H, K); it writes that copy here
-    scratch = _empty(x0, k * f * h)
     lib = _lib()
     rc = lib.cin_flat_f32(x0.data_ptr(), prev.data_ptr(), weight.data_ptr(),
-                          scratch.data_ptr(), out.data_ptr(), m, f, h, k,
-                          x0.device.index, _build.stream_of(x0))
+                          out.data_ptr(), m, f, h, k, x0.device.index,
+                          _build.stream_of(x0))
     check_rc(lib, rc, "cin_flat")
     cin_flat.launches += 1
     return out

@@ -6,10 +6,10 @@ The port's plain backwards (explicit formulas, not autograd) against
 autograd through the port's CPU path against the same plain backwards.
 Inputs are numpy arrays from a seed.  f32 on both sides with other
 summation orders: rtol 1e-4 / atol 1e-6 against JAX for the stack (the
-JAX kernels contract through 0/1 matmuls), atol 1e-5 for one layer,
-whose shapes reach config 3's (F * H = 1,664 products a channel, K up
-to 130); rtol 1e-5 / atol 1e-7 within the port (1e-5 at config 3's
-first layer).
+JAX kernels contract through 0/1 matmuls), atol 1e-5 for one layer
+and for the stack at config 3's widths (F * H = 1,664 products a
+channel, K up to 130); rtol 1e-5 / atol 1e-7 within the port (1e-5 at
+config 3's first layer).
 """
 import jax
 import jax.numpy as jnp
@@ -59,6 +59,37 @@ def test_stack_bwd_plain_matches_jax_grad(hidden, output_input):
     for got, want in zip(dws, jdws):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-6)
+
+
+# (m, f, hidden): config 3's widths (F = 26, Ks = (64, 64)) at a narrow M,
+# and a ragged three-layer stack (no width a multiple of 8)
+STACK_BWD_WIDE = [(40, 26, (64, 64)), (33, 26, (12, 37, 9))]
+
+
+@pytest.mark.parametrize("m,f,hidden", STACK_BWD_WIDE)
+@pytest.mark.parametrize("output_input", [True, False])
+def test_stack_bwd_plain_matches_jax_grad_wide(m, f, hidden, output_input):
+    """The plain stack backward, which forms each layer's input gradients
+    from ``A = g W`` as the kernel does, against jax.grad through the
+    Pallas stack at config 3's widths: up to F * H = 1,664 products a
+    channel, so atol 1e-5 as for one layer."""
+    rng, x0, ws = _inputs(m, f, hidden, seed=m)
+    g = rng.randn(m).astype(np.float32)
+
+    def fwd(x, wts):
+        return jnp.vdot(jck.cin_stack_sum(x, tuple(wts), output_input),
+                        jnp.asarray(g))
+
+    jdx0, jdws = jax.grad(fwd, argnums=(0, 1))(
+        jnp.asarray(x0), [jnp.asarray(w) for w in ws])
+    dx0, dws = ck.cin_stack_sum_bwd_plain(_t(x0), [_t(w) for w in ws],
+                                          _t(g), output_input)
+    np.testing.assert_allclose(dx0.numpy(), np.asarray(jdx0), rtol=1e-4,
+                               atol=1e-5)
+    assert len(dws) == len(ws)
+    for got, want in zip(dws, jdws):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-5)
 
 
 # (m, f, h, k, prev is x0): small odd shapes, then config 3's layers at

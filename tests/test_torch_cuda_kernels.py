@@ -7,7 +7,12 @@ Shapes are the small odd ones of the JAX kernel tests plus edge cases
 (one field, one channel, K past one 64-channel chunk, ragged M, B and
 V, more rows than one weight-gradient slice; for the CIN layer's
 backward also prev = x0, F * H % 4 != 0, H past one 64-wide pass, M = 0
-and two calls equal bit for bit) and, for the multi-expert
+and two calls equal bit for bit; for the CIN layer in split TF32 H = 26,
+37 and 64, K = 1 to 130, W or prev off the 16-byte grid, F or H past
+one block's tiles and a bit-equal repeat; for the
+stack's backward one, two and three layers at config 3's widths, M off
+the row tile, K_l not a multiple of 8, M = 0 and a bit-equal repeat)
+and, for the multi-expert
 dense and the listwise loss, config 4's shapes (the four banks at
 B = 1,000 and 8,192) and degenerate batches, and each dispatch edge of
 the multi-expert dense (N * U = 16 and 17 on a shared input, a small
@@ -22,8 +27,8 @@ D = 128 (float4 atomics) and the full 2.6M x 16 table with a B = 8,192
 batch's count of ids; the windowed training loop (packed windows moved
 on a side stream) against put + train_step; and the wire's C++ window
 pack against its numpy pack (byte-equal).  Tolerance: f32 with a
-different summation order (the multi-expert dense's tile in split TF32,
-as close as f32), 1e-5 relative to the largest output (1e-4 for
+different summation order (the multi-expert dense's tile and the CIN
+layer in split TF32, as close as f32), 1e-5 relative to the largest output (1e-4 for
 gradients through the whole
 model and for the windowed loop's losses); B11 exact; B12 1e-6 of each
 element's summed |terms| (atomics add in no fixed order).
@@ -61,16 +66,51 @@ def _close(got, want):
     assert float((got - want).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("m,f,h,k", [(32, 5, 6, 7), (15, 4, 4, 4),
-                                     (1, 1, 1, 1), (300, 26, 26, 64),
-                                     (129, 3, 70, 130)])
-def test_cin_flat_matches_plain(dev, m, f, h, k):
+def _off_grid(t):
+    """A copy of ``t`` whose storage starts 4 bytes past the 16-byte grid
+    (the kernels' 4-byte copy paths)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (m, f, h, k, W on the 16-byte grid): small odd shapes; the tensor-core
+# layer at config 3's H (26 zero-filled to 32, 64) and a ragged one (37),
+# K from one channel to past two 64-channel passes, M off the 128-row
+# tile, W also off the grid (4-byte copies); layers whose x0 and prev
+# tiles do not fit one block (H, F or both past 256: launches over
+# (f, h) slices)
+@pytest.mark.parametrize("m,f,h,k,aligned", [
+    (32, 5, 6, 7, True), (15, 4, 4, 4, True), (1, 1, 1, 1, True),
+    (300, 26, 26, 64, True), (129, 3, 70, 130, True)] + [
+    (1000, 26, h, k, aligned) for h in (26, 37, 64) for k in (1, 64, 100, 130)
+    for aligned in (True, False)] + [
+    (300, 26, 700, 5, True), (200, 700, 3, 4, True), (150, 400, 400, 70, True),
+    (150, 400, 402, 9, False)])
+def test_cin_flat_matches_plain(dev, m, f, h, k, aligned):
     gen = torch.Generator().manual_seed(m + k)
     x0, prev = _rand(gen, dev, m, f), _rand(gen, dev, m, h)
     w = _rand(gen, dev, k, f, h)
+    if not aligned:
+        w = _off_grid(w)
     before = ck.cin_flat.launches
-    _close(ck.cin_flat(x0, prev, w), ck.cin_flat_plain(x0, prev, w))
+    got = ck.cin_flat(x0, prev, w)
     assert ck.cin_flat.launches == before + 1
+    _close(got, ck.cin_flat_plain(x0, prev, w))
+    assert torch.equal(got, ck.cin_flat(x0, prev, w))
+
+
+def test_cin_flat_empty_and_off_grid_prev(dev):
+    """M = 0 launches nothing and gives an empty output; prev off the
+    16-byte grid at H % 4 == 0 takes the 4-byte copies."""
+    w = torch.ones(3, 5, 8, device=dev)
+    out = ck.cin_flat(torch.zeros(0, 5, device=dev),
+                      torch.zeros(0, 8, device=dev), w)
+    assert out.shape == (0, 3)
+    gen = torch.Generator().manual_seed(4)
+    x0, prev = _rand(gen, dev, 300, 5), _off_grid(_rand(gen, dev, 300, 8))
+    _close_rel(ck.cin_flat(x0, prev, w), ck.cin_flat_plain(x0, prev, w))
 
 
 @pytest.mark.parametrize("hidden", [(5,), (5, 4), (5, 4, 6), (1, 65)])
@@ -148,14 +188,22 @@ def test_cin_flat_bwd_empty_and_repeatable(dev):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("hidden", [(5,), (5, 4), (5, 4, 6), (1, 65)])
+# (m, f, hidden): small odd stacks; the row kernel's epilogue modes at
+# config 3's widths -- one layer (no row kernel), two (layer 1: prev is
+# x0, dx0 += both input gradients) and three (the middle layer adds g to
+# its hidden gradient) -- at M off the 128-row tile, K_l not a multiple
+# of 8; a hidden layer too wide for one forward block (700)
+@pytest.mark.parametrize("m,f,hidden", [
+    (m, 4, hidden) for m in (15, 2100)
+    for hidden in ((5,), (5, 4), (5, 4, 6), (1, 65))] + [
+    (300, 26, (64,)), (300, 26, (64, 64)), (2100, 26, (64, 64)),
+    (1000, 26, (12, 37, 9)), (257, 7, (13, 5, 70)), (129, 26, (100, 37, 50)),
+    (257, 26, (700, 3))])
 @pytest.mark.parametrize("output_input", [True, False])
-@pytest.mark.parametrize("m", [15, 2100])
-def test_cin_stack_sum_bwd_matches_plain(dev, hidden, output_input, m):
-    gen = torch.Generator().manual_seed(m + len(hidden))
-    f = 4
+def test_cin_stack_sum_bwd_matches_plain(dev, m, f, hidden, output_input):
+    gen = torch.Generator().manual_seed(m + f + len(hidden))
     x0, g = _rand(gen, dev, m, f), _rand(gen, dev, m)
-    ws = [_rand(gen, dev, k, f, h) * 0.3
+    ws = [_rand(gen, dev, k, f, h) * (2.0 / (f * h + k)) ** 0.5
           for k, h in zip(hidden, (f,) + hidden[:-1])]
     before = ck.cin_stack_sum_bwd.launches
     dx0, dws = ck.cin_stack_sum_bwd(x0, ws, g, output_input)
@@ -164,6 +212,24 @@ def test_cin_stack_sum_bwd_matches_plain(dev, hidden, output_input, m):
     _close_rel(dx0, want_dx0)
     for a, b in zip(dws, want_dws):
         _close_rel(a, b)
+
+
+def test_cin_stack_sum_bwd_empty_and_repeatable(dev):
+    """M = 0 gives an empty dx0 and zero weight gradients; two calls on
+    the same inputs give the same bits (every sum in a fixed order)."""
+    ws = [torch.ones(6, 4, 4, device=dev), torch.ones(3, 4, 6, device=dev)]
+    dx0, dws = ck.cin_stack_sum_bwd(torch.zeros(0, 4, device=dev), ws,
+                                    torch.zeros(0, device=dev))
+    assert dx0.shape == (0, 4)
+    for d, w in zip(dws, ws):
+        assert torch.equal(d, torch.zeros_like(w))
+    gen = torch.Generator().manual_seed(9)
+    x0, g = _rand(gen, dev, 2100, 26), _rand(gen, dev, 2100)
+    ws = [_rand(gen, dev, 64, 26, 26) * 0.05, _rand(gen, dev, 64, 26, 64) * 0.05]
+    first = ck.cin_stack_sum_bwd(x0, ws, g)
+    again = ck.cin_stack_sum_bwd(x0, ws, g)
+    for a, b in zip([first[0]] + first[1], [again[0]] + again[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("sum_channel", [True, False])
