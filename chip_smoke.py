@@ -179,6 +179,13 @@ MD_BANKS = (("MMoE experts layer 0", 1, 4, 429, 128, True, 1),
             ("edge: shared, N*U = 16", 1, 4, 429, 4, False, 0),
             ("edge: shared, N*U = 17", 1, 1, 429, 17, False, 0),
             ("edge: per-expert, N*U = 8", 2, 2, 429, 4, False, 0))
+# the stack forward's paths (csrc/cin.cu, stack_rows), each forced: rows a
+# block, or layer-by-layer launches (config 3's stack takes the first)
+STACK_PATHS = {128: "128-row blocks", 64: "64-row blocks",
+               -1: "layer by layer"}
+# pair_loss_sum's three launches a call at B <= 8,192, by part
+B3_PARTS = {"sort_segments_kernel": "sort and segments",
+            "segment_sweep": "sweep", "merge_segments": "merge"}
 # launches that phase 3's "ms" of a kernel covers: one forward's
 MS_COVERS = {"cin_flat": 2, "cin_flat_bwd": 2, "multi_dense": 6}
 
@@ -228,6 +235,12 @@ def profiled_sequence(torch, fn, reps: int = 20) -> list:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the kernels launched as it starts (a run
+        # lost the first seven of a window): a spin kernel and a pause
+        # come first, and the spin kernel and all before it are dropped
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -235,6 +248,8 @@ def profiled_sequence(torch, fn, reps: int = 20) -> list:
                      if e.device_type == DeviceType.CUDA
                      and not getattr(e, "is_user_annotation", False)),
                     key=lambda e: e.time_range.start)
+    spins = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    events = events[spins[-1] + 1:] if spins else events
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in events]
 
 
@@ -305,6 +320,39 @@ def cin_stack_bwd_parts(m: int, f: int, ks) -> dict:
             "rows": fma(rows), "dw": fma(dw),
             "collapsed": tc(4 * m * f * hs[-1])
             + fma(2 * m * f * hs[-1] + 3 * m * f + m * hs[-1])}
+
+
+def cin_stack_fwd_parts(m: int, f: int, ks) -> dict:
+    """Least device ms of the stack forward by the unit that runs each
+    part: the non-last layers on the tensor cores in split TF32 (three
+    products a multiply-add; layer 1 on its F(F+1)/2 symmetric products,
+    cin_flops); in f32 FMAs the collapsed last layer, z = sum_f x0[f]
+    sum_h Wc[f,h] h_{n-1}[h] (2 M F (H + 1)), and the sums (M (F + sum K
+    + 1))."""
+    hs = [f] + list(ks[:-1])
+    tc = sum(cin_flops(m, f, hs[i], ks[i], i == 0)
+             for i in range(len(ks) - 1))
+    f32 = 2 * m * f * (hs[-1] + 1) + m * (f + sum(ks[:-1]) + 1)
+    return {"layers": bound_ms(3 * tc, 0, PEAK_TF32_FLOPS)[0],
+            "collapse": bound_ms(f32, 0)[0]}
+
+
+def kernel_split(seq, calls: int, parts: dict, what: str) -> dict:
+    """Device ms of ``what``'s launches over ``calls`` calls by part, from
+    the kernels they ran (profiled_sequence): ``parts`` maps a kernel's
+    name to its part, each launched once a call.  Any other kernel, or
+    another count, fails."""
+    out = dict.fromkeys(parts.values(), 0.0)
+    seen = dict.fromkeys(parts.values(), 0)
+    for name, ms in seq:
+        part = [p for n, p in parts.items() if n in name]
+        if len(part) != 1:
+            fail(f"{what} ran an unexpected kernel: {name}")
+        out[part[0]] += ms
+        seen[part[0]] += 1
+    if seen != dict.fromkeys(parts.values(), calls):
+        fail(f"{what} launched {seen} in {calls} calls")
+    return out
 
 
 def b4_split(seq, n_mid: int, calls: int) -> dict:
@@ -852,6 +900,7 @@ def train_cli_phase(torch, counted, card: str) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -917,19 +966,27 @@ def main() -> int:
         err = max(err, compare(f"M={M} Ks={KS} output_input={oi}",
                                ck.cin_stack_sum(x0, ws, oi),
                                ck.cin_stack_sum_plain(x0, ws, oi)))
+    # the other paths at config 3: 64-row blocks, layer by layer
+    for rows in (64, -1):
+        err = max(err, compare(f"M={M} Ks={KS} {STACK_PATHS[rows]}",
+                               ck._stack_fwd_cuda(x0, ws, True, rows),
+                               ck.cin_stack_sum_plain(x0, ws)))
     xr = rand(12345, F)
-    for ks in ((100, 37, 50), (5,)):
-        hs = (F,) + ks[:-1]
-        wr = [glorot(k, F, h) for k, h in zip(ks, hs)]
-        err = max(err, compare(f"ragged M=12345 Ks={ks}",
-                               ck.cin_stack_sum(xr, wr),
-                               ck.cin_stack_sum_plain(xr, wr)))
-    # layer 1 on x0 (symmetric products), the last layer collapsed to
-    # sum_f x0[f] (sum_h Wc[h, f] h1[h]), then the channel sums
-    flops = (cin_flops(M, F, F, KS[0], True) + 2 * M * F * (KS[0] + 1)
-             + M * (F + KS[0] + 1))
+    # ragged stacks; an odd F; the widest F + 2 h_max the f32 stack kernel
+    # took (1,493), whose tiles fit no block: layer by layer
+    for f, ks in ((F, (100, 37, 50)), (F, (5,)), (33, (40, 17)),
+                  (27, (733, 5))):
+        xs = xr if f == F else rand(12345, f)
+        hs = (f,) + ks[:-1]
+        wr = [glorot(k, f, h) for k, h in zip(ks, hs)]
+        err = max(err, compare(f"ragged M=12345 F={f} Ks={ks}",
+                               ck.cin_stack_sum(xs, wr),
+                               ck.cin_stack_sum_plain(xs, wr)))
+    least = cin_stack_fwd_parts(M, F, KS)
     nbytes = (M * F + M + sum(w.numel() for w in ws)) * 4
-    b_ms, b_by = bound_ms(flops, nbytes)
+    t_ops, t_bytes = sum(least.values()), bound_ms(0, nbytes)[0]
+    b_ms, b_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
     kern["cin_stack_sum"] = dict(
         name="cin_stack_sum", route="cuda",
         source="rec_now_tpu_torch/csrc/cin.cu",
@@ -937,6 +994,24 @@ def main() -> int:
         ms=cuda_ms(torch, lambda: ck.cin_stack_sum(x0, ws)),
         plain_ms=cuda_ms(torch, lambda: ck.cin_stack_sum_plain(x0, ws)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    paths = {name: cuda_ms(torch, lambda: ck._stack_fwd_cuda(x0, ws, True,
+                                                             rows))
+             for rows, name in STACK_PATHS.items()}
+    print(f"  B1 paths, Ks={KS}, ms by events: " + "; ".join(
+        f"{name} {ms:.4f}" for name, ms in paths.items())
+        + f"; bound {b_ms:.4f} [{card}]")
+    reps = 20
+    # two launches a call: layer 1 folded and Wc, then the stack
+    split = kernel_split(
+        profiled_sequence(torch, lambda: ck.cin_stack_sum(x0, ws), reps),
+        reps, {"stack_prep_kernel": "prep", "cin_stack_tc_kernel": "stack"},
+        "cin_stack_sum")
+    print(f"  B1 split, Ks={KS}, device ms by torch.profiler: prep (fold, "
+          f"Wc) {split['prep'] / reps:.4f}; stack kernel "
+          f"{split['stack'] / reps:.4f} (bound {t_ops:.4f}: layers in split "
+          f"TF32 {least['layers']:.4f}, collapse and sums in f32 "
+          f"{least['collapse']:.4f}; {100 * t_ops * reps / split['stack']:.1f}"
+          f"%) [{card}]")
 
     print("cin_flat vs plain:")
     err, t = 0.0, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0,
@@ -1084,19 +1159,34 @@ def main() -> int:
     lab = torch.as_tensor(pb.labels, device=dev)
     grp = torch.as_tensor(pb.group_ids, device=dev)
     xl = rand(8192)
-    print(f"  B=8192: {len(set(pb.group_ids.tolist()))} groups, "
+    _, inv = np.unique(pb.group_ids, return_inverse=True)
+    sizes = np.bincount(inv)
+    print(f"  B=8192: {len(sizes)} groups, the largest {sizes.max()}, "
+          f"{int((sizes.astype(np.int64) ** 2).sum()):,} tests in groups, "
           f"{pair_ops(pb.labels, pb.group_ids):,} operations")
     err = 0.0
     cases = [(xl, lab, grp, -0.5)]
     rb = next(data0.batches(1000, 1, seed=2))
     cases.append((rand(1000), torch.as_tensor(rb.labels, device=dev),
                   torch.as_tensor(rb.group_ids, device=dev), 0.0))
+    # the worst case for the sort path (one group: B^2 tests), the best
+    # (singletons), and one past the one-block sort (the O(B^2) sweeps)
+    one = torch.zeros(8192, dtype=torch.int32, device=dev)
+    single = torch.arange(8192, dtype=torch.int32, device=dev)
+    lab1 = torch.cat([lab, lab[:1]])
+    one1 = torch.zeros(8193, dtype=torch.int32, device=dev)
+    edge = {"one group": (xl, lab, one), "singletons": (xl, lab, single),
+            "one group, B=8193 (O(B^2) sweeps)": (rand(8193), lab1, one1)}
+    cases += [(*v, -0.5) for v in edge.values()]
     for xs, ls, gs, power in cases:
         got = pk.pair_loss_fused(xs, ls, gs, 1.0, power)
         want = pk.pair_loss_fused_plain(xs, ls, gs, 1.0, power)
         if float(got[1]) != float(want[1]):
             fail(f"pair count {float(got[1])} != {float(want[1])}")
         err = max(err, compare_all(f"B={len(xs)} power={power}", got, want))
+        again = pk.pair_loss_fused(xs, ls, gs, 1.0, power)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"pair_loss_sum at B={len(xs)} is not bit-equal on a repeat")
     err_pair = err
     b_ms, b_by = bound_ms(pair_ops(pb.labels, pb.group_ids), 16 * 8192 + 8)
     kern["pair_loss_sum"] = dict(
@@ -1108,6 +1198,33 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: pk.pair_loss_fused_plain(
             xl, lab, grp, 1.0, -0.5)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"  B3 batches, ms by events: SyntheticCriteo "
+          f"{kern['pair_loss_sum']['ms']:.4f}; " + "; ".join(
+              f"{what} {cuda_ms(torch, lambda: pk.pair_loss_fused(*v, 1.0, -0.5)):.4f}"
+              for what, v in edge.items()) + f" [{card}]")
+    # its device split on each batch (the one group's sort takes one pass,
+    # the label test), the SyntheticCriteo batch's parts beside their
+    # least work: the sort's compares and 5 a sample for the segments and
+    # the occurrence weight (pair_ops); 12 a valid pair for the sweep, and
+    # a sample's partials and its share of the sums (3) for the merge
+    n_pairs = pair_ops(pb.labels, pb.group_ids) - sort_ops(8192) - 5 * 8192
+    least = {"sort and segments": bound_ms(sort_ops(8192) + 5 * 8192,
+                                           48 * 8192)[0],
+             "sweep": bound_ms(n_pairs, 20 * 8192)[0],
+             "merge": bound_ms(3 * 8192, 8 * 8192 + 8)[0]}
+    reps = 20
+    for what, v in (("SyntheticCriteo", (xl, lab, grp)),
+                    ("one group", edge["one group"]),
+                    ("singletons", edge["singletons"])):
+        split = kernel_split(profiled_sequence(
+            torch, lambda: pk.pair_loss_fused(*v, 1.0, -0.5), reps), reps,
+            B3_PARTS, "pair_loss_sum")
+        print(f"  B3 split, {what} B=8192, device ms by torch.profiler: "
+              + "; ".join(f"{part} {split[part] / reps:.4f}"
+                          + (f" (bound {least[part]:.6f})"
+                             if what == "SyntheticCriteo" else "")
+                          for part in least)
+              + f"; total {sum(split.values()) / reps:.4f} [{card}]")
 
     print("adagrad_dense_pass vs plain:")
     err = 0.0

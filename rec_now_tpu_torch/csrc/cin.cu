@@ -9,7 +9,9 @@
 //       out[m] = [sum_f x0[m,f]] + sum_{i<n} sum_k h_i[m,k]
 //                + sum_f x0[m,f] * sum_h Wc[f,h] * h_{n-1}[m,h]
 //       with the last layer collapsed, Wc = sum_k W_n[k] (exact, see
-//       cin_kernel.py:307-316); f32 FMA (cin_stack_kernel).
+//       cin_kernel.py:307-316); one block keeps the stack on chip, layer 1
+//       on the tensor cores over its symmetric pairs (cin_stack_tc_kernel,
+//       see "The stack forward" below).
 //   * cin_flat_bwd_f32      <- _cin_flat_bwd / _cin_bwd_tile_kernel
 //       dx0 and dprev through A = g W in one row kernel
 //       (cin_bwd_rows_kernel), dW in one weight-gradient kernel over the
@@ -37,15 +39,13 @@
 //     1) and 6.0e-7 (layer 2) of max|plain| away at config 3's shapes
 //     (chip_smoke.py phase 3, H100), as close as another f32 summation
 //     order.
-//   * The row kernel and the weight-gradient kernel of the backwards, and
-//     the stack kernel, are f32 FMA-bound: register tiles fed from shared
-//     memory, as an SGEMM micro-kernel does.
-//   * cin_stack_kernel keeps each thread's RT x KT (8 x 8 at config 3)
-//     block of rows x channels in registers and, per (f, h), does RT
-//     multiplies and RT*KT FMAs; its weights stream through a fixed 16 KB
-//     shared chunk, laid out (F, H, K) by a small kernel first (to_fhk);
-//     RT (8, 4, 2 or 1) is the largest whose tiles fit the opt-in shared
-//     memory.  Its hidden layers never touch device memory.
+//   * The stack forward runs the same core (tc_core), a block keeping all
+//     layers of its rows on chip, layer 1 over the F(F+1)/2 pairs f <= h
+//     with W folded once a call: 44 k-steps at F = 26 where the (f, h)
+//     path takes 104.
+//   * The row kernel and the weight-gradient kernel of the backwards are
+//     f32 FMA-bound: register tiles fed from shared memory, as an SGEMM
+//     micro-kernel does.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -66,22 +66,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int KT = 8;                   // channels per thread
-constexpr int KC = kWarps * KT;         // channels per weight chunk
-constexpr int FC = 4;                   // fields per weight chunk
-constexpr int HC = 16;                  // prev channels per weight chunk
-constexpr int kWChunk = FC * HC * KC;   // floats (16 KB)
-constexpr int kPer = kWChunk / kThreads;
 constexpr int kMaxLayers = 64;
-
-struct StackWeights {
-  const float* w[kMaxLayers];   // non-last layers as (F, H_{i-1}, K_i)
-  int k[kMaxLayers];
-};
-
-__host__ __device__ constexpr int tile_ld(int rt) {  // 16-byte rows
-  return 32 * rt + 4;
-}
 
 // Copy rows [m0, m0 + bm) of a row-major (M, C) matrix into a transposed
 // shared tile dst[c * ld + m]; rows past M read as zero.  Each thread
@@ -132,155 +117,6 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ p,
   }
 }
 
-// This thread's share of weight chunk c (fields f0 = (c / nh) * FC ..,
-// prev channels h0 = (c % nh) * HC .., channels k0 ..) of Wt (F, H, K);
-// element r lands at ws[threadIdx.x + r * kThreads] = chunk (f, h, k),
-// k fastest.  Out-of-range entries are zero.
-__device__ __forceinline__ void fetch_chunk(const float* __restrict__ Wt,
-                                            int F, int H, int K, int k0,
-                                            int nh, int c,
-                                            float (&pre)[kPer]) {
-  const int f0 = (c / nh) * FC;
-  const int h0 = (c % nh) * HC;
-#pragma unroll
-  for (int r = 0; r < kPer; ++r) {
-    const int idx = threadIdx.x + r * kThreads;
-    const int k = idx % KC;
-    const int h = (idx / KC) % HC;
-    const int f = idx / (KC * HC);
-    pre[r] = (f0 + f < F && h0 + h < H && k0 + k < K)
-                 ? __ldg(Wt + ((size_t)(f0 + f) * H + (h0 + h)) * K + k0 + k)
-                 : 0.f;
-  }
-}
-
-// acc[i][j] = sum_{f,h} W[k, f, h] * x0[row_i, f] * prev[row_i, h] for the
-// thread's rows row_i = lane * RT + i of the tile and channels
-// k = k0 + warp * KT + j, with the weight given as Wt (F, H, K).  Starts
-// with a barrier, so the caller's tile writes are visible and ws is free.
-template <int RT>
-__device__ __forceinline__ void layer_chunk(
-    const float* __restrict__ x0s, int F, const float* __restrict__ prevs,
-    int H, const float* __restrict__ Wt, int K, int k0,
-    float* __restrict__ ws, float (&acc)[RT][KT]) {
-  constexpr int LD = tile_ld(RT);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < KT; ++j) acc[i][j] = 0.f;
-
-  const int nh = (H + HC - 1) / HC;
-  const int n_chunks = ((F + FC - 1) / FC) * nh;
-  float pre[kPer];
-  fetch_chunk(Wt, F, H, K, k0, nh, 0, pre);
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) ws[threadIdx.x + r * kThreads] = pre[r];
-    __syncthreads();
-    if (c + 1 < n_chunks) fetch_chunk(Wt, F, H, K, k0, nh, c + 1, pre);
-    const int f0 = (c / nh) * FC;
-    const int h0 = (c % nh) * HC;
-    const int fn = min(FC, F - f0);
-    const int hn = min(HC, H - h0);
-    const float* prow = prevs + h0 * LD + lane * RT;
-    for (int f = 0; f < fn; ++f) {
-      float xv[RT];
-      load_rows<RT>(x0s + (f0 + f) * LD + lane * RT, xv);
-      const float* wrow = ws + f * HC * KC + warp * KT;
-#pragma unroll 2
-      for (int h = 0; h < hn; ++h) {
-        float p[RT];
-        load_rows<RT>(prow + h * LD, p);
-        const float4 wa = *reinterpret_cast<const float4*>(wrow + h * KC);
-        const float4 wb =
-            *reinterpret_cast<const float4*>(wrow + h * KC + 4);
-        const float w8[KT] = {wa.x, wa.y, wa.z, wa.w,
-                              wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          const float u = xv[i] * p[i];
-#pragma unroll
-          for (int j = 0; j < KT; ++j) acc[i][j] = fmaf(u, w8[j], acc[i][j]);
-        }
-      }
-    }
-  }
-}
-
-template <int RT>
-__global__ void __launch_bounds__(kThreads)
-cin_stack_kernel(const float* __restrict__ x0, StackWeights sw, int n_mid,
-                 const float* __restrict__ wc, float* __restrict__ out, int M,
-                 int F, int h_max, int output_input) {
-  constexpr int BM = 32 * RT;
-  constexpr int LD = tile_ld(RT);
-  constexpr int TPR = kThreads / BM;    // threads per row, last layer
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* x0s = ws + kWChunk;
-  float* buf_a = x0s + F * LD;
-  float* buf_b = buf_a + h_max * LD;
-  float* red = buf_b + h_max * LD;       // kWarps * BM
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = blockIdx.x * BM;
-  load_tile_t(x0, M, F, m0, BM, LD, x0s);
-
-  float rs[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) rs[i] = 0.f;
-  const float* prev = x0s;
-  int H = F;
-  for (int l = 0; l < n_mid; ++l) {
-    float* next = (l & 1) ? buf_b : buf_a;
-    const int K = sw.k[l];
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      float acc[RT][KT];
-      layer_chunk<RT>(x0s, F, prev, H, sw.w[l], K, k0, ws, acc);
-#pragma unroll
-      for (int j = 0; j < KT; ++j) {
-        const int k = k0 + warp * KT + j;
-        if (k >= K) break;
-#pragma unroll
-        for (int i = 0; i < RT; ++i) {
-          next[k * LD + lane * RT + i] = acc[i][j];
-          rs[i] += acc[i][j];
-        }
-      }
-    }
-    prev = next;
-    H = K;
-  }
-#pragma unroll
-  for (int i = 0; i < RT; ++i) red[warp * BM + lane * RT + i] = rs[i];
-  __syncthreads();   // last hidden tile and all ws readers done
-
-  // collapsed last layer: z = sum_f x0[f] * sum_h Wc[f, h] * prev[h]
-  const int row = threadIdx.x % BM;
-  const int part = threadIdx.x / BM;
-  float z = 0.f;
-  for (int f = part; f < F; f += TPR) {
-    const float* wr = wc + (size_t)f * H;
-    float t = 0.f;
-    for (int h = 0; h < H; ++h) t = fmaf(__ldg(wr + h), prev[h * LD + row], t);
-    z = fmaf(x0s[f * LD + row], t, z);
-  }
-  ws[part * BM + row] = z;
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    const int r = threadIdx.x;
-    float total = 0.f;
-    if (output_input)
-      for (int f = 0; f < F; ++f) total += x0s[f * LD + r];
-    for (int w = 0; w < kWarps; ++w) total += red[w * BM + r];
-    for (int p = 0; p < TPR; ++p) total += ws[p * BM + r];
-    if (m0 + r < M) out[m0 + r] = total;
-  }
-}
-
 // wc[f, h] = sum_k W[k, f, h]: the channel-collapsed last layer of F x H;
 // also its transpose wct[h, f] where wct is given.
 __global__ void collapse_kernel(const float* __restrict__ W, int K, int F,
@@ -293,26 +129,6 @@ __global__ void collapse_kernel(const float* __restrict__ W, int K, int F,
   for (int k = 0; k < K; ++k) s += W[(size_t)k * FH + idx];
   wc[idx] = s;
   if (wct) wct[(idx % H) * F + idx / H] = s;
-}
-
-// Wt[(f * H + h) * K + k] = W[k, f, h]: the layout layer_chunk streams.
-__global__ void to_fhk_kernel(const float* __restrict__ W, int K, int FH,
-                              float* __restrict__ Wt) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)K * FH) return;
-  const int k = (int)(idx % K);
-  Wt[idx] = W[(size_t)k * FH + idx / K];
-}
-
-int to_fhk(const float* W, int K, int FH, float* Wt, cudaStream_t s) {
-  const size_t n = (size_t)K * FH;
-  to_fhk_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(W, K, FH, Wt);
-  return cudaGetLastError();
-}
-
-size_t stack_smem(int rt, int F, int h_max) {
-  return (kWChunk + (size_t)(F + 2 * h_max) * tile_ld(rt) +
-          (size_t)kWarps * 32 * rt) * sizeof(float);
 }
 
 // Device attributes and kernel attributes are read and set once per
@@ -372,19 +188,6 @@ int pick_rt(int device, SmemFn smem) {
   return 0;
 }
 
-template <int RT>
-int launch_stack(const float* x0, const StackWeights& sw, int n_mid,
-                 const float* wc, float* out, int M, int F, int h_max,
-                 int output_input, int device, cudaStream_t s) {
-  static std::atomic<bool> done[kMaxDevices];
-  CIN_TRY(allow_optin_smem((const void*)cin_stack_kernel<RT>, device, done));
-  const size_t smem = stack_smem(RT, F, h_max);
-  const int grid = (M + 32 * RT - 1) / (32 * RT);
-  cin_stack_kernel<RT><<<grid, kThreads, smem, s>>>(x0, sw, n_mid, wc, out, M,
-                                                    F, h_max, output_input);
-  return cudaGetLastError();
-}
-
 // copy 4 (16) bytes to shared memory, or zeros when !full
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool full) {
@@ -410,9 +213,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// The forward layer on the tensor cores (cin_layer_tc_kernel; cin_flat_f32
-// and every layer() call of the backward; replaces _cin_flat_fwd_impl,
-// cin_kernel.py:138-181).  Bound by operations: three TF32 products per
+// The forward layer on the tensor cores (cin_layer_tc_kernel; cin_flat_f32,
+// every layer() call of the backward and of the stack forward's
+// layer-by-layer path; replaces _cin_flat_fwd_impl, cin_kernel.py:138-181;
+// its loop, tc_core, also runs the stack forward's layers).  Bound by operations: three TF32 products per
 // multiply-add on the tensor cores.  The layer is a skinny GEMM,
 //     out[m, k] = sum_n a[m, n] W[k, n],  a[m, f*H + h] = x0[m,f] prev[m,h],
 // M rows x K channels over the flattened (f, h) axis (676 or 1,664 deep at
@@ -527,20 +331,198 @@ __device__ __forceinline__ void mma_tf32_new(float (&d)[4],
         "f"(0.f));
 }
 
-// A W stage's place: the pass's first channel, the field, the first h.
-struct TcStep {
-  int k0, f, h0;
-  __device__ __forceinline__ void next(int F, int H) {
-    h0 += TC_HC;
-    if (h0 >= H) {
-      h0 = 0;
-      if (++f == F) {
-        f = 0;
-        k0 += TC_KC;
-      }
+// The core's A operands.  Each tells tc_core how many W stages one
+// 64-channel pass takes (stages), copies stage s of channels k0.. into a
+// ring slot (stage), and forms a thread's A fragments for a k-step (at,
+// once a stage, then frag): hi and lo of rows g and g + 8 of each of the
+// warp's MT 16-row blocks, at columns t and t + 4 of the 8-deep k-step.
+
+// a[m, f*H + h] = x0[m,f] prev[m,h] over F fields and H h, both tiles in
+// shared memory (rows ldx, ldp apart, prev zero-filled past H to the next
+// multiple of 8); W[k,f,h] at W + k * ldwk + f * ldwf + h, one field and up
+// to 64 h a stage, copied vw floats at a time.
+template <int MT>
+struct FieldsA {
+  const float* x0s;
+  int ldx;
+  const float* prevs;
+  int ldp, F, H, nh;   // nh: W stages a field
+  const float* W;
+  size_t ldwk;
+  int ldwf, vw;
+
+  struct At {
+    float xa[MT][2];
+    const float* pp;
+    int nks;
+  };
+  __device__ int stages() const { return F * nh; }
+  __device__ void stage(float* dst, int k0, int K, int s) const {
+    const int f = s / nh, h0 = (s - f * nh) * TC_HC;
+    const int hw = min(TC_HC, H - h0);
+    stage_block(dst, TC_LDW, W + k0 * ldwk + (size_t)f * ldwf + h0, ldwk,
+                TC_KC, K - k0, (hw + 7) & ~7, hw, vw);
+  }
+  __device__ At at(int s, int rb, int g, int t) const {
+    At a;
+    const int f = s / nh, h0 = (s - f * nh) * TC_HC;
+    a.nks = (min(TC_HC, H - h0) + 7) / 8;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      a.xa[i][0] = x0s[(rb + i * 16 + g) * ldx + f];
+      a.xa[i][1] = x0s[(rb + i * 16 + g + 8) * ldx + f];
+    }
+    a.pp = prevs + (rb + g) * ldp + h0 + t;
+    return a;
+  }
+  __device__ void frag(const At& a, int ks, uint32_t (&ah)[MT][4],
+                       uint32_t (&al)[MT][4]) const {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float* p = a.pp + i * 16 * ldp + ks * 8;
+      split_tf32(a.xa[i][0] * p[0], ah[i][0], al[i][0]);            // row g, h t
+      split_tf32(a.xa[i][1] * p[8 * ldp], ah[i][1], al[i][1]);      // g + 8
+      split_tf32(a.xa[i][0] * p[4], ah[i][2], al[i][2]);            // h t + 4
+      split_tf32(a.xa[i][1] * p[8 * ldp + 4], ah[i][3], al[i][3]);
     }
   }
 };
+
+// a[m, p] = x0[m, f_p] x0[m, h_p] over the symmetric pairs f_p <= h_p of a
+// layer whose prev is x0 (the stack's layer 1): tab[p] = f_p | h_p << 16
+// in shared memory, P8 pairs padded with (0, 0) to a multiple of 8; the
+// folded weight Ws (K, P8) (W[k,f,h] + W[k,h,f], the diagonal once, 0 on
+// the padding), 64 pairs a stage.
+template <int MT>
+struct PairsA {
+  const float* x0s;
+  int ldx;
+  const int* tab;
+  int P8;
+  const float* Ws;
+  int vw;
+
+  struct At {
+    const int* tp;
+    const float* r;
+    int nks;
+  };
+  __device__ int stages() const { return (P8 + TC_HC - 1) / TC_HC; }
+  __device__ void stage(float* dst, int k0, int K, int s) const {
+    const int pw = min(TC_HC, P8 - s * TC_HC);
+    stage_block(dst, TC_LDW, Ws + (size_t)k0 * P8 + s * TC_HC, P8, TC_KC,
+                K - k0, pw, pw, vw);
+  }
+  __device__ At at(int s, int rb, int g, int t) const {
+    return At{tab + s * TC_HC + t, x0s + (rb + g) * ldx,
+              min(TC_HC, P8 - s * TC_HC) / 8};
+  }
+  __device__ void frag(const At& a, int ks, uint32_t (&ah)[MT][4],
+                       uint32_t (&al)[MT][4]) const {
+    const int e0 = a.tp[ks * 8], e1 = a.tp[ks * 8 + 4];   // pairs t, t + 4
+    const int f0 = e0 & 0xffff, h0 = e0 >> 16;
+    const int f1 = e1 & 0xffff, h1 = e1 >> 16;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float* r = a.r + i * 16 * ldx;   // row g
+      const float* q = r + 8 * ldx;          // row g + 8
+      split_tf32(r[f0] * r[h0], ah[i][0], al[i][0]);
+      split_tf32(q[f0] * q[h0], ah[i][1], al[i][1]);
+      split_tf32(r[f1] * r[h1], ah[i][2], al[i][2]);
+      split_tf32(q[f1] * q[h1], ah[i][3], al[i][3]);
+    }
+  }
+};
+
+// The core of every forward layer on the tensor cores: the block's BM =
+// 64 * MT rows times K channels, out[m, k] = sum_n a[m, n] W[k, n], in
+// passes of 64 channels, each pass streaming all of A's W stages through
+// the 3-stage cp.async ring `wring`.  Copies the caller issued before the
+// call join the first stage's group, so its tiles have landed by the first
+// product.  At each pass's end, epi(k0, acc, rb, g, t, wn) takes the
+// thread's sums: acc[i][j] holds rows rb + i * 16 + g (c0, c1) and + 8
+// (c2, c3) at channels k0 + wn * 32 + j * 8 + 2t (+1).  Returns with no
+// copy in flight; the caller syncs before it reuses the ring.
+template <int MT, class A, class Epi>
+__device__ __forceinline__ void tc_core(const A& a, int K, float* wring,
+                                        Epi&& epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;            // mma group, thread
+  const int wm = warp & 3, wn = warp >> 2;
+  const int S = a.stages();
+  const int nsteps = (K + TC_KC - 1) / TC_KC * S;
+  int ik0 = 0, is = 0;                              // next stage to copy
+  auto issue = [&](int slot) {
+    a.stage(wring + slot * TC_WSTAGE, ik0, K, is);
+    if (++is == S) {
+      is = 0;
+      ik0 += TC_KC;
+    }
+  };
+  issue(0);
+  cp_async_commit();                 // group 0: the caller's tiles, stage 0
+  if (nsteps > 1) issue(1);
+  cp_async_commit();
+
+  float acc[MT][4][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  const int rb = wm * 16 * MT;       // the warp's first row in the tile
+  int k0 = 0, s = 0;
+  for (int step = 0; step < nsteps; ++step) {
+    cp_async_wait<1>();              // stage `step` has landed
+    __syncthreads();                 // ... for all; stage step - 1 is done
+    if (step + 2 < nsteps) issue((step + 2) % TC_STAGES);
+    cp_async_commit();
+
+    if (k0 + wn * 32 < K) {
+      const auto at = a.at(s, rb, g, t);
+      const float* wp = wring + (step % TC_STAGES) * TC_WSTAGE +
+                        (wn * 32 + g) * TC_LDW + t;
+#pragma unroll 2
+      for (int ks = 0; ks < at.nks; ++ks) {
+        uint32_t ah[MT][4], al[MT][4];
+        a.frag(at, ks, ah, al);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t bh[2], bl[2];
+          const float* w = wp + j * 8 * TC_LDW + ks * 8;
+          split_tf32(w[0], bh[0], bl[0]);                   // k-step col t
+          split_tf32(w[4], bh[1], bl[1]);                   // t + 4
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            float part[4];           // this k-step's 8 terms, 3 products
+            mma_tf32_new(part, al[i], bh);
+            mma_tf32(part, ah[i], bl);
+            mma_tf32(part, ah[i], bh);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
+          }
+        }
+      }
+    }
+
+    if (s == S - 1) {                // the pass's last stage
+      epi(k0, acc, rb, g, t, wn);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+    }
+    if (++s == S) {
+      s = 0;
+      k0 += TC_KC;
+    }
+  }
+  cp_async_wait<0>();
+}
 
 // out[m, k] (=, or += with accumulate) sum_{f,h} W[k,f,h] x0[m,f] prev[m,h]
 // (+ add_row[m] when add_row is given) over F fields and H h: x0 rows
@@ -561,119 +543,35 @@ cin_layer_tc_kernel(const float* __restrict__ x0, int ldx,
   float* wring = reinterpret_cast<float*>(smem4);   // [stage][k][h]
   float* x0s = wring + TC_STAGES * TC_WSTAGE;       // [row][f]
   float* prevs = x0s + BM * LDX;                    // [row][h]
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;            // mma group, thread
-  const int wm = warp & 3, wn = warp >> 2;
   const int m0 = blockIdx.x * BM;
-  const int nsteps =
-      (K + TC_KC - 1) / TC_KC * F * ((H + TC_HC - 1) / TC_HC);
 
   // the x0 and prev tiles, rows past M and h past H zero
   stage_block(x0s, LDX, x0 + (size_t)m0 * ldx, ldx, BM, M - m0,
               (F + vx - 1) / vx * vx, F, vx);
   stage_block(prevs, LDP, prev + (size_t)m0 * ldp, ldp, BM, M - m0,
               (H + 7) & ~7, H, vp);
-  // W stage s (channels past K and h past H zero) into its ring slot
-  auto stage = [&](const TcStep& s, int slot) {
-    const int hw = min(TC_HC, H - s.h0);
-    stage_block(wring + slot * TC_WSTAGE, TC_LDW,
-                W + s.k0 * ldwk + (size_t)s.f * ldp + s.h0, ldwk, TC_KC,
-                K - s.k0, (hw + 7) & ~7, hw, vw);
-  };
-  TcStep cur = {0, 0, 0}, nxt = {0, 0, 0};
-  stage(nxt, 0);
-  cp_async_commit();                 // group 0: the tiles and stage 0
-  nxt.next(F, H);
-  if (nsteps > 1) stage(nxt, 1);
-  cp_async_commit();
-  nxt.next(F, H);
-
-  float acc[MT][4][4];
+  const FieldsA<MT> a{x0s, LDX, prevs, LDP, F, H, (H + TC_HC - 1) / TC_HC,
+                      W, ldwk, ldp, vw};
+  tc_core<MT>(a, K, wring, [&](int k0, const float (&acc)[MT][4][4], int rb,
+                               int g, int t, int wn) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  const int rb = wm * 16 * MT;       // the warp's first row in the tile
-  for (int step = 0; step < nsteps; ++step) {
-    cp_async_wait<1>();              // stage `step` has landed
-    __syncthreads();                 // ... for all; stage step - 1 is done
-    if (step + 2 < nsteps) stage(nxt, (step + 2) % TC_STAGES);
-    cp_async_commit();
-    nxt.next(F, H);
-
-    if (cur.k0 + wn * 32 < K) {
-      const int nks = (min(TC_HC, H - cur.h0) + 7) / 8;
-      float xa[MT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        xa[i][0] = x0s[(rb + i * 16 + g) * LDX + cur.f];
-        xa[i][1] = x0s[(rb + i * 16 + g + 8) * LDX + cur.f];
-      }
-      const float* pp = prevs + (rb + g) * LDP + cur.h0 + t;
-      const float* wp = wring + (step % TC_STAGES) * TC_WSTAGE +
-                        (wn * 32 + g) * TC_LDW + t;
-#pragma unroll 2
-      for (int ks = 0; ks < nks; ++ks) {
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const float* p = pp + i * 16 * LDP + ks * 8;
-          split_tf32(xa[i][0] * p[0], ah[i][0], al[i][0]);  // row g, h t
-          split_tf32(xa[i][1] * p[8 * LDP], ah[i][1], al[i][1]);  // g + 8
-          split_tf32(xa[i][0] * p[4], ah[i][2], al[i][2]);  // h t + 4
-          split_tf32(xa[i][1] * p[8 * LDP + 4], ah[i][3], al[i][3]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          uint32_t bh[2], bl[2];
-          const float* w = wp + j * 8 * TC_LDW + ks * 8;
-          split_tf32(w[0], bh[0], bl[0]);                   // h t
-          split_tf32(w[4], bh[1], bl[1]);                   // h t + 4
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            float part[4];           // this k-step's 8 terms, 3 products
-            mma_tf32_new(part, al[i], bh);
-            mma_tf32(part, ah[i], bl);
-            mma_tf32(part, ah[i], bh);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[i][j][q] += part[q];
-          }
-        }
-      }
-    }
-
-    if (cur.f == F - 1 && cur.h0 + TC_HC >= H) {   // the pass's last stage
-      // c0, c1 at (row g, channels 2t, 2t + 1), c2, c3 at row g + 8
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = m0 + rb + i * 16 + g + half * 8;
-          if (m >= M) continue;
-          const float base = add_row ? add_row[m] : 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int k = cur.k0 + wn * 32 + j * 8 + 2 * t + e;
-              if (k >= K) continue;
-              float* o = out + (size_t)m * K + k;
-              *o = (accumulate ? *o : 0.f) + (acc[i][j][2 * half + e] + base);
-            }
-        }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + rb + i * 16 + g + half * 8;
+        if (m >= M) continue;
+        const float base = add_row ? add_row[m] : 0.f;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-    }
-    cur.next(F, H);
-  }
-  cp_async_wait<0>();                // no copy outlives the block
+          for (int e = 0; e < 2; ++e) {
+            const int k = k0 + wn * 32 + j * 8 + 2 * t + e;
+            if (k >= K) continue;
+            float* o = out + (size_t)m * K + k;
+            *o = (accumulate ? *o : 0.f) + (acc[i][j][2 * half + e] + base);
+          }
+      }
+  });
 }
 
 // Launches cin_layer_tc_kernel on x0 (M, F) rows ldx apart, prev (M, H)
@@ -727,6 +625,326 @@ int layer(const float* x0, int F, const float* prev, int H, const float* W,
                            device, s));
     }
   return cudaSuccess;
+}
+
+// ---------------------------------------------------------------------------
+// The stack forward (cin_stack_sum_f32; replaces _cin_stack_fwd_impl,
+// cin_kernel.py:493),
+//   out[m] = [sum_f x0[m,f]] + sum_{i<n} sum_k h_i[m,k]
+//            + sum_f x0[m,f] sum_h Wc[f,h] h_{n-1}[m,h],
+// runs in two launches.  stack_prep_kernel folds layer 1's weight onto its
+// symmetric pairs and collapses the last layer, once a call; then
+// cin_stack_tc_kernel gives each block BM rows and keeps the whole stack
+// on chip: the x0 tile is staged once; layer 1, whose prev is x0, runs on
+// the tensor cores over the F(F+1)/2 pairs f <= h (PairsA: 351 at F = 26,
+// padded to 352, 44 k-steps where the (f, h) path takes 104); each later
+// layer runs the same core over (f, h) with prev the previous hidden tile
+// (FieldsA); each hidden tile goes to shared memory (two, in turns) and
+// its channel sums to a per-row sum on the way; the collapsed last layer
+// and the sums are f32 dot products, F x H_{n-1} a row, a warp four rows
+// at a time.  Bound by operations: at
+// config 3 (M = 131,072, F = 26, Ks = (64, 64)) layer 1's 5.9 GFLOP in
+// split TF32 (0.036 ms at 495 TFLOP/s x 1/3) and the collapse's 0.44
+// GFLOP at the f32 rate (0.007 ms).  BM is 128 where the tiles fit the
+// opt-in shared memory (config 3: 107 KB, two blocks an SM; 64 rows, the
+// same two blocks an SM, stream W twice as often a row and measured
+// slower), else 64; a stack whose tiles do not fit 64 rows (at F = 26, two
+// hidden layers past ~320 channels or one past ~650) runs as layer-by-layer launches of the
+// forward layer (layer(): hidden layers to scratch, their channel sums by
+// row_sums_kernel) and the collapsed layer as one more layer of one
+// channel, adding the sums.  Each path sums in a fixed order.
+
+// Pairs f <= h of F fields, padded to a multiple of 8.
+__host__ __device__ constexpr long long pairs8(long long F) {
+  return (F * (F + 1) / 2 + 7) / 8 * 8;
+}
+
+// One launch a call: the folded layer-1 weight ws (K1, P8), ws[k, p] =
+// W1[k,f,h] + W1[k,h,f] (f < h) or W1[k,f,f], 0 past the F(F+1)/2 pairs,
+// and its pair table tab[p] = f | h << 16 in f-major order, where the stack
+// has hidden layers (K1 > 0); and the collapsed last layer wc (F, Hl) =
+// sum_k Wn[k].
+__global__ void stack_prep_kernel(const float* __restrict__ W1, int K1,
+                                  int F, int P8, float* __restrict__ ws,
+                                  int* __restrict__ tab,
+                                  const float* __restrict__ Wn, int Kn,
+                                  int Hl, float* __restrict__ wc) {
+  const size_t n1 = (size_t)K1 * P8;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < n1) {
+    const int k = (int)(idx / P8), p = (int)(idx - (size_t)k * P8);
+    float v = 0.f;
+    int e = 0;
+    if (p < F * (F + 1) / 2) {
+      // f's pairs start at f F - f (f - 1) / 2: a root, then its rounding
+      const float b = 2.f * F + 1.f;
+      int f = (int)((b - sqrtf(b * b - 8.f * p)) * 0.5f);
+      f = max(0, min(F - 1, f));
+      while (f > 0 && f * F - f * (f - 1) / 2 > p) --f;
+      while (f + 1 < F && (f + 1) * F - (f + 1) * f / 2 <= p) ++f;
+      const int h = f + p - (f * F - f * (f - 1) / 2);
+      const float* w = W1 + (size_t)k * F * F;
+      v = f == h ? w[f * F + f] : w[f * F + h] + w[h * F + f];
+      e = f | h << 16;
+    }
+    ws[idx] = v;
+    if (k == 0) tab[p] = e;
+    return;
+  }
+  const size_t j = idx - n1;
+  const size_t fh = (size_t)F * Hl;
+  if (j >= fh) return;
+  float s = 0.f;
+  for (int k = 0; k < Kn; ++k) s += Wn[k * fh + j];
+  wc[j] = s;
+}
+
+// The layers past the first, as stored.
+struct StackLayers {
+  const float* w[kMaxLayers];
+  int k[kMaxLayers];   // every layer's channels, the first's too
+  int v[kMaxLayers];   // floats a copy of w[l] (copy_floats)
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+size_t stack_tc_smem(int bm, int F, int h_max, int n_mid, long long p8) {
+  const int nb = n_mid > 1 ? 2 : n_mid;
+  return ((size_t)TC_STAGES * TC_WSTAGE +
+          (size_t)bm * (tc_ld(F) + nb * tc_ld(h_max) + 1) +
+          (n_mid ? (size_t)p8 : 0)) * sizeof(float);
+}
+
+// x0 (M, F) rows, vx floats a copy; ws, tab, P8, vws: layer 1 folded
+// (stack_prep_kernel); sl: the later layers; wc (F, H_{n-1}).
+template <int MT>
+__global__ void __launch_bounds__(kThreads, 2)
+cin_stack_tc_kernel(const float* __restrict__ x0, int M, int F, int vx,
+                    int n_mid, const float* __restrict__ ws,
+                    const int* __restrict__ tab, int P8, int vws,
+                    StackLayers sl, int h_max, const float* __restrict__ wc,
+                    int output_input, float* __restrict__ out) {
+  constexpr int BM = 64 * MT;
+  extern __shared__ float4 smem4[];
+  const int LDX = tc_ld(F), LDH = tc_ld(h_max);
+  float* wring = reinterpret_cast<float*>(smem4);   // W ring, then Wc
+  float* x0s = wring + TC_STAGES * TC_WSTAGE;       // [row][f]
+  float* hid0 = x0s + BM * LDX;                     // [row][k], in turns
+  float* hid1 = hid0 + BM * LDH;
+  float* rsum = x0s + BM * (LDX + (n_mid > 1 ? 2 : n_mid) * LDH);
+  int* tabs = reinterpret_cast<int*>(rsum + BM);    // [pair]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * BM;
+
+  // the x0 tile (rows past M zero) and the pair table
+  stage_block(x0s, LDX, x0 + (size_t)m0 * F, F, BM, M - m0,
+              (F + vx - 1) / vx * vx, F, vx);
+  if (n_mid)
+    stage_block(reinterpret_cast<float*>(tabs), P8,
+                reinterpret_cast<const float*>(tab), P8, 1, 1, P8, P8, 4);
+  const float* prev = x0s;
+  int H = F, ldp = LDX;
+  for (int l = 0; l < n_mid; ++l) {
+    float* next = (l & 1) ? hid1 : hid0;
+    const int K = sl.k[l], K8 = (K + 7) & ~7;
+    // the pass's sums into the tile; zero from K to K8, the next layer's
+    // prev padding
+    auto epi = [&](int k0, const float (&acc)[MT][4][4], int rb, int g,
+                   int t, int wn) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float* row = next + (rb + i * 16 + g + half * 8) * LDH;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = k0 + wn * 32 + j * 8 + 2 * t + e;
+              if (k < K8) row[k] = acc[i][j][2 * half + e];
+            }
+        }
+    };
+    if (l == 0)
+      tc_core<MT>(PairsA<MT>{x0s, LDX, tabs, P8, ws, vws}, K, wring, epi);
+    else
+      tc_core<MT>(FieldsA<MT>{x0s, LDX, prev, ldp, F, H,
+                              (H + TC_HC - 1) / TC_HC, sl.w[l],
+                              (size_t)F * H, H, sl.v[l]},
+                  K, wring, epi);
+    __syncthreads();                 // the tile is whole, the ring free
+    for (int r = warp; r < BM; r += kWarps) {    // its channel sums
+      float v = 0.f;
+      for (int k = lane; k < K; k += 32) v += next[r * LDH + k];
+      v = warp_sum(v);
+      if (lane == 0) rsum[r] = (l ? rsum[r] : 0.f) + v;
+    }
+    prev = next;
+    H = K;
+    ldp = LDH;
+  }
+  cp_async_commit();                 // without hidden layers: the x0 tile
+  cp_async_wait<0>();
+  // Wc into the free ring where it fits, else read where it is
+  const int fh = F * H;
+  const float* wcs = wc;
+  if (fh <= TC_STAGES * TC_WSTAGE) {
+    for (int i = threadIdx.x; i < fh; i += kThreads) wring[i] = __ldg(wc + i);
+    wcs = wring;
+  }
+  __syncthreads();
+
+  // the collapsed last layer and the sums, a warp four rows at a time:
+  // lanes over h, u[h] = sum_f x0[f] Wc[f,h], z = sum_h prev[h] u[h]
+  for (int r0 = warp * 4; r0 < BM; r0 += kWarps * 4) {
+    float z[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int h = lane; h < H; h += 32) {
+      float u[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int f = 0; f < F; ++f) {
+        const float w = wcs[f * H + h];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          u[q] = fmaf(x0s[(r0 + q) * LDX + f], w, u[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        z[q] = fmaf(prev[(r0 + q) * ldp + h], u[q], z[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float sx = 0.f;
+      if (output_input)
+        for (int f = lane; f < F; f += 32) sx += x0s[(r0 + q) * LDX + f];
+      sx = warp_sum(sx);
+      const float zq = warp_sum(z[q]);
+      const int m = m0 + r0 + q;
+      if (lane == 0 && m < M)
+        out[m] = sx + (n_mid ? rsum[r0 + q] : 0.f) + zq;
+    }
+  }
+}
+
+// rs[m] = (first ? (output_input ? sum_f x0[m,f] : 0) : rs[m])
+//         + sum_k h[m,k]: the layer-by-layer path's running sums.
+__global__ void row_sums_kernel(const float* __restrict__ h, int K,
+                                const float* __restrict__ x0, int F,
+                                int first, int output_input,
+                                float* __restrict__ rs, int M) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float s = 0.f;
+  if (!first)
+    s = rs[m];
+  else if (output_input)
+    for (int f = 0; f < F; ++f) s += x0[(size_t)m * F + f];
+  for (int k = 0; k < K; ++k) s += h[(size_t)m * K + k];
+  rs[m] = s;
+}
+
+// Rows a block of cin_stack_tc_kernel takes: 128 where the tiles fit the
+// opt-in shared memory, else 64; or `want` (64 or 128) where the caller
+// asks for it.  0: layer-by-layer launches (want -1, or tiles too large
+// for 64 rows).  -1: `want` cannot be had or the device cannot be read.
+int stack_rows(int F, int h_max, int n_mid, int want, int device) {
+  if (want == -1) return 0;
+  if (want != 0 && want != 64 && want != 128) return -1;
+  const size_t cap = optin_smem(device);
+  if (cap == 0) return -1;
+  for (int bm = 128; bm >= 64; bm /= 2)
+    if ((want == 0 || want == bm) &&
+        stack_tc_smem(bm, F, h_max, n_mid, pairs8(F)) <= cap)
+      return bm;
+  return want == 0 ? 0 : -1;
+}
+
+// cin_stack_sum_f32's scratch, each part on a 16-byte boundary: Wc; for
+// the one-kernel path the folded layer 1 and its pair table; for the
+// layer-by-layer path the hidden layers (two, in turns) and the sums.
+struct StackFwdScratch {
+  float* wc;
+  float* ws;
+  int* tab;
+  float* hid[2];
+  float* rs;
+};
+
+size_t align4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// Carves `base` into sc (with base nullptr, counts alone) for rows-per-
+// block bm (stack_rows) and returns the floats it takes.
+long long carve_stack_fwd(float* base, const int* ks, int n_layers, int M,
+                          int F, int bm, StackFwdScratch* sc) {
+  const int n_mid = n_layers - 1;
+  size_t off = 0;
+  auto take = [&](size_t n) {
+    float* p = base ? base + off : nullptr;
+    off += align4(n);
+    return p;
+  };
+  int h_max = 0;
+  for (int l = 0; l < n_mid; ++l) h_max = ks[l] > h_max ? ks[l] : h_max;
+  *sc = StackFwdScratch{};
+  sc->wc = take((size_t)F * (n_mid ? ks[n_mid - 1] : F));
+  if (bm > 0 && n_mid) {
+    sc->ws = take((size_t)ks[0] * pairs8(F));
+    sc->tab = reinterpret_cast<int*>(take(pairs8(F)));
+  } else if (bm == 0) {
+    for (int b = 0; b < (n_mid > 1 ? 2 : n_mid); ++b)
+      sc->hid[b] = take((size_t)M * h_max);
+    sc->rs = take(M);
+  }
+  return (long long)off;
+}
+
+template <int MT>
+int launch_stack_tc(const float* x0, int M, int F, int n_mid,
+                    const StackFwdScratch& sc, const StackLayers& sl,
+                    int h_max, int output_input, float* out, int device,
+                    cudaStream_t s) {
+  static std::atomic<bool> done[kMaxDevices];
+  CIN_TRY(allow_optin_smem((const void*)cin_stack_tc_kernel<MT>, device,
+                           done));
+  const int p8 = (int)pairs8(F);
+  const int grid = (M + 64 * MT - 1) / (64 * MT);
+  cin_stack_tc_kernel<MT><<<grid, kThreads,
+                            stack_tc_smem(64 * MT, F, h_max, n_mid, p8), s>>>(
+      x0, M, F, copy_floats(x0, F), n_mid, sc.ws, sc.tab, p8,
+      copy_floats(sc.ws, p8), sl, h_max, sc.wc, output_input, out);
+  return cudaGetLastError();
+}
+
+// The layer-by-layer path: each hidden layer by layer() into scratch and
+// its channel sums by row_sums_kernel, then the collapsed last layer as a
+// layer of one channel with Wc as its weight (1, F, H_{n-1}), adding the
+// sums.
+int stack_by_layers(const float* x0, const float* const* weights,
+                    const int* ks, int n_mid, const StackFwdScratch& sc,
+                    float* out, int M, int F, int output_input, int device,
+                    cudaStream_t s) {
+  const unsigned rows = (M + 255) / 256;
+  if (n_mid == 0) {
+    row_sums_kernel<<<rows, 256, 0, s>>>(nullptr, 0, x0, F, 1, output_input,
+                                         sc.rs, M);
+    CIN_TRY(cudaGetLastError());
+  }
+  const float* prev = x0;
+  int H = F;
+  for (int l = 0; l < n_mid; ++l) {
+    float* next = sc.hid[l & 1];
+    CIN_TRY(layer(x0, F, prev, H, weights[l], ks[l], next, M, 0, nullptr,
+                  device, s));
+    row_sums_kernel<<<rows, 256, 0, s>>>(next, ks[l], x0, F, l == 0,
+                                         output_input, sc.rs, M);
+    CIN_TRY(cudaGetLastError());
+    prev = next;
+    H = ks[l];
+  }
+  return layer(x0, F, prev, H, sc.wc, 1, out, M, 0, sc.rs, device, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1213,8 +1431,6 @@ struct StackBwdScratch {
   float* part;
 };
 
-size_t align4(size_t n) { return (n + 3) & ~(size_t)3; }
-
 // Carves `base` into sc (with base nullptr, counts alone) and returns
 // the floats it takes, or -1 when the device cannot be read.
 long long carve_stack_bwd(float* base, const int* ks, int n_layers, int M,
@@ -1278,50 +1494,60 @@ int cin_flat_f32(const float* x0, const float* prev, const float* W,
                static_cast<cudaStream_t>(stream));
 }
 
+// Floats of scratch cin_stack_sum_f32 needs for these layers and rows
+// per block `bm` (0: the largest whose tiles fit, 64 or 128, -1: layer by
+// layer), or -1 when that cannot be had or the device cannot be read.
+long long cin_stack_fwd_scratch(const int* ks, int n_layers, int M, int F,
+                                int bm, int device) {
+  if (n_layers < 1 || n_layers - 1 > kMaxLayers) return -1;
+  int h_max = 0;
+  for (int l = 0; l < n_layers - 1; ++l) h_max = ks[l] > h_max ? ks[l] : h_max;
+  const int rows = stack_rows(F, h_max, n_layers - 1, bm, device);
+  if (rows < 0) return -1;
+  StackFwdScratch sc;
+  return carve_stack_fwd(nullptr, ks, n_layers, M, F, rows, &sc);
+}
+
 // x0 (M, F); weights[i] (ks[i], F, H_{i-1}) with H_0 = F, i < n_layers;
-// out (M,).  scratch holds sum_{i < n-1} ks[i] * F * H_{i-1} floats (the
-// non-last weights as (F, H, K)) plus F * H_{n-1} (the collapsed last
-// layer).  Returns a cudaError_t (0 on success).
+// out (M,).  scratch holds cin_stack_fwd_scratch(ks, n_layers, M, F, bm,
+// device) floats; bm as there.  Returns a cudaError_t (0 on success).
 int cin_stack_sum_f32(const float* x0, const float* const* weights,
                       const int* ks, int n_layers, float* scratch, float* out,
-                      int M, int F, int output_input, int device,
+                      int M, int F, int output_input, int bm, int device,
                       void* stream) {
   if (n_layers < 1 || n_layers - 1 > kMaxLayers) return cudaErrorInvalidValue;
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CIN_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_mid = n_layers - 1;
-  int h_max = 0;
-  for (int l = 0; l < n_mid; ++l) h_max = ks[l] > h_max ? ks[l] : h_max;
-  const int rt =
-      pick_rt(device, [&](int r) { return stack_smem(r, F, h_max); });
-  if (rt == 0) return cudaErrorInvalidValue;
-  StackWeights sw = {};
-  int h = F;
+  StackLayers sl = {};
+  int h_max = 0, h = F;
   for (int l = 0; l < n_mid; ++l) {
-    int rc = to_fhk(weights[l], ks[l], F * h, scratch, s);
-    if (rc != cudaSuccess) return rc;
-    sw.w[l] = scratch;
-    sw.k[l] = ks[l];
-    scratch += (size_t)ks[l] * F * h;
+    h_max = ks[l] > h_max ? ks[l] : h_max;
+    sl.w[l] = weights[l];
+    sl.k[l] = ks[l];
+    sl.v[l] = copy_floats(weights[l], h);
     h = ks[l];
   }
-  const int fh = F * h;
-  collapse_kernel<<<(fh + 255) / 256, 256, 0, s>>>(weights[n_mid], ks[n_mid],
-                                                    F, h, scratch, nullptr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  if (rt == 8)
-    return launch_stack<8>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                           output_input, device, s);
-  if (rt == 4)
-    return launch_stack<4>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                           output_input, device, s);
-  if (rt == 2)
-    return launch_stack<2>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                           output_input, device, s);
-  return launch_stack<1>(x0, sw, n_mid, scratch, out, M, F, h_max,
-                         output_input, device, s);
+  const int rows = stack_rows(F, h_max, n_mid, bm, device);
+  if (rows < 0) return cudaErrorInvalidValue;
+  StackFwdScratch sc;
+  carve_stack_fwd(scratch, ks, n_layers, M, F, rows, &sc);
+  if (M == 0) return cudaSuccess;
+  // Wc, and layer 1 folded where one kernel runs the stack
+  const int k1 = rows && n_mid ? ks[0] : 0;
+  const size_t n = (size_t)k1 * pairs8(F) + (size_t)F * h;
+  stack_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      weights[0], k1, F, (int)pairs8(F), sc.ws, sc.tab, weights[n_mid],
+      ks[n_mid], h, sc.wc);
+  CIN_TRY(cudaGetLastError());
+  if (rows == 128)
+    return launch_stack_tc<2>(x0, M, F, n_mid, sc, sl, h_max, output_input,
+                              out, device, s);
+  if (rows == 64)
+    return launch_stack_tc<1>(x0, M, F, n_mid, sc, sl, h_max, output_input,
+                              out, device, s);
+  return stack_by_layers(x0, weights, ks, n_mid, sc, out, M, F, output_input,
+                         device, s);
 }
 
 long long cin_dw_scratch(int M, int K, int N, int device) {

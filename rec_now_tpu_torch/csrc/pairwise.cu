@@ -27,6 +27,10 @@
 //        in-kernel occurrence weight needs NG == 1 and no wrong-order filter,
 //        as JAX's does (:298-300); the host checks.
 //
+// B3 at B <= 8,192 (every batch the port's cells take) sorts the batch by
+// its first group condition and sweeps inside each group only (see "B3 by
+// segments" below); past that, and for B7a/b/c, the O(B^2) sweeps here.
+//
 // Taken from the math, not from the TPU blocks: the TPU sweeps (TILE, B) row
 // blocks in VMEM and accumulates column sums over its sequential grid.
 // Blocks here run in parallel, so no block reduces over another's rows: each
@@ -46,6 +50,8 @@
 // float operations each, and for the loss transcendentals for the valid
 // pairs only; O(B) bytes.  Operations.
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace {
 
@@ -330,6 +336,507 @@ merge_loss(const float* __restrict__ part_loss,
   }
 }
 
+// ---- B3 by segments: a sort by the main group, then sweeps inside each
+// group --------------------------------------------------------------------
+//
+// A pair can only be valid inside one group of the first condition, so for
+// B <= kSortMax the loss takes three launches and no (i, j) sweep:
+//   1. sort_segments_kernel (one block, all in shared memory): a stable
+//      LSD radix sort of (g0[i], label_i > 0.5, i) -- the key's sign bit
+//      flipped so that negative ids order first, less its minimum, the
+//      label test as its lowest bit, 4 bits a pass and only as many as
+//      the batch's range needs (1 for one group, 4 for 5,000 ids; ids
+//      spread past 2^31 give the label test a pass of its own, 9 in all);
+//      ties keep index order, and within a group the negatives come
+//      first, so that a warp of the sweep mostly takes one branch.  Each
+//      sample's mask and label tests travel with its index, so one scan
+//      of adjacent-difference flags finds the segments and, beside them,
+//      each segment's tot (unmasked members) and pos (those with label >
+//      0.5): the occurrence weight needs no sweep and is taken once a
+//      segment.  The block writes the order (index and segment), the
+//      segments' starts and weights, and the sweep's items: each kRows
+//      sorted rows times the columns their segments span, in slices of
+//      kCols.  It leaves the samples' values where they are: one block's
+//      stores to L2 bounded it when it wrote them in sorted order;
+//   2. segment_sweep: a fixed grid takes the items in turn; each thread
+//      owns one sorted row t and tests only the columns of its own segment
+//      in the item's slice, staged through shared memory, as pair_sweep
+//      does (row terms when t is the positive side, column terms when it
+//      is the negative); conditions 2..NG, the mask, the labels and the
+//      wrong-order filter per pair.  A large group's columns are split
+//      over many items (the zipf head of a B = 8,192 batch, 2,082 members,
+//      over hundreds), so it does not serialise a few SMs;
+//   3. merge_segments (a block a row block): each row's item partials in
+//      slice order, dx written back to the original index, the loss in
+//      double and the count in 64-bit integers summed in a fixed order per
+//      block, and the blocks' sums in block order by the last block to
+//      finish: repeats are bit-equal, whichever block took which item.
+//      (Merging in the sweep, by the block that finished a row block's
+//      last item, was slower: a fence a thread for every item.)
+// Work: the sort's passes over B keys and sum over groups of n^2 tests
+// (5.6M on a B = 8,192 SyntheticCriteo batch where the sweeps tested 67.1M
+// twice); one group of all B does the B^2 tests, all singletons B.  Past
+// kSortMax, the O(B^2) sweeps above run instead.
+constexpr int kSortThreads = 1024;
+constexpr int kSortPer = 8;                             // keys a thread
+constexpr int kSortMax = kSortThreads * kSortPer;       // 8,192 (13 bits)
+constexpr int kDigits = 16;                             // 4 bits a pass
+constexpr int kCounters = kDigits * kSortThreads;
+// beside the index in a value: the mask test, mask and label tests, the
+// label test alone (the first pass's digit), then the segment
+constexpr int kMaskBit = 1 << 13, kPosBit = 1 << 14, kLabBit = 1 << 15;
+constexpr int kSegShift = 16;
+constexpr int kRows = 256;    // sorted rows an item (the sweep's threads)
+constexpr int kCols = 32;     // columns an item
+
+// Counter e of the sort, one word of padding every 32: the scan's reads
+// (16 consecutive counters a thread) hit 32 distinct banks.
+__host__ __device__ constexpr int pad(int e) { return e + (e >> 5); }
+
+// Key or value at position p, one word of padding every 8: a thread's 8
+// consecutive positions, read by a warp at once, hit 32 distinct banks.
+__host__ __device__ constexpr int spad(int p) { return p + (p >> 3); }
+
+// keys and values, then the counters (whose space holds the segments'
+// starts and tot after the sort, the keys' space their pos)
+size_t sort_smem() {
+  return (2 * (size_t)spad(kSortMax) + pad(kCounters)) * sizeof(int);
+}
+
+// The exclusive prefix sum of v over a block of kSortThreads threads, and
+// the block's total; wsum: 32 words of shared memory, which the caller
+// writes again only after another barrier.
+template <class T>
+__device__ T block_excl_scan(T v, T* wsum, T& total) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  T inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const T n = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += n;
+  }
+  if (lane == 31) wsum[w] = inc;
+  __syncthreads();
+  if (w == 0) {
+    T s = wsum[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const T n = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += n;
+    }
+    wsum[lane] = s;
+  }
+  __syncthreads();
+  total = wsum[31];
+  return (w ? wsum[w - 1] : T(0)) + inc - v;
+}
+
+// The sort's result, for the sweep and the merge: what one block writes
+// is kept small (its stores to L2 bound it), and the sweep's many blocks
+// gather each sample's values themselves.
+struct Sorted {
+  int* order;          // sorted position s: index | segment << kSegShift
+  int* start;          // segment id's first position (nseg + 1, B last)
+  float* segw;         // its occurrence weight, -1 without pairs
+  int* items;          // row block rb's items start at items[rb] (33)
+  double* loss;        // the merge's per-block sums (32 each) and the
+  long long* cnt;      // count of blocks done
+  unsigned* done;
+};
+
+// One sample's values as the sweep takes them: sorted position s.
+struct Sample {
+  int idx, lo, hi;     // its index and its segment [lo, hi)
+  float x, lab, m, w;
+};
+
+__device__ __forceinline__ Sample sample_at(const Inputs& in,
+                                            const Sorted& so, bool occ,
+                                            int s) {
+  const int v = so.order[s];
+  const int i = v & ((1 << kSegShift) - 1), id = v >> kSegShift;
+  Sample a;
+  a.idx = i;
+  a.lo = so.start[id];
+  a.hi = so.start[id + 1];
+  a.x = in.x[i];
+  a.lab = in.lab[i];
+  a.m = in.mask ? in.mask[i] : 1.f;
+  a.w = in.w ? in.w[i] : 1.f;
+  if (occ) a.w = so.segw[id] < 0.f ? 0.f : a.w * so.segw[id];
+  return a;
+}
+
+// Steps 1 (see above): thread t holds sorted positions [t kSortPer,
+// (t + 1) kSortPer) in each pass and in the segment scan.
+__global__ void __launch_bounds__(kSortThreads)
+sort_segments_kernel(Inputs in, float power, Sorted so) {
+  extern __shared__ int sm[];
+  unsigned* keys = reinterpret_cast<unsigned*>(sm);    // [spad(kSortMax)]
+  int* vals = sm + spad(kSortMax);                      // [spad(kSortMax)]
+  int* cnt = vals + spad(kSortMax);                     // [pad(kCounters)]
+  __shared__ unsigned wsum[32];
+  __shared__ unsigned long long wsum64[32];
+  __shared__ unsigned wlo[32], whi[32];
+  const int B = in.B, t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const float* __restrict__ lab = in.lab;
+  const float* __restrict__ mask = in.mask;
+  const int* __restrict__ g0 = in.grp;
+  unsigned lo = 0xffffffffu, hi = 0u;
+#pragma unroll 4
+  for (int i = t; i < B; i += kSortThreads) {
+    const unsigned k = static_cast<unsigned>(g0[i]) ^ 0x80000000u;
+    const bool mok = mask ? mask[i] > 0.5f : true, pos = lab[i] > 0.5f;
+    keys[spad(i)] = k;
+    vals[spad(i)] = i | (mok ? kMaskBit : 0) | (mok && pos ? kPosBit : 0) |
+                    (pos ? kLabBit : 0);
+    lo = min(lo, k);
+    hi = max(hi, k);
+  }
+  if (t == 0) *so.done = 0u;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    wlo[w] = lo;
+    whi[w] = hi;
+  }
+  __syncthreads();
+  lo = wlo[0];
+  hi = whi[0];
+  for (int i = 1; i < 32; ++i) {
+    lo = min(lo, wlo[i]);
+    hi = max(hi, whi[i]);
+  }
+  // keys relative to the minimum, with the label test as their lowest bit
+  // where the range leaves one (fold); else the label test takes a pass
+  // of its own (-1) before the key's.  Either way within a group the
+  // negatives come before the positives, so that a warp of the sweep
+  // mostly takes one branch.
+  const unsigned range = hi - lo;
+  const bool fold = range < 0x80000000u;
+#pragma unroll 4
+  for (int i = t; i < B; i += kSortThreads) {
+    const unsigned k = keys[spad(i)] - lo;
+    keys[spad(i)] = fold ? k << 1 | (vals[spad(i)] & kLabBit ? 1u : 0u) : k;
+  }
+  __syncthreads();
+  const unsigned span = fold ? range << 1 | 1u : range;
+  const int passes = span ? (32 - __clz(span) + 3) / 4 : 0;
+  const int p0 = t * kSortPer;
+  auto digit = [&](unsigned k, int v, int pass) {
+    return pass < 0 ? (v & kLabBit ? 1 : 0) : (int)(k >> (4 * pass)) & 15;
+  };
+  for (int pass = fold ? 0 : -1; pass < passes; ++pass) {
+    unsigned kk[kSortPer];
+    int vv[kSortPer];
+#pragma unroll
+    for (int d = 0; d < kDigits; ++d) cnt[pad(d * kSortThreads + t)] = 0;
+#pragma unroll
+    for (int j = 0; j < kSortPer; ++j) {
+      kk[j] = 0u;
+      vv[j] = 0;
+      if (p0 + j < B) {
+        kk[j] = keys[spad(p0 + j)];
+        vv[j] = vals[spad(p0 + j)];
+        ++cnt[pad(digit(kk[j], vv[j], pass) * kSortThreads + t)];
+      }
+    }
+    __syncthreads();
+    // exclusive scan in (digit, thread) order: thread u takes counters
+    // [16u, 16u + 16), all of one digit
+    int c[16], run = 0;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      c[q] = run;
+      run += cnt[pad(16 * t + q)];
+    }
+    unsigned total;
+    const int base = (int)block_excl_scan<unsigned>(run, wsum, total);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) cnt[pad(16 * t + q)] = base + c[q];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSortPer; ++j) {
+      if (p0 + j < B) {
+        const int pos = cnt[pad(digit(kk[j], vv[j], pass) * kSortThreads + t)]++;
+        keys[spad(pos)] = kk[j];
+        vals[spad(pos)] = vv[j];
+      }
+    }
+    __syncthreads();
+  }
+
+  // segments: starts, and the unmasked members and positives before each
+  // position, packed 20 bits each (B <= 2^13) into one scan
+  int* start = cnt;                       // [B + 1], then tot before it
+  int* ntot = cnt + kSortMax + 1;         // [B + 1]
+  int* npos = reinterpret_cast<int*>(keys);   // [B + 1], once keys are read
+  unsigned long long mine = 0;
+  int bits[kSortPer];
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    const int s = p0 + j;
+    bits[j] = 0;
+    if (s < B) {
+      const int v = vals[spad(s)];
+      const int st = s == 0 || (keys[spad(s)] ^ keys[spad(s - 1)]) >> fold;
+      bits[j] = st | (v & kMaskBit ? 2 : 0) | (v & kPosBit ? 4 : 0);
+      mine += (unsigned long long)(bits[j] & 1) |
+              (unsigned long long)(bits[j] >> 1 & 1) << 20 |
+              (unsigned long long)(bits[j] >> 2 & 1) << 40;
+    }
+  }
+  unsigned long long total;
+  unsigned long long before = block_excl_scan(mine, wsum64, total);
+  // (the scan's barriers: every key has been read)
+  constexpr unsigned long long kField = (1ull << 20) - 1;
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    const int s = p0 + j;
+    if (s < B) {
+      const int id = (int)(before & kField) + (bits[j] & 1) - 1;
+      vals[spad(s)] |= id << kSegShift;
+      if (bits[j] & 1) {
+        start[id] = s;
+        ntot[id] = (int)(before >> 20 & kField);
+        npos[id] = (int)(before >> 40 & kField);
+      }
+      before += (unsigned long long)(bits[j] & 1) |
+                (unsigned long long)(bits[j] >> 1 & 1) << 20 |
+                (unsigned long long)(bits[j] >> 2 & 1) << 40;
+    }
+  }
+  if (t == 0) {
+    const int nseg = (int)(total & kField);
+    start[nseg] = B;
+    ntot[nseg] = (int)(total >> 20 & kField);
+    npos[nseg] = (int)(total >> 40 & kField);
+  }
+  __syncthreads();                   // the segments' table is whole
+  // each segment's occurrence weight, pos (tot - pos) to the power, once,
+  // over ntot's space (-1: no pairs)
+  float* segw = reinterpret_cast<float*>(ntot);
+  if (power != 0.f) {
+    const int nseg = (int)(total & kField);
+    float wv[kSortPer];
+#pragma unroll
+    for (int j = 0; j < kSortPer; ++j) {
+      const int id = t + j * kSortThreads;
+      wv[j] = -1.f;
+      if (id < nseg) {
+        const long long tot = ntot[id + 1] - ntot[id];
+        const long long pos = npos[id + 1] - npos[id];
+        const float gpc = (float)(pos * (tot - pos));
+        if (gpc > 0.f) wv[j] = powf(gpc, power);
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSortPer; ++j)
+      if (t + j * kSortThreads < nseg) segw[t + j * kSortThreads] = wv[j];
+    __syncthreads();
+  }
+
+  // the order (index and segment), the segments' starts and weights
+  const int nseg = (int)(total & kField);
+#pragma unroll 4
+  for (int s = t; s < B; s += kSortThreads)
+    so.order[s] = vals[spad(s)] & ~(kMaskBit | kPosBit | kLabBit);
+  for (int id = t; id <= nseg; id += kSortThreads) so.start[id] = start[id];
+  if (power != 0.f)
+    for (int id = t; id < nseg; id += kSortThreads) so.segw[id] = segw[id];
+  // row block rb's columns [lo of its first row, hi of its last) in
+  // slices of kCols, from the table in shared memory
+  const int nrb = (B + kRows - 1) / kRows;   // <= 32: one warp
+  if (t < 32) {
+    int n = 0;
+    if (t < nrb) {
+      const int r0 = t * kRows, r1 = min(B, r0 + kRows) - 1;
+      // the segments of r0 and r1: the last start at or before each
+      int a = 0, b = 0;
+      for (int step = kSortMax; step > 0; step >>= 1) {
+        if (a + step <= (int)(total & kField) && start[a + step] <= r0)
+          a += step;
+        if (b + step <= (int)(total & kField) && start[b + step] <= r1)
+          b += step;
+      }
+      n = (start[b + 1] - start[a] + kCols - 1) / kCols;
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, n, o);
+      if (t >= o) n += v;
+    }
+    if (t == 0) so.items[0] = 0;
+    if (t < nrb) so.items[t + 1] = n;
+  }
+}
+
+// The row block holding `item`, given the row blocks' item starts.
+__device__ __forceinline__ int row_block_of(const int* items, int item) {
+  int rb = 0;
+  while (items[rb + 1] <= item) ++rb;
+  return rb;
+}
+
+// Step 2: each item's rows' row and column terms over its slice.
+__global__ void __launch_bounds__(kRows)
+segment_sweep(Inputs in, Sorted so, bool occ, float factor,
+              bool wrong_order, float* __restrict__ part_loss,
+              int* __restrict__ part_cnt, float* __restrict__ part_dx) {
+  const int B = in.B, ng = in.ng;
+  __shared__ float cx[kCols], cl[kCols], cm[kCols], cw[kCols];
+  __shared__ int cg[kMaxGroups - 1][kCols];
+  const int nrb = (B + kRows - 1) / kRows;
+  const int n_items = so.items[nrb];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int rb = row_block_of(so.items, item);
+    const int r0 = rb * kRows, r1 = min(B, r0 + kRows);
+    const int seg0 = so.order[r0] >> kSegShift;
+    const int seg1 = so.order[r1 - 1] >> kSegShift;
+    const int c0 = so.start[seg0] + (item - so.items[rb]) * kCols;
+    const int c1 = min(so.start[seg1 + 1], c0 + kCols);
+    __syncthreads();                 // the last item's columns are read
+    if (threadIdx.x < kCols && c0 + (int)threadIdx.x < c1) {
+      const Sample c = sample_at(in, so, occ, c0 + threadIdx.x);
+      cx[threadIdx.x] = c.x;
+      cl[threadIdx.x] = c.lab;
+      cm[threadIdx.x] = c.m;
+      cw[threadIdx.x] = c.w;
+      for (int k = 1; k < ng; ++k)
+        cg[k - 1][threadIdx.x] = in.grp[(size_t)k * B + c.idx];
+    }
+    __syncthreads();
+    const int t = r0 + threadIdx.x;
+    float loss = 0.f, dr = 0.f;
+    int cnt = 0;
+    if (t < r1) {
+      const Sample a = sample_at(in, so, occ, t);
+      const float ax = a.x, al = a.lab, am = a.m, wt = a.w;
+      int ag[kMaxGroups - 1];
+#pragma unroll
+      for (int k = 0; k < kMaxGroups - 1; ++k)
+        ag[k] = k + 1 < ng ? in.grp[(size_t)(k + 1) * B + a.idx] : 0;
+      const int hi = min(a.hi, c1);
+      for (int v = max(a.lo, c0); v < hi; ++v) {
+        const int i = v - c0;
+        bool same = true;
+#pragma unroll
+        for (int k = 0; k < kMaxGroups - 1; ++k)
+          if (k + 1 < ng && ag[k] != cg[k][i]) same = false;
+        if (!same) continue;
+        if (ordered_valid(t, ax, al, am, v, cx[i], cl[i], cm[i],
+                          wrong_order)) {       // (t, v): t's row terms
+          const float d = (ax - cx[i]) * factor;
+          loss += wt * softplus(-d);
+          dr -= wt * factor * sigmoid(-d);
+          ++cnt;
+        } else if (ordered_valid(v, cx[i], cl[i], cm[i], t, ax, al, am,
+                                 wrong_order)) {  // (v, t): column terms
+          const float d = (cx[i] - ax) * factor;
+          dr += cw[i] * factor * sigmoid(-d);
+        }
+      }
+    }
+    const size_t o = (size_t)item * kRows + threadIdx.x;
+    part_loss[o] = loss;
+    part_cnt[o] = cnt;
+    part_dx[o] = dr;
+  }
+}
+
+// Step 3, a block a row block: dx[perm[t]] = the sum of row t's item
+// partials in slice order; the block's loss (in double) and count (in
+// 64-bit integers) in a fixed tree; the last block to finish adds the
+// blocks' sums in block order into out[0] (loss) and out[1] (count).
+__global__ void __launch_bounds__(kRows)
+merge_segments(Sorted so, int B, const float* __restrict__ part_loss,
+               const int* __restrict__ part_cnt,
+               const float* __restrict__ part_dx, float* __restrict__ dx,
+               float* __restrict__ out) {
+  __shared__ double sl[kRows];
+  __shared__ long long sc[kRows];
+  __shared__ bool last;
+  const int rb = blockIdx.x, t = rb * kRows + threadIdx.x;
+  double loss = 0.0;
+  long long cnt = 0;
+  if (t < B) {
+    float d = 0.f;
+#pragma unroll 4
+    for (int it = so.items[rb]; it < so.items[rb + 1]; ++it) {
+      const size_t o = (size_t)it * kRows + threadIdx.x;
+      d += part_dx[o];
+      loss += part_loss[o];
+      cnt += part_cnt[o];
+    }
+    dx[so.order[t] & ((1 << kSegShift) - 1)] = d;
+  }
+  sl[threadIdx.x] = loss;
+  sc[threadIdx.x] = cnt;
+  __syncthreads();
+  for (int half = kRows / 2; half > 0; half /= 2) {
+    if ((int)threadIdx.x < half) {
+      sl[threadIdx.x] += sl[threadIdx.x + half];
+      sc[threadIdx.x] += sc[threadIdx.x + half];
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    so.loss[rb] = sl[0];
+    so.cnt[rb] = sc[0];
+    __threadfence();                 // the sums before the count
+    last = atomicAdd(so.done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    double l = 0.0;
+    long long c = 0;
+    for (int b = 0; b < (int)gridDim.x; ++b) {
+      l += __ldcg(so.loss + b);
+      c += __ldcg(so.cnt + b);
+    }
+    out[0] = (float)l;
+    out[1] = (float)c;
+  }
+}
+
+// Items of the sweep at most: each row block's columns span at most B.
+long long max_items(int B) {
+  return (long long)((B + kRows - 1) / kRows) * ((B + kCols - 1) / kCols);
+}
+
+// 4-byte words of Sorted and the sweep's partials for a batch of B, from
+// an allocation aligned to 8 bytes.
+long long sorted_words(int B) {
+  return 2 * 32 + 2 * 32 + 2 + 3LL * B + 1 + 34 + 3 * max_items(B) * kRows;
+}
+
+// Carves scratch (8-byte aligned) into so and the partials; the 8-byte
+// parts first.
+void carve_sorted(void* scratch, int B, Sorted* so, float** part_loss,
+                  int** part_cnt, float** part_dx) {
+  int* p = static_cast<int*>(scratch);
+  auto take = [&](long long n) {
+    int* q = p;
+    p += n;
+    return q;
+  };
+  so->loss = reinterpret_cast<double*>(take(2 * 32));
+  so->cnt = reinterpret_cast<long long*>(take(2 * 32));
+  so->done = reinterpret_cast<unsigned*>(take(2));
+  so->order = take(B);
+  so->start = take(B + 1);
+  so->segw = reinterpret_cast<float*>(take(B));
+  so->items = take(34);
+  *part_loss = reinterpret_cast<float*>(take(max_items(B) * kRows));
+  *part_cnt = take(max_items(B) * kRows);
+  *part_dx = reinterpret_cast<float*>(take(max_items(B) * kRows));
+}
+
 int splits_for(int B) {
   const int s = (B + kTile - 1) / kTile;
   return s < kMaxSplits ? s : kMaxSplits;
@@ -365,6 +872,62 @@ cudaError_t begin(int B, int ng, int device, void* stream, Launch* l) {
   return cudaSuccess;
 }
 
+
+constexpr int kMaxDevices = 64;
+
+// The device's SM count, read once per device (0 when it cannot be read).
+int sm_count(int device) {
+  static std::atomic<int> slots[kMaxDevices];
+  const bool cached = device >= 0 && device < kMaxDevices;
+  int v = cached ? slots[device].load(std::memory_order_relaxed) : 0;
+  if (v > 0) return v;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
+      cudaSuccess)
+    return 0;
+  if (cached) slots[device].store(v, std::memory_order_relaxed);
+  return v;
+}
+
+// Lets sort_segments_kernel take its shared memory past 48 KB, once per
+// device.
+cudaError_t allow_sort_smem(int device) {
+  static std::atomic<bool> done[kMaxDevices];
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached && done[device].load(std::memory_order_acquire))
+    return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      (const void*)sort_segments_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sort_smem());
+  if (e == cudaSuccess && cached)
+    done[device].store(true, std::memory_order_release);
+  return e;
+}
+
+// B3 on a batch of B <= kSortMax: the three launches described above.
+cudaError_t pair_loss_sorted(const Inputs& in, float factor, float power,
+                             bool wrong_order, void* scratch, float* out,
+                             float* dx, int device, cudaStream_t s) {
+  const int B = in.B;
+  Sorted so;
+  float *part_loss, *part_dx;
+  int* part_cnt;
+  carve_sorted(scratch, B, &so, &part_loss, &part_cnt, &part_dx);
+  const int sms = sm_count(device);
+  if (sms == 0) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_sort_smem(device);
+  if (e != cudaSuccess) return e;
+  sort_segments_kernel<<<1, kSortThreads, sort_smem(), s>>>(in, power, so);
+  // a fixed grid of a few blocks an SM takes the items in turn
+  const long long most = max_items(B);
+  const int grid = (int)(most < 8LL * sms ? most : 8LL * sms);
+  segment_sweep<<<grid, kRows, 0, s>>>(in, so, power != 0.f, factor,
+                                       wrong_order, part_loss, part_cnt,
+                                       part_dx);
+  merge_segments<<<(B + kRows - 1) / kRows, kRows, 0, s>>>(
+      so, B, part_loss, part_cnt, part_dx, dx, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -383,7 +946,9 @@ int pair_max_groups() { return kMaxGroups; }
 long long pair_scratch_words(int kind, int B) {
   const long long sb = (long long)splits_for(B) * B;
   switch (kind) {
-    case 0: return 2 * sb + B + 3 * sb;  // (pos, tot), w, loss, dx, cnt
+    case 0:                              // sorted, or (pos, tot), w,
+      return B <= kSortMax ? sorted_words(B) : 2 * sb + B + 3 * sb;
+                                         // loss, dx, cnt
     case 1: return sb;
     case 2: return 2 * sb;               // doubles
     default: return 2 * sb;              // int2
@@ -402,6 +967,10 @@ int pair_loss_f32(const float* logits, const float* labels,
   Launch l;
   cudaError_t e = begin(B, ng, device, stream, &l);
   if (e != cudaSuccess) return e;
+  if (B <= kSortMax)
+    return pair_loss_sorted(
+        Inputs{logits, labels, groups, ng, mask, row_w, B}, factor, power,
+        wrong_order != 0, scratch, out, dx, device, l.stream);
   const size_t sb = (size_t)l.splits * B;
   int2* counts = static_cast<int2*>(scratch);       // 8-byte aligned first
   float* w = reinterpret_cast<float*>(counts + sb);

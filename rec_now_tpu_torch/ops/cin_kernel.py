@@ -11,7 +11,10 @@ Counterpart of ``rec_now_tpu/ops/pallas/cin_kernel.py``:
   ``Wc = sum_k W_n``; replaces ``_cin_stack_fwd_impl``.  Its backward
   :func:`cin_stack_sum_bwd` (dx0, dW of every non-last layer and the one
   (F, H_{n-1}) ``dWc`` every channel of the last layer shares) replaces
-  ``_cin_stack_bwd``.
+  ``_cin_stack_bwd``.  Its layer 1, whose prev is x0, runs over the
+  F(F+1)/2 symmetric pairs with the weight folded once a call
+  (:func:`symmetric_pairs`, :func:`fold_symmetric`,
+  :func:`cin_pairs_plain` are that math in plain PyTorch).
 
 On CUDA tensors :func:`cin_flat` and :func:`cin_stack_sum` are
 ``torch.autograd.Function``\\ s whose backward is the backward kernel, as
@@ -49,6 +52,32 @@ def cin_stack_sum_plain(x0: torch.Tensor, weights: Sequence[torch.Tensor],
     if not output_input:
         layers = layers[1:]
     return torch.cat(layers, dim=-1).sum(dim=-1)
+
+
+def symmetric_pairs(f: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f_p, h_p) of the F(F+1)/2 pairs f <= h of ``f`` fields, f-major:
+    the order in which the stack kernel's layer 1 takes them (its pair
+    table, ``stack_prep_kernel`` in ``csrc/cin.cu``)."""
+    fs, hs = torch.triu_indices(f, f)
+    return fs, hs
+
+
+def fold_symmetric(weight: torch.Tensor) -> torch.Tensor:
+    """(K, F, F) -> (K, F(F+1)/2): a layer whose prev is x0 on its
+    symmetric pairs, ``W[k,f,h] + W[k,h,f]`` for f < h and ``W[k,f,f]``,
+    so that ``sum_p fold[k,p] x0[f_p] x0[h_p]`` is the layer (what
+    ``stack_prep_kernel`` writes before padding the pairs to a multiple
+    of 8)."""
+    fs, hs = symmetric_pairs(weight.shape[1])
+    both = weight + weight.transpose(1, 2)
+    return torch.where(fs == hs, weight[:, fs, hs], both[:, fs, hs])
+
+
+def cin_pairs_plain(x0: torch.Tensor, folded: torch.Tensor) -> torch.Tensor:
+    """(M, F), (K, F(F+1)/2) -> (M, K): layer 1 over its symmetric pairs,
+    ``a[m, p] = x0[m, f_p] x0[m, h_p]`` times the folded weight."""
+    fs, hs = symmetric_pairs(x0.shape[1])
+    return (x0[:, fs] * x0[:, hs]) @ folded.t()
 
 
 def cin_flat_bwd_plain(x0: torch.Tensor, prev: torch.Tensor,
@@ -110,8 +139,10 @@ def _lib() -> ctypes.CDLL:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.cin_flat_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.cin_flat_f32.restype = i32
+        lib.cin_stack_fwd_scratch.argtypes = [ptr] + [i32] * 5
+        lib.cin_stack_fwd_scratch.restype = i64
         lib.cin_stack_sum_f32.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
-                                          i32, i32, i32, ptr]
+                                          i32, i32, i32, i32, ptr]
         lib.cin_stack_sum_f32.restype = i32
         lib.cin_dw_scratch.argtypes = [i32] * 4
         lib.cin_dw_scratch.restype = i64
@@ -177,23 +208,35 @@ def _flat_fwd_cuda(x0, prev, weight) -> torch.Tensor:
     return out
 
 
-def _stack_fwd_cuda(x0, weights, output_input) -> torch.Tensor:
+# rows a block of the stack kernel takes: the largest whose tiles fit the
+# card's shared memory (csrc/cin.cu, stack_rows), or 64 or 128 as asked, or
+# the layer-by-layer launches
+STACK_ROWS_AUTO, STACK_BY_LAYERS = 0, -1
+
+
+def _stack_fwd_cuda(x0, weights, output_input,
+                    rows: int = STACK_ROWS_AUTO) -> torch.Tensor:
+    """The stack kernel on CUDA tensors; ``rows`` picks its path (the
+    default is the wrappers'; the others are for measuring the paths)."""
     _check_stack(x0, weights)
     m, f = x0.shape
     out = _empty(x0, m)
     if m == 0:
         return out
-    # non-last weights re-laid as (F, H, K), then Wc (F, H_{n-1})
-    n_scratch = (sum(w.numel() for w in weights[:-1])
-                 + f * weights[-1].shape[2])
-    scratch = _empty(x0, n_scratch)
-    ptrs = (ctypes.c_void_p * len(weights))(*[w.data_ptr() for w in weights])
-    ks = (ctypes.c_int * len(weights))(*[w.shape[0] for w in weights])
+    n = len(weights)
+    ks = (ctypes.c_int * n)(*[w.shape[0] for w in weights])
     lib = _lib()
+    dev = x0.device.index
+    words = lib.cin_stack_fwd_scratch(ks, n, m, f, rows, dev)
+    if words < 0:
+        raise RuntimeError(f"cin_stack_sum cannot run {rows} rows a block "
+                           f"here, or could not read the device")
+    # Wc, then layer 1 folded and its pair table, or the hidden layers
+    scratch = _empty(x0, words)
+    ptrs = (ctypes.c_void_p * n)(*[w.data_ptr() for w in weights])
     rc = lib.cin_stack_sum_f32(
-        x0.data_ptr(), ptrs, ks, len(weights), scratch.data_ptr(),
-        out.data_ptr(), m, f, int(output_input), x0.device.index,
-        _build.stream_of(x0))
+        x0.data_ptr(), ptrs, ks, n, scratch.data_ptr(), out.data_ptr(), m, f,
+        int(output_input), rows, dev, _build.stream_of(x0))
     check_rc(lib, rc, "cin_stack_sum")
     cin_stack_sum.launches += 1
     return out

@@ -293,10 +293,12 @@ def pair_loss_fused(logits: torch.Tensor, labels: torch.Tensor,
     lib = _lib()
     g = _groups(groups, b, dev, lib)
     _check_occurrence(g, occurrence_power, wrong_order)
-    out = torch.zeros(2, dtype=torch.float32, device=dev)
-    dx = torch.zeros(b, dtype=torch.float32, device=dev)
     if b == 0:
-        return out[0], out[1], dx
+        out = torch.zeros(2, dtype=torch.float32, device=dev)
+        return out[0], out[1], torch.zeros(0, dtype=torch.float32, device=dev)
+    # every element is written by the kernel's merge
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    dx = torch.empty(b, dtype=torch.float32, device=dev)
     scratch = _scratch(lib, _LOSS, b, dev)
     rc = lib.pair_loss_f32(logits.data_ptr(), labels.data_ptr(),
                            g.data_ptr(), g.shape[0], _ptr(row_weights),

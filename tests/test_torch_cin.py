@@ -103,3 +103,32 @@ def test_plain_versions_match_jax_pallas_interpret():
     got = cin_contract_plain(torch.from_numpy(x0), torch.from_numpy(prev),
                              torch.from_numpy(ws[0]))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("f", [1, 2, 5, 26])
+def test_symmetric_pairs_are_the_upper_triangle_f_major(f):
+    """The stack kernel's layer-1 pair order: (0, 0), (0, 1), .., (0, F-1),
+    (1, 1), ..; pair p of row f starts at f F - f (f - 1) / 2, as
+    stack_prep_kernel inverts it."""
+    fs, hs = ck.symmetric_pairs(f)
+    want = [(a, b) for a in range(f) for b in range(a, f)]
+    assert list(zip(fs.tolist(), hs.tolist())) == want
+    for p, (a, b) in enumerate(want):
+        assert a * f - a * (a - 1) // 2 + (b - a) == p
+
+
+@pytest.mark.parametrize("m,f,k", [(37, 5, 7), (64, 26, 64), (9, 1, 3),
+                                   (100, 13, 1)])
+def test_layer1_over_folded_pairs_matches_jax(m, f, k):
+    """Layer 1 (prev = x0) over the F(F+1)/2 pairs with the folded weight
+    is the JAX layer (f32; the fold adds W[k,f,h] and W[k,h,f] first, so
+    the sum rounds in another order)."""
+    rng = np.random.RandomState(m + f)
+    x0 = rng.randn(m, f).astype(np.float32)
+    w = (rng.randn(k, f, f) / f).astype(np.float32)
+    want = np.asarray(jnp.einsum("mf,mh,kfh->mk", x0, x0, w))
+    x0t, wt = torch.from_numpy(x0), torch.from_numpy(w)
+    folded = ck.fold_symmetric(wt)
+    assert folded.shape == (k, f * (f + 1) // 2)
+    np.testing.assert_allclose(ck.cin_pairs_plain(x0t, folded).numpy(), want,
+                               rtol=1e-5, atol=1e-5)

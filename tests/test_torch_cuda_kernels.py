@@ -10,6 +10,10 @@ backward also prev = x0, F * H % 4 != 0, H past one 64-wide pass, M = 0
 and two calls equal bit for bit; for the CIN layer in split TF32 H = 26,
 37 and 64, K = 1 to 130, W or prev off the 16-byte grid, F or H past
 one block's tiles and a bit-equal repeat; for the
+stack's forward config 3's stack on each of its paths (128- and 64-row
+blocks, layer by layer), an odd F, one and three layers, a hidden layer
+past one 64-channel pass, the widest F + 2 h_max the f32 stack kernel
+took, M = 0 and a bit-equal repeat of each; for the
 stack's backward one, two and three layers at config 3's widths, M off
 the row tile, K_l not a multiple of 8, M = 0 and a bit-equal repeat)
 and, for the multi-expert
@@ -19,8 +23,11 @@ the multi-expert dense (N * U = 16 and 17 on a shared input, a small
 per-expert bank, W too deep for the gate kernel, x off the 16-byte grid);
 for lazy Adam (B10) ragged V,
 every D it takes and t = 1 and 1,000; for the pair counts (B7a/b/c) and
-the general pair loss (B3) graded labels, two groups, a 0/1 mask and the
-wrong-order filter at B = 1, 8,191 and 8,192; for the row gather (B11)
+the general pair loss (B3) graded labels, two to four groups, a 0/1 mask
+and the wrong-order filter at B = 1 to 8,193, and for both pair-loss
+tests main groups of one group, all singletons, ids across the int32
+range and a SyntheticCriteo zipf batch, B on both sides of the one-block
+sort (8,192) and a bit-equal repeat of each; for the row gather (B11)
 and the row scatter-add (B12) int32 and int64 ids, ragged and empty N,
 ids out of range, D = 5, a misaligned table or vals (the scalar loops),
 D = 128 (float4 atomics) and the full 2.6M x 16 table with a B = 8,192
@@ -113,19 +120,42 @@ def test_cin_flat_empty_and_off_grid_prev(dev):
     _close_rel(ck.cin_flat(x0, prev, w), ck.cin_flat_plain(x0, prev, w))
 
 
-@pytest.mark.parametrize("hidden", [(5,), (5, 4), (5, 4, 6), (1, 65)])
+# (m, f, hidden, rows a block): small odd stacks at F = 4; config 3's
+# stack (F = 26, Ks = (64, 64)) on each path -- 128-row blocks (the
+# default), 64-row blocks and layer-by-layer launches (-1); an odd F; one
+# layer (the collapse alone), on each path; three layers, K_l not a
+# multiple of 8; a hidden layer past one 64-channel pass; the widest F + 2
+# h_max the f32 stack kernel took (1,493: tiles too large for one block,
+# so layer by layer by default); M = 0
+@pytest.mark.parametrize("m,f,hidden,rows", [
+    (m, 4, hidden, 0) for m in (15, 257)
+    for hidden in ((5,), (5, 4), (5, 4, 6), (1, 65))] + [
+    (1000, 26, (64, 64), 0), (1000, 26, (64, 64), 64),
+    (1000, 26, (64, 64), -1), (300, 33, (40, 17), 0), (129, 33, (100,), 0),
+    (300, 26, (64,), 0), (300, 26, (64,), 64), (300, 26, (64,), -1),
+    (257, 26, (12, 37, 9), 0), (257, 26, (12, 37, 9), -1),
+    (257, 7, (130, 5), 0), (65, 27, (733, 5), 0), (0, 26, (64, 64), 0)])
 @pytest.mark.parametrize("output_input", [True, False])
-@pytest.mark.parametrize("m", [15, 257])
-def test_cin_stack_sum_matches_plain(dev, hidden, output_input, m):
-    gen = torch.Generator().manual_seed(m)
-    f = 4
+def test_cin_stack_sum_matches_plain(dev, m, f, hidden, rows, output_input):
+    gen = torch.Generator().manual_seed(m + f)
     x0 = _rand(gen, dev, m, f)
-    ws = [_rand(gen, dev, k, f, h) * 0.3
+    ws = [_rand(gen, dev, k, f, h) * (2.0 / (f * h + k)) ** 0.5
           for k, h in zip(hidden, (f,) + hidden[:-1])]
+
+    def run():
+        if rows == ck.STACK_ROWS_AUTO:
+            return ck.cin_stack_sum(x0, ws, output_input)
+        return ck._stack_fwd_cuda(x0, ws, output_input, rows)
+
     before = ck.cin_stack_sum.launches
-    _close(ck.cin_stack_sum(x0, ws, output_input),
-           ck.cin_stack_sum_plain(x0, ws, output_input))
-    assert ck.cin_stack_sum.launches == before + 1
+    got = run()
+    assert ck.cin_stack_sum.launches == before + (m > 0)
+    want = ck.cin_stack_sum_plain(x0, ws, output_input)
+    if m == 0:
+        assert got.shape == (0,)
+        return
+    _close(got, want)
+    assert torch.equal(got, run())       # a fixed summation order
 
 
 def test_wrappers_reject_bad_inputs(dev):
@@ -254,20 +284,57 @@ def test_cin_grads_through_the_model_match_the_cpu(dev, sum_channel):
         _close_rel(got, want, 1e-4)
 
 
-@pytest.mark.parametrize("b,power", [(1, -0.5), (37, 0.0), (1000, -0.5),
-                                     (4096, -0.5)])
-def test_pair_loss_matches_plain(dev, b, power):
+# ids far apart: negative, past 2^24 and the int32 ends (every pass of the
+# radix sort)
+_WIDE_IDS = torch.tensor([-2 ** 31, -70000, -7, 0, 3, 2 ** 24 + 1, 2 ** 30,
+                          2 ** 31 - 1])
+
+
+def _groups_of(kind, b, gen):
+    """(B,) int32 main groups: random (about B / 7 of them), one group of
+    every sample, all singletons, ids across the int32 range, or a
+    SyntheticCriteo batch's zipf-skewed users."""
+    if kind == "random":
+        return torch.randint(0, max(1, b // 7), (b,), generator=gen)
+    if kind == "one group":
+        return torch.full((b,), 5)
+    if kind == "singletons":
+        return torch.randperm(b, generator=gen) - b // 2
+    if kind == "wide ids":
+        return _WIDE_IDS[torch.randint(0, len(_WIDE_IDS), (b,),
+                                       generator=gen)]
+    from rec_now_tpu_torch.training.data import SyntheticCriteo
+    batch = next(SyntheticCriteo(seed=0).batches(b, 1, seed=1))
+    return torch.as_tensor(batch.group_ids)
+
+
+# B on both sides of the one-block sort (8,192: past it the O(B^2) sweep
+# runs), each kind of main group; every case repeated bit for bit
+@pytest.mark.parametrize("b,power,kind", [
+    (1, -0.5, "random"), (37, 0.0, "random"), (1000, -0.5, "random"),
+    (4096, -0.5, "random"), (8192, -0.5, "random"), (8193, -0.5, "random"),
+    (2048, -0.5, "one group"), (8192, 0.0, "one group"),
+    (8193, -0.5, "one group"), (8192, -0.5, "singletons"),
+    (1000, -0.5, "wide ids"), (8192, 0.0, "wide ids"), (8192, -0.5, "zipf"),
+    (8193, -0.5, "zipf")])
+def test_pair_loss_matches_plain(dev, b, power, kind):
     gen = torch.Generator().manual_seed(b)
     x = _rand(gen, dev, b)
     lab = (torch.rand(b, generator=gen) > 0.6).float().to(dev)
-    grp = torch.randint(0, max(1, b // 7), (b,), generator=gen).to(dev)
+    grp = _groups_of(kind, b, gen).to(torch.int32).to(dev)
     before = pk.pair_loss_sum.launches
     loss, cnt, dx = pk.pair_loss_fused(x, lab, grp, 0.8, power)
     assert pk.pair_loss_sum.launches == before + 1
     want = pk.pair_loss_fused_plain(x, lab, grp, 0.8, power)
     assert float(cnt) == float(want[1])
-    _close_rel(loss, want[0])
-    _close_rel(dx, want[2])
+    if float(want[1]):
+        _close_rel(loss, want[0])
+        _close_rel(dx, want[2])
+    else:
+        assert float(loss) == 0.0 and not dx.any()
+    for a, r in zip((loss, cnt, dx), pk.pair_loss_fused(x, lab, grp, 0.8,
+                                                         power)):
+        assert torch.equal(a, r)
     xg = x.clone().requires_grad_()
     loss2, _ = pk.pair_loss_sum(xg, lab, grp, 0.8, power)
     (dxg,) = torch.autograd.grad(loss2 * 3.0, xg)
@@ -486,11 +553,24 @@ def _general_batch(b, seed, dev):
     return [t.to(dev) for t in (x, lab, g1, g2, mask)]
 
 
-@pytest.mark.parametrize("b", [1, 37, 8191, 8192])
+# graded labels, a 0/1 mask, NG = 2 (the main group and two domains), 3 or
+# 4 conditions, main groups of each kind, B on both sides of the one-block
+# sort; every case repeated bit for bit
+@pytest.mark.parametrize("b,ng,kind", [
+    (1, 2, "random"), (37, 2, "random"), (8191, 2, "random"),
+    (8192, 2, "random"), (8193, 2, "random"), (1000, 3, "random"),
+    (8192, 4, "random"), (2048, 2, "one group"), (8192, 3, "one group"),
+    (8192, 2, "singletons"), (1000, 4, "wide ids"), (8192, 2, "zipf"),
+    (8193, 4, "zipf")])
 @pytest.mark.parametrize("wrong_order", [False, True])
-def test_pair_counts_and_general_loss_match_plain(dev, b, wrong_order):
+def test_pair_counts_and_general_loss_match_plain(dev, b, ng, kind,
+                                                  wrong_order):
     x, lab, g1, g2, mask = _general_batch(b, b, dev)
-    groups = [g1, g2]
+    gen = torch.Generator().manual_seed(b + ng)
+    if kind != "random":
+        g1 = _groups_of(kind, b, gen).to(dev)
+    groups = [g1, g2] + [torch.randint(0, 3, (b,), generator=gen).to(dev)
+                         for _ in range(ng - 2)]
     counts = pk.pair_row_counts(x, lab, groups, mask, wrong_order)
     torch.testing.assert_close(
         counts, pk.pair_row_counts_plain(x, lab, groups, mask, wrong_order),
@@ -513,6 +593,10 @@ def test_pair_counts_and_general_loss_match_plain(dev, b, wrong_order):
         _close_rel(got[2], want[2])
     else:
         assert float(got[0]) == 0.0 and not got[2].any()
+    again = pk.pair_loss_fused(x, lab, groups, 0.8, row_weights=w,
+                               sample_mask=mask, wrong_order=wrong_order)
+    for a, r in zip(got, again):
+        assert torch.equal(a, r)
 
 
 @pytest.mark.parametrize("b", [1, 8191, 8192])
