@@ -14,8 +14,14 @@ Phases, each of which ends the script with a non-zero exit on failure:
    the pair loss on a ``SyntheticCriteo`` batch; the Adagrad pass over
    the 2.6M x 16 table), at config 4's (the multi-expert dense at its
    four distinct banks, B = 8192; the listwise loss on the same batch
-   and on degenerate ones), at config 2's (lazy Adam over the 2.6M x 16
-   table with the touched rows of a B = 8192 batch, t = 1 and 1000; the
+   on its one-block sort path and forced onto its sweep, at B = 8193 (the
+   sweep), on ids at the int32 ends, one group and singletons at 8192, a
+   {+1, -1} group and degenerate batches, each repeated bit for bit, and
+   its device time by kernel on each path, the sort path failing unless
+   it is one launch), at config 2's (lazy Adam over the 2.6M x 16 table
+   with the touched rows of a B = 8192 batch, t = 1 and 1000, ragged
+   tables with rows touched only in a partial last flag chunk, each
+   repeated bit for bit, and its device time; the
    pair counts and the general pair loss on a B = 8192 batch with graded
    labels, two groups and a 0/1 mask), the row gather (B11, bit-exact)
    and the row scatter-add (B12, within 1e-6 of each output's summed
@@ -1329,21 +1335,43 @@ def main() -> int:
     print(f"  B=8192: {listwise_ops(pb.labels):,} operations")
     err = 0.0
     ones = torch.ones(8192, device=dev)
-    lw_cases = [("click batch B=8192", xl, lab, grp),
-                ("click batch B=1000", *cases[1][:3]),   # the pair loss's
-                ("no valid group", xl, ones, grp),
-                ("B=1", xl[:1], lab[:1], grp[:1]),
-                ("one group B=2048", xl[:2048], lab[:2048],
-                 torch.zeros(2048, dtype=torch.int32, device=dev)),
-                ("singletons B=513", xl[:513], lab[:513],
-                 torch.arange(513, device=dev))]
-    for what, xs, ls, gs in lw_cases:
-        got = lk.listwise_loss_fused(xs, ls, gs)
+    wide = torch.tensor([-2 ** 31, 2 ** 31 - 1, -70000, -7, 0, 2 ** 24 + 1],
+                        dtype=torch.int32)
+    wide = wide[torch.randint(0, len(wide), (8192,), generator=gen)].to(dev)
+    pm_lab = torch.tensor([1.0, -1.0], device=dev).repeat(150)
+    pm_lab = torch.cat([pm_lab, torch.ones(300, device=dev)])
+    pm_grp = (torch.arange(600, device=dev) >= 300).int()
+    lw_x1, lw_lab1 = rand(8193), torch.cat([lab, lab[:1]])
+    lw_grp1 = torch.cat([grp, grp[:1]])
+    one8k = torch.zeros(8192, dtype=torch.int32, device=dev)
+    # (what, x, labels, groups, path): the click batch on each path, past
+    # the one-block sort (8,193 takes the sweep), the int32 ends, one
+    # group and singletons at 8,192, a {+1, -1} group (label sum 0, valid)
+    # beside an all-positive one
+    lw_cases = [("click batch B=8192", xl, lab, grp, "auto"),
+                ("click batch B=8192, sort forced", xl, lab, grp, "sort"),
+                ("click batch B=8192, sweep forced", xl, lab, grp, "sweep"),
+                ("click batch B=8193 (sweep)", lw_x1, lw_lab1, lw_grp1,
+                 "auto"),
+                ("click batch B=1000", *cases[1][:3], "auto"),
+                ("no valid group", xl, ones, grp, "auto"),
+                ("B=1", xl[:1], lab[:1], grp[:1], "auto"),
+                ("wide ids B=8192", xl, lab, wide, "auto"),
+                ("one group B=8192", xl, lab, one8k, "auto"),
+                ("singletons B=8192", xl, lab,
+                 torch.arange(8192, dtype=torch.int32, device=dev), "auto"),
+                ("{+1, -1} group B=600", xl[:600], pm_lab, pm_grp, "auto")]
+    for what, xs, ls, gs, path in lw_cases:
+        got = lk._listwise_fused(xs, ls, gs, path)
         want = lk.listwise_loss_fused_plain(xs, ls, gs)
         if float(got[1]) != float(want[1]):
-            fail(f"listwise count {float(got[1])} != {float(want[1])}")
+            fail(f"listwise count {float(got[1])} != {float(want[1])} "
+                 f"({what})")
         print(f"  {what}: {int(want[1])} valid groups")
         err = max(err, compare_all(what, got, want))
+        again = lk._listwise_fused(xs, ls, gs, path)
+        if not all(torch.equal(u, r) for u, r in zip(got, again)):
+            fail(f"listwise_loss_sum ({what}) is not bit-equal on a repeat")
     b_ms, b_by = bound_ms(listwise_ops(pb.labels),
                           16 * 8192 + 8)
     kern["listwise_loss_sum"] = dict(
@@ -1354,6 +1382,31 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: lk.listwise_loss_fused_plain(
             xl, lab, grp)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    lw_paths = {"sort B=8192": (xl, lab, grp, "sort"),
+                "sweep B=8192": (xl, lab, grp, "sweep"),
+                "B=8193 (sweep)": (lw_x1, lw_lab1, lw_grp1, "auto")}
+    print("  B6 paths, ms by events: " + "; ".join(
+        f"{what} {cuda_ms(torch, lambda: lk._listwise_fused(*v)):.4f}"
+        for what, v in lw_paths.items()) + f" [{card}]")
+    # the device split: the sort path is one launch a call (one kernel),
+    # the sweep two; any other kernel or count fails
+    reps = 20
+    for what, v, parts in (
+            ("sort, click batch B=8192", (xl, lab, grp, "sort"),
+             {"lw_sort_kernel": "sort"}),
+            ("sort, wide ids B=8192", (xl, lab, wide, "sort"),
+             {"lw_sort_kernel": "sort"}),
+            ("sort, one group B=8192", (xl, lab, one8k, "sort"),
+             {"lw_sort_kernel": "sort"}),
+            ("sweep, click batch B=8192", (xl, lab, grp, "sweep"),
+             {"lw_sweep_kernel": "sweep", "lw_finalize_kernel": "merge"})):
+        split = kernel_split(profiled_sequence(
+            torch, lambda: lk._listwise_fused(*v), reps), reps, parts,
+            "listwise_loss_sum")
+        print(f"  B6 split, {what}, device ms by torch.profiler: "
+              + "; ".join(f"{part} {ms / reps:.4f}"
+                          for part, ms in split.items())
+              + f"; total {sum(split.values()) / reps:.4f} [{card}]")
     # -- config 2's kernels: lazy Adam (B10), the pair counts (B7a/b/c) and
     # the general pair loss (B3) --------------------------------------------
     fc = FeatureConfig()
@@ -1370,6 +1423,10 @@ def main() -> int:
     ragged = []
     for v, d in ((12345, 16), (1001, 8)):
         ragged.append((v, d, (torch.rand(v, generator=gen) < 0.3).to(dev)))
+    # rows touched only in a partial last 512-flag chunk (enough of them
+    # that visible() below sees v's change, ~1e-9 an element)
+    for v, d in ((1000, 16), (1100, 8)):
+        ragged.append((v, d, torch.arange(v, device=dev) >= v // 512 * 512))
     for v, d, tch in [(vfull, 16, touched_full)] + ragged:
         for t in (1, 1000):
             tb, m1 = rand(v, d, scale=1e-3), rand(v, d, scale=1e-3)
@@ -1379,7 +1436,12 @@ def main() -> int:
             cnt = torch.tensor(t, dtype=torch.int32, device=dev)
             before = [x.clone() for x in (tb, m1, v1)]
             want = [x.clone() for x in (tb, m1, v1)]
+            again = [x.clone() for x in (tb, m1, v1)]
             tk.adam_dense_pass(tb, m1, v1, dg, tch, cnt, 1e-3)
+            tk.adam_dense_pass(*again, dg, tch, cnt, 1e-3)
+            if not all(torch.equal(u, r) for u, r in zip((tb, m1, v1),
+                                                         again)):
+                fail(f"adam_dense_pass at V={v} is not bit-equal on a repeat")
             tk.adam_dense_pass_plain(*want, dg, tch, cnt, 1e-3, 0.9, 0.999,
                                      1e-7)
             for name, got, ref, old in zip(("rows", "m", "v"), (tb, m1, v1),
@@ -1407,7 +1469,16 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: tk.adam_dense_pass_plain(
             tb, m1, v1, dg, touched_full, cnt, 1e-3, 0.9, 0.999, 1e-7)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del tb, m1, v1, dg, before, want
+    # the device time: the events above also time the wrapper's host path
+    reps = 20
+    split = kernel_split(profiled_sequence(
+        torch, lambda: tk.adam_dense_pass(tb, m1, v1, dg, touched_full, cnt,
+                                          1e-3), reps), reps,
+        {"adam_chunk_kernel": "update"}, "adam_dense_pass")
+    print(f"  B10 V={vfull}: {kern['adam_dense_pass']['ms']:.4f} ms by "
+          f"events, {split['update'] / reps:.4f} on the device "
+          f"(torch.profiler), bound {b_ms:.4f} ({b_by}) [{card}]")
+    del tb, m1, v1, dg, before, want, again
 
     print("pair counts and the general pair loss vs plain:")
     graded = torch.as_tensor(pb.labels + pb.cvr_labels, device=dev)

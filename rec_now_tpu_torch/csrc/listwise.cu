@@ -16,22 +16,51 @@
 // anchor blocks in VMEM and adds each block's column sums into dx over
 // its sequential grid (:96).  Only a group's first member is a valid
 // anchor, so sample j's gradient comes from exactly one row, its own
-// group's: dx_j = valid(g_j) (exp(x_j - m_g) / s_g - lab_j / L_g).  So
-// each thread OWNS one sample and sweeps the batch once for its group's
-// statistics -- max and exp-sum (an online softmax), label sum, sum of
-// lab * x, has-positive, has-negative and its first member -- and no
-// block reduces another's columns.  The columns are split over
-// gridDim.y slices to fill the card; lw_finalize_kernel (one block) merges
-// each sample's slices in a fixed order (the exp-sums rescaled to the
-// common max), writes dx, and sums the first members' loss (in double)
-// and the count.  Any B: no padding, no sentinel group; a batch without
-// a valid group gives loss 0, count 0 and dx 0.
+// group's: dx_j = valid(g_j) (exp(x_j - m_g) / s_g - lab_j / den_g), with
+// m_g the group's max logit, s_g = sum exp(x - m_g) over its members, L_g
+// their label sum and den_g = L_g (1 where L_g == 0, as the reference).
+// The loss is per group: m_g + log s_g - sum lab x / den_g over the valid
+// groups.  So the function is per group, and the kernel sorts by group.
 //
-// What bounds it: B^2 group tests (67.1M at B = 8,192) and, per member
-// pair, an exp and a few adds; O(B) bytes.  Operations.
+// B <= kSortMax (every batch the port's cells take): lw_sort_kernel, one
+// block, one launch.
+//   1. group_sort.cuh's stable radix sort of (group, index) over the
+//      batch's key range (no extra key bits): a segment's first position
+//      is its group's first occurrence, the reference's anchor;
+//   2. each thread holds 8 sorted positions, their x and labels read from
+//      global memory by sorted index; two segmented scans over the block
+//      (block_seg_scan, head flags from adjacent keys): the max logit,
+//      then (sum exp(x - m_g), L_g, sum lab x, has-positive |
+//      has-negative).  A segment's last position holds its totals; its
+//      thread writes m_g, s_g and den_g (0: not valid) a segment into the
+//      sort's freed shared memory and adds the group's loss term;
+//   3. dx written back to the original index; the loss summed in double
+//      and the count as an integer, each in a fixed order.
+// Work: the sort's passes (1 to 8, by the range of the ids) and a few
+// operations a sample; no serial loop over a segment, so the zipf head
+// (2,082 members of a B = 8,192 batch) costs what any 2,082 samples do.
+//
+// Past kSortMax: lw_sweep_kernel, each thread owning one sample and
+// sweeping the batch once for its group's statistics -- max and exp-sum
+// (an online softmax), label sum, sum of lab * x, has-positive,
+// has-negative and its first member -- the columns split over gridDim.y
+// slices to fill the card; lw_finalize_kernel (one block) merges each
+// sample's slices in a fixed order (the exp-sums rescaled to the common
+// max), writes dx, and sums the first members' loss (in double) and the
+// count.  B^2 group tests (67.1M at B = 8,192).
+//
+// Any B >= 1: no padding, no sentinel group; a batch without a valid
+// group gives loss 0, count 0 and dx 0.  Repeats are bit-equal on both
+// paths.
+//
+// What bounds it: operations (the sort's compares, a few a sample, or the
+// sweep's B^2 tests); O(B) bytes.  In practice the sort's block-wide
+// barriers, on one SM.
 #include <cuda_runtime.h>
 
 #include <math_constants.h>
+
+#include "group_sort.cuh"
 
 namespace {
 
@@ -163,6 +192,163 @@ lw_finalize_kernel(const float* __restrict__ x, const float* __restrict__ lab,
   }
 }
 
+// ---- B <= kSortMax: one block -------------------------------------------
+
+// The segmented max of the logits.
+struct MaxOp {
+  __device__ static float op(float a, float b) { return fmaxf(a, b); }
+  __device__ static float up(float a, int o) {
+    return __shfl_up_sync(0xffffffffu, a, o);
+  }
+};
+
+// A group's sums: of exp(x - m_g), of the labels, of label * logit, and
+// bit 0 a label > th, bit 1 a label < th.
+struct Sums {
+  float s, l, lx;
+  int flags;
+};
+
+struct SumOp {
+  __device__ static Sums op(const Sums& a, const Sums& b) {
+    return {a.s + b.s, a.l + b.l, a.lx + b.lx, a.flags | b.flags};
+  }
+  __device__ static Sums up(const Sums& a, int o) {
+    return {__shfl_up_sync(0xffffffffu, a.s, o),
+            __shfl_up_sync(0xffffffffu, a.l, o),
+            __shfl_up_sync(0xffffffffu, a.lx, o),
+            __shfl_up_sync(0xffffffffu, a.flags, o)};
+  }
+};
+
+// out[0] = loss sum, out[1] = valid-group count, dx (B,); B <= kSortMax.
+__global__ void __launch_bounds__(kSortThreads)
+lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
+               const int* __restrict__ grp, int B, float th,
+               float* __restrict__ dx, float* __restrict__ out) {
+  extern __shared__ int sm[];
+  unsigned* keys = reinterpret_cast<unsigned*>(sm);    // [spad(kSortMax)]
+  int* vals = sm + spad(kSortMax);                      // [spad(kSortMax)]
+  int* cnt = vals + spad(kSortMax);                     // [pad(kCounters)]
+  __shared__ unsigned wsum[32], wlo[32], whi[32];
+  __shared__ float wmax[32];
+  __shared__ Sums wsums[32];
+  __shared__ int wf[2][32];
+  __shared__ double wloss[32];
+  __shared__ int wcnt[32];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  unsigned lo = 0xffffffffu, hi = 0u;
+#pragma unroll 4
+  for (int i = t; i < B; i += kSortThreads) {
+    const unsigned k = static_cast<unsigned>(grp[i]) ^ 0x80000000u;
+    keys[spad(i)] = k;
+    vals[spad(i)] = i;
+    lo = min(lo, k);
+    hi = max(hi, k);
+  }
+  block_min_max(lo, hi, wlo, whi);
+  const int shift = sort_by_group<0>(keys, vals, cnt, wsum, B, lo, hi,
+                                     NoExtra());
+
+  // this thread's sorted positions: head and last flags (every position
+  // past the batch a head of its own, so it adds to no segment)
+  const int p0 = t * kSortPer;
+  unsigned heads = 0u, lasts = 0u;
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    const int s = p0 + j;
+    if (s < B) {
+      if (segment_head(keys, s, shift)) heads |= 1u << j;
+      if (s + 1 == B || segment_head(keys, s + 1, shift)) lasts |= 1u << j;
+    } else {
+      heads |= 1u << j;
+    }
+  }
+  // segment ids: the heads before each position (the scan's barriers:
+  // every key has been read, so the keys' and counters' space is free)
+  unsigned nseg;
+  const unsigned before = block_excl_scan<unsigned>(__popc(heads), wsum,
+                                                    nseg);
+  auto seg_of = [&](int j) {
+    return (int)before + __popc(heads & ((2u << j) - 1u)) - 1;
+  };
+  float* seg_m = reinterpret_cast<float*>(keys);        // [nseg]
+  float* seg_s = reinterpret_cast<float*>(cnt);         // [nseg]
+  float* seg_den = seg_s + kSortMax;                    // [nseg], 0: invalid
+
+  // the logits by sorted index (each scan holds only its own values in
+  // registers: x and the labels are read again below)
+  float m[kSortPer];
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j)
+    m[j] = p0 + j < B ? x[vals[spad(p0 + j)]] : 0.f;
+  block_seg_scan<MaxOp>(m, heads, wmax, wf[0]);
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j)
+    if (lasts >> j & 1u) seg_m[seg_of(j)] = m[j];
+  __syncthreads();
+
+  Sums v[kSortPer];
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    v[j] = {0.f, 0.f, 0.f, 0};
+    if (p0 + j < B) {
+      const int i = vals[spad(p0 + j)];
+      const float xi = x[i], li = lab[i];
+      v[j] = {expf(xi - seg_m[seg_of(j)]), li, li * xi,
+              (li > th ? 1 : 0) | (li < th ? 2 : 0)};
+    }
+  }
+  block_seg_scan<SumOp>(v, heads, wsums, wf[1]);
+  double loss = 0.0;
+  int count = 0;
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    if (!(lasts >> j & 1u)) continue;
+    const int g = seg_of(j);
+    const bool valid = v[j].flags == 3;
+    const float den = v[j].l == 0.f ? 1.f : v[j].l;   // as the reference
+    seg_s[g] = v[j].s;
+    seg_den[g] = valid ? den : 0.f;
+    if (valid) {
+      const float mg = seg_m[g];
+      loss += (double)(mg + logf(v[j].s) - v[j].lx / den);
+      ++count;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    const int s = p0 + j;
+    if (s >= B) continue;
+    const int i = vals[spad(s)], g = seg_of(j);
+    const float den = seg_den[g];
+    dx[i] = den != 0.f ? expf(x[i] - seg_m[g]) / seg_s[g] - lab[i] / den
+                       : 0.f;
+  }
+  // the loss and count over the block, in a fixed order
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    loss += __shfl_down_sync(0xffffffffu, loss, o);
+    count += __shfl_down_sync(0xffffffffu, count, o);
+  }
+  if (lane == 0) {
+    wloss[w] = loss;
+    wcnt[w] = count;
+  }
+  __syncthreads();
+  if (t == 0) {
+    double l = 0.0;
+    int c = 0;
+    for (int i = 0; i < kSortThreads / 32; ++i) {
+      l += wloss[i];
+      c += wcnt[i];
+    }
+    out[0] = (float)l;
+    out[1] = (float)c;
+  }
+}
+
 // Makes `device` current, setting it only when it is not (cudaSetDevice
 // costs host time even then), and first clears an unread error of an
 // earlier runtime call, so that the check after the launch reports the
@@ -175,6 +361,20 @@ cudaError_t use_device(int device) {
   return cudaSetDevice(device);
 }
 
+// The paths of listwise_f32: 0 the sort where B <= kSortMax, else the
+// sweep; 1 the sort (B <= kSortMax only); 2 the sweep.
+enum { kAuto = 0, kSort = 1, kSweep = 2 };
+
+// Column slices of the sweep for a batch of B (>= 1).
+int listwise_splits(int B) {
+  const int s = (B + kTile - 1) / kTile;
+  return s < kMaxSplits ? s : kMaxSplits;
+}
+
+bool takes_sort(int B, int path) {
+  return path == kSort || (path == kAuto && B <= kSortMax);
+}
+
 }  // namespace
 
 extern "C" {
@@ -183,22 +383,32 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Column slices of the sweep for a batch of B (>= 1).
-int listwise_splits(int B) {
-  const int s = (B + kTile - 1) / kTile;
-  return s < kMaxSplits ? s : kMaxSplits;
+// 4-byte words of scratch listwise_f32 needs for a batch of B (>= 1) on
+// `path`: none on the sort.
+long long listwise_scratch_words(int B, int path) {
+  return takes_sort(B, path) ? 0 : 6LL * listwise_splits(B) * B;
 }
 
 // logits, labels (B,) f32, groups (B,) int32 -> out[0] loss sum, out[1]
-// valid-row count, dx (B,).  scratch holds 6 * splits * B 4-byte words,
-// splits = listwise_splits(B).  Returns a cudaError_t.
+// valid-row count, dx (B,); `path` as above; scratch holds
+// listwise_scratch_words(B, path) words.  Returns a cudaError_t.
 int listwise_f32(const float* logits, const float* labels, const int* groups,
-                 int B, float th, void* scratch, float* out, float* dx,
-                 int device, void* stream) {
-  if (B < 1) return cudaErrorInvalidValue;
+                 int B, float th, int path, void* scratch, float* out,
+                 float* dx, int device, void* stream) {
+  if (B < 1 || path < kAuto || path > kSweep ||
+      (path == kSort && B > kSortMax))
+    return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (takes_sort(B, path)) {
+    static std::atomic<bool> smem_set[kMaxDevices];
+    e = allow_sort_smem((const void*)lw_sort_kernel, device, smem_set);
+    if (e != cudaSuccess) return e;
+    lw_sort_kernel<<<1, kSortThreads, sort_smem(), s>>>(
+        logits, labels, groups, B, th, dx, out);
+    return cudaGetLastError();
+  }
   const int splits = listwise_splits(B);
   const int row_blocks = (B + kThreads - 1) / kThreads;
   const int cols_per = (B + splits - 1) / splits;

@@ -53,6 +53,8 @@
 
 #include <atomic>
 
+#include "group_sort.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -341,12 +343,13 @@ merge_loss(const float* __restrict__ part_loss,
 //
 // A pair can only be valid inside one group of the first condition, so for
 // B <= kSortMax the loss takes three launches and no (i, j) sweep:
-//   1. sort_segments_kernel (one block, all in shared memory): a stable
-//      LSD radix sort of (g0[i], label_i > 0.5, i) -- the key's sign bit
-//      flipped so that negative ids order first, less its minimum, the
-//      label test as its lowest bit, 4 bits a pass and only as many as
-//      the batch's range needs (1 for one group, 4 for 5,000 ids; ids
-//      spread past 2^31 give the label test a pass of its own, 9 in all);
+//   1. sort_segments_kernel (one block, all in shared memory): the stable
+//      LSD radix sort of group_sort.cuh on (g0[i], label_i > 0.5, i) --
+//      the key's sign bit flipped so that negative ids order first, less
+//      its minimum, the label test as its lowest bit (the sort's one extra
+//      bit), 4 bits a pass and only as many as the batch's range needs (1
+//      for one group, 4 for 5,000 ids; ids spread past 2^31 give the label
+//      test a pass of its own, 9 in all);
 //      ties keep index order, and within a group the negatives come
 //      first, so that a warp of the sweep mostly takes one branch.  Each
 //      sample's mask and label tests travel with its index, so one scan
@@ -377,59 +380,19 @@ merge_loss(const float* __restrict__ part_loss,
 // (5.6M on a B = 8,192 SyntheticCriteo batch where the sweeps tested 67.1M
 // twice); one group of all B does the B^2 tests, all singletons B.  Past
 // kSortMax, the O(B^2) sweeps above run instead.
-constexpr int kSortThreads = 1024;
-constexpr int kSortPer = 8;                             // keys a thread
-constexpr int kSortMax = kSortThreads * kSortPer;       // 8,192 (13 bits)
-constexpr int kDigits = 16;                             // 4 bits a pass
-constexpr int kCounters = kDigits * kSortThreads;
 // beside the index in a value: the mask test, mask and label tests, the
-// label test alone (the first pass's digit), then the segment
+// label test alone (the sort's extra key bit), then the segment
 constexpr int kMaskBit = 1 << 13, kPosBit = 1 << 14, kLabBit = 1 << 15;
 constexpr int kSegShift = 16;
 constexpr int kRows = 256;    // sorted rows an item (the sweep's threads)
 constexpr int kCols = 32;     // columns an item
 
-// Counter e of the sort, one word of padding every 32: the scan's reads
-// (16 consecutive counters a thread) hit 32 distinct banks.
-__host__ __device__ constexpr int pad(int e) { return e + (e >> 5); }
-
-// Key or value at position p, one word of padding every 8: a thread's 8
-// consecutive positions, read by a warp at once, hit 32 distinct banks.
-__host__ __device__ constexpr int spad(int p) { return p + (p >> 3); }
-
-// keys and values, then the counters (whose space holds the segments'
-// starts and tot after the sort, the keys' space their pos)
-size_t sort_smem() {
-  return (2 * (size_t)spad(kSortMax) + pad(kCounters)) * sizeof(int);
-}
-
-// The exclusive prefix sum of v over a block of kSortThreads threads, and
-// the block's total; wsum: 32 words of shared memory, which the caller
-// writes again only after another barrier.
-template <class T>
-__device__ T block_excl_scan(T v, T* wsum, T& total) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  T inc = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const T n = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += n;
+// The sort's extra key bit: the label test.
+struct LabelBit {
+  __device__ unsigned operator()(int v) const {
+    return v & kLabBit ? 1u : 0u;
   }
-  if (lane == 31) wsum[w] = inc;
-  __syncthreads();
-  if (w == 0) {
-    T s = wsum[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const T n = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += n;
-    }
-    wsum[lane] = s;
-  }
-  __syncthreads();
-  total = wsum[31];
-  return (w ? wsum[w - 1] : T(0)) + inc - v;
-}
+};
 
 // The sort's result, for the sweep and the merge: what one block writes
 // is kept small (its stores to L2 bound it), and the sweep's many blocks
@@ -478,7 +441,7 @@ sort_segments_kernel(Inputs in, float power, Sorted so) {
   __shared__ unsigned wsum[32];
   __shared__ unsigned long long wsum64[32];
   __shared__ unsigned wlo[32], whi[32];
-  const int B = in.B, t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int B = in.B, t = threadIdx.x;
   const float* __restrict__ lab = in.lab;
   const float* __restrict__ mask = in.mask;
   const int* __restrict__ g0 = in.grp;
@@ -494,80 +457,13 @@ sort_segments_kernel(Inputs in, float power, Sorted so) {
     hi = max(hi, k);
   }
   if (t == 0) *so.done = 0u;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  if (lane == 0) {
-    wlo[w] = lo;
-    whi[w] = hi;
-  }
-  __syncthreads();
-  lo = wlo[0];
-  hi = whi[0];
-  for (int i = 1; i < 32; ++i) {
-    lo = min(lo, wlo[i]);
-    hi = max(hi, whi[i]);
-  }
-  // keys relative to the minimum, with the label test as their lowest bit
-  // where the range leaves one (fold); else the label test takes a pass
-  // of its own (-1) before the key's.  Either way within a group the
-  // negatives come before the positives, so that a warp of the sweep
-  // mostly takes one branch.
-  const unsigned range = hi - lo;
-  const bool fold = range < 0x80000000u;
-#pragma unroll 4
-  for (int i = t; i < B; i += kSortThreads) {
-    const unsigned k = keys[spad(i)] - lo;
-    keys[spad(i)] = fold ? k << 1 | (vals[spad(i)] & kLabBit ? 1u : 0u) : k;
-  }
-  __syncthreads();
-  const unsigned span = fold ? range << 1 | 1u : range;
-  const int passes = span ? (32 - __clz(span) + 3) / 4 : 0;
+  block_min_max(lo, hi, wlo, whi);
+  // the label test as the key's lowest bit where the range leaves one;
+  // either way within a group the negatives come before the positives, so
+  // that a warp of the sweep mostly takes one branch
+  const int shift = sort_by_group<1>(keys, vals, cnt, wsum, B, lo, hi,
+                                     LabelBit());
   const int p0 = t * kSortPer;
-  auto digit = [&](unsigned k, int v, int pass) {
-    return pass < 0 ? (v & kLabBit ? 1 : 0) : (int)(k >> (4 * pass)) & 15;
-  };
-  for (int pass = fold ? 0 : -1; pass < passes; ++pass) {
-    unsigned kk[kSortPer];
-    int vv[kSortPer];
-#pragma unroll
-    for (int d = 0; d < kDigits; ++d) cnt[pad(d * kSortThreads + t)] = 0;
-#pragma unroll
-    for (int j = 0; j < kSortPer; ++j) {
-      kk[j] = 0u;
-      vv[j] = 0;
-      if (p0 + j < B) {
-        kk[j] = keys[spad(p0 + j)];
-        vv[j] = vals[spad(p0 + j)];
-        ++cnt[pad(digit(kk[j], vv[j], pass) * kSortThreads + t)];
-      }
-    }
-    __syncthreads();
-    // exclusive scan in (digit, thread) order: thread u takes counters
-    // [16u, 16u + 16), all of one digit
-    int c[16], run = 0;
-#pragma unroll
-    for (int q = 0; q < 16; ++q) {
-      c[q] = run;
-      run += cnt[pad(16 * t + q)];
-    }
-    unsigned total;
-    const int base = (int)block_excl_scan<unsigned>(run, wsum, total);
-#pragma unroll
-    for (int q = 0; q < 16; ++q) cnt[pad(16 * t + q)] = base + c[q];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kSortPer; ++j) {
-      if (p0 + j < B) {
-        const int pos = cnt[pad(digit(kk[j], vv[j], pass) * kSortThreads + t)]++;
-        keys[spad(pos)] = kk[j];
-        vals[spad(pos)] = vv[j];
-      }
-    }
-    __syncthreads();
-  }
 
   // segments: starts, and the unmasked members and positives before each
   // position, packed 20 bits each (B <= 2^13) into one scan
@@ -582,7 +478,7 @@ sort_segments_kernel(Inputs in, float power, Sorted so) {
     bits[j] = 0;
     if (s < B) {
       const int v = vals[spad(s)];
-      const int st = s == 0 || (keys[spad(s)] ^ keys[spad(s - 1)]) >> fold;
+      const int st = segment_head(keys, s, shift);
       bits[j] = st | (v & kMaskBit ? 2 : 0) | (v & kPosBit ? 4 : 0);
       mine += (unsigned long long)(bits[j] & 1) |
               (unsigned long long)(bits[j] >> 1 & 1) << 20 |
@@ -872,9 +768,6 @@ cudaError_t begin(int B, int ng, int device, void* stream, Launch* l) {
   return cudaSuccess;
 }
 
-
-constexpr int kMaxDevices = 64;
-
 // The device's SM count, read once per device (0 when it cannot be read).
 int sm_count(int device) {
   static std::atomic<int> slots[kMaxDevices];
@@ -888,21 +781,6 @@ int sm_count(int device) {
   return v;
 }
 
-// Lets sort_segments_kernel take its shared memory past 48 KB, once per
-// device.
-cudaError_t allow_sort_smem(int device) {
-  static std::atomic<bool> done[kMaxDevices];
-  const bool cached = device >= 0 && device < kMaxDevices;
-  if (cached && done[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      (const void*)sort_segments_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sort_smem());
-  if (e == cudaSuccess && cached)
-    done[device].store(true, std::memory_order_release);
-  return e;
-}
-
 // B3 on a batch of B <= kSortMax: the three launches described above.
 cudaError_t pair_loss_sorted(const Inputs& in, float factor, float power,
                              bool wrong_order, void* scratch, float* out,
@@ -914,7 +792,9 @@ cudaError_t pair_loss_sorted(const Inputs& in, float factor, float power,
   carve_sorted(scratch, B, &so, &part_loss, &part_cnt, &part_dx);
   const int sms = sm_count(device);
   if (sms == 0) return cudaErrorInvalidValue;
-  const cudaError_t e = allow_sort_smem(device);
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t e =
+      allow_sort_smem((const void*)sort_segments_kernel, device, smem_set);
   if (e != cudaSuccess) return e;
   sort_segments_kernel<<<1, kSortThreads, sort_smem(), s>>>(in, power, so);
   // a fixed grid of a few blocks an SM takes the items in turn

@@ -39,11 +39,26 @@
 //
 // Taken from the math, not from the TPU blocks: the TPU broadcasts the
 // (T, P) touched counts across each packed line with a matmul against a
-// group matrix.  Here, as for Adagrad, D / 4 consecutive threads own one
-// row with one float4 each of g, m, v and the table; each reads the row's
-// one-byte flag first and leaves at once when it is clear.  Each product
-// and sum is rounded on its own (no FMA contraction), in the order of the
-// plain PyTorch version.
+// group matrix.  Here a warp owns a chunk of kChunk (64) flags: each lane
+// reads 2 with one 2-byte load, a ballot leaves at once a chunk with no
+// row touched, and a warp scan lists the chunk's touched rows in shared
+// memory in row order.  The warp then updates them D / 4 lanes a row, 32 /
+// (D / 4) rows at a time, one float4 each of g, m, v and the table.  A B =
+// 8,192 batch touches 36,302 of config 2's 2.6M rows (1.4%), so the grid is
+// V / 64 warps (1.3M threads), where a thread per float4 of the table
+// (10.4M threads) spent the pass on threads that read a flag and left.  The
+// chunk is small because the ids are zipf-skewed: the same batch touches
+// up to 408 rows of one 512-flag chunk, which a warp took 51 dependent
+// steps over.  Device time a call on the H100 at config 2's shapes
+// (tools/probe_adam_chunks.py): 35 us a thread per float4; 40 us with
+// 512-flag chunks; 21-23 us with 32-, 64- or 128-flag chunks (a warp's
+// dependent loads, flags then rows, times the waves of warps); 29-34 us
+// with a thread a row (fewer rows in flight); 17-19 us for a persistent
+// grid that loads a warp's next chunk's flags first; 12 us for a list built
+// with atomics and a persistent grid over it, in three operations, host
+// work that these host-bound steps cannot spare.  No list leaves the warp,
+// so no atomics and one launch.  Each product and sum is rounded on its own
+// (no FMA contraction), in the order of the plain PyTorch version.
 //
 // What bounds it: bytes.  Table, m, v and g read, table, m and v written,
 // the flag read: (7 D * 4 + 1) bytes a touched row, 1.167 GB for 2.6M
@@ -52,9 +67,13 @@
 // bytes this run's data needs are the flags plus 7 D * 4 a touched row.
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChunk = 64;         // flags a warp: 2 a lane
+constexpr int kWarps = kThreads / 32;
 
 __global__ void __launch_bounds__(kThreads)
 adagrad_kernel(float4* __restrict__ table, float* __restrict__ acc,
@@ -93,26 +112,56 @@ __device__ __forceinline__ void adam_lane(float& w, float& m, float& v,
 }
 
 __global__ void __launch_bounds__(kThreads)
-adam_kernel(float4* __restrict__ table, float4* __restrict__ m,
-            float4* __restrict__ v, const float4* __restrict__ g,
-            const unsigned char* __restrict__ touched,
-            const int* __restrict__ count, long long n4, int lanes,
-            float lr, float b1, float omb1, float b2, float omb2,
-            float eps) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n4 || !touched[idx / lanes]) return;
+adam_chunk_kernel(float4* __restrict__ table, float4* __restrict__ m,
+                  float4* __restrict__ v, const float4* __restrict__ g,
+                  const unsigned char* __restrict__ touched,
+                  const int* __restrict__ count, long long V, int lanes,
+                  bool flags2, float lr, float b1, float omb1, float b2,
+                  float omb2, float eps) {
+  __shared__ unsigned char rows[kWarps][kChunk];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long base = ((long long)blockIdx.x * kWarps + w) * kChunk;
+  if (base >= V) return;                // the whole warp
+  const long long f0 = base + 2 * lane;
+  unsigned mine = 0u;                   // bit b: row f0 + b is touched
+  if (flags2 && f0 + 2 <= V) {
+    const unsigned short q =
+        __ldg(reinterpret_cast<const unsigned short*>(touched + f0));
+    mine = ((q & 0xffu) ? 1u : 0u) | ((q >> 8) ? 2u : 0u);
+  } else {                              // the last chunk's tail
+    for (int b = 0; b < 2 && f0 + b < V; ++b)
+      if (touched[f0 + b]) mine |= 1u << b;
+  }
+  if (__ballot_sync(0xffffffffu, mine != 0u) == 0u) return;
+  // the chunk's touched rows in row order: lane l's after lanes < l's
+  const int n = __popc(mine);
+  int at = n;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, at, o);
+    if (lane >= o) at += u;
+  }
+  const int total = __shfl_sync(0xffffffffu, at, 31);
+  at -= n;
+  for (unsigned b = mine; b; b &= b - 1u)
+    rows[w][at++] = (unsigned char)(2 * lane + __ffs(b) - 1);
+  __syncwarp();
   const float t = (float)__ldg(count);
   const float c1 = __fsub_rn(1.f, powf(b1, t));
   const float c2 = __fsub_rn(1.f, powf(b2, t));
-  const float4 gv = g[idx];
-  float4 tv = table[idx], mv = m[idx], vv = v[idx];
-  adam_lane(tv.x, mv.x, vv.x, gv.x, lr, b1, omb1, b2, omb2, c1, c2, eps);
-  adam_lane(tv.y, mv.y, vv.y, gv.y, lr, b1, omb1, b2, omb2, c1, c2, eps);
-  adam_lane(tv.z, mv.z, vv.z, gv.z, lr, b1, omb1, b2, omb2, c1, c2, eps);
-  adam_lane(tv.w, mv.w, vv.w, gv.w, lr, b1, omb1, b2, omb2, c1, c2, eps);
-  table[idx] = tv;
-  m[idx] = mv;
-  v[idx] = vv;
+  const int per = 32 / lanes, q = lane % lanes;   // rows a step, my float4
+  for (int k = lane / lanes; k < total; k += per) {
+    const long long idx = (base + rows[w][k]) * lanes + q;
+    const float4 gv = g[idx];
+    float4 tv = table[idx], mv = m[idx], vv = v[idx];
+    adam_lane(tv.x, mv.x, vv.x, gv.x, lr, b1, omb1, b2, omb2, c1, c2, eps);
+    adam_lane(tv.y, mv.y, vv.y, gv.y, lr, b1, omb1, b2, omb2, c1, c2, eps);
+    adam_lane(tv.z, mv.z, vv.z, gv.z, lr, b1, omb1, b2, omb2, c1, c2, eps);
+    adam_lane(tv.w, mv.w, vv.w, gv.w, lr, b1, omb1, b2, omb2, c1, c2, eps);
+    table[idx] = tv;
+    m[idx] = mv;
+    v[idx] = vv;
+  }
 }
 
 // Makes `device` current, setting it only when it is not (cudaSetDevice
@@ -164,14 +213,15 @@ int adam_dense_f32(float* table, float* m, float* v, const float* g,
   if (D % 4 != 0 || 32 % (D / 4) != 0) return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  const long long n4 = V * (D / 4);
-  if (n4 == 0) return cudaSuccess;
-  const long long blocks = (n4 + kThreads - 1) / kThreads;
-  adam_kernel<<<(unsigned)blocks, kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
+  if (V == 0) return cudaSuccess;
+  const long long chunks = (V + kChunk - 1) / kChunk;
+  const long long blocks = (chunks + kWarps - 1) / kWarps;
+  const bool flags2 = reinterpret_cast<uintptr_t>(touched) % 2 == 0;
+  adam_chunk_kernel<<<(unsigned)blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<float4*>(table), reinterpret_cast<float4*>(m),
       reinterpret_cast<float4*>(v), reinterpret_cast<const float4*>(g),
-      touched, count, n4, D / 4, lr, b1, omb1, b2, omb2, eps);
+      touched, count, V, D / 4, flags2, lr, b1, omb1, b2, omb2, eps);
   return cudaGetLastError();
 }
 

@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` (:data:`SOURCES`) exposes a plain C interface and
 compiles on its own into ``_build/<name>-<hash>.so`` (the directory is
 git-ignored) for ``sm_90a``.  The build runs at first use, so nothing is
-compiled when a module is imported, and again whenever the source's
-content hash changes.  A failed build raises with nvcc's stderr.
-ptxas's report (registers, shared memory, spills) is kept beside the
-library as ``<name>-<hash>.log``.
+compiled when a module is imported, and again whenever the content hash
+of the source and the headers in ``csrc/`` changes.  A failed build
+raises with nvcc's stderr.  ptxas's report (registers, shared memory,
+spills) is kept beside the library as ``<name>-<hash>.log``.
 
 Also here: the checks every kernel wrapper makes before it hands
 pointers to a library (:func:`is_cpu`, :func:`check_input`,
@@ -53,10 +53,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` at its current content goes."""
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """Where the build of ``csrc/<name>.cu`` at its current content goes:
+    the hash covers the source, every header in ``csrc/`` (a source may
+    include any of them) and the flags."""
+    h = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,8 +21,13 @@ dense and the listwise loss, config 4's shapes (the four banks at
 B = 1,000 and 8,192) and degenerate batches, and each dispatch edge of
 the multi-expert dense (N * U = 16 and 17 on a shared input, a small
 per-expert bank, W too deep for the gate kernel, x off the 16-byte grid);
-for lazy Adam (B10) ragged V,
-every D it takes and t = 1 and 1,000; for the pair counts (B7a/b/c) and
+for the listwise loss also B on both sides of its one-block sort (8,192)
+on SyntheticCriteo's zipf groups, ids at the int32 ends, one group and
+singletons at 8,192, a {+1, -1} group, each path forced and a bit-equal
+repeat of each; for lazy Adam (B10) ragged V, every D it takes, t = 1 and
+1,000, no row, every row, rows only in a partial last 512-flag chunk,
+zipf-clustered rows, flags off the 16-byte grid and a bit-equal repeat;
+for the pair counts (B7a/b/c) and
 the general pair loss (B3) graded labels, two to four groups, a 0/1 mask
 and the wrong-order filter at B = 1 to 8,193, and for both pair-loss
 tests main groups of one group, all singletons, ids across the int32
@@ -445,22 +450,37 @@ def _lw_batch(gen, b, kind):
     elif kind == "singletons":
         lab = (torch.rand(b, generator=gen) > 0.5).float()
         grp = torch.arange(b)
+    elif kind == "plus_minus":     # label sums 0 (valid), b / 3, -b / 3
+        lab = torch.cat([torch.tensor([1.0, -1.0]).repeat(b // 6),
+                         torch.ones(b // 3), -torch.ones(b - b // 3 * 2)])
+        grp = torch.arange(b) * 3 // b
+    elif kind in ("zipf", "wide ids"):
+        lab = (torch.rand(b, generator=gen) > 0.6).float()
+        grp = _groups_of(kind, b, gen)
     else:
         lab = (torch.rand(b, generator=gen) > 0.6).float()
         grp = torch.randint(0, max(1, b // 7), (b,), generator=gen)
     return torch.randn(b, generator=gen) * 2, lab, grp
 
 
-@pytest.mark.parametrize("b,kind", [(1, "mixed"), (37, "mixed"),
-                                    (1000, "mixed"), (8192, "mixed"),
-                                    (300, "none_valid"),
-                                    (2100, "one_group"),
-                                    (513, "singletons")])
-def test_listwise_matches_plain(dev, b, kind):
+# B on both sides of the one-block sort (8,192: past it the O(B^2) sweep),
+# the SyntheticCriteo zipf groups, ids at the int32 ends, one group and
+# singletons at 8,192, a {+1, -1} group (label sum 0, valid), and both
+# paths forced at one B; every case repeated bit for bit
+@pytest.mark.parametrize("b,kind,path", [
+    (1, "mixed", "auto"), (37, "mixed", "auto"), (1000, "mixed", "auto"),
+    (8192, "mixed", "auto"), (300, "none_valid", "auto"),
+    (2100, "one_group", "auto"), (513, "singletons", "auto"),
+    (8192, "zipf", "auto"), (8193, "zipf", "auto"),
+    (1000, "wide ids", "auto"), (8192, "wide ids", "auto"),
+    (8192, "one_group", "auto"), (8192, "singletons", "auto"),
+    (300, "plus_minus", "auto"), (8192, "zipf", "sort"),
+    (8192, "zipf", "sweep"), (4096, "wide ids", "sweep")])
+def test_listwise_matches_plain(dev, b, kind, path):
     gen = torch.Generator().manual_seed(b)
     x, lab, grp = (t.to(dev) for t in _lw_batch(gen, b, kind))
     before = lk.listwise_loss_sum.launches
-    loss, cnt, dx = lk.listwise_loss_fused(x, lab, grp)
+    loss, cnt, dx = lk._listwise_fused(x, lab, grp, path)
     assert lk.listwise_loss_sum.launches == before + 1
     want = lk.listwise_loss_fused_plain(x, lab, grp)
     assert float(cnt) == float(want[1])
@@ -470,11 +490,14 @@ def test_listwise_matches_plain(dev, b, kind):
     else:
         _close_rel(loss, want[0])
         _close_rel(dx, want[2])
+    for a, r in zip((loss, cnt, dx), lk._listwise_fused(x, lab, grp, path)):
+        assert torch.equal(a, r)
     xg = x.clone().requires_grad_()
     loss2, cnt2 = lk.listwise_loss_sum(xg, lab, grp)
     assert not cnt2.requires_grad
     (dxg,) = torch.autograd.grad(loss2 * 3.0, xg)
-    torch.testing.assert_close(dxg, 3.0 * dx, rtol=0, atol=0)
+    _, _, dx_auto = lk.listwise_loss_fused(x, lab, grp)
+    torch.testing.assert_close(dxg, 3.0 * dx_auto, rtol=0, atol=0)
 
 
 def test_multitask_grads_through_the_model_match_the_cpu(dev):
@@ -516,21 +539,48 @@ def test_slice3_wrappers_reject_bad_inputs(dev):
         lk.listwise_loss_fused(torch.zeros(8, device=dev),
                                torch.zeros(7, device=dev),
                                torch.zeros(8, device=dev))
+    with pytest.raises(ValueError, match="sort path"):   # past kSortMax
+        z = torch.zeros(lk.SORT_MAX + 1, device=dev)
+        lk._listwise_fused(z, z, z.int(), "sort")
 
 
-@pytest.mark.parametrize("v,d", [(1, 4), (777, 8), (12345, 16), (1000, 32),
-                                 (301, 64), (300, 128)])
+def _touched(v, flags, gen):
+    """(V,) bool flags: every row but each third, none, all, only rows in
+    a partial last 512-flag chunk, or zipf-clustered toward low rows."""
+    if flags == "none":
+        return torch.zeros(v, dtype=torch.bool)
+    if flags == "all":
+        return torch.ones(v, dtype=torch.bool)
+    if flags == "tail":
+        return torch.arange(v) >= v // 512 * 512
+    if flags == "zipf":
+        rows = (torch.rand(v // 20, generator=gen) ** 4 * v).long()
+        return torch.zeros(v, dtype=torch.bool).index_fill_(0, rows, True)
+    return torch.arange(v) % 3 != 1
+
+
+# ragged V, every D; flags none, all, in a partial last chunk only (V =
+# 513, 1,025), zipf-clustered, and a flag tensor off the 16-byte grid (the
+# byte loads); each repeated bit for bit
+@pytest.mark.parametrize("v,d,flags", [
+    (1, 4, "thirds"), (777, 8, "thirds"), (12345, 16, "thirds"),
+    (1000, 32, "thirds"), (301, 64, "thirds"), (300, 128, "thirds"),
+    (5000, 16, "none"), (5000, 16, "all"), (513, 16, "tail"),
+    (1025, 8, "tail"), (100_000, 16, "zipf"), (1000, 16, "off grid")])
 @pytest.mark.parametrize("t", [1, 1000])
-def test_adam_dense_pass_matches_plain(dev, v, d, t):
+def test_adam_dense_pass_matches_plain(dev, v, d, flags, t):
     gen = torch.Generator().manual_seed(v + d + t)
     table = _rand(gen, dev, v, d)
     m = _rand(gen, dev, v, d) * 1e-3
     vv = _rand(gen, dev, v, d).square() * 1e-6
-    touched = (torch.arange(v) % 3 != 1).to(dev)
+    touched = _touched(v, flags, gen).to(dev)
+    if flags == "off grid":
+        touched = _off_grid(touched)
     g = _rand(gen, dev, v, d) * touched[:, None]
     g[::6] = 0.0                 # touched rows with a zero gradient
     count = torch.tensor(t, dtype=torch.int32, device=dev)
     want = [x.clone() for x in (table, m, vv)]
+    again = [x.clone() for x in (table, m, vv)]
     before = tk.adam_dense_pass.launches
     tk.adam_dense_pass(table, m, vv, g, touched, count, 1e-3)
     assert tk.adam_dense_pass.launches == before + 1
@@ -539,6 +589,9 @@ def test_adam_dense_pass_matches_plain(dev, v, d, t):
     for got, ref in zip((table, m, vv), want):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-7)
         assert torch.equal(got[~touched], ref[~touched])
+    tk.adam_dense_pass(*again, g, touched, count, 1e-3)
+    for got, rep in zip((table, m, vv), again):
+        assert torch.equal(got, rep)
     assert int(count) == t
 
 

@@ -7,10 +7,14 @@ math differentiated by autograd), the kernel's plain version
 ``autograd.Function`` on the CPU, each against the JAX package's
 ``listwise_loss_pallas(..., reduce_mean=False)`` (interpreted on the CPU)
 and its (B, B) XLA path with ``jax.grad``: loss sum, valid-row count and
-dlogits.  Batches: no valid group, one group holding the whole batch,
-singleton groups, a ragged B, a zipf-grouped click batch, B = 1.  f32 on
-the CPU, summed in other orders over at most B = 64 terms: rtol 1e-5,
-atol 1e-6; counts exact.
+dlogits.  Also ``listwise_by_segments`` (the sort kernel's order: a
+stable sort by group, per-segment statistics, dx by segment) against the
+same JAX references and the plain version.  Batches: no valid group, one
+group holding the whole batch, singleton groups, a ragged B, a
+zipf-grouped click batch, B = 1, a group with labels {+1, -1} (label sum
+0, valid) beside all-positive and all-negative groups, and negative ids
+and ids at both ends of the int32 range.  f32 on the CPU, summed in other
+orders over at most B = 64 terms: rtol 1e-5, atol 1e-6; counts exact.
 """
 import jax
 import jax.numpy as jnp
@@ -49,6 +53,16 @@ def _batch(kind):
         b = 37
         g = rng.randint(0, 6, b)
         lab = rng.rand(b) > 0.5
+    elif kind == "plus_minus":            # label sums 0 (valid), 2, -2
+        b = 30
+        g = np.repeat([4, 9, 2], 10)
+        lab = np.concatenate([np.tile([1.0, -1.0], 5), np.ones(10),
+                              -np.ones(10)])
+    elif kind == "wide_ids":              # the int32 ends, negatives
+        b = 50
+        ids = np.array([-2 ** 31, 2 ** 31 - 1, -70000, -7, 0, 2 ** 24 + 1])
+        g = ids[rng.randint(0, len(ids), b)]
+        lab = rng.rand(b) > 0.5
     elif kind == "clicks":
         batch = next(SyntheticCriteo(rows_per_field=16, num_users=40)
                      .batches(64, 1, seed=3))
@@ -72,7 +86,7 @@ def _jax_xla(x, lab, g):
 
 
 KINDS = ["no_valid_group", "one_group", "singletons", "ragged", "clicks",
-         "one"]
+         "one", "wide_ids"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -114,6 +128,42 @@ def test_port_matches_jax(kind, path):
         assert float(got_loss.detach()) == 0.0 and not got_dx.any()
     elif kind == "one_group":
         assert cnt == 1
+
+
+@pytest.mark.parametrize("kind", KINDS + ["plus_minus"])
+def test_by_segments_matches_jax_and_plain(kind):
+    """The sort kernel's order, written in plain PyTorch, against the
+    Pallas kernel (interpreted; the kernel's reference), the (B, B) XLA
+    path and the port's (B, B) plain version.  Where a valid group's
+    labels sum to 0 ("plus_minus") the two JAX paths differ -- XLA's row
+    is lse * sum(p) - sum(p z), Pallas's lse - sum(p z), equal only where
+    the normalised labels sum to 1 -- so that batch is held against
+    Pallas and the plain version alone."""
+    x, lab, g = _batch(kind)
+    ploss, pcnt = listwise_loss_pallas(g, lab, x, reduce_mean=False)
+    pdx = jax.grad(lambda x: listwise_loss_pallas(
+        g, lab, x, reduce_mean=False)[0])(jnp.asarray(x))
+    cnt = float(pcnt)
+    args = (torch.from_numpy(x), torch.from_numpy(lab), torch.from_numpy(g))
+    got = lk.listwise_by_segments(*args)
+    plain = lk.listwise_loss_fused_plain(*args)
+    wants = [(float(ploss), cnt, np.asarray(pdx)),
+             (float(plain[0]), float(plain[1]), plain[2].numpy())]
+    if kind != "plus_minus":
+        wants.append(_jax_xla(x, lab, g))
+    for want_loss, want_cnt, want_dx in wants:
+        np.testing.assert_allclose(float(got[0]), want_loss, **TOL)
+        assert float(got[1]) == want_cnt
+        np.testing.assert_allclose(got[2].numpy(), want_dx, **TOL)
+    assert np.isfinite(got[2].numpy()).all()
+    if cnt == 0:
+        assert float(got[0]) == 0.0 and not got[2].any()
+    if kind == "plus_minus":              # the {+1, -1} group alone
+        assert cnt == 1 and not got[2][10:].any()
+    # the private entry's forced paths take the plain version on the CPU
+    for path in lk.PATHS:
+        for a, c in zip(lk._listwise_fused(*args, path), plain):
+            torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
 def test_first_occurrence_and_row_helpers():

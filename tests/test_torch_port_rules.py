@@ -124,6 +124,28 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not lib.exists() and "cin" not in _build._loaded
 
 
+def test_library_path_hashes_the_headers(monkeypatch, tmp_path):
+    """A library's path changes with the bytes of any ``csrc/*.cuh`` (a
+    source may include it), so an edited header never loads a stale
+    build; files of other kinds do not move it."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    (src / "k.cu").write_text('#include "shared.cuh"\n')
+    alone = _build.library_path("k")
+    (src / "shared.cuh").write_text("// one\n")
+    one = _build.library_path("k")
+    (src / "shared.cuh").write_text("// two\n")
+    two = _build.library_path("k")
+    (src / "notes.txt").write_text("not a header\n")
+    assert len({alone, one, two}) == 3
+    assert _build.library_path("k") == two
+    (src / "shared.cuh").write_text("// one\n")
+    assert _build.library_path("k") == one
+    assert one.parent == tmp_path / "_build" and one.name.startswith("k-")
+
+
 def _counts():
     return (ck.cin_flat.launches, ck.cin_stack_sum.launches,
             ck.cin_flat_bwd.launches, ck.cin_stack_sum_bwd.launches,
