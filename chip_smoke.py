@@ -23,7 +23,11 @@ Phases, each of which ends the script with a non-zero exit on failure:
    tables with rows touched only in a partial last flag chunk, each
    repeated bit for bit, and its device time; the
    pair counts and the general pair loss on a B = 8192 batch with graded
-   labels, two groups and a 0/1 mask), the row gather (B11, bit-exact)
+   labels, two groups and a 0/1 mask: B7a and B7c on each path (auto,
+   the sort, the sweep), B7c also on graded labels with a fractional mask
+   (1e-6 of the largest count), each repeated bit for bit, and B7a/b/c's
+   paths by events and by kernel on the device, auto failing unless it
+   takes the sort), the row gather (B11, bit-exact)
    and the row scatter-add (B12, within 1e-6 of each output's summed
    scale) on the 2.6M x 16 table with a B = 8192 batch's 212,992 ids (the
    dense buffer, the sparse path's dedup and its sentinel-heavy
@@ -1493,13 +1497,22 @@ def main() -> int:
               ("B=1", xl[:1], graded[:1], [grp[:1], dom[:1]], mask[:1])]
     errs = {"pair_row_counts": 0.0, "same_group_matvec": 0.0,
             "group_pair_counts_binary": 0.0, "pair_loss_sum": err_pair}
+    def repeat(name: str, fn, got) -> None:
+        if not torch.equal(got, fn()):
+            fail(f"{name} is not bit-equal on a repeat")
+
+    # B7a and B7c on each path (auto takes the sort at these B)
     for what, xs, ls, gs, ms in gcases:
         for wrong in (False, True):
-            got = pk.pair_row_counts(xs, ls, gs, ms, wrong)
             want = pk.pair_row_counts_plain(xs, ls, gs, ms, wrong)
-            errs["pair_row_counts"] = max(errs["pair_row_counts"], compare(
-                f"pair_row_counts {what} wrong_order={wrong}", got, want,
-                0.0, rel=0.0))
+            for path in ("auto", "sort", "sweep"):
+                name = f"pair_row_counts {what} wrong_order={wrong} {path}"
+                got = pk._pair_row_counts(xs, ls, gs, ms, wrong, path)
+                errs["pair_row_counts"] = max(
+                    errs["pair_row_counts"],
+                    compare(name, got, want, 0.0, rel=0.0))
+                repeat(name, lambda: pk._pair_row_counts(
+                    xs, ls, gs, ms, wrong, path), got)
             gpc = pk.same_group_matvec(gs[0], want)
             wgpc = pk.same_group_matvec_plain(gs[0], want)
             errs["same_group_matvec"] = max(
@@ -1520,16 +1533,28 @@ def main() -> int:
             errs["pair_loss_sum"] = max(errs["pair_loss_sum"], compare_all(
                 f"pair_loss_sum {what} wrong_order={wrong}", got, want))
         clicks = (ls > 1.5).float()     # a click and a conversion: binary
-        got = pk.group_pair_counts_binary(gs[0], clicks, ms)
         want = pk.group_pair_counts_binary_plain(gs[0], clicks, ms)
         via = pk.same_group_matvec_plain(gs[0], pk.pair_row_counts_plain(
             xs, clicks, gs[0], ms))
-        errs["group_pair_counts_binary"] = max(
-            errs["group_pair_counts_binary"],
-            compare(f"group_pair_counts_binary {what}", got, want, 0.0,
-                    rel=0.0),
-            compare(f"group_pair_counts_binary {what} vs B7a -> B7b", got,
-                    via, 0.0, rel=0.0))
+        # graded labels and a fractional mask: the sums of mask * label and
+        # of mask (in double on the card and in the plain version)
+        frac = torch.rand(len(ls), generator=torch.Generator().manual_seed(
+            5)).to(dev)
+        graded_want = pk.group_pair_counts_binary_plain(gs[0], ls, frac)
+        for path in ("auto", "sort", "sweep"):
+            name = f"group_pair_counts_binary {what} {path}"
+            got = pk._group_pair_counts_binary(gs[0], clicks, ms, path)
+            repeat(name, lambda: pk._group_pair_counts_binary(
+                gs[0], clicks, ms, path), got)
+            got_graded = pk._group_pair_counts_binary(gs[0], ls, frac, path)
+            repeat(name + ", graded", lambda: pk._group_pair_counts_binary(
+                gs[0], ls, frac, path), got_graded)
+            errs["group_pair_counts_binary"] = max(
+                errs["group_pair_counts_binary"],
+                compare(name, got, want, 0.0, rel=0.0),
+                compare(f"{name} vs B7a -> B7b", got, via, 0.0, rel=0.0),
+                compare(f"{name}, graded labels, fractional mask", got_graded,
+                        graded_want, 0.0, rel=1e-6))
     counts_full = pk.pair_row_counts_plain(xl, graded, two, mask)
     gpc_full = pk.same_group_matvec_plain(grp, counts_full)
     rw_full = torch.where(gpc_full > 0, gpc_full.clamp_min(1e-30) ** -0.5,
@@ -1567,6 +1592,37 @@ def main() -> int:
             ms=cuda_ms(torch, calls[name][0]),
             plain_ms=cuda_ms(torch, calls[name][1]),
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    # each count kernel's paths, by events and on the device; auto at B =
+    # 8,192 must take the sort (B7a: the sort and the count sweep, no
+    # O(B^2) sweep; B7c: one launch of one block).  B7a's conditions as
+    # one (2, B) tensor: a list costs the wrapper a stack kernel
+    reps = 20
+    two_t = torch.stack(two).to(torch.int32)
+    count_paths = (
+        ("pair_row_counts", "auto (sort)", lambda: pk.pair_row_counts(
+            xl, graded, two_t, mask),
+         {"sort_segments_kernel": "sort and segments",
+          "segment_sweep": "count sweep"}),
+        ("pair_row_counts", "sweep", lambda: pk._pair_row_counts(
+            xl, graded, two_t, mask, False, "sweep"),
+         {"row_count_sweep": "sweep", "merge_rows": "merge"}),
+        ("same_group_matvec", "sweep", calls["same_group_matvec"][0],
+         {"matvec_sweep": "sweep", "merge_rows": "merge"}),
+        ("group_pair_counts_binary", "auto (sort)",
+         calls["group_pair_counts_binary"][0],
+         {"binary_sort_kernel": "sort and sums"}),
+        ("group_pair_counts_binary", "sweep",
+         lambda: pk._group_pair_counts_binary(grp, lab, mask, "sweep"),
+         {"binary_sum_sweep": "sweep", "merge_rows": "merge"}))
+    for name, path, fn, parts in count_paths:
+        ms = cuda_ms(torch, fn)
+        split = kernel_split(profiled_sequence(torch, fn, reps), reps, parts,
+                             name)
+        print(f"  {name}, {path}, B=8192: {ms:.4f} ms by events, "
+              f"{sum(split.values()) / reps:.4f} on the device ("
+              + "; ".join(f"{part} {t / reps:.4f}"
+                          for part, t in split.items())
+              + f"; torch.profiler) [{card}]")
     kern["pair_loss_sum"]["max_abs_err"] = errs["pair_loss_sum"]
     gen_ms = cuda_ms(torch, lambda: pk.pair_loss_fused(
         xl, graded, two, 1.0, row_weights=rw_full, sample_mask=mask))

@@ -1,7 +1,8 @@
 // A batch sorted by group in one block, for Hopper (sm_90a): the stable LSD
 // radix sort and the block scans that the in-batch losses share
-// (pairwise.cu's B3 pair_loss_f32 and listwise.cu's B6 listwise_f32, each at
-// B <= kSortMax).
+// (pairwise.cu's B3 pair_loss_f32, B7a row_counts_f32 and B7c
+// binary_counts_f32, and listwise.cu's B6 listwise_f32, each at B <=
+// kSortMax).
 //
 // One block of kSortThreads threads holds the batch's keys and values in
 // shared memory (sort_smem() bytes of dynamic shared memory, past the 48 KB
@@ -24,7 +25,8 @@
 // After the sort thread t holds sorted positions [t kSortPer, (t + 1)
 // kSortPer): segment_head tells where a group starts, block_excl_scan
 // numbers the segments, and block_seg_scan runs a segmented scan of any
-// per-position value over the block.  Each pass and scan is a fixed
+// per-position value over the block.  sort_groups does all but the scan
+// for a kernel that sorts by group alone (B6, B7c).  Each pass and scan is a fixed
 // sequence of operations whatever the scheduling, so repeats are
 // bit-equal.
 //
@@ -204,6 +206,58 @@ __device__ int sort_by_group(unsigned* keys, int* vals, int* cnt,
 __device__ __forceinline__ bool segment_head(const unsigned* keys, int s,
                                              int shift) {
   return s == 0 || ((keys[spad(s)] ^ keys[spad(s - 1)]) >> shift) != 0u;
+}
+
+// Thread t's sorted positions [t kSortPer, (t + 1) kSortPer) after
+// sort_groups: bit j of heads set where position j starts a segment (and
+// at every position past the batch, a segment of its own that adds to
+// none), of lasts where it ends one; `before` the segments that start
+// before the thread's first position.
+struct Segments {
+  unsigned heads, lasts, before;
+  // the segment id of the thread's position j
+  __device__ int of(int j) const {
+    return (int)before + __popc(heads & ((2u << j) - 1u)) - 1;
+  }
+};
+
+// The opening of a one-block kernel by group: keys[spad(i)] = grp[i] ^
+// 0x80000000 and vals[spad(i)] = i for the batch's B <= kSortMax samples,
+// sorted by (group, i) (no extra key bits), and the thread's segments.
+// wsum, wlo, whi: 32 words of shared memory each.  Ends on a barrier after
+// which no key is read again: the keys' and the counters' space is free.
+__device__ Segments sort_groups(const int* __restrict__ grp, int B,
+                                unsigned* keys, int* vals, int* cnt,
+                                unsigned* wsum, unsigned* wlo,
+                                unsigned* whi) {
+  const int t = threadIdx.x;
+  unsigned lo = 0xffffffffu, hi = 0u;
+#pragma unroll 4
+  for (int i = t; i < B; i += kSortThreads) {
+    const unsigned k = static_cast<unsigned>(grp[i]) ^ 0x80000000u;
+    keys[spad(i)] = k;
+    vals[spad(i)] = i;
+    lo = min(lo, k);
+    hi = max(hi, k);
+  }
+  block_min_max(lo, hi, wlo, whi);
+  const int shift = sort_by_group<0>(keys, vals, cnt, wsum, B, lo, hi,
+                                     NoExtra());
+  const int p0 = t * kSortPer;
+  Segments sg{0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    const int s = p0 + j;
+    if (s < B) {
+      if (segment_head(keys, s, shift)) sg.heads |= 1u << j;
+      if (s + 1 == B || segment_head(keys, s + 1, shift)) sg.lasts |= 1u << j;
+    } else {
+      sg.heads |= 1u << j;
+    }
+  }
+  unsigned nseg;
+  sg.before = block_excl_scan<unsigned>(__popc(sg.heads), wsum, nseg);
+  return sg;
 }
 
 // An inclusive segmented scan over the block's sorted positions.  Thread t

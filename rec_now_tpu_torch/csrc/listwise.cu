@@ -237,44 +237,13 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
   __shared__ double wloss[32];
   __shared__ int wcnt[32];
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  unsigned lo = 0xffffffffu, hi = 0u;
-#pragma unroll 4
-  for (int i = t; i < B; i += kSortThreads) {
-    const unsigned k = static_cast<unsigned>(grp[i]) ^ 0x80000000u;
-    keys[spad(i)] = k;
-    vals[spad(i)] = i;
-    lo = min(lo, k);
-    hi = max(hi, k);
-  }
-  block_min_max(lo, hi, wlo, whi);
-  const int shift = sort_by_group<0>(keys, vals, cnt, wsum, B, lo, hi,
-                                     NoExtra());
-
-  // this thread's sorted positions: head and last flags (every position
-  // past the batch a head of its own, so it adds to no segment)
+  // this thread's sorted positions and their segments; from here the
+  // keys' and counters' space is free
+  const Segments sg = sort_groups(grp, B, keys, vals, cnt, wsum, wlo, whi);
   const int p0 = t * kSortPer;
-  unsigned heads = 0u, lasts = 0u;
-#pragma unroll
-  for (int j = 0; j < kSortPer; ++j) {
-    const int s = p0 + j;
-    if (s < B) {
-      if (segment_head(keys, s, shift)) heads |= 1u << j;
-      if (s + 1 == B || segment_head(keys, s + 1, shift)) lasts |= 1u << j;
-    } else {
-      heads |= 1u << j;
-    }
-  }
-  // segment ids: the heads before each position (the scan's barriers:
-  // every key has been read, so the keys' and counters' space is free)
-  unsigned nseg;
-  const unsigned before = block_excl_scan<unsigned>(__popc(heads), wsum,
-                                                    nseg);
-  auto seg_of = [&](int j) {
-    return (int)before + __popc(heads & ((2u << j) - 1u)) - 1;
-  };
-  float* seg_m = reinterpret_cast<float*>(keys);        // [nseg]
-  float* seg_s = reinterpret_cast<float*>(cnt);         // [nseg]
-  float* seg_den = seg_s + kSortMax;                    // [nseg], 0: invalid
+  float* seg_m = reinterpret_cast<float*>(keys);        // [segments]
+  float* seg_s = reinterpret_cast<float*>(cnt);         // [segments]
+  float* seg_den = seg_s + kSortMax;          // [segments], 0: invalid
 
   // the logits by sorted index (each scan holds only its own values in
   // registers: x and the labels are read again below)
@@ -282,10 +251,10 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
 #pragma unroll
   for (int j = 0; j < kSortPer; ++j)
     m[j] = p0 + j < B ? x[vals[spad(p0 + j)]] : 0.f;
-  block_seg_scan<MaxOp>(m, heads, wmax, wf[0]);
+  block_seg_scan<MaxOp>(m, sg.heads, wmax, wf[0]);
 #pragma unroll
   for (int j = 0; j < kSortPer; ++j)
-    if (lasts >> j & 1u) seg_m[seg_of(j)] = m[j];
+    if (sg.lasts >> j & 1u) seg_m[sg.of(j)] = m[j];
   __syncthreads();
 
   Sums v[kSortPer];
@@ -295,17 +264,17 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
     if (p0 + j < B) {
       const int i = vals[spad(p0 + j)];
       const float xi = x[i], li = lab[i];
-      v[j] = {expf(xi - seg_m[seg_of(j)]), li, li * xi,
+      v[j] = {expf(xi - seg_m[sg.of(j)]), li, li * xi,
               (li > th ? 1 : 0) | (li < th ? 2 : 0)};
     }
   }
-  block_seg_scan<SumOp>(v, heads, wsums, wf[1]);
+  block_seg_scan<SumOp>(v, sg.heads, wsums, wf[1]);
   double loss = 0.0;
   int count = 0;
 #pragma unroll
   for (int j = 0; j < kSortPer; ++j) {
-    if (!(lasts >> j & 1u)) continue;
-    const int g = seg_of(j);
+    if (!(sg.lasts >> j & 1u)) continue;
+    const int g = sg.of(j);
     const bool valid = v[j].flags == 3;
     const float den = v[j].l == 0.f ? 1.f : v[j].l;   // as the reference
     seg_s[g] = v[j].s;
@@ -321,7 +290,7 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
   for (int j = 0; j < kSortPer; ++j) {
     const int s = p0 + j;
     if (s >= B) continue;
-    const int i = vals[spad(s)], g = seg_of(j);
+    const int i = vals[spad(s)], g = sg.of(j);
     const float den = seg_den[g];
     dx[i] = den != 0.f ? expf(x[i] - seg_m[g]) / seg_s[g] - lab[i] / den
                        : 0.f;

@@ -7,7 +7,7 @@
 //   B7b same_group_matvec         (pallas_call at :190)  group_matvec_f32
 //   B7c group_pair_counts_binary  (pallas_call at :227)  binary_counts_f32
 // with every option of the JAX kernel path.  A pair (i, j) is valid when
-// (pair_valid below, the one definition all four kernels use):
+// (pair_valid below, the one definition B3 and B7a use):
 //   - every one of the NG group conditions holds: g_k[i] == g_k[j];
 //   - i != j and label_i > label_j (any float labels);
 //   - with a sample mask, mask > 0.5 on both sides (a 0/1 mask);
@@ -15,21 +15,25 @@
 // Then:
 //   B7a  out[i] = #{j : (i, j) valid}
 //   B7b  out[i] = sum_k [g_i == g_k] vec[k]              (one group vector)
-//   B7c  out[i] = pos(g_i) (tot(g_i) - pos(g_i))         (one group; binary
-//        labels and a 0/1 mask: tot counts the group's unmasked members,
-//        pos those with label > 0.5)
+//   B7c  out[i] = pos(g_i) (tot(g_i) - pos(g_i))         (one group), the
+//        sums the TPU kernel takes (:220-225): pos = sum of mask * label and
+//        tot = sum of mask (the member count without a mask) over the
+//        group; on binary labels and a 0/1 mask, the group's pair count
 //   B3   loss   = sum_{valid (i,j)} w_i softplus(-(x_i - x_j) factor)
 //        n_pair = number of valid pairs
 //        dx_t   = sum_{j: (t,j) valid} -w_t factor sigmoid(-(x_t - x_j) f)
 //               + sum_{i: (i,t) valid}  w_i factor sigmoid(-(x_i - x_t) f)
 //        with w_i = row_w[i] (1 without row weights) times, when power != 0,
-//        the occurrence weight B7c[i]^power (0 where B7c[i] == 0); the
-//        in-kernel occurrence weight needs NG == 1 and no wrong-order filter,
-//        as JAX's does (:298-300); the host checks.
+//        the occurrence weight gpc_i^power (0 where gpc_i == 0), gpc_i =
+//        pos (tot - pos) counted over members with mask > 0.5 (tot) and
+//        label > 0.5 (pos): B7c where the labels are binary and the mask
+//        0/1; the in-kernel occurrence weight needs NG == 1 and no
+//        wrong-order filter, as JAX's does (:298-300); the host checks.
 //
-// B3 at B <= 8,192 (every batch the port's cells take) sorts the batch by
-// its first group condition and sweeps inside each group only (see "B3 by
-// segments" below); past that, and for B7a/b/c, the O(B^2) sweeps here.
+// At B <= 8,192 (every batch the port's cells take) B3 and B7a sort the
+// batch by its first group condition and sweep inside each group only, and
+// B7c sorts and sums each group in one block (see "By segments" below);
+// past that, and for B7b, the O(B^2) sweeps here.
 //
 // Taken from the math, not from the TPU blocks: the TPU sweeps (TILE, B) row
 // blocks in VMEM and accumulates column sums over its sequential grid.
@@ -41,10 +45,10 @@
 // columns are split over gridDim.y slices so that B = 8,192 fills the 132
 // SMs (32 row blocks x 8 slices); every per-slice partial is merged by one
 // finalize pass in a fixed slice order, so results do not depend on
-// scheduling.  Counts are accumulated in integers (B7a, B7c, n_pair) and
-// B7b's sums in double, then written as f32, as the JAX outputs are: with
-// graded labels a group's pair count can pass 2^24.  Any B >= 1: no padding
-// to a tile, no sentinel group.
+// scheduling.  Counts are accumulated in integers (B7a, n_pair, B3's
+// occurrence weight) and B7b's and B7c's sums in double, then written as
+// f32, as the JAX outputs are: with graded labels a group's pair count can
+// pass 2^24.  Any B >= 1: no padding to a tile, no sentinel group.
 //
 // What bounds them: B^2 pair tests (67.1M at B = 8,192) of a few integer and
 // float operations each, and for the loss transcendentals for the valid
@@ -196,8 +200,8 @@ matvec_sweep(Inputs in, int cols_per, double* __restrict__ part) {
   if (t < in.B) part[(size_t)blockIdx.y * in.B + t] = sum;
 }
 
-// B7c and B3's occurrence weight: the unmasked members of t's group (tot)
-// and those with label > 0.5 (pos), over the main group.
+// B3's occurrence weight: the unmasked members of t's group (tot) and those
+// with label > 0.5 (pos), over the main group.
 __global__ void __launch_bounds__(kThreads)
 binary_count_sweep(Inputs in, int cols_per, int2* __restrict__ part) {
   __shared__ Tile c;
@@ -218,6 +222,30 @@ binary_count_sweep(Inputs in, int cols_per, int2* __restrict__ part) {
     }
   }
   if (t < in.B) part[(size_t)blockIdx.y * in.B + t] = make_int2(pos, tot);
+}
+
+// B7c: sum of mask * label (pos) and of mask (tot) over t's group, in
+// double.
+__global__ void __launch_bounds__(kThreads)
+binary_sum_sweep(Inputs in, int cols_per, double2* __restrict__ part) {
+  __shared__ Tile c;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const Side a = load_side(in, t);
+  const int c_begin = blockIdx.y * cols_per;
+  const int c_end = min(in.B, c_begin + cols_per);
+  double pos = 0.0, tot = 0.0;
+  for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
+    __syncthreads();
+    stage(c, in, c0, c_end);
+    __syncthreads();
+    const int n = min(kTile, c_end - c0);
+    for (int i = 0; i < n; ++i) {
+      if (!same_groups(a, c, i, 1)) continue;
+      pos += (double)(c.m[i] * c.lab[i]);
+      tot += (double)c.m[i];
+    }
+  }
+  if (t < in.B) part[(size_t)blockIdx.y * in.B + t] = make_double2(pos, tot);
 }
 
 // B3: t's row and column terms.
@@ -264,10 +292,11 @@ pair_sweep(Inputs in, float factor, bool wrong_order, int cols_per,
 
 // ---- the merges, one pass each, slices in order ---------------------------
 
-enum Merge { kRowCounts, kMatvec, kBinaryCounts, kWeights };
+enum Merge { kRowCounts, kMatvec, kBinarySums, kWeights };
 
-// out[t] from the slices' partials.  kWeights: out[t] = row_w[t] (1 if
-// null) * (gpc > 0 ? gpc^power : 0) with gpc = pos (tot - pos).
+// out[t] from the slices' partials.  kBinarySums: out[t] = pos (tot - pos)
+// in double; kWeights: out[t] = row_w[t] (1 if null) * (gpc > 0 ? gpc^power
+// : 0) with gpc = pos (tot - pos).
 __global__ void __launch_bounds__(kThreads)
 merge_rows(int mode, const void* __restrict__ part, int B, int splits,
            const float* __restrict__ row_w, float power,
@@ -284,6 +313,14 @@ merge_rows(int mode, const void* __restrict__ part, int B, int splits,
     for (int s = 0; s < splits; ++s)
       sum += static_cast<const double*>(part)[(size_t)s * B + t];
     out[t] = (float)sum;
+  } else if (mode == kBinarySums) {
+    double pos = 0.0, tot = 0.0;
+    for (int s = 0; s < splits; ++s) {
+      const double2 p = static_cast<const double2*>(part)[(size_t)s * B + t];
+      pos += p.x;
+      tot += p.y;
+    }
+    out[t] = (float)(pos * (tot - pos));
   } else {
     long long pos = 0, tot = 0;
     for (int s = 0; s < splits; ++s) {
@@ -292,12 +329,8 @@ merge_rows(int mode, const void* __restrict__ part, int B, int splits,
       tot += p.y;
     }
     const float gpc = (float)(pos * (tot - pos));
-    if (mode == kBinaryCounts) {
-      out[t] = gpc;
-    } else {
-      const float w = row_w ? row_w[t] : 1.f;
-      out[t] = gpc > 0.f ? w * powf(gpc, power) : 0.f;
-    }
+    const float w = row_w ? row_w[t] : 1.f;
+    out[t] = gpc > 0.f ? w * powf(gpc, power) : 0.f;
   }
 }
 
@@ -338,8 +371,8 @@ merge_loss(const float* __restrict__ part_loss,
   }
 }
 
-// ---- B3 by segments: a sort by the main group, then sweeps inside each
-// group --------------------------------------------------------------------
+// ---- By segments: a sort by the main group, then work inside each group
+// ---------------------------------------------------------------------------
 //
 // A pair can only be valid inside one group of the first condition, so for
 // B <= kSortMax the loss takes three launches and no (i, j) sweep:
@@ -378,8 +411,24 @@ merge_loss(const float* __restrict__ part_loss,
 //      last item, was slower: a fence a thread for every item.)
 // Work: the sort's passes over B keys and sum over groups of n^2 tests
 // (5.6M on a B = 8,192 SyntheticCriteo batch where the sweeps tested 67.1M
-// twice); one group of all B does the B^2 tests, all singletons B.  Past
-// kSortMax, the O(B^2) sweeps above run instead.
+// twice); one group of all B does the B^2 tests, all singletons B.
+//
+// B7a takes the same two first launches, the sweep counting only t's row
+// side (segment_sweep<true>: no transcendental, no column term), and needs
+// no third: the sort zeroes out and each thread adds its item's count to
+// out[its index] with one f32 atomic where the count is not 0.  Every
+// partial sum is an integer below 2^24 (a row has fewer than B pairs), so
+// each add is exact and the result does not depend on their order: repeats
+// are bit-equal.
+//
+// B7c is one launch of one block (binary_sort_kernel): group_sort.cuh's
+// sort of (g0[i], i), segment heads from adjacent keys, one segmented scan
+// of (mask * label, mask) in double, each group's pos (tot - pos) taken at
+// its segment's last position and written to every member's index.  Sums of
+// 0/1 values in double are exact integers, so on binary labels and a 0/1
+// mask it is bit-equal to the integer counts of the sweep it replaced.
+//
+// Past kSortMax, the O(B^2) sweeps above run instead.
 // beside the index in a value: the mask test, mask and label tests, the
 // label test alone (the sort's extra key bit), then the segment
 constexpr int kMaskBit = 1 << 13, kPosBit = 1 << 14, kLabBit = 1 << 15;
@@ -405,6 +454,7 @@ struct Sorted {
   double* loss;        // the merge's per-block sums (32 each) and the
   long long* cnt;      // count of blocks done
   unsigned* done;
+  float* counts;       // B7a's output, zeroed by the sort (null for B3)
 };
 
 // One sample's values as the sweep takes them: sorted position s.
@@ -457,6 +507,8 @@ sort_segments_kernel(Inputs in, float power, Sorted so) {
     hi = max(hi, k);
   }
   if (t == 0) *so.done = 0u;
+  if (so.counts)
+    for (int i = t; i < B; i += kSortThreads) so.counts[i] = 0.f;
   block_min_max(lo, hi, wlo, whi);
   // the label test as the key's lowest bit where the range leaves one;
   // either way within a group the negatives come before the positives, so
@@ -578,7 +630,9 @@ __device__ __forceinline__ int row_block_of(const int* items, int item) {
   return rb;
 }
 
-// Step 2: each item's rows' row and column terms over its slice.
+// Step 2: each item's rows' row and column terms over its slice; kCount
+// (B7a): the rows' valid pairs only, added into so.counts.
+template <bool kCount>
 __global__ void __launch_bounds__(kRows)
 segment_sweep(Inputs in, Sorted so, bool occ, float factor,
               bool wrong_order, float* __restrict__ part_loss,
@@ -626,21 +680,29 @@ segment_sweep(Inputs in, Sorted so, bool occ, float factor,
         if (!same) continue;
         if (ordered_valid(t, ax, al, am, v, cx[i], cl[i], cm[i],
                           wrong_order)) {       // (t, v): t's row terms
-          const float d = (ax - cx[i]) * factor;
-          loss += wt * softplus(-d);
-          dr -= wt * factor * sigmoid(-d);
+          if constexpr (!kCount) {
+            const float d = (ax - cx[i]) * factor;
+            loss += wt * softplus(-d);
+            dr -= wt * factor * sigmoid(-d);
+          }
           ++cnt;
-        } else if (ordered_valid(v, cx[i], cl[i], cm[i], t, ax, al, am,
-                                 wrong_order)) {  // (v, t): column terms
-          const float d = (cx[i] - ax) * factor;
-          dr += cw[i] * factor * sigmoid(-d);
+        } else if constexpr (!kCount) {
+          if (ordered_valid(v, cx[i], cl[i], cm[i], t, ax, al, am,
+                            wrong_order)) {     // (v, t): column terms
+            const float d = (cx[i] - ax) * factor;
+            dr += cw[i] * factor * sigmoid(-d);
+          }
         }
       }
+      if constexpr (kCount)
+        if (cnt) atomicAdd(so.counts + a.idx, (float)cnt);
     }
-    const size_t o = (size_t)item * kRows + threadIdx.x;
-    part_loss[o] = loss;
-    part_cnt[o] = cnt;
-    part_dx[o] = dr;
+    if constexpr (!kCount) {
+      const size_t o = (size_t)item * kRows + threadIdx.x;
+      part_loss[o] = loss;
+      part_cnt[o] = cnt;
+      part_dx[o] = dr;
+    }
   }
 }
 
@@ -700,19 +762,73 @@ merge_segments(Sorted so, int B, const float* __restrict__ part_loss,
   }
 }
 
+// B7c's sums over a group, in double.
+struct PosTot {
+  double pos, tot;
+};
+
+struct PosTotOp {
+  __device__ static PosTot op(const PosTot& a, const PosTot& b) {
+    return {a.pos + b.pos, a.tot + b.tot};
+  }
+  __device__ static PosTot up(const PosTot& a, int o) {
+    return {__shfl_up_sync(0xffffffffu, a.pos, o),
+            __shfl_up_sync(0xffffffffu, a.tot, o)};
+  }
+};
+
+// B7c at B <= kSortMax (see "By segments" above): thread t holds sorted
+// positions [t kSortPer, (t + 1) kSortPer) after the sort.
+__global__ void __launch_bounds__(kSortThreads)
+binary_sort_kernel(const int* __restrict__ grp, const float* __restrict__ lab,
+                   const float* __restrict__ mask, int B,
+                   float* __restrict__ out) {
+  extern __shared__ int sm[];
+  unsigned* keys = reinterpret_cast<unsigned*>(sm);    // [spad(kSortMax)]
+  int* vals = sm + spad(kSortMax);                      // [spad(kSortMax)]
+  int* cnt = vals + spad(kSortMax);                     // [pad(kCounters)]
+  __shared__ unsigned wsum[32], wlo[32], whi[32];
+  __shared__ PosTot wsums[32];
+  __shared__ int wf[32];
+  // from here the keys' space is free
+  const Segments sg = sort_groups(grp, B, keys, vals, cnt, wsum, wlo, whi);
+  const int p0 = threadIdx.x * kSortPer;
+  PosTot v[kSortPer];
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j) {
+    v[j] = {0.0, 0.0};
+    if (p0 + j < B) {
+      const int i = vals[spad(p0 + j)];
+      const float m = mask ? mask[i] : 1.f;
+      v[j] = {(double)(m * lab[i]), (double)m};
+    }
+  }
+  block_seg_scan<PosTotOp>(v, sg.heads, wsums, wf);
+  float* seg_gpc = reinterpret_cast<float*>(keys);      // [segments]
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j)
+    if (sg.lasts >> j & 1u)
+      seg_gpc[sg.of(j)] = (float)(v[j].pos * (v[j].tot - v[j].pos));
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kSortPer; ++j)
+    if (p0 + j < B) out[vals[spad(p0 + j)]] = seg_gpc[sg.of(j)];
+}
+
 // Items of the sweep at most: each row block's columns span at most B.
 long long max_items(int B) {
   return (long long)((B + kRows - 1) / kRows) * ((B + kCols - 1) / kCols);
 }
 
-// 4-byte words of Sorted and the sweep's partials for a batch of B, from
-// an allocation aligned to 8 bytes.
-long long sorted_words(int B) {
-  return 2 * 32 + 2 * 32 + 2 + 3LL * B + 1 + 34 + 3 * max_items(B) * kRows;
+// 4-byte words of Sorted and, for the loss (B3), the sweep's partials for
+// a batch of B, from an allocation aligned to 8 bytes.
+long long sorted_words(int B, bool partials) {
+  return 2 * 32 + 2 * 32 + 2 + 3LL * B + 1 + 34 +
+         (partials ? 3 * max_items(B) * kRows : 0);
 }
 
-// Carves scratch (8-byte aligned) into so and the partials; the 8-byte
-// parts first.
+// Carves scratch (8-byte aligned) into so and, where part_loss is not null,
+// the partials; the 8-byte parts first.
 void carve_sorted(void* scratch, int B, Sorted* so, float** part_loss,
                   int** part_cnt, float** part_dx) {
   int* p = static_cast<int*>(scratch);
@@ -728,6 +844,8 @@ void carve_sorted(void* scratch, int B, Sorted* so, float** part_loss,
   so->start = take(B + 1);
   so->segw = reinterpret_cast<float*>(take(B));
   so->items = take(34);
+  so->counts = nullptr;
+  if (!part_loss) return;
   *part_loss = reinterpret_cast<float*>(take(max_items(B) * kRows));
   *part_cnt = take(max_items(B) * kRows);
   *part_dx = reinterpret_cast<float*>(take(max_items(B) * kRows));
@@ -781,6 +899,22 @@ int sm_count(int device) {
   return v;
 }
 
+// Step 1 for B3 and B7a; *grid: the sweep's, a fixed grid of a few blocks
+// an SM that takes the items in turn.
+cudaError_t sort_segments(const Inputs& in, float power, const Sorted& so,
+                          int device, cudaStream_t s, int* grid) {
+  const int sms = sm_count(device);
+  if (sms == 0) return cudaErrorInvalidValue;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t e =
+      allow_sort_smem((const void*)sort_segments_kernel, device, smem_set);
+  if (e != cudaSuccess) return e;
+  sort_segments_kernel<<<1, kSortThreads, sort_smem(), s>>>(in, power, so);
+  const long long most = max_items(in.B);
+  *grid = (int)(most < 8LL * sms ? most : 8LL * sms);
+  return cudaSuccess;
+}
+
 // B3 on a batch of B <= kSortMax: the three launches described above.
 cudaError_t pair_loss_sorted(const Inputs& in, float factor, float power,
                              bool wrong_order, void* scratch, float* out,
@@ -790,22 +924,42 @@ cudaError_t pair_loss_sorted(const Inputs& in, float factor, float power,
   float *part_loss, *part_dx;
   int* part_cnt;
   carve_sorted(scratch, B, &so, &part_loss, &part_cnt, &part_dx);
-  const int sms = sm_count(device);
-  if (sms == 0) return cudaErrorInvalidValue;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t e =
-      allow_sort_smem((const void*)sort_segments_kernel, device, smem_set);
+  int grid;
+  const cudaError_t e = sort_segments(in, power, so, device, s, &grid);
   if (e != cudaSuccess) return e;
-  sort_segments_kernel<<<1, kSortThreads, sort_smem(), s>>>(in, power, so);
-  // a fixed grid of a few blocks an SM takes the items in turn
-  const long long most = max_items(B);
-  const int grid = (int)(most < 8LL * sms ? most : 8LL * sms);
-  segment_sweep<<<grid, kRows, 0, s>>>(in, so, power != 0.f, factor,
-                                       wrong_order, part_loss, part_cnt,
-                                       part_dx);
+  segment_sweep<false><<<grid, kRows, 0, s>>>(in, so, power != 0.f, factor,
+                                              wrong_order, part_loss,
+                                              part_cnt, part_dx);
   merge_segments<<<(B + kRows - 1) / kRows, kRows, 0, s>>>(
       so, B, part_loss, part_cnt, part_dx, dx, out);
   return cudaGetLastError();
+}
+
+// B7a on a batch of B <= kSortMax: the sort and the count sweep into out.
+cudaError_t row_counts_sorted(const Inputs& in, bool wrong_order,
+                              void* scratch, float* out, int device,
+                              cudaStream_t s) {
+  Sorted so;
+  carve_sorted(scratch, in.B, &so, nullptr, nullptr, nullptr);
+  so.counts = out;
+  int grid;
+  const cudaError_t e = sort_segments(in, 0.f, so, device, s, &grid);
+  if (e != cudaSuccess) return e;
+  segment_sweep<true><<<grid, kRows, 0, s>>>(in, so, false, 1.f, wrong_order,
+                                             nullptr, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+// The paths of row_counts_f32 and binary_counts_f32: 0 the sort where B <=
+// kSortMax, else the sweep; 1 the sort (B <= kSortMax only); 2 the sweep.
+enum { kAuto = 0, kSort = 1, kSweep = 2 };
+
+bool takes_sort(int B, int path) {
+  return path == kSort || (path == kAuto && B <= kSortMax);
+}
+
+bool bad_path(int B, int path) {
+  return path < kAuto || path > kSweep || (path == kSort && B > kSortMax);
 }
 
 }  // namespace
@@ -819,19 +973,20 @@ const char* error_string(int code) {
 // Most group conditions a call may AND.
 int pair_max_groups() { return kMaxGroups; }
 
-// 4-byte words of scratch each entry point needs for a batch of B (>= 1),
-// from an allocation aligned to 8 bytes:
-// kind 0 pair_loss_f32, 1 row_counts_f32, 2 group_matvec_f32,
-// 3 binary_counts_f32.
-long long pair_scratch_words(int kind, int B) {
+// 4-byte words of scratch each entry point needs for a batch of B (>= 1)
+// on `path` (row_counts_f32's and binary_counts_f32's; the others take
+// any), from an allocation aligned to 8 bytes: kind 0 pair_loss_f32, 1
+// row_counts_f32, 2 group_matvec_f32, 3 binary_counts_f32 (none on the
+// sort).
+long long pair_scratch_words(int kind, int B, int path) {
   const long long sb = (long long)splits_for(B) * B;
   switch (kind) {
     case 0:                              // sorted, or (pos, tot), w,
-      return B <= kSortMax ? sorted_words(B) : 2 * sb + B + 3 * sb;
+      return B <= kSortMax ? sorted_words(B, true) : 2 * sb + B + 3 * sb;
                                          // loss, dx, cnt
-    case 1: return sb;
+    case 1: return takes_sort(B, path) ? sorted_words(B, false) : sb;
     case 2: return 2 * sb;               // doubles
-    default: return 2 * sb;              // int2
+    default: return takes_sort(B, path) ? 0 : 4 * sb;   // double2
   }
 }
 
@@ -878,15 +1033,20 @@ int pair_loss_f32(const float* logits, const float* labels,
 }
 
 // B7a.  logits (B,) f32 (read only with wrong_order), labels (B,) f32,
-// groups (ng, B) int32, mask (B,) f32 or null -> out (B,) f32.
+// groups (ng, B) int32, mask (B,) f32 or null -> out (B,) f32; `path` as
+// above.
 int row_counts_f32(const float* logits, const float* labels,
                    const int* groups, int ng, const float* mask, int B,
-                   int wrong_order, void* scratch, float* out, int device,
-                   void* stream) {
+                   int wrong_order, int path, void* scratch, float* out,
+                   int device, void* stream) {
+  if (bad_path(B, path)) return cudaErrorInvalidValue;
   Launch l;
   cudaError_t e = begin(B, ng, device, stream, &l);
   if (e != cudaSuccess) return e;
   const Inputs in{logits, labels, groups, ng, mask, nullptr, B};
+  if (takes_sort(B, path))
+    return row_counts_sorted(in, wrong_order != 0, scratch, out, device,
+                             l.stream);
   int* part = static_cast<int*>(scratch);
   row_count_sweep<<<l.sweep, kThreads, 0, l.stream>>>(in, wrong_order != 0,
                                                       l.cols_per, part);
@@ -912,19 +1072,27 @@ int group_matvec_f32(const int* groups, const float* vec, int B,
 }
 
 // B7c.  groups (B,) int32, labels (B,) f32, mask (B,) f32 or null -> out
-// (B,) f32.
+// (B,) f32; `path` as above.
 int binary_counts_f32(const int* groups, const float* labels,
-                      const float* mask, int B, void* scratch, float* out,
-                      int device, void* stream) {
+                      const float* mask, int B, int path, void* scratch,
+                      float* out, int device, void* stream) {
+  if (bad_path(B, path)) return cudaErrorInvalidValue;
   Launch l;
   cudaError_t e = begin(B, 1, device, stream, &l);
   if (e != cudaSuccess) return e;
+  if (takes_sort(B, path)) {
+    static std::atomic<bool> smem_set[kMaxDevices];
+    e = allow_sort_smem((const void*)binary_sort_kernel, device, smem_set);
+    if (e != cudaSuccess) return e;
+    binary_sort_kernel<<<1, kSortThreads, sort_smem(), l.stream>>>(
+        groups, labels, mask, B, out);
+    return cudaGetLastError();
+  }
   const Inputs in{nullptr, labels, groups, 1, mask, nullptr, B};
-  int2* part = static_cast<int2*>(scratch);
-  binary_count_sweep<<<l.sweep, kThreads, 0, l.stream>>>(in, l.cols_per,
-                                                         part);
+  double2* part = static_cast<double2*>(scratch);
+  binary_sum_sweep<<<l.sweep, kThreads, 0, l.stream>>>(in, l.cols_per, part);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  merge_rows<<<l.rows, kThreads, 0, l.stream>>>(kBinaryCounts, part, B,
+  merge_rows<<<l.rows, kThreads, 0, l.stream>>>(kBinarySums, part, B,
                                                 l.splits, nullptr, 0.f, out);
   return cudaGetLastError();
 }

@@ -13,8 +13,10 @@ mask is > 0.5 on both sides (a 0/1 mask; None = all valid) and, with
 * :func:`same_group_matvec` (B7b) -- ``out[i] = sum_k [g_i == g_k]
   vec[k]`` over one group vector.
 * :func:`group_pair_counts_binary` (B7c) -- ``pos(g_i) * (tot(g_i) -
-  pos(g_i))`` over one group: the pair count of row i's group for binary
-  labels and a 0/1 mask (the same identity is inside the loss kernel).
+  pos(g_i))`` over one group, with pos the sum of mask * label and tot
+  the sum of mask, as the TPU kernel sums them: the pair count of row
+  i's group for binary labels and a 0/1 mask (the same identity, over
+  members with label > 0.5 and mask > 0.5, is inside the loss kernel).
 * :func:`pair_loss_fused` (B3) -- ``(loss_sum, n_pair, dlogits)`` of
   ``sum_valid w_i softplus(-(x_i - x_j) factor)``, with optional row
   weights ``w`` and, when ``occurrence_power != 0``, the occurrence weight
@@ -27,8 +29,12 @@ mask is > 0.5 on both sides (a 0/1 mask; None = all valid) and, with
 Each wrapper takes its ``*_plain`` version (the (B, B) formulas) for CPU
 tensors and its kernel for CUDA tensors; ``<wrapper>.launches`` counts
 kernel launches (``pair_loss_sum.launches`` counts ``pair_loss_fused``'s).
-The counts are f32, as JAX's, from integer sums on the card.  The kernel's
-column tile is a compile-time constant (no tile override exists).
+At B <= :data:`SORT_MAX` B3 and B7a sort the batch by its main group and
+work inside each group, and B7c sorts and sums each group in one block;
+past it, and for B7b, O(B^2) sweeps run (:func:`_pair_row_counts` and
+:func:`_group_pair_counts_binary` force either path).  The counts are
+f32, as JAX's, from integer sums on the card (B7c's sums in double).  The
+kernel's column tile is a compile-time constant (no tile override exists).
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops._build import check_input, check_rc, is_cpu
+from rec_now_tpu_torch.ops.listwise_kernel import PATHS, SORT_MAX
 
 GroupLike = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -94,11 +101,16 @@ def group_pair_counts_binary_plain(groups: torch.Tensor,
                                    sample_mask: Optional[torch.Tensor] = None
                                    ) -> torch.Tensor:
     """(B,) ``pos * (tot - pos)`` over row i's group with pos = sum of
-    mask * label and tot = sum of mask (``pairwise_kernel.py:220-225``)."""
+    mask * label and tot = sum of mask (``pairwise_kernel.py:220-225``),
+    summed and multiplied in float64 and rounded once to f32, as the
+    kernel does: f32 sums lose the difference where tot - pos is small
+    beside pos (graded labels, a fractional mask, a large group)."""
     lab = labels.float()
     m = torch.ones_like(lab) if sample_mask is None else sample_mask.float()
-    pos = same_group_matvec_plain(groups, m * lab)
-    return pos * (same_group_matvec_plain(groups, m) - pos)
+    g = groups.reshape(-1)
+    same = (g[:, None] == g[None, :]).double()
+    pos = same @ (m * lab).double()
+    return (pos * (same @ m.double() - pos)).float()
 
 
 def pair_loss_fused_plain(logits: torch.Tensor, labels: torch.Tensor,
@@ -142,15 +154,15 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.pair_max_groups.restype = i32
-        lib.pair_scratch_words.argtypes = [i32, i32]
+        lib.pair_scratch_words.argtypes = [i32, i32, i32]
         lib.pair_scratch_words.restype = ctypes.c_longlong
         lib.pair_loss_f32.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32, f32,
                                       f32, i32, ptr, ptr, ptr, i32, ptr]
         lib.row_counts_f32.argtypes = [ptr, ptr, ptr, i32, ptr, i32, i32,
-                                       ptr, ptr, i32, ptr]
+                                       i32, ptr, ptr, i32, ptr]
         lib.group_matvec_f32.argtypes = [ptr, ptr, i32, ptr, ptr, i32, ptr]
-        lib.binary_counts_f32.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, i32,
-                                          ptr]
+        lib.binary_counts_f32.argtypes = [ptr, ptr, ptr, i32, i32, ptr, ptr,
+                                          i32, ptr]
         for fn in (lib.pair_loss_f32, lib.row_counts_f32,
                    lib.group_matvec_f32, lib.binary_counts_f32):
             fn.restype = i32
@@ -178,10 +190,16 @@ def _groups(groups: GroupLike, b: int, dev: torch.device,
     return g
 
 
-def _scratch(lib: ctypes.CDLL, kind: int, b: int,
-             dev: torch.device) -> torch.Tensor:
-    return torch.empty(lib.pair_scratch_words(kind, b), dtype=torch.float32,
-                       device=dev)
+def _scratch(lib: ctypes.CDLL, kind: int, b: int, dev: torch.device,
+             path: str = "auto") -> Optional[torch.Tensor]:
+    words = lib.pair_scratch_words(kind, b, PATHS[path])
+    return (torch.empty(words, dtype=torch.float32, device=dev) if words
+            else None)
+
+
+def _check_path(b: int, path: str) -> None:
+    if path == "sort" and b > SORT_MAX:
+        raise ValueError(f"the sort path takes B <= {SORT_MAX}, got {b}")
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -195,6 +213,15 @@ def pair_row_counts(logits: torch.Tensor, labels: torch.Tensor,
     """(B,) f32 valid pairs anchored at each row; logits, labels and the
     mask (B,) float32, groups as in the module docstring.  Not
     differentiable."""
+    return _pair_row_counts(logits, labels, groups, sample_mask,
+                            wrong_order, "auto")
+
+
+def _pair_row_counts(logits: torch.Tensor, labels: torch.Tensor,
+                     groups: GroupLike, sample_mask: Optional[torch.Tensor],
+                     wrong_order: bool, path: str) -> torch.Tensor:
+    """:func:`pair_row_counts` on the kernel's ``path`` (a key of
+    :data:`PATHS`; a CPU tensor takes the plain version whatever it is)."""
     if is_cpu(logits, "pair_row_counts"):
         return pair_row_counts_plain(logits, labels, groups, sample_mask,
                                      wrong_order)
@@ -202,13 +229,14 @@ def pair_row_counts(logits: torch.Tensor, labels: torch.Tensor,
     _vectors(b, dev, logits=logits, labels=labels, sample_mask=sample_mask)
     lib = _lib()
     g = _groups(groups, b, dev, lib)
+    _check_path(b, path)
     out = torch.empty(b, dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    scratch = _scratch(lib, _ROW_COUNTS, b, dev)
+    scratch = _scratch(lib, _ROW_COUNTS, b, dev, path)
     rc = lib.row_counts_f32(logits.data_ptr(), labels.data_ptr(),
                             g.data_ptr(), g.shape[0], _ptr(sample_mask), b,
-                            int(wrong_order), scratch.data_ptr(),
+                            int(wrong_order), PATHS[path], _ptr(scratch),
                             out.data_ptr(), dev.index,
                             _build.stream_of(logits))
     check_rc(lib, rc, "pair_row_counts")
@@ -247,22 +275,33 @@ same_group_matvec.launches = 0
 def group_pair_counts_binary(groups: torch.Tensor, labels: torch.Tensor,
                              sample_mask: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """(B,) f32 pair count of row i's group, ``pos * (tot - pos)``, for
-    binary labels and a 0/1 mask (the caller's promise, unchecked): groups
-    (B,) int, labels and mask (B,) float32.  Not differentiable."""
+    """(B,) f32 ``pos * (tot - pos)`` over row i's group, pos the sum of
+    mask * label and tot the sum of mask (the member count without a
+    mask): the group's pair count for binary labels and a 0/1 mask (the
+    caller's promise, unchecked).  groups (B,) int, labels and mask (B,)
+    float32.  Not differentiable."""
+    return _group_pair_counts_binary(groups, labels, sample_mask, "auto")
+
+
+def _group_pair_counts_binary(groups: torch.Tensor, labels: torch.Tensor,
+                              sample_mask: Optional[torch.Tensor],
+                              path: str) -> torch.Tensor:
+    """:func:`group_pair_counts_binary` on the kernel's ``path`` (a key of
+    :data:`PATHS`; a CPU tensor takes the plain version whatever it is)."""
     if is_cpu(labels, "group_pair_counts_binary"):
         return group_pair_counts_binary_plain(groups, labels, sample_mask)
     dev, b = labels.device, labels.shape[0]
     _vectors(b, dev, labels=labels, sample_mask=sample_mask)
     lib = _lib()
     g = _groups(groups.reshape(-1), b, dev, lib)
+    _check_path(b, path)
     out = torch.empty(b, dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    scratch = _scratch(lib, _BINARY, b, dev)
+    scratch = _scratch(lib, _BINARY, b, dev, path)
     rc = lib.binary_counts_f32(g.data_ptr(), labels.data_ptr(),
-                               _ptr(sample_mask), b, scratch.data_ptr(),
-                               out.data_ptr(), dev.index,
+                               _ptr(sample_mask), b, PATHS[path],
+                               _ptr(scratch), out.data_ptr(), dev.index,
                                _build.stream_of(labels))
     check_rc(lib, rc, "group_pair_counts_binary")
     group_pair_counts_binary.launches += 1

@@ -29,10 +29,13 @@ repeat of each; for lazy Adam (B10) ragged V, every D it takes, t = 1 and
 zipf-clustered rows, flags off the 16-byte grid and a bit-equal repeat;
 for the pair counts (B7a/b/c) and
 the general pair loss (B3) graded labels, two to four groups, a 0/1 mask
-and the wrong-order filter at B = 1 to 8,193, and for both pair-loss
-tests main groups of one group, all singletons, ids across the int32
-range and a SyntheticCriteo zipf batch, B on both sides of the one-block
-sort (8,192) and a bit-equal repeat of each; for the row gather (B11)
+and the wrong-order filter at B = 1 to 8,193, B7a and B7c on each path
+(the sort forced only where B <= 8,192), B7c also on graded labels with a
+fractional mask (1e-6 of the largest count: both sum in double, in
+other orders), and for the pair counts and pair-loss tests main groups of one
+group, all singletons, ids across the int32 range and a SyntheticCriteo
+zipf batch, B on both sides of the one-block sort (8,192) and a bit-equal
+repeat of each; for the row gather (B11)
 and the row scatter-add (B12) int32 and int64 ids, ragged and empty N,
 ids out of range, D = 5, a misaligned table or vals (the scalar loops),
 D = 128 (float4 atomics) and the full 2.6M x 16 table with a B = 8,192
@@ -624,10 +627,19 @@ def test_pair_counts_and_general_loss_match_plain(dev, b, ng, kind,
         g1 = _groups_of(kind, b, gen).to(dev)
     groups = [g1, g2] + [torch.randint(0, 3, (b,), generator=gen).to(dev)
                          for _ in range(ng - 2)]
+    want_counts = pk.pair_row_counts_plain(x, lab, groups, mask,
+                                           wrong_order)
+    # B7a on each path (the sort only where B <= 8,192; auto past it takes
+    # the sweep), exact, and bit-equal on a repeat
+    for path in (("auto", "sort", "sweep") if b <= pk.SORT_MAX
+                 else ("auto", "sweep")):
+        before = pk.pair_row_counts.launches
+        counts = pk._pair_row_counts(x, lab, groups, mask, wrong_order, path)
+        assert pk.pair_row_counts.launches == before + 1
+        torch.testing.assert_close(counts, want_counts, rtol=0, atol=0)
+        assert torch.equal(counts, pk._pair_row_counts(
+            x, lab, groups, mask, wrong_order, path))
     counts = pk.pair_row_counts(x, lab, groups, mask, wrong_order)
-    torch.testing.assert_close(
-        counts, pk.pair_row_counts_plain(x, lab, groups, mask, wrong_order),
-        rtol=0, atol=0)
     gpc = pk.same_group_matvec(g1, counts)
     torch.testing.assert_close(gpc, pk.same_group_matvec_plain(g1, counts),
                                rtol=0, atol=0)
@@ -652,18 +664,38 @@ def test_pair_counts_and_general_loss_match_plain(dev, b, ng, kind,
         assert torch.equal(a, r)
 
 
-@pytest.mark.parametrize("b", [1, 8191, 8192])
-def test_binary_counts_and_in_kernel_weight_match_plain(dev, b):
+# B on both sides of the one-block sort, main groups of each kind; B7c
+# on 0/1 inputs exact (and equal to B7a -> B7b), on graded labels and a
+# fractional mask within 1e-6 of the largest count (both sum in double,
+# in other orders), each path bit-equal on a repeat
+@pytest.mark.parametrize("b,kind", [
+    (1, "random"), (8191, "random"), (8192, "random"), (8193, "random"),
+    (8192, "one group"), (8192, "singletons"), (8192, "wide ids"),
+    (8192, "zipf"), (8193, "zipf"), (1000, "wide ids")])
+def test_binary_counts_and_in_kernel_weight_match_plain(dev, b, kind):
     x, lab, g1, _, mask = _general_batch(b, b + 1, dev)
+    if kind != "random":
+        g1 = _groups_of(kind, b, torch.Generator().manual_seed(b)).to(dev)
     clicks = (lab > 1).float()
-    before = pk.group_pair_counts_binary.launches
-    got = pk.group_pair_counts_binary(g1, clicks, mask)
-    assert pk.group_pair_counts_binary.launches == before + 1
+    frac = torch.rand(b, generator=torch.Generator().manual_seed(3)).to(dev)
     want = pk.group_pair_counts_binary_plain(g1, clicks, mask)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    graded_want = pk.group_pair_counts_binary_plain(g1, lab, frac)
     # the same counts by the general route, B7a then B7b
     via = pk.same_group_matvec(g1, pk.pair_row_counts(x, clicks, g1, mask))
-    torch.testing.assert_close(got, via, rtol=0, atol=0)
+    torch.testing.assert_close(want, via, rtol=0, atol=0)
+    for path in (("auto", "sort", "sweep") if b <= pk.SORT_MAX
+                 else ("auto", "sweep")):
+        before = pk.group_pair_counts_binary.launches
+        got = pk._group_pair_counts_binary(g1, clicks, mask, path)
+        assert pk.group_pair_counts_binary.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert torch.equal(got, pk._group_pair_counts_binary(
+            g1, clicks, mask, path))
+        graded = pk._group_pair_counts_binary(g1, lab, frac, path)
+        tol = 1e-6 * float(graded_want.abs().max())
+        assert float((graded - graded_want).abs().max()) <= tol
+        assert torch.equal(graded, pk._group_pair_counts_binary(
+            g1, lab, frac, path))
     loss, cnt, dx = pk.pair_loss_fused(x, clicks, g1, 1.0, -0.5,
                                        sample_mask=mask)
     ref = pk.pair_loss_fused_plain(x, clicks, g1, 1.0, -0.5,
@@ -720,6 +752,11 @@ def test_slice4_wrappers_reject_bad_inputs(dev):
                            1e-3)
     with pytest.raises(ValueError):      # five group conditions
         pk.pair_row_counts(z[0], z[0], [t.int()] * 5)
+    big = torch.zeros(pk.SORT_MAX + 1, device=dev)
+    with pytest.raises(ValueError, match="sort path"):   # past kSortMax
+        pk._pair_row_counts(big, big, big.int(), None, False, "sort")
+    with pytest.raises(ValueError, match="sort path"):
+        pk._group_pair_counts_binary(big.int(), big, None, "sort")
     with pytest.raises(ValueError):      # occurrence weight with two groups
         pk.pair_loss_fused(z[0], z[0], [t.int()] * 2, 1.0, -0.5)
 

@@ -4,7 +4,11 @@ kernel (B3) through their plain versions.
 
 * The plain ``pair_row_counts``, ``same_group_matvec`` and
   ``group_pair_counts_binary`` against the JAX Pallas kernels,
-  interpreted off the TPU (exact: small integer counts).
+  interpreted off the TPU (exact: small integer counts); the row counts
+  also on one group, singletons and ids at both int32 ends, and the
+  binary group counts on graded labels with a fractional mask, which
+  both sum as mask * label and mask (1e-6 of the largest count: f32 sums
+  in other orders).
 * The port's ``pairwise_loss`` -- loss, pair count and dlogits by
   autograd -- against JAX ``pairwise_loss`` (its (B, B) XLA path) over a
   grid: labels binary or graded {0, 1, 2}; one group or two AND-combined;
@@ -186,6 +190,51 @@ def test_counts_match_jax_pallas_interpret(b, wrong):
     right = pk.same_group_matvec(_t(groups[0]), pk.pair_row_counts(
         _t(x), _t(lab), _t(groups[0]), _t(mask)))
     assert not torch.equal(graded, right)
+
+
+# main groups the sort by group meets at its ends: one group of every
+# sample, all singletons (no pair), ids at both ends of the int32 range
+_EDGE_GROUPS = {
+    "one group": lambda rng, b: np.full(b, 7, np.int32),
+    "singletons": lambda rng, b: rng.permutation(b).astype(np.int32) - b // 2,
+    "int32 ends": lambda rng, b: rng.choice(np.array(
+        [-2 ** 31, -2 ** 31 + 1, -7, 0, 3, 2 ** 31 - 2, 2 ** 31 - 1],
+        np.int64), b).astype(np.int32)}
+
+
+@pytest.mark.parametrize("kind", sorted(_EDGE_GROUPS))
+@pytest.mark.parametrize("wrong", [False, True])
+def test_row_counts_plain_matches_jax_on_edge_groups(kind, wrong):
+    b = 53
+    x, lab, groups, mask = _batch(b, 13)
+    groups[0] = _EDGE_GROUPS[kind](np.random.RandomState(4), b)
+    jg = tuple(jnp.asarray(g) for g in groups)
+    want = np.asarray(jpk.pair_row_counts(jnp.asarray(x), jnp.asarray(lab),
+                                          jg, jnp.asarray(mask), wrong))
+    got = pk.pair_row_counts(_t(x), _t(lab), [_t(g) for g in groups],
+                             _t(mask), wrong)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want.sum() == 0) == (kind == "singletons")
+
+
+@pytest.mark.parametrize("b,frac", [(40, "levels"), (64, "levels"),
+                                    (64, "uniform")])
+def test_binary_counts_plain_matches_jax_on_graded_labels(b, frac):
+    # graded labels and a fractional mask: both sum mask * label and mask
+    x, lab, groups, _ = _batch(b, b + 5)
+    rng = np.random.RandomState(b)
+    mask = (rng.choice(np.float32([0.0, 0.3, 0.5, 0.7, 1.0]), b)
+            if frac == "levels" else rng.rand(b).astype(np.float32))
+    want = np.asarray(jpk.group_pair_counts_binary(
+        jnp.asarray(groups[0]), jnp.asarray(lab), jnp.asarray(mask)))
+    got = pk.group_pair_counts_binary(_t(groups[0]), _t(lab), _t(mask))
+    scale = np.abs(want).max()
+    assert scale > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6 * scale)
+    # the fractional values matter: counting by mask > 0.5 differs
+    by_half = pk.group_pair_counts_binary(_t(groups[0]), _t(lab),
+                                          _t((mask > 0.5).astype(np.float32)))
+    assert np.abs(by_half.numpy() - want).max() > 1e-6 * scale
 
 
 @pytest.mark.parametrize("wrong", [False, True])

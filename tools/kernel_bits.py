@@ -1,34 +1,42 @@
-"""Hold the pair loss (kernel B3) and lazy Adam (B10) of two trees of the
-port bit for bit, on the card.
+"""Hold the in-batch loss and count kernels (B3, B6, B7a, B7c) and lazy
+Adam (B10) of two trees of the port bit for bit, on the card, and time
+the pair counts (B7a/b/c) of one tree.
 
     python tools/kernel_bits.py dump TREE OUT.pt  # TREE/rec_now_tpu_torch
     python tools/kernel_bits.py compare A.pt B.pt  # exit 1 on a difference
+    python tools/kernel_bits.py time TREE          # B7a/b/c ms, one tree
 
 ``dump`` runs each kernel of ``TREE``'s package (built into its own
-``_build/``) on inputs made from fixed seeds -- B3 at B = 8,192 on a
-``SyntheticCriteo`` batch's labels with five kinds of main group
-(SyntheticCriteo's zipf users, one group, singletons, ids at the int32
-ends, 1,100 random ids), power 0 and -0.5; B10 on tables of 2.6M, 12,345,
-1,001 and 513 rows with a share of rows touched, t = 1 and 1,000 -- and
-saves the outputs.  ``compare`` prints how many of the cases differ.  Run
-``dump`` once per tree, each in its own process: both trees name their
-package ``rec_now_tpu_torch``.
+``_build/``) on inputs made from fixed seeds and saves the outputs: B3
+at B = 8,192 on a ``SyntheticCriteo`` batch's labels with five kinds of
+main group (SyntheticCriteo's zipf users, one group, singletons, ids at
+the int32 ends, 1,100 random ids), power 0 and -0.5; B6 (the listwise
+loss) on the clicks and each of the five; B7a on the same five with the batch's graded labels (click + conversion),
+its domain as the second condition and a 0/1 mask, with and without the
+wrong-order filter; B7c on the five main groups with the clicks, with
+and without a 0/1 mask; B10 on tables of 2.6M, 12,345, 1,001 and 513
+rows with a share of rows touched, t = 1 and 1,000.  ``compare`` prints
+how many of the cases differ.  ``time`` prints B7a, B7b and B7c on the
+inputs of ``chip_smoke.py`` phase 3's timing (B7a the graded labels, two
+conditions and the mask; B7b the group vector and B7a's counts; B7c the
+clicks and the mask) through the public wrappers: CUDA events (median of
+20) and the device time by kernel (``torch.profiler``, a call's mean
+over 20).  Run each mode once per tree, each in its own process: both
+trees name their package ``rec_now_tpu_torch``.
 """
+import os
+import re
 import sys
 
 import torch
 
 
-def dump(tree: str, out: str) -> None:
-    sys.path.insert(0, tree)
-    from rec_now_tpu_torch.ops import pairwise_kernel as pk
-    from rec_now_tpu_torch.ops import table_update_kernel as tk
+def _inputs(dev):
+    """The SyntheticCriteo B = 8,192 batch on the card, its five kinds of
+    main group, logits and a 0/1 mask from a fixed seed."""
     from rec_now_tpu_torch.training.data import SyntheticCriteo
-    dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(7)
-    res = {}
     batch = next(SyntheticCriteo(seed=0).batches(8192, 1, seed=1))
-    lab = torch.as_tensor(batch.labels).to(dev)
     grp = torch.as_tensor(batch.group_ids).to(dev)
     x = torch.randn(8192, generator=gen).to(dev)
     wide = torch.tensor([-2 ** 31, 2 ** 31 - 1, -70000, -7, 0, 2 ** 24 + 1],
@@ -40,10 +48,37 @@ def dump(tree: str, out: str) -> None:
               "wide ids": wide,
               "random": torch.randint(0, 1100, (8192,),
                                       generator=gen).int().to(dev)}
-    for name, g in groups.items():
+    return dict(
+        x=x, groups=groups, gen=gen,
+        lab=torch.as_tensor(batch.labels).to(dev),
+        graded=torch.as_tensor(batch.labels + batch.cvr_labels).to(dev),
+        dom=torch.as_tensor(batch.domain_idx).to(dev),
+        mask=(torch.rand(8192, generator=gen) > 0.1).float().to(dev))
+
+
+def dump(tree: str, out: str) -> None:
+    sys.path.insert(0, tree)
+    from rec_now_tpu_torch.ops import listwise_kernel as lk
+    from rec_now_tpu_torch.ops import pairwise_kernel as pk
+    from rec_now_tpu_torch.ops import table_update_kernel as tk
+    dev = torch.device("cuda", 0)
+    inp = _inputs(dev)
+    x, lab, gen = inp["x"], inp["lab"], inp["gen"]
+    res = {}
+    for name, g in inp["groups"].items():
         for power in (-0.5, 0.0):
             got = pk.pair_loss_fused(x, lab, g, 0.8, power)
             res[f"B3 {name} power={power}"] = [t.cpu() for t in got]
+        got = lk.listwise_loss_fused(x, lab, g)
+        res[f"B6 {name}"] = [t.cpu() for t in got]
+    for name, g in inp["groups"].items():
+        for wrong in (False, True):
+            got = pk.pair_row_counts(x, inp["graded"], [g, inp["dom"]],
+                                     inp["mask"], wrong)
+            res[f"B7a {name} wrong_order={wrong}"] = [got.cpu()]
+        for mask in (inp["mask"], None):
+            got = pk.group_pair_counts_binary(g, lab, mask)
+            res[f"B7c {name} mask={mask is not None}"] = [got.cpu()]
     for v, d, share in ((2_600_000, 16, 0.014), (12345, 16, 0.3),
                         (1001, 8, 0.5), (513, 16, 0.5)):
         touched = (torch.rand(v, generator=gen) < share).to(dev)
@@ -59,6 +94,40 @@ def dump(tree: str, out: str) -> None:
     torch.save(res, out)
 
 
+def _kernel(name: str) -> str:
+    """A profiler event's kernel name without its namespace and
+    arguments."""
+    m = re.search(r"::(\w+(?:<\w+>)?)\(", name)
+    return m.group(1) if m else name[:40]
+
+
+def time_counts(tree: str) -> None:
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    sys.path.insert(0, tree)
+    from rec_now_tpu_torch.ops import pairwise_kernel as pk
+    dev = torch.device("cuda", 0)
+    inp = _inputs(dev)
+    grp, mask = inp["groups"]["zipf"], inp["mask"]
+    two = [grp, inp["dom"]]
+    counts = pk.pair_row_counts_plain(inp["x"], inp["graded"], two, mask)
+    calls = {"B7a pair_row_counts": lambda: pk.pair_row_counts(
+                 inp["x"], inp["graded"], two, mask),
+             "B7b same_group_matvec": lambda: pk.same_group_matvec(
+                 grp, counts),
+             "B7c group_pair_counts_binary": lambda: pk
+             .group_pair_counts_binary(grp, inp["lab"], mask)}
+    card = cs.smi()
+    for what, fn in calls.items():
+        ms = cs.cuda_ms(torch, fn)
+        by = cs.profiled_by_name(torch, fn)
+        print(f"{tree}: {what} {ms:.4f} ms by events, "
+              f"{sum(by.values()):.4f} on the device ("
+              + "; ".join(f"{_kernel(n)} {t:.4f}" for n, t in by.items())
+              + f") [{card}]")
+
+
 def compare(a: str, b: str) -> int:
     ra, rb = torch.load(a), torch.load(b)
     if ra.keys() != rb.keys():
@@ -71,8 +140,12 @@ def compare(a: str, b: str) -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 4 or sys.argv[1] not in ("dump", "compare"):
+    argc = {"dump": 4, "compare": 4, "time": 3}
+    if len(sys.argv) < 2 or argc.get(sys.argv[1]) != len(sys.argv):
         sys.exit(__doc__)
     if sys.argv[1] == "compare":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
-    dump(sys.argv[2], sys.argv[3])
+    if sys.argv[1] == "time":
+        time_counts(sys.argv[2])
+    else:
+        dump(sys.argv[2], sys.argv[3])
