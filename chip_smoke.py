@@ -24,10 +24,18 @@ Phases, each of which ends the script with a non-zero exit on failure:
    repeated bit for bit, and its device time; the
    pair counts and the general pair loss on a B = 8192 batch with graded
    labels, two groups and a 0/1 mask: B7a and B7c on each path (auto,
-   the sort, the sweep), B7c also on graded labels with a fractional mask
-   (1e-6 of the largest count), each repeated bit for bit, and B7a/b/c's
-   paths by events and by kernel on the device, auto failing unless it
-   takes the sort), the row gather (B11, bit-exact)
+   the sort, the sweep), B7b's hash (exact on counts; on f32 vec 1e-6
+   of the largest sum), B7c also on
+   graded labels with a fractional mask (1e-6 of the largest count), the
+   general loss in one call on each path (the one sort, the composition
+   of sweeps) against its plain version and the B7a -> B7b -> B3
+   composition (loss 1e-5, dlogits 1e-4, the count exact), each repeated
+   bit for bit, and B7a/b/c's paths and the general loss, one call and
+   composed, by events and by kernel on the device (B7b also at B =
+   8,193), auto failing unless it takes the sort (B7b: unless it runs
+   its memset and two hash kernels) and the general call unless it
+   runs the sort, B7a's count sweep, B3's sweep and B3's merge once
+   each), the row gather (B11, bit-exact)
    and the row scatter-add (B12, within 1e-6 of each output's summed
    scale) on the 2.6M x 16 table with a B = 8192 batch's 212,992 ids (the
    dense buffer, the sparse path's dedup and its sentinel-heavy
@@ -91,12 +99,12 @@ gradients once (B12).
    step's own device times);
 7. the public ``pairwise_loss`` as an entry point at B = 8192 on the card
    against the CPU's (B, B) path (loss, pair count, dlogits): graded
-   labels with two groups, a mask and power -0.5 (``pair_row_counts``,
-   ``same_group_matvec``, ``pair_loss_sum`` once each), the same with the
-   wrong-order filter, binary labels with one group and
-   ``binary_labels=True`` (``pair_loss_sum`` alone); then
-   ``group_pair_counts_binary`` once, against ``pair_row_counts`` ->
-   ``same_group_matvec``;
+   labels with two groups, a mask and power -0.5 (``pair_loss_sum``
+   once: the general loss in one call, no ``pair_row_counts`` or
+   ``same_group_matvec``), the same with the wrong-order filter, binary
+   labels with one group and ``binary_labels=True`` (``pair_loss_sum``
+   alone); then ``group_pair_counts_binary`` once, against
+   ``pair_row_counts`` -> ``same_group_matvec`` (once each);
 8. the training entry point as users start it: ``main`` of
    ``rec_now_tpu_torch.train`` (what ``python -m
    rec_now_tpu_torch.train`` runs), in this process, at full width on
@@ -133,6 +141,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -196,6 +205,14 @@ STACK_PATHS = {128: "128-row blocks", 64: "64-row blocks",
 # pair_loss_sum's three launches a call at B <= 8,192, by part
 B3_PARTS = {"sort_segments_kernel": "sort and segments",
             "segment_sweep": "sweep", "merge_segments": "merge"}
+# the general loss's four launches a call at B <= 8,192 (one sort), by part
+GENERAL_PARTS = {"sort_segments_kernel": "sort and segments",
+                 "segment_sweep<true>": "count sweep",
+                 "segment_sweep<false>": "loss sweep",
+                 "merge_segments": "merge"}
+# same_group_matvec's device operations a call (its hash), by part
+B7B_PARTS = {"Memset": "zero", "hash_insert_kernel": "insert",
+             "hash_read_kernel": "read"}
 # launches that phase 3's "ms" of a kernel covers: one forward's
 MS_COVERS = {"cin_flat": 2, "cin_flat_bwd": 2, "multi_dense": 6}
 
@@ -261,6 +278,13 @@ def profiled_sequence(torch, fn, reps: int = 20) -> list:
     spins = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
     events = events[spins[-1] + 1:] if spins else events
     return [(e.name, e.time_range.elapsed_us() / 1e3) for e in events]
+
+
+def kernel_name(name: str) -> str:
+    """A profiler event's kernel name without its namespace and
+    arguments."""
+    m = re.search(r"::(\w+(?:<\w+>)?)\(", name)
+    return m.group(1) if m else name[:40]
 
 
 def profiled_by_name(torch, fn, reps: int = 20) -> dict:
@@ -1513,12 +1537,14 @@ def main() -> int:
                     compare(name, got, want, 0.0, rel=0.0))
                 repeat(name, lambda: pk._pair_row_counts(
                     xs, ls, gs, ms, wrong, path), got)
-            gpc = pk.same_group_matvec(gs[0], want)
+            # B7b: exact on the counts, bit-equal on a repeat
             wgpc = pk.same_group_matvec_plain(gs[0], want)
+            name = f"same_group_matvec {what} wrong_order={wrong}"
+            gpc = pk.same_group_matvec(gs[0], want)
             errs["same_group_matvec"] = max(
-                errs["same_group_matvec"], compare(
-                    f"same_group_matvec {what} wrong_order={wrong}", gpc,
-                    wgpc, 0.0, rel=0.0))
+                errs["same_group_matvec"],
+                compare(name, gpc, wgpc, 0.0, rel=0.0))
+            repeat(name, lambda: pk.same_group_matvec(gs[0], want), gpc)
             rw = torch.where(wgpc > 0, wgpc.clamp_min(1e-30) ** -0.5,
                              torch.zeros_like(wgpc))
             got = pk.pair_loss_fused(xs, ls, gs, 1.0, row_weights=rw,
@@ -1532,6 +1558,30 @@ def main() -> int:
             print(f"  {what} wrong_order={wrong}: {int(want[1])} pairs")
             errs["pair_loss_sum"] = max(errs["pair_loss_sum"], compare_all(
                 f"pair_loss_sum {what} wrong_order={wrong}", got, want))
+            # the general loss in one call on each path, against its plain
+            # version and the composition above (`got`): powf against
+            # torch's rsqrt, sums in other orders
+            gwant = pk.pair_loss_general_plain(xs, ls, gs, 1.0, -0.5,
+                                               sample_mask=ms,
+                                               wrong_order=wrong)
+            for path in ("auto", "sort", "sweep"):
+                name = f"pair_loss_general {what} wrong_order={wrong} {path}"
+                one = pk._pair_loss_general(xs, ls, gs, 1.0, -0.5, ms, wrong,
+                                            path)
+                if not float(one[1]) == float(gwant[1]) == float(got[1]):
+                    fail(f"{name}: count {float(one[1])} vs plain "
+                         f"{float(gwant[1])}, composed {float(got[1])}")
+                for ref, vs in ((gwant, "plain"), (got, "composed")):
+                    errs["pair_loss_sum"] = max(
+                        errs["pair_loss_sum"],
+                        compare(f"{name} vs {vs}: loss", one[0], ref[0], 0.0,
+                                rel=1e-5),
+                        compare(f"{name} vs {vs}: dlogits", one[2], ref[2],
+                                0.0))
+                again = pk._pair_loss_general(xs, ls, gs, 1.0, -0.5, ms,
+                                              wrong, path)
+                if not all(torch.equal(a, r) for a, r in zip(one, again)):
+                    fail(f"{name} is not bit-equal on a repeat")
         clicks = (ls > 1.5).float()     # a click and a conversion: binary
         want = pk.group_pair_counts_binary_plain(gs[0], clicks, ms)
         via = pk.same_group_matvec_plain(gs[0], pk.pair_row_counts_plain(
@@ -1556,20 +1606,26 @@ def main() -> int:
                 compare(f"{name}, graded labels, fractional mask", got_graded,
                         graded_want, 0.0, rel=1e-6))
     counts_full = pk.pair_row_counts_plain(xl, graded, two, mask)
-    gpc_full = pk.same_group_matvec_plain(grp, counts_full)
-    rw_full = torch.where(gpc_full > 0, gpc_full.clamp_min(1e-30) ** -0.5,
-                          torch.zeros_like(gpc_full))
+    # B7b on f32 vec: 1e-6 of the largest sum (the hash adds doubles in no
+    # fixed order)
+    vec = rand(8192, scale=3.0)
+    errs["same_group_matvec"] = max(
+        errs["same_group_matvec"],
+        compare("same_group_matvec B=8192 f32 vec",
+                pk.same_group_matvec(grp, vec),
+                pk.same_group_matvec_plain(grp, vec), 0.0, rel=1e-6))
     nb = 8192 * 4
     n_valid = float(pk.pair_loss_fused_plain(xl, graded, two, 1.0,
                                              sample_mask=mask)[1])
     # least work, with no (i, j) sweep: B7a a sort on (group, domain,
     # label) of the unmasked samples, then each sample's mask test and the
-    # count of its group's lower labels (4); B7b a sort by group, a
-    # segment add and a write back per sample (2); B7c a sort by group,
-    # mask * label, the pos and tot adds, pos * (tot - pos) (5 a sample)
+    # count of its group's lower labels (4); B7b a hash of each id, its
+    # slot's add and a read back (4 a sample, no sort); B7c a sort by
+    # group, mask * label, the pos and tot adds, pos * (tot - pos) (5 a
+    # sample)
     work = {
         "pair_row_counts": (sort_ops(8192, 3) + 4 * 8192, 6 * nb),
-        "same_group_matvec": (sort_ops(8192) + 2 * 8192, 3 * nb),
+        "same_group_matvec": (4 * 8192, 3 * nb),
         "group_pair_counts_binary": (sort_ops(8192) + 5 * 8192, 4 * nb),
     }
     calls = {
@@ -1594,10 +1650,15 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None)
     # each count kernel's paths, by events and on the device; auto at B =
     # 8,192 must take the sort (B7a: the sort and the count sweep, no
-    # O(B^2) sweep; B7c: one launch of one block).  B7a's conditions as
-    # one (2, B) tensor: a list costs the wrapper a stack kernel
+    # O(B^2) sweep; B7c: one launch of one block; B7b: its memset and two
+    # hash kernels, also at B = 8,193), and the general loss in one call
+    # the sort, B7a's count sweep, B3's sweep and B3's merge, once each.
+    # B7a's conditions as one (2, B) tensor: a list costs the wrapper a
+    # stack kernel
     reps = 20
     two_t = torch.stack(two).to(torch.int32)
+    grp1 = torch.cat([grp, grp[:1]])
+    counts1 = torch.cat([counts_full, counts_full[:1]])
     count_paths = (
         ("pair_row_counts", "auto (sort)", lambda: pk.pair_row_counts(
             xl, graded, two_t, mask),
@@ -1606,34 +1667,67 @@ def main() -> int:
         ("pair_row_counts", "sweep", lambda: pk._pair_row_counts(
             xl, graded, two_t, mask, False, "sweep"),
          {"row_count_sweep": "sweep", "merge_rows": "merge"}),
-        ("same_group_matvec", "sweep", calls["same_group_matvec"][0],
-         {"matvec_sweep": "sweep", "merge_rows": "merge"}),
+        ("same_group_matvec", "hash", calls["same_group_matvec"][0],
+         B7B_PARTS),
+        ("same_group_matvec", "hash, B=8193",
+         lambda: pk.same_group_matvec(grp1, counts1), B7B_PARTS),
         ("group_pair_counts_binary", "auto (sort)",
          calls["group_pair_counts_binary"][0],
          {"binary_sort_kernel": "sort and sums"}),
         ("group_pair_counts_binary", "sweep",
          lambda: pk._group_pair_counts_binary(grp, lab, mask, "sweep"),
-         {"binary_sum_sweep": "sweep", "merge_rows": "merge"}))
+         {"binary_sum_sweep": "sweep", "merge_rows": "merge"}),
+        ("pair_loss_general", "auto (one sort)",
+         lambda: pk.pair_loss_general(xl, graded, two_t, 1.0, -0.5,
+                                      sample_mask=mask), GENERAL_PARTS))
     for name, path, fn, parts in count_paths:
         ms = cuda_ms(torch, fn)
         split = kernel_split(profiled_sequence(torch, fn, reps), reps, parts,
                              name)
-        print(f"  {name}, {path}, B=8192: {ms:.4f} ms by events, "
+        at = "" if ", B=" in path else ", B=8192"
+        print(f"  {name}, {path}{at}: {ms:.4f} ms by events, "
               f"{sum(split.values()) / reps:.4f} on the device ("
               + "; ".join(f"{part} {t / reps:.4f}"
                           for part, t in split.items())
               + f"; torch.profiler) [{card}]")
+    # the general loss composed of sweeps in its one call, and as the
+    # parent composed it (B7a, B7b, the weights in torch, B3): each
+    # call's device operations, by kernel
+    def composed():
+        c = pk.pair_row_counts(xl, graded, two_t, mask)
+        g = pk.same_group_matvec(grp, c)
+        w = torch.where(g > 0, g.clamp_min(1e-30) ** -0.5,
+                        torch.zeros_like(g))
+        return pk.pair_loss_fused(xl, graded, two_t, 1.0, row_weights=w,
+                                  sample_mask=mask)
+
+    for path, fn in (
+            ("sweep (one call)", lambda: pk._pair_loss_general(
+                xl, graded, two_t, 1.0, -0.5, mask, False, "sweep")),
+            ("composed: B7a, B7b, weights, B3", composed)):
+        ms = cuda_ms(torch, fn)
+        seq = profiled_sequence(torch, fn, reps)
+        by = {}
+        for n, t in seq:
+            by[kernel_name(n)] = by.get(kernel_name(n), 0.0) + t / reps
+        print(f"  pair_loss_general, {path}, B=8192: {ms:.4f} ms by events, "
+              f"{sum(by.values()):.4f} on the device in "
+              f"{len(seq) / reps:g} operations a call ("
+              + "; ".join(f"{k} {t:.4f}" for k, t in by.items())
+              + f"; torch.profiler) [{card}]")
     kern["pair_loss_sum"]["max_abs_err"] = errs["pair_loss_sum"]
-    gen_ms = cuda_ms(torch, lambda: pk.pair_loss_fused(
-        xl, graded, two, 1.0, row_weights=rw_full, sample_mask=mask))
-    gen_plain = cuda_ms(torch, lambda: pk.pair_loss_fused_plain(
-        xl, graded, two, 1.0, row_weights=rw_full, sample_mask=mask))
-    # a sort on (group, domain, label), the mask test a sample, 12 a
-    # valid pair (pair_ops)
-    g_ms, g_by = bound_ms(sort_ops(8192, 3) + 8192 + 12 * n_valid,
-                          7 * nb + 8)
-    print(f"  pair_loss_sum, general form (graded labels, 2 groups, row "
-          f"weights, mask; {int(n_valid)} pairs): {gen_ms:.4f} ms kernel, "
+    gen_ms = cuda_ms(torch, lambda: pk.pair_loss_general(
+        xl, graded, two_t, 1.0, -0.5, sample_mask=mask))
+    gen_plain = cuda_ms(torch, lambda: pk.pair_loss_general_plain(
+        xl, graded, two_t, 1.0, -0.5, sample_mask=mask))
+    # a sort on (group, domain, label), the mask test a sample, each
+    # sample's count added to its group's and its group's weight (5 a
+    # sample), 12 a valid pair (pair_ops); logits, labels, two groups and
+    # the mask read, dlogits and the two sums written
+    g_ms, g_by = bound_ms(sort_ops(8192, 3) + 6 * 8192 + 12 * n_valid,
+                          6 * nb + 8)
+    print(f"  pair_loss_general (graded labels, 2 groups, mask, power "
+          f"-0.5; {int(n_valid)} pairs): {gen_ms:.4f} ms kernel, "
           f"{gen_plain:.4f} ms plain, bound {g_ms:.6f} ms ({g_by}) "
           f"[{card}]")
 
@@ -2163,10 +2257,10 @@ def main() -> int:
     entry_cases = (
         ("graded labels, 2 groups, mask, power -0.5", False,
          torch.as_tensor(lb.labels + lb.cvr_labels), groups2, False,
-         {"pair_row_counts": 1, "same_group_matvec": 1, "pair_loss_sum": 1}),
+         {"pair_loss_sum": 1}),
         ("the same with the wrong-order filter", True,
          torch.as_tensor(lb.labels + lb.cvr_labels), groups2, False,
-         {"pair_row_counts": 1, "same_group_matvec": 1, "pair_loss_sum": 1}),
+         {"pair_loss_sum": 1}),
         ("binary labels, 1 group, binary_labels=True", False,
          torch.as_tensor(lb.labels), groups2[:1], True,
          {"pair_loss_sum": 1}))
@@ -2200,8 +2294,10 @@ def main() -> int:
     gpc = counted("group_pair_counts_binary B=8192", 1,
                   {"group_pair_counts_binary": 1},
                   lambda: pk.group_pair_counts_binary(g_d, lab_d, m_d))
-    via = pk.same_group_matvec(g_d, pk.pair_row_counts(x_cpu.to(dev), lab_d,
-                                                       g_d, m_d))
+    via = counted("pair_row_counts -> same_group_matvec B=8192", 1,
+                  {"pair_row_counts": 1, "same_group_matvec": 1},
+                  lambda: pk.same_group_matvec(g_d, pk.pair_row_counts(
+                      x_cpu.to(dev), lab_d, g_d, m_d)))
     compare("group_pair_counts_binary vs pair_row_counts -> "
             "same_group_matvec", gpc, via, 0.0, rel=0.0)
     if not float(gpc.max()) > 0:

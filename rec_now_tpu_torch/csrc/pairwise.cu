@@ -4,9 +4,13 @@
 // Replaces, from rec_now_tpu/ops/pallas/pairwise_kernel.py:
 //   B3  _pair_loss_fused_impl     (pallas_call at :357)  pair_loss_f32
 //   B7a pair_row_counts           (pallas_call at :170)  row_counts_f32
-//   B7b same_group_matvec         (pallas_call at :190)  group_matvec_f32
+//   B7b same_group_matvec         (pallas_call at :190)  group_matvec_f32,
+//                                 and folded into pair_loss_general_f32
 //   B7c group_pair_counts_binary  (pallas_call at :227)  binary_counts_f32
-// with every option of the JAX kernel path.  A pair (i, j) is valid when
+// with every option of the JAX kernel path.  pair_loss_general_f32 is the
+// general occurrence-weighted loss of pairwise_loss_pallas (:451-461):
+// B7a's counts, B7b's sums over the main group, the weights and B3 in one
+// call.  A pair (i, j) is valid when
 // (pair_valid below, the one definition B3 and B7a use):
 //   - every one of the NG group conditions holds: g_k[i] == g_k[j];
 //   - i != j and label_i > label_j (any float labels);
@@ -30,10 +34,12 @@
 //        0/1; the in-kernel occurrence weight needs NG == 1 and no
 //        wrong-order filter, as JAX's does (:298-300); the host checks.
 //
-// At B <= 8,192 (every batch the port's cells take) B3 and B7a sort the
-// batch by its first group condition and sweep inside each group only, and
-// B7c sorts and sums each group in one block (see "By segments" below);
-// past that, and for B7b, the O(B^2) sweeps here.
+// At B <= 8,192 (every batch the port's cells take) B3, B7a and the
+// general loss sort the batch by its first group condition and sweep
+// inside each group only, and B7c sorts and sums each group in one block
+// (see "By segments" below); past that, the O(B^2) sweeps here.  B7b sums
+// each group through a hash of its ids at any B (see "B7b" below), alone
+// and inside the general loss past kSortMax.
 //
 // Taken from the math, not from the TPU blocks: the TPU sweeps (TILE, B) row
 // blocks in VMEM and accumulates column sums over its sequential grid.
@@ -46,9 +52,10 @@
 // SMs (32 row blocks x 8 slices); every per-slice partial is merged by one
 // finalize pass in a fixed slice order, so results do not depend on
 // scheduling.  Counts are accumulated in integers (B7a, n_pair, B3's
-// occurrence weight) and B7b's and B7c's sums in double, then written as
-// f32, as the JAX outputs are: with graded labels a group's pair count can
-// pass 2^24.  Any B >= 1: no padding to a tile, no sentinel group.
+// occurrence weight, the general loss's group totals) and B7b's and B7c's
+// sums in double, then written as f32, as the JAX outputs are: with graded
+// labels a group's pair count can pass 2^24.  Any B >= 1: no padding to a
+// tile, no sentinel group.
 //
 // What bounds them: B^2 pair tests (67.1M at B = 8,192) of a few integer and
 // float operations each, and for the loss transcendentals for the valid
@@ -180,26 +187,6 @@ row_count_sweep(Inputs in, bool wrong_order, int cols_per,
   if (t < in.B) part[(size_t)blockIdx.y * in.B + t] = cnt;
 }
 
-// B7b: sum of vec (passed as in.w) over t's group (in.grp, ng == 1).
-__global__ void __launch_bounds__(kThreads)
-matvec_sweep(Inputs in, int cols_per, double* __restrict__ part) {
-  __shared__ Tile c;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const Side a = load_side(in, t);
-  const int c_begin = blockIdx.y * cols_per;
-  const int c_end = min(in.B, c_begin + cols_per);
-  double sum = 0.0;
-  for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
-    __syncthreads();
-    stage(c, in, c0, c_end);
-    __syncthreads();
-    const int n = min(kTile, c_end - c0);
-    for (int i = 0; i < n; ++i)
-      if (same_groups(a, c, i, 1)) sum += (double)c.w[i];
-  }
-  if (t < in.B) part[(size_t)blockIdx.y * in.B + t] = sum;
-}
-
 // B3's occurrence weight: the unmasked members of t's group (tot) and those
 // with label > 0.5 (pos), over the main group.
 __global__ void __launch_bounds__(kThreads)
@@ -292,7 +279,7 @@ pair_sweep(Inputs in, float factor, bool wrong_order, int cols_per,
 
 // ---- the merges, one pass each, slices in order ---------------------------
 
-enum Merge { kRowCounts, kMatvec, kBinarySums, kWeights };
+enum Merge { kRowCounts, kBinarySums, kWeights };
 
 // out[t] from the slices' partials.  kBinarySums: out[t] = pos (tot - pos)
 // in double; kWeights: out[t] = row_w[t] (1 if null) * (gpc > 0 ? gpc^power
@@ -308,11 +295,6 @@ merge_rows(int mode, const void* __restrict__ part, int B, int splits,
     for (int s = 0; s < splits; ++s)
       n += static_cast<const int*>(part)[(size_t)s * B + t];
     out[t] = (float)n;
-  } else if (mode == kMatvec) {
-    double sum = 0.0;
-    for (int s = 0; s < splits; ++s)
-      sum += static_cast<const double*>(part)[(size_t)s * B + t];
-    out[t] = (float)sum;
   } else if (mode == kBinarySums) {
     double pos = 0.0, tot = 0.0;
     for (int s = 0; s < splits; ++s) {
@@ -428,9 +410,40 @@ merge_loss(const float* __restrict__ part_loss,
 // 0/1 values in double are exact integers, so on binary labels and a 0/1
 // mask it is bit-equal to the integer counts of the sweep it replaced.
 //
-// Past kSortMax, the O(B^2) sweeps above run instead.
-// beside the index in a value: the mask test, mask and label tests, the
-// label test alone (the sort's extra key bit), then the segment
+// The general loss (pair_loss_general_f32), where JAX runs B7a, B7b, the
+// weights and B3 (pairwise_kernel.py:451-461), takes B3's launches with
+// B7a's count sweep between the sort and B3's sweep: four launches on one
+// sort by the main group.  B7b sums B7a's counts over the main group, and
+// the main group's segments are the sort's, so the count sweep also adds
+// each row's count into its segment's total (segcnt, zeroed by the sort):
+// the lanes of a warp that share a segment (adjacent sorted rows) sum
+// theirs first with shuffles, then one integer atomicAdd a segment and
+// warp.  A total is at most B (B - 1) / 2 < 2^26, exact in any order, and
+// rounded to f32 once, as B7b's double sums are.  B3's sweep then takes
+// each sample's weight from its segment's total, gpc > 0 ? gpc^power : 0,
+// where it reads the sample (sample_at): no (B,) weight vector, no fifth
+// launch.
+//
+// Past kSortMax, the O(B^2) sweeps above run instead; the general loss
+// composes B7a's sweep, B7b's hash (its read taking the weights) and B3's
+// sweep.
+//
+// B7b (group_matvec_f32) is a hash: an open-addressing table of 2^bits
+// >= 2B slots over the whole grid, zeroed by one memset; hash_insert_kernel
+// claims each id's slot with atomicCAS (linear probing; id 0, the empty
+// key, has a slot of its own past the table) and adds vec in double with
+// atomicAdd; hash_read_kernel writes each row its slot's sum.  Work: B slot
+// claims and adds where an O(B^2) sweep tests B^2 pairs; a zipf head's
+// adds (2,082 members at B = 8,192) meet in one slot.  Doubles added in no
+// fixed order: exact, so bit-equal on repeats, for integer vec (counts,
+// B7b's one caller's input in JAX and the general loss's), within an ulp
+// of the f32 result otherwise.  On the device at B = 8,192 it took 0.0081
+// ms against the O(B^2) sweep's 0.0241 and a one-block sort's 0.0279
+// (PERF.md section 6, row 7); both were dropped.
+//
+// The sort's flags, beside the index in a value: the mask test, mask and
+// label tests, the label test alone (the sort's extra key bit), then the
+// segment
 constexpr int kMaskBit = 1 << 13, kPosBit = 1 << 14, kLabBit = 1 << 15;
 constexpr int kSegShift = 16;
 constexpr int kRows = 256;    // sorted rows an item (the sweep's threads)
@@ -455,13 +468,22 @@ struct Sorted {
   long long* cnt;      // count of blocks done
   unsigned* done;
   float* counts;       // B7a's output, zeroed by the sort (null for B3)
+  int* segcnt;         // the general loss's valid pairs a segment, zeroed
+                       // by the sort, summed by the count sweep (null for
+  float power;         // B3 and B7a), and their weight's power
 };
 
 // One sample's values as the sweep takes them: sorted position s.
 struct Sample {
-  int idx, lo, hi;     // its index and its segment [lo, hi)
+  int idx, seg, lo, hi;   // its index, its segment id and [lo, hi)
   float x, lab, m, w;
 };
+
+// The occurrence weight of a segment whose valid pairs the general loss
+// counted (-1: none), gpc rounded to f32 once.
+__device__ __forceinline__ float general_weight(int gpc, float power) {
+  return gpc > 0 ? powf((float)gpc, power) : -1.f;
+}
 
 __device__ __forceinline__ Sample sample_at(const Inputs& in,
                                             const Sorted& so, bool occ,
@@ -470,14 +492,37 @@ __device__ __forceinline__ Sample sample_at(const Inputs& in,
   const int i = v & ((1 << kSegShift) - 1), id = v >> kSegShift;
   Sample a;
   a.idx = i;
+  a.seg = id;
   a.lo = so.start[id];
   a.hi = so.start[id + 1];
   a.x = in.x[i];
   a.lab = in.lab[i];
   a.m = in.mask ? in.mask[i] : 1.f;
   a.w = in.w ? in.w[i] : 1.f;
-  if (occ) a.w = so.segw[id] < 0.f ? 0.f : a.w * so.segw[id];
+  if (occ) {
+    const float sw = so.segcnt ? general_weight(so.segcnt[id], so.power)
+                               : so.segw[id];
+    a.w = sw < 0.f ? 0.f : a.w * sw;
+  }
   return a;
+}
+
+// Adds each lane's n to segcnt[seg] (seg -1: none).  A warp's rows are
+// sorted, so the lanes of one segment are adjacent: each lane sums those
+// from it to its segment's end (shuffles down, step o adding lane + o's
+// sum where it is of the same segment), and the segment's first lane adds
+// the total with one atomic.  Every lane of the warp calls it.
+__device__ __forceinline__ void add_to_segments(int* segcnt, int seg,
+                                                int n) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_down_sync(0xffffffffu, n, o);
+    const int s = __shfl_down_sync(0xffffffffu, seg, o);
+    if (lane + o < 32 && s == seg) n += v;
+  }
+  const int prev = __shfl_up_sync(0xffffffffu, seg, 1);
+  if (seg >= 0 && n && (lane == 0 || prev != seg)) atomicAdd(segcnt + seg, n);
 }
 
 // Steps 1 (see above): thread t holds sorted positions [t kSortPer,
@@ -509,6 +554,8 @@ sort_segments_kernel(Inputs in, float power, Sorted so) {
   if (t == 0) *so.done = 0u;
   if (so.counts)
     for (int i = t; i < B; i += kSortThreads) so.counts[i] = 0.f;
+  if (so.segcnt)
+    for (int i = t; i < B; i += kSortThreads) so.segcnt[i] = 0;
   block_min_max(lo, hi, wlo, whi);
   // the label test as the key's lowest bit where the range leaves one;
   // either way within a group the negatives come before the positives, so
@@ -631,7 +678,8 @@ __device__ __forceinline__ int row_block_of(const int* items, int item) {
 }
 
 // Step 2: each item's rows' row and column terms over its slice; kCount
-// (B7a): the rows' valid pairs only, added into so.counts.
+// (B7a): the rows' valid pairs only, added into so.counts and, for the
+// general loss, into so.segcnt (either may be null).
 template <bool kCount>
 __global__ void __launch_bounds__(kRows)
 segment_sweep(Inputs in, Sorted so, bool occ, float factor,
@@ -662,7 +710,7 @@ segment_sweep(Inputs in, Sorted so, bool occ, float factor,
     __syncthreads();
     const int t = r0 + threadIdx.x;
     float loss = 0.f, dr = 0.f;
-    int cnt = 0;
+    int cnt = 0, seg = -1;
     if (t < r1) {
       const Sample a = sample_at(in, so, occ, t);
       const float ax = a.x, al = a.lab, am = a.m, wt = a.w;
@@ -694,9 +742,13 @@ segment_sweep(Inputs in, Sorted so, bool occ, float factor,
           }
         }
       }
-      if constexpr (kCount)
-        if (cnt) atomicAdd(so.counts + a.idx, (float)cnt);
+      if constexpr (kCount) {
+        if (cnt && so.counts) atomicAdd(so.counts + a.idx, (float)cnt);
+        seg = a.seg;
+      }
     }
+    if constexpr (kCount)
+      if (so.segcnt) add_to_segments(so.segcnt, seg, cnt);
     if constexpr (!kCount) {
       const size_t o = (size_t)item * kRows + threadIdx.x;
       part_loss[o] = loss;
@@ -815,22 +867,101 @@ binary_sort_kernel(const int* __restrict__ grp, const float* __restrict__ lab,
     if (p0 + j < B) out[vals[spad(p0 + j)]] = seg_gpc[sg.of(j)];
 }
 
+// B7b's table (see "B7b" above), carved from scratch by group_sums.
+constexpr int kHashEmpty = 0;     // an empty slot's key; id 0's slot is
+                                  // the one past the table
+struct HashTable {
+  double* sums;                   // [2^bits + 1]
+  int* keys;                      // [2^bits]
+  int* slot;                      // [B] each row's slot
+  int bits;
+};
+
+__global__ void __launch_bounds__(kThreads)
+hash_insert_kernel(const int* __restrict__ grp, const float* __restrict__ vec,
+                   int B, HashTable h) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const int id = grp[i];
+  unsigned s = 1u << h.bits;
+  if (id != kHashEmpty) {
+    // Fibonacci hashing: the product's top bits
+    s = ((unsigned)id * 0x9E3779B1u) >> (32 - h.bits);
+    for (;;) {
+      // a key, once set, never changes: a plain read from L2 settles most
+      // probes, a CAS only the empty ones
+      int k = __ldcg(h.keys + s);
+      if (k == kHashEmpty) k = atomicCAS(h.keys + s, kHashEmpty, id);
+      if (k == kHashEmpty || k == id) break;
+      s = (s + 1u) & ((1u << h.bits) - 1u);
+    }
+  }
+  h.slot[i] = (int)s;
+  atomicAdd(h.sums + s, (double)vec[i]);
+}
+
+// out[i] = gpc, row i's slot's sum rounded to f32 once, or with `weights`
+// the general loss's gpc > 0 ? gpc^power : 0.
+__global__ void __launch_bounds__(kThreads)
+hash_read_kernel(HashTable h, int B, bool weights, float power,
+                 float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  const float gpc = (float)h.sums[h.slot[i]];
+  out[i] = !weights ? gpc : gpc > 0.f ? powf(gpc, power) : 0.f;
+}
+
+// The table's bits for a batch of B: the least with 2^bits >= 2B.
+int hash_bits(int B) {
+  int bits = 1;
+  while ((1LL << bits) < 2LL * B) ++bits;
+  return bits;
+}
+
+// 4-byte words of the hash path's scratch.
+long long hash_words(int B) {
+  const long long cap = 1LL << hash_bits(B);
+  return 2 * (cap + 1) + cap + B;
+}
+
+// B7b's three operations on scratch (8-byte aligned, hash_words(B) words:
+// sums first, then keys, then the rows' slots): the memset of sums and
+// keys, the insert, the read (as hash_read_kernel's weights and power).
+cudaError_t group_sums(const int* groups, const float* vec, int B,
+                       void* scratch, bool weights, float power, int rows,
+                       cudaStream_t s, float* out) {
+  HashTable h;
+  h.bits = hash_bits(B);
+  const size_t cap = (size_t)1 << h.bits;
+  h.sums = static_cast<double*>(scratch);
+  h.keys = reinterpret_cast<int*>(h.sums + cap + 1);
+  h.slot = h.keys + cap;
+  const cudaError_t e = cudaMemsetAsync(
+      scratch, 0, (cap + 1) * sizeof(double) + cap * sizeof(int), s);
+  if (e != cudaSuccess) return e;
+  hash_insert_kernel<<<rows, kThreads, 0, s>>>(groups, vec, B, h);
+  hash_read_kernel<<<rows, kThreads, 0, s>>>(h, B, weights, power, out);
+  return cudaGetLastError();
+}
+
 // Items of the sweep at most: each row block's columns span at most B.
 long long max_items(int B) {
   return (long long)((B + kRows - 1) / kRows) * ((B + kCols - 1) / kCols);
 }
 
-// 4-byte words of Sorted and, for the loss (B3), the sweep's partials for
-// a batch of B, from an allocation aligned to 8 bytes.
-long long sorted_words(int B, bool partials) {
+// 4-byte words of Sorted and, for the loss (B3 and the general loss), the
+// sweep's partials, and for the general loss the segments' totals, for a
+// batch of B, from an allocation aligned to 8 bytes.
+long long sorted_words(int B, bool partials, bool general) {
   return 2 * 32 + 2 * 32 + 2 + 3LL * B + 1 + 34 +
-         (partials ? 3 * max_items(B) * kRows : 0);
+         (partials ? 3 * max_items(B) * kRows : 0) + (general ? B : 0);
 }
 
 // Carves scratch (8-byte aligned) into so and, where part_loss is not null,
-// the partials; the 8-byte parts first.
+// the partials; the 8-byte parts first, the segments' totals (so->segcnt,
+// null unless `general`) last.
 void carve_sorted(void* scratch, int B, Sorted* so, float** part_loss,
-                  int** part_cnt, float** part_dx) {
+                  int** part_cnt, float** part_dx, bool general) {
   int* p = static_cast<int*>(scratch);
   auto take = [&](long long n) {
     int* q = p;
@@ -845,10 +976,13 @@ void carve_sorted(void* scratch, int B, Sorted* so, float** part_loss,
   so->segw = reinterpret_cast<float*>(take(B));
   so->items = take(34);
   so->counts = nullptr;
-  if (!part_loss) return;
-  *part_loss = reinterpret_cast<float*>(take(max_items(B) * kRows));
-  *part_cnt = take(max_items(B) * kRows);
-  *part_dx = reinterpret_cast<float*>(take(max_items(B) * kRows));
+  so->power = 0.f;
+  if (part_loss) {
+    *part_loss = reinterpret_cast<float*>(take(max_items(B) * kRows));
+    *part_cnt = take(max_items(B) * kRows);
+    *part_dx = reinterpret_cast<float*>(take(max_items(B) * kRows));
+  }
+  so->segcnt = general ? take(B) : nullptr;
 }
 
 int splits_for(int B) {
@@ -923,7 +1057,7 @@ cudaError_t pair_loss_sorted(const Inputs& in, float factor, float power,
   Sorted so;
   float *part_loss, *part_dx;
   int* part_cnt;
-  carve_sorted(scratch, B, &so, &part_loss, &part_cnt, &part_dx);
+  carve_sorted(scratch, B, &so, &part_loss, &part_cnt, &part_dx, false);
   int grid;
   const cudaError_t e = sort_segments(in, power, so, device, s, &grid);
   if (e != cudaSuccess) return e;
@@ -940,7 +1074,7 @@ cudaError_t row_counts_sorted(const Inputs& in, bool wrong_order,
                               void* scratch, float* out, int device,
                               cudaStream_t s) {
   Sorted so;
-  carve_sorted(scratch, in.B, &so, nullptr, nullptr, nullptr);
+  carve_sorted(scratch, in.B, &so, nullptr, nullptr, nullptr, false);
   so.counts = out;
   int grid;
   const cudaError_t e = sort_segments(in, 0.f, so, device, s, &grid);
@@ -950,8 +1084,36 @@ cudaError_t row_counts_sorted(const Inputs& in, bool wrong_order,
   return cudaGetLastError();
 }
 
-// The paths of row_counts_f32 and binary_counts_f32: 0 the sort where B <=
-// kSortMax, else the sweep; 1 the sort (B <= kSortMax only); 2 the sweep.
+// The general loss on a batch of B <= kSortMax: the sort, B7a's count
+// sweep adding into the segments' totals, B3's sweep weighting each sample
+// by its segment's total, B3's merge.
+cudaError_t pair_loss_general_sorted(const Inputs& in, float factor,
+                                     float power, bool wrong_order,
+                                     void* scratch, float* out, float* dx,
+                                     int device, cudaStream_t s) {
+  const int B = in.B;
+  Sorted so;
+  float *part_loss, *part_dx;
+  int* part_cnt;
+  carve_sorted(scratch, B, &so, &part_loss, &part_cnt, &part_dx, true);
+  so.power = power;
+  int grid;
+  const cudaError_t e = sort_segments(in, 0.f, so, device, s, &grid);
+  if (e != cudaSuccess) return e;
+  segment_sweep<true><<<grid, kRows, 0, s>>>(in, so, false, 1.f, wrong_order,
+                                             nullptr, nullptr, nullptr);
+  segment_sweep<false><<<grid, kRows, 0, s>>>(in, so, true, factor,
+                                              wrong_order, part_loss,
+                                              part_cnt, part_dx);
+  merge_segments<<<(B + kRows - 1) / kRows, kRows, 0, s>>>(
+      so, B, part_loss, part_cnt, part_dx, dx, out);
+  return cudaGetLastError();
+}
+
+// The paths of row_counts_f32, binary_counts_f32 and
+// pair_loss_general_f32: 0 auto (the sort where B <= kSortMax, else the
+// sweep); 1 the sort (B <= kSortMax only); 2 the sweep (the general loss:
+// the composition past kSortMax).
 enum { kAuto = 0, kSort = 1, kSweep = 2 };
 
 bool takes_sort(int B, int path) {
@@ -974,20 +1136,24 @@ const char* error_string(int code) {
 int pair_max_groups() { return kMaxGroups; }
 
 // 4-byte words of scratch each entry point needs for a batch of B (>= 1)
-// on `path` (row_counts_f32's and binary_counts_f32's; the others take
-// any), from an allocation aligned to 8 bytes: kind 0 pair_loss_f32, 1
-// row_counts_f32, 2 group_matvec_f32, 3 binary_counts_f32 (none on the
-// sort).
+// on `path` (pair_loss_f32 and group_matvec_f32 take any), from an
+// allocation aligned to 8 bytes (-1: no such path): kind 0 pair_loss_f32,
+// 1 row_counts_f32, 2 group_matvec_f32, 3 binary_counts_f32 (none on the
+// sort), 4 pair_loss_general_f32.
 long long pair_scratch_words(int kind, int B, int path) {
   const long long sb = (long long)splits_for(B) * B;
+  if (kind != 0 && kind != 2 && bad_path(B, path)) return -1;
   switch (kind) {
     case 0:                              // sorted, or (pos, tot), w,
-      return B <= kSortMax ? sorted_words(B, true) : 2 * sb + B + 3 * sb;
-                                         // loss, dx, cnt
-    case 1: return takes_sort(B, path) ? sorted_words(B, false) : sb;
-    case 2: return 2 * sb;               // doubles
-    default: return takes_sort(B, path) ? 0 : 4 * sb;   // double2
-  }
+      return B <= kSortMax ? sorted_words(B, true, false)
+                           : 2 * sb + B + 3 * sb;  // loss, dx, cnt
+    case 1: return takes_sort(B, path) ? sorted_words(B, false, false) : sb;
+    case 2: return hash_words(B);
+    case 3: return takes_sort(B, path) ? 0 : 4 * sb;   // double2
+    default:                             // the table, rows' counts, counts,
+      return takes_sort(B, path) ? sorted_words(B, true, true)
+                                 : hash_words(B) + 4 * sb + 2 * B;
+  }                                      // w, loss, dx, cnt
 }
 
 // B3.  logits, labels (B,) f32, groups (ng, B) int32; row_w and mask (B,)
@@ -1056,19 +1222,58 @@ int row_counts_f32(const float* logits, const float* labels,
   return cudaGetLastError();
 }
 
+// The general occurrence-weighted loss.  logits, labels (B,) f32, groups
+// (ng, B) int32, mask (B,) f32 or null; each row weighted by gpc^power (0
+// where gpc == 0), gpc the valid pairs of the rows of its main group (B7a
+// then B7b) -> out[0] loss sum, out[1] pair count, dx (B,); `path` as
+// above.  Returns a cudaError_t.
+int pair_loss_general_f32(const float* logits, const float* labels,
+                          const int* groups, int ng, const float* mask, int B,
+                          float factor, float power, int wrong_order,
+                          int path, void* scratch, float* out, float* dx,
+                          int device, void* stream) {
+  if (bad_path(B, path)) return cudaErrorInvalidValue;
+  Launch l;
+  cudaError_t e = begin(B, ng, device, stream, &l);
+  if (e != cudaSuccess) return e;
+  const bool wrong = wrong_order != 0;
+  const Inputs in{logits, labels, groups, ng, mask, nullptr, B};
+  if (takes_sort(B, path))
+    return pair_loss_general_sorted(in, factor, power, wrong, scratch, out,
+                                    dx, device, l.stream);
+  const size_t sb = (size_t)l.splits * B;
+  int* part_rows = static_cast<int*>(scratch) + hash_words(B);  // the table
+  float* counts = reinterpret_cast<float*>(part_rows + sb);     // first
+  float* w = counts + B;
+  float* part_loss = w + B;
+  float* part_dx = part_loss + sb;
+  int* part_cnt = reinterpret_cast<int*>(part_dx + sb);
+  row_count_sweep<<<l.sweep, kThreads, 0, l.stream>>>(in, wrong, l.cols_per,
+                                                      part_rows);
+  merge_rows<<<l.rows, kThreads, 0, l.stream>>>(kRowCounts, part_rows, B,
+                                                l.splits, nullptr, 0.f,
+                                                counts);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = group_sums(groups, counts, B, scratch, true, power, l.rows, l.stream,
+                 w);
+  if (e != cudaSuccess) return e;
+  const Inputs lw{logits, labels, groups, ng, mask, w, B};
+  pair_sweep<<<l.sweep, kThreads, 0, l.stream>>>(lw, factor, wrong,
+                                                 l.cols_per, part_loss,
+                                                 part_cnt, part_dx);
+  merge_loss<<<1, 1024, 0, l.stream>>>(part_loss, part_cnt, part_dx, B,
+                                        l.splits, dx, out);
+  return cudaGetLastError();
+}
+
 // B7b.  groups (B,) int32, vec (B,) f32 -> out (B,) f32.
 int group_matvec_f32(const int* groups, const float* vec, int B,
                      void* scratch, float* out, int device, void* stream) {
   Launch l;
-  cudaError_t e = begin(B, 1, device, stream, &l);
+  const cudaError_t e = begin(B, 1, device, stream, &l);
   if (e != cudaSuccess) return e;
-  const Inputs in{nullptr, nullptr, groups, 1, nullptr, vec, B};
-  double* part = static_cast<double*>(scratch);
-  matvec_sweep<<<l.sweep, kThreads, 0, l.stream>>>(in, l.cols_per, part);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  merge_rows<<<l.rows, kThreads, 0, l.stream>>>(kMatvec, part, B, l.splits,
-                                                nullptr, 0.f, out);
-  return cudaGetLastError();
+  return group_sums(groups, vec, B, scratch, false, 0.f, l.rows, l.stream,
+                    out);
 }
 
 // B7c.  groups (B,) int32, labels (B,) f32, mask (B,) f32 or null -> out

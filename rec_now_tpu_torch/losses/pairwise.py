@@ -16,9 +16,12 @@ power is not 0 (0 for a group without pairs).
   caller's promise that labels are in {0, 1}, unchecked as in JAX), one
   group condition and no wrong-order filter, the loss kernel computes the
   occurrence weight itself (one launch of ``pair_loss_sum``); otherwise
-  ``pair_row_counts`` then ``same_group_matvec`` on the main group give
-  each row's group pair count ``gpc`` and the row weights ``gpc ** power``
-  (0 where gpc is 0), with no gradient, before the general loss kernel.
+  ``pair_loss_general_sum`` computes JAX's ``pair_row_counts`` ->
+  ``same_group_matvec`` -> weights -> loss in one call (one launch of
+  ``pair_loss_sum``, no launch of B7a or B7b): each row's group pair count
+  ``gpc`` and its weight ``gpc ** power`` (0 where gpc is 0), with no
+  gradient, on the one sort by main group that the loss takes (at B <=
+  8,192).
 * **CPU tensors** take the (B, B) math of the JAX module
   (:func:`generate_pair_mask`, :func:`_apply_sample_mask`,
   :func:`_calc_label_cond_and_weights`, :func:`_pair_occurance_weights`,
@@ -184,17 +187,15 @@ def pairwise_loss(outputs: torch.Tensor, labels: torch.Tensor,
 
 def _pairwise_loss_kernels(outputs, labels, glist, factor, wrong_order,
                            power, mask, binary_labels):
-    """(loss sum, pair count) on the card (``pairwise_kernel.py:437-464``)."""
-    in_kernel, row_w = 0.0, None
-    if power != 0.0:
-        if binary_labels and len(glist) == 1 and not wrong_order:
-            in_kernel = power
-        else:
-            counts = pairwise_kernel.pair_row_counts(
-                outputs.detach(), labels, glist, mask, wrong_order)
-            gpc = pairwise_kernel.same_group_matvec(glist[0], counts)
-            row_w = torch.where(gpc > 0, gpc.clamp_min(1e-30) ** power,
-                                torch.zeros_like(gpc))
+    """(loss sum, pair count) on the card (``pairwise_kernel.py:437-464``):
+    the in-kernel binary weight where the caller promised binary labels
+    (one group, no wrong-order filter), else, with a power, the general
+    loss, whose counts and weights take no gradient."""
+    if power != 0.0 and not (binary_labels and len(glist) == 1
+                             and not wrong_order):
+        return pairwise_kernel.pair_loss_general_sum(
+            outputs, labels, glist, factor, power, sample_mask=mask,
+            wrong_order=wrong_order)
     return pairwise_kernel.pair_loss_sum(
-        outputs, labels, glist, factor, in_kernel, row_weights=row_w,
-        sample_mask=mask, wrong_order=wrong_order)
+        outputs, labels, glist, factor, power, sample_mask=mask,
+        wrong_order=wrong_order)

@@ -27,7 +27,10 @@ singletons at 8,192, a {+1, -1} group, each path forced and a bit-equal
 repeat of each; for lazy Adam (B10) ragged V, every D it takes, t = 1 and
 1,000, no row, every row, rows only in a partial last 512-flag chunk,
 zipf-clustered rows, flags off the 16-byte grid and a bit-equal repeat;
-for the pair counts (B7a/b/c) and
+for the pair counts (B7a/b/c), the general loss in one call (its
+sort and its composition of sweeps, against its plain version and the
+parent's B7a -> B7b -> B3 composition, power -0.5 and -1.0), B7b's hash
+(integer and f32 vec, ids of 0, the hash's empty key, among them) and
 the general pair loss (B3) graded labels, two to four groups, a 0/1 mask
 and the wrong-order filter at B = 1 to 8,193, B7a and B7c on each path
 (the sort forced only where B <= 8,192), B7c also on graded labels with a
@@ -706,10 +709,97 @@ def test_binary_counts_and_in_kernel_weight_match_plain(dev, b, kind):
         _close_rel(dx, ref[2])
 
 
+def _composed(x, lab, groups, mask, wrong_order, power):
+    """The general loss as the parent composed it on the card: B7a, B7b,
+    the weights in torch, then B3 with row weights."""
+    counts = pk.pair_row_counts(x, lab, groups, mask, wrong_order)
+    gpc = pk.same_group_matvec(groups[0], counts)
+    w = torch.where(gpc > 0, gpc.clamp_min(1e-30) ** power,
+                    torch.zeros_like(gpc))
+    return pk.pair_loss_fused(x, lab, groups, 1.0, row_weights=w,
+                              sample_mask=mask, wrong_order=wrong_order)
+
+
+# the general loss in one call on each path (the one sort only where B <=
+# 8,192; auto past it composes the sweeps) against its plain version and
+# the parent's composition: the count exact, the loss 1e-5 of its
+# magnitude and dlogits 1e-4 of their largest (powf against torch's
+# rsqrt or reciprocal, sums in other orders); one pair_loss_sum launch a
+# call and none of B7a or B7b; bit-equal on a repeat
+@pytest.mark.parametrize("b,ng,kind,power", [
+    (1, 2, "random", -0.5), (37, 2, "random", -1.0),
+    (1000, 3, "random", -0.5), (8191, 2, "random", -0.5),
+    (8192, 2, "random", -1.0), (8193, 2, "random", -0.5),
+    (2048, 2, "one group", -0.5), (8192, 2, "singletons", -0.5),
+    (1000, 4, "wide ids", -0.5), (8192, 2, "zipf", -0.5),
+    (8192, 4, "zipf", -1.0), (8193, 2, "zipf", -0.5)])
+@pytest.mark.parametrize("wrong_order", [False, True])
+def test_general_loss_matches_plain_and_composition(dev, b, ng, kind, power,
+                                                    wrong_order):
+    x, lab, g1, g2, mask = _general_batch(b, b + 11, dev)
+    gen = torch.Generator().manual_seed(b + ng + 1)
+    if kind != "random":
+        g1 = _groups_of(kind, b, gen).to(dev)
+    groups = [g1, g2] + [torch.randint(0, 3, (b,), generator=gen).to(dev)
+                         for _ in range(ng - 2)]
+    want = pk.pair_loss_general_plain(x, lab, groups, 1.0, power,
+                                      sample_mask=mask,
+                                      wrong_order=wrong_order)
+    parent = _composed(x, lab, groups, mask, wrong_order, power)
+    assert float(parent[1]) == float(want[1])
+    for path in (("auto", "sort", "sweep") if b <= pk.SORT_MAX
+                 else ("auto", "sweep")):
+        before = (pk.pair_loss_sum.launches, pk.pair_row_counts.launches,
+                  pk.same_group_matvec.launches)
+        got = pk._pair_loss_general(x, lab, groups, 1.0, power, mask,
+                                    wrong_order, path)
+        assert (pk.pair_loss_sum.launches, pk.pair_row_counts.launches,
+                pk.same_group_matvec.launches) == (before[0] + 1,
+                                                   before[1], before[2])
+        assert float(got[1]) == float(want[1])
+        for ref in (want, parent):
+            if float(want[1]):
+                _close_rel(got[0], ref[0], 1e-5)
+                _close_rel(got[2], ref[2], 1e-4)
+            else:
+                assert float(got[0]) == 0.0 and not got[2].any()
+        again = pk._pair_loss_general(x, lab, groups, 1.0, power, mask,
+                                      wrong_order, path)
+        for a, r in zip(got, again):
+            assert torch.equal(a, r)
+
+
+# B7b's hash against its plain version, which sums in double as the kernel
+# does: integer vec (B7a's counts) exact and bit-equal on a repeat; f32 vec
+# within 1e-6 of max|plain| (the double atomics add in no fixed order)
+@pytest.mark.parametrize("b,kind", [
+    (1, "random"), (37, "random"), (8191, "random"), (8192, "random"),
+    (8193, "random"), (8192, "one group"), (8192, "zeros"),
+    (8192, "singletons"), (8192, "wide ids"), (1000, "wide ids"),
+    (8192, "zipf"), (8193, "zipf")])
+def test_same_group_matvec_matches_plain(dev, b, kind):
+    gen = torch.Generator().manual_seed(b + 3)
+    g = (torch.zeros(b, dtype=torch.int64) if kind == "zeros"
+         else _groups_of(kind, b, gen)).to(dev)
+    counts = torch.randint(0, 3000, (b,), generator=gen).float().to(dev)
+    vec = (torch.randn(b, generator=gen) * 3).to(dev)
+    want_c = pk.same_group_matvec_plain(g, counts)
+    want_v = pk.same_group_matvec_plain(g, vec)
+    before = pk.same_group_matvec.launches
+    got = pk.same_group_matvec(g, counts)
+    assert pk.same_group_matvec.launches == before + 1
+    torch.testing.assert_close(got, want_c, rtol=0, atol=0)
+    assert torch.equal(got, pk.same_group_matvec(g, counts))
+    got = pk.same_group_matvec(g, vec)
+    assert float((got - want_v).abs().max()) <= 1e-6 * float(
+        want_v.abs().max())
+
+
 @pytest.mark.parametrize("case", ["graded", "wrong_order", "binary"])
 def test_pairwise_loss_on_the_card_matches_the_cpu(dev, case):
-    """The public loss: the card's dispatch (B7a -> B7b -> B3, or B3 with
-    the in-kernel weight) against the CPU's (B, B) math under autograd."""
+    """The public loss: the card's dispatch (the general loss in one call,
+    or B3 with the in-kernel weight: one pair_loss_sum launch either way,
+    no B7a or B7b) against the CPU's (B, B) math under autograd."""
     x, lab, g1, g2, mask = _general_batch(2048, 7, dev)
     kw = dict(click_occurance_power=-0.5, mask=mask, return_num_pair=True)
     if case == "binary":
@@ -730,9 +820,8 @@ def test_pairwise_loss_on_the_card_matches_the_cpu(dev, case):
             for k, v in kw.items()})
         (dx,) = torch.autograd.grad(loss, xd)
         out[str(d)] = (loss.detach().cpu(), cnt.cpu(), dx.cpu())
-    b7 = 0 if case == "binary" else 1
     assert (pk.pair_row_counts.launches, pk.same_group_matvec.launches,
-            pk.pair_loss_sum.launches) == (before[0] + b7, before[1] + b7,
+            pk.pair_loss_sum.launches) == (before[0], before[1],
                                            before[2] + 1)
     got, want = out[str(dev)], out["cpu"]
     assert float(got[1]) == float(want[1]) > 0
@@ -757,6 +846,11 @@ def test_slice4_wrappers_reject_bad_inputs(dev):
         pk._pair_row_counts(big, big, big.int(), None, False, "sort")
     with pytest.raises(ValueError, match="sort path"):
         pk._group_pair_counts_binary(big.int(), big, None, "sort")
+    with pytest.raises(ValueError, match="sort path"):
+        pk._pair_loss_general(big, big, big.int(), 1.0, -0.5, None, False,
+                              "sort")
+    with pytest.raises(ValueError):      # groups and vec of two lengths
+        pk.same_group_matvec(big.int(), z[0])
     with pytest.raises(ValueError):      # occurrence weight with two groups
         pk.pair_loss_fused(z[0], z[0], [t.int()] * 2, 1.0, -0.5)
 

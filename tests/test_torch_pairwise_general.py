@@ -25,9 +25,24 @@ kernel (B3) through their plain versions.
   groups and the wrong-order filter.
 * Edge cases: B = 1; B = 37 (not a multiple of 8); no valid pair gives
   loss 0, count 0 and zero, finite dlogits.
+* The general loss as one call (``pair_loss_general``, what the card runs
+  on one sort): its plain version and its autograd wrapper on the CPU
+  against JAX ``pairwise_loss_pallas`` interpreted (the sum: loss, count
+  and dlogits by ``jax.grad``) on graded labels, two groups and a mask,
+  wrong order off and on, power -0.5 and -1.0; the sort path's order in
+  plain PyTorch (``_general_by_segments`` here: B7a's counts summed per
+  segment of the main group, one weight a segment) against JAX and the
+  plain version, with weights bit-equal to the plain composition's, on
+  one group, singletons and ids at both int32 ends; B7b as its hash sums
+  (``_matvec_by_segments`` here: each group's sum in double, once per
+  group, rounded once) against ``jpk.same_group_matvec`` interpreted on
+  the same groups.
 
 f32 on both sides, summed in other orders: the mean loss rtol 1e-5,
-dlogits atol 1e-6 (terms of order 1 / n_pair), the counts exact.
+dlogits atol 1e-6 (terms of order 1 / n_pair), the counts exact; the
+general loss's sum rtol 1e-5 and its dlogits 1e-5 of their largest
+magnitude (terms of order 1); B7b exact on integer vec, and on f32 vec
+1e-6 of sum |vec| against JAX's f32 sums (the port's sum in double).
 """
 import itertools
 
@@ -59,6 +74,52 @@ def _batch(b, seed, graded=True, two_groups=True, masked=True):
 
 def _t(a):
     return None if a is None else torch.from_numpy(a)
+
+
+def _segment_totals(groups, vec):
+    """(each segment's sum of ``vec`` in ``vec``'s type, each row's
+    segment id) over a stable sort by group (a segment's first position
+    is its group's first occurrence, as the kernels' sort)."""
+    g = groups.reshape(-1).to(torch.int64)
+    order = torch.sort(g, stable=True).indices
+    _, sizes = torch.unique_consecutive(g[order], return_counts=True)
+    seg = torch.repeat_interleave(torch.arange(len(sizes)), sizes)
+    tot = torch.zeros(len(sizes), dtype=vec.dtype).index_add_(
+        0, seg, vec[order])
+    return tot, torch.empty_like(seg).index_copy_(0, order, seg)
+
+
+def _matvec_by_segments(groups, vec):
+    """B7b as its kernel sums: each group's sum of vec in float64 (one
+    table slot or one segment a group), rounded once to f32 and written
+    to every member."""
+    tot, row_seg = _segment_totals(groups, vec.double())
+    return tot.float()[row_seg]
+
+
+def _weights_by_segments(groups, counts, power):
+    """(B,) f32 weights of the general loss as its sort path takes them:
+    B7a's counts summed over each segment of the main group in integers
+    (the count sweep's atomics), the total rounded once to f32, then
+    ``gpc ** power`` for the segment (0 where gpc is 0)."""
+    tot, row_seg = _segment_totals(groups, counts.to(torch.int64))
+    gpc = tot.float()
+    w = torch.where(gpc > 0, gpc.clamp_min(1e-30) ** power,
+                    torch.zeros_like(gpc))
+    return w[row_seg]
+
+
+def _general_by_segments(logits, labels, groups, factor=1.0, power=-0.5, *,
+                         sample_mask=None, wrong_order=False):
+    """``pk.pair_loss_general_plain`` with the weights taken as the sort
+    path takes them (:func:`_weights_by_segments`)."""
+    g = pk.group_rows(groups)
+    counts = pk.pair_row_counts_plain(logits, labels, g, sample_mask,
+                                      wrong_order)
+    w = _weights_by_segments(g[0], counts, power)
+    return pk.pair_loss_fused_plain(logits, labels, g, factor, row_weights=w,
+                                    sample_mask=sample_mask,
+                                    wrong_order=wrong_order)
 
 
 def _jax(x, lab, groups, mask, **kw):
@@ -285,3 +346,121 @@ def test_options_without_a_kernel_path_raise():
                dict(pairloss_func=lambda *a, **k: 0.0), dict(margin=1.0)):
         with pytest.raises(NotImplementedError, match="not ported"):
             pairwise_loss(*args, **kw)
+
+
+def _general_jax(x, lab, groups, mask, wrong, power):
+    """JAX pairwise_loss_pallas, interpreted: (loss sum, count, d sum /
+    d logits) on the general path (graded labels)."""
+    jg = [jnp.asarray(g) for g in groups]
+
+    def f(xx):
+        return jpk.pairwise_loss_pallas(
+            xx, jnp.asarray(lab), jg, only_use_wrong_order_pair=wrong,
+            return_num_pair=True, click_occurance_power=power,
+            mask=jnp.asarray(mask), reduce_mean=False)
+    loss, cnt = f(jnp.asarray(x))
+    dx = jax.grad(lambda xx: f(xx)[0])(jnp.asarray(x))
+    return float(loss), float(cnt), np.asarray(dx)
+
+
+def _close_sum(got, want):
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    assert got[1] == want[1]
+    np.testing.assert_allclose(got[2], want[2], rtol=0,
+                               atol=1e-5 * max(1.0, np.abs(want[2]).max()))
+
+
+def _as_numpy(out):
+    loss, cnt, dx = out
+    return float(loss), float(cnt), dx.detach().numpy()
+
+
+@pytest.mark.parametrize("wrong", [False, True])
+@pytest.mark.parametrize("power", [-0.5, -1.0])
+def test_general_loss_plain_matches_jax_pallas_interpret(wrong, power):
+    x, lab, groups, mask = _batch(64, 17)
+    want = _general_jax(x, lab, groups, mask, wrong, power)
+    assert want[1] > 0
+    args = (_t(x), _t(lab), [_t(g) for g in groups], 1.0, power)
+    kw = dict(sample_mask=_t(mask), wrong_order=wrong)
+    _close_sum(_as_numpy(pk.pair_loss_general_plain(*args, **kw)), want)
+    _close_sum(_as_numpy(_general_by_segments(*args, **kw)),
+               want)
+    # the wrapper the public loss calls, through its autograd Function
+    xt = _t(x).clone().requires_grad_()
+    before = pk.pair_loss_sum.launches
+    loss, cnt = pk.pair_loss_general_sum(xt, *args[1:], **kw)
+    (dx,) = torch.autograd.grad(loss, xt)
+    assert not cnt.requires_grad and pk.pair_loss_sum.launches == before
+    _close_sum((float(loss.detach()), float(cnt), dx.numpy()), want)
+
+
+@pytest.mark.parametrize("kind", sorted(_EDGE_GROUPS))
+@pytest.mark.parametrize("wrong", [False, True])
+def test_general_loss_by_segments_on_edge_groups(kind, wrong):
+    b = 53
+    x, lab, groups, mask = _batch(b, 19)
+    groups[0] = _EDGE_GROUPS[kind](np.random.RandomState(6), b)
+    g = [_t(a) for a in groups]
+    kw = dict(sample_mask=_t(mask), wrong_order=wrong)
+    got = _general_by_segments(_t(x), _t(lab), g, 1.0, -0.5, **kw)
+    plain = pk.pair_loss_general_plain(_t(x), _t(lab), g, 1.0, -0.5, **kw)
+    # the weights: the per-segment totals in integers and the (B, B)
+    # double sums round to the same f32 gpc, so they are bit-equal
+    counts = pk.pair_row_counts_plain(_t(x), _t(lab), g, _t(mask), wrong)
+    gpc = pk.same_group_matvec_plain(g[0], counts)
+    w = torch.where(gpc > 0, gpc ** -0.5, torch.zeros_like(gpc))
+    torch.testing.assert_close(
+        _weights_by_segments(g[0], counts, -0.5), w, rtol=0,
+        atol=0)
+    for a, r in zip(got, plain):
+        torch.testing.assert_close(a, r, rtol=0, atol=0)
+    if kind == "singletons":
+        assert float(got[1]) == 0.0 and float(got[0]) == 0.0
+        assert not got[2].any()
+    else:
+        assert float(got[1]) > 0
+        _close_sum(_as_numpy(got), _general_jax(x, lab, groups, mask, wrong,
+                                                -0.5))
+
+
+@pytest.mark.parametrize("kind", sorted(_EDGE_GROUPS) + ["random"])
+def test_matvec_by_segments_matches_jax_pallas_interpret(kind):
+    b = 53
+    rng = np.random.RandomState(21)
+    grp = (_EDGE_GROUPS[kind](rng, b) if kind != "random"
+           else rng.randint(0, 9, b).astype(np.int32))
+    counts = rng.randint(0, 50, b).astype(np.float32)   # B7b's one input
+    vec = (rng.randn(b) * 3).astype(np.float32)
+    for v, exact in ((counts, True), (vec, False)):
+        want = np.asarray(jpk.same_group_matvec(jnp.asarray(grp),
+                                                jnp.asarray(v)))
+        got = _matvec_by_segments(_t(grp), _t(v))
+        plain = pk.same_group_matvec_plain(_t(grp), _t(v))
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        atol = 0.0 if exact else 1e-6 * np.abs(v).sum()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=atol)
+    if kind == "singletons":
+        np.testing.assert_array_equal(got.numpy(), vec)
+
+
+def test_general_wrappers_take_plain_version_on_cpu_only():
+    x, lab, groups, mask = _batch(40, 23)
+    args = (_t(x), _t(lab), [_t(g) for g in groups], 0.7, -0.5)
+    kw = dict(sample_mask=_t(mask), wrong_order=True)
+    before = (pk.pair_loss_sum.launches, pk.same_group_matvec.launches)
+    for path in ("auto", "sort", "sweep"):
+        for a, r in zip(pk._pair_loss_general(*args, kw["sample_mask"],
+                                              True, path),
+                        pk.pair_loss_general_plain(*args, **kw)):
+            torch.testing.assert_close(a, r, rtol=0, atol=0)
+    torch.testing.assert_close(
+        pk.same_group_matvec(_t(groups[0]), _t(x)),
+        pk.same_group_matvec_plain(_t(groups[0]), _t(x)), rtol=0, atol=0)
+    assert (pk.pair_loss_sum.launches,
+            pk.same_group_matvec.launches) == before
+    meta = [a.to("meta") for a in args[:2]]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        pk.pair_loss_general(*meta, [g.to("meta") for g in args[2]])
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        pk.same_group_matvec(args[2][0].to("meta"), meta[0])

@@ -1,10 +1,10 @@
 """Hold the in-batch loss and count kernels (B3, B6, B7a, B7c) and lazy
 Adam (B10) of two trees of the port bit for bit, on the card, and time
-the pair counts (B7a/b/c) of one tree.
+the pair counts (B7a/b/c) and the general pairwise loss of one tree.
 
     python tools/kernel_bits.py dump TREE OUT.pt  # TREE/rec_now_tpu_torch
     python tools/kernel_bits.py compare A.pt B.pt  # exit 1 on a difference
-    python tools/kernel_bits.py time TREE          # B7a/b/c ms, one tree
+    python tools/kernel_bits.py time TREE          # B7a/b/c, general ms
 
 ``dump`` runs each kernel of ``TREE``'s package (built into its own
 ``_build/``) on inputs made from fixed seeds and saves the outputs: B3
@@ -19,13 +19,16 @@ rows with a share of rows touched, t = 1 and 1,000.  ``compare`` prints
 how many of the cases differ.  ``time`` prints B7a, B7b and B7c on the
 inputs of ``chip_smoke.py`` phase 3's timing (B7a the graded labels, two
 conditions and the mask; B7b the group vector and B7a's counts; B7c the
-clicks and the mask) through the public wrappers: CUDA events (median of
-20) and the device time by kernel (``torch.profiler``, a call's mean
-over 20).  Run each mode once per tree, each in its own process: both
-trees name their package ``rec_now_tpu_torch``.
+clicks and the mask) through the public wrappers, and the general call
+of the public ``pairwise_loss`` (the graded labels, the two conditions,
+the mask, power -0.5, the loss's sum and its dlogits by autograd, the
+entry point's own ops included): CUDA events (median of 20) and the
+device time by kernel (``torch.profiler``, a call's mean over 20, with
+the count of device operations a call).  Run each mode once per tree,
+each in its own process: both trees name their package
+``rec_now_tpu_torch``.
 """
 import os
-import re
 import sys
 
 import torch
@@ -94,37 +97,44 @@ def dump(tree: str, out: str) -> None:
     torch.save(res, out)
 
 
-def _kernel(name: str) -> str:
-    """A profiler event's kernel name without its namespace and
-    arguments."""
-    m = re.search(r"::(\w+(?:<\w+>)?)\(", name)
-    return m.group(1) if m else name[:40]
-
-
 def time_counts(tree: str) -> None:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     import chip_smoke as cs
     sys.path.insert(0, tree)
+    from rec_now_tpu_torch.losses.pairwise import pairwise_loss
     from rec_now_tpu_torch.ops import pairwise_kernel as pk
     dev = torch.device("cuda", 0)
     inp = _inputs(dev)
     grp, mask = inp["groups"]["zipf"], inp["mask"]
     two = [grp, inp["dom"]]
     counts = pk.pair_row_counts_plain(inp["x"], inp["graded"], two, mask)
+    xg = inp["x"].clone().requires_grad_()
+
+    def general():
+        loss = pairwise_loss(xg, inp["graded"], two,
+                             click_occurance_power=-0.5, mask=mask,
+                             reduce_mean=False)
+        return torch.autograd.grad(loss, xg)
+
     calls = {"B7a pair_row_counts": lambda: pk.pair_row_counts(
                  inp["x"], inp["graded"], two, mask),
              "B7b same_group_matvec": lambda: pk.same_group_matvec(
                  grp, counts),
              "B7c group_pair_counts_binary": lambda: pk
-             .group_pair_counts_binary(grp, inp["lab"], mask)}
+             .group_pair_counts_binary(grp, inp["lab"], mask),
+             "general pairwise_loss, fwd + bwd": general}
     card = cs.smi()
     for what, fn in calls.items():
         ms = cs.cuda_ms(torch, fn)
-        by = cs.profiled_by_name(torch, fn)
+        seq = cs.profiled_sequence(torch, fn)
+        by = {}
+        for n, t in seq:
+            by[cs.kernel_name(n)] = by.get(cs.kernel_name(n), 0.0) + t / 20
         print(f"{tree}: {what} {ms:.4f} ms by events, "
-              f"{sum(by.values()):.4f} on the device ("
-              + "; ".join(f"{_kernel(n)} {t:.4f}" for n, t in by.items())
+              f"{sum(by.values()):.4f} on the device in {len(seq) / 20:g} "
+              f"operations a call ("
+              + "; ".join(f"{n} {t:.4f}" for n, t in by.items())
               + f") [{card}]")
 
 
