@@ -40,7 +40,13 @@ Phases, each of which ends the script with a non-zero exit on failure:
    scale) on the 2.6M x 16 table with a B = 8192 batch's 212,992 ids (the
    dense buffer, the sparse path's dedup and its sentinel-heavy
    write-backs, ragged, empty and out-of-range ids, vals off the 16-byte
-   grid), and at ragged shapes and the multi-expert dense's dispatch
+   grid), B9-B12 at config 5's CAN table (100,000 x 272: B9 within 1e-6
+   of each output's scale; B10 with the CAN ids of a B = 8192 batch
+   touched, t = 1 and 1000; B11 and B12 with those 8,192 ids), and at
+   ragged tables of widths 45 and 72 (a warp a row, on floats and on
+   float4s), each repeated bit for bit and timed by events and on the
+   device beside its bound, and at ragged shapes and the multi-expert
+   dense's dispatch
    edges (N * U = 16 and 17, a small per-expert bank, W too deep for the
    gate kernel, x off the 16-byte grid), and time kernel, plain version
    and, where one exists, a single PyTorch call computing the same
@@ -64,7 +70,14 @@ config 4 (``MultiTaskModel()``, MMoE + PLE + STAR towers,
 num_tasks=2)``), then config 2 (``DCNv2Model()``, SENET + DCN-mix +
 deep (256, 128), ``TrainerConfig(pointwise_weight=1.0,
 pairwise_weight=0.5, click_occurance_power=-0.5,
-sparse_optimizer="adam", sparse_lr=1e-3)``).  Each run names its model,
+sparse_optimizer="adam", sparse_lr=1e-3)``), then config 5
+(``CANDCNModel()``: CAN over fields 0-7 with per-item parameters from a
+second table of 100,000 x 272 rows looked up by field 8, beside SENET +
+DCN-mix + deep (256, 128); ``TrainerConfig(pointwise_weight=1.0,
+pairwise_weight=0.5, can_param_field=8, can_dnn_dims=(16,))``: two
+lookups a request, two lookups, scatters and Adagrad passes a step), and
+its first step once more under lazy Adam (two Adam passes; not served or
+trained further).  Each run names its model,
 trainer config, loss keys, the launches it expects per request and per
 step, and its own kernel checks.  Every serving or training loop sets all
 fourteen launch counts to 0 just before it and reads them just after, and
@@ -78,20 +91,23 @@ gradients once (B12).
    check (xDeepFM: the CIN layer on the run's own embeddings against its
    plain version, relative to that output's scale, failing if it could
    not see any one layer -- the table's +-1e-3 rows make the CIN terms
-   too small to show in the logits), and the card against the same model
-   and table on the CPU through the plain versions;
-5. each run's first training step (B = 2048, full-width model and table)
-   on the card against the same step on the CPU: the losses, every
-   gradient and every param after Adam, the touched rows and
-   accumulators (under Adam: m, v and the count); then each kernel on that
+   too small to show in the logits; config 5: the CAN layer against a
+   float64 evaluation, failing unless its products and its share of the
+   logits are each visible), and the card against the same model and
+   tables on the CPU through the plain versions;
+5. each run's first training step (B = 2048, full-width model and
+   tables, its launches exact) on the card against the same step on the
+   CPU: the losses, every gradient and every param after Adam, each
+   table's touched rows and accumulators (under Adam: m, v and the
+   count); then each kernel on that
    step's own tensors against its plain version, relative to that
    output's scale, failing unless each compared quantity is larger than
    its tolerance: the CIN backward's dx0 and dW of every layer, or the six
    multi-expert dense calls (each also with x off the 16-byte grid, and
    a shared input as one copy per expert); the ranking loss's dlogits
    (pair or
-   listwise); the updated rows (and m, v); under Adam, the same step with
-   ``sparse_update_mode="sparse"`` against the dense one;
+   listwise); each table's updated rows (and m, v); under Adam, the same
+   step with ``sparse_update_mode="sparse"`` against the dense one;
 6. train each run at full width (B = 8192): warm-up steps, then timed
    steps (host clock, each ending in ``torch.cuda.synchronize()``);
    every loss finite and > 0; the step is split into each kernel's time
@@ -215,6 +231,9 @@ B7B_PARTS = {"Memset": "zero", "hash_insert_kernel": "insert",
              "hash_read_kernel": "read"}
 # launches that phase 3's "ms" of a kernel covers: one forward's
 MS_COVERS = {"cin_flat": 2, "cin_flat_bwd": 2, "multi_dense": 6}
+# config 5's CAN table (bench_all.py:132-135): rows_per_field rows of the
+# CAN layer's 16 x 16 kernel and 16 biases, looked up by field 8
+CAN_ROWS, CAN_DIM, CAN_FIELD = 100_000, 272, 8
 
 
 def fail(msg: str) -> None:
@@ -664,6 +683,132 @@ def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
           + f" [{card}]")
 
 
+def check_wide_tables(torch, rand, gen, batch, tk, gk, ek, dev,
+                      card) -> None:
+    """B9-B12 at widths of a warp a row: config 5's CAN table (CAN_ROWS x
+    CAN_DIM) with the CAN ids of a B = 8192 batch (its field CAN_FIELD),
+    and ragged tables of D = 45 (float lanes) and 72 (float4s).  Each
+    kernel against its plain version (B9 within 1e-6 of each output's
+    scale, B10 within REL_TOL, B11 exact, B12 within SUM_TOL of the
+    summed scale) and repeated bit for bit (B12's atomics excepted); then
+    timed at the CAN table's shapes by events and on the device
+    (torch.profiler) beside its bound, the plain version and the library
+    call where one exists."""
+    ids = torch.as_tensor(batch.sparse_ids[:, CAN_FIELD] % CAN_ROWS,
+                          device=dev).long()
+    n, distinct = ids.numel(), int(torch.unique(ids).numel())
+    print(f"the CAN table, {CAN_ROWS} x {CAN_DIM} "
+          f"({CAN_ROWS * CAN_DIM * 4 / 1e6:.1f} MB): a B=8192 batch's "
+          f"{n} CAN ids touch {distinct} rows")
+
+    def timed(what, fn, plain, nflops, nbytes, library=None):
+        b_ms, b_by = bound_ms(nflops, nbytes)
+        ev, on_dev = cuda_ms(torch, fn), profiled_ms(torch, fn)
+        lib = ("" if library is None else
+               f", {library[0]} {cuda_ms(torch, library[1]):.4f} by events,"
+               f" {profiled_ms(torch, library[1]):.4f} on the device")
+        print(f"  {what}: {ev:.4f} ms by events, {on_dev:.4f} on the device"
+              f" (torch.profiler), plain {cuda_ms(torch, plain):.4f}{lib}; "
+              f"bound {b_ms:.4f} ({b_by}), {100 * b_ms / on_dev:.1f}% of the "
+              f"device time [{card}]")
+
+    print("adagrad_dense_pass at wide widths vs plain (1e-6 of scale):")
+    for v, d in ((CAN_ROWS, CAN_DIM), (12345, 45), (1001, 72), (777, 272)):
+        tb, ac = rand(v, d, scale=0.05), rand(v).abs() * 0.1
+        dg = rand(v, d) * (torch.rand(v, generator=gen) < 0.1).to(dev)[:, None]
+        old, want = (tb.clone(), ac.clone()), (tb.clone(), ac.clone())
+        again = (tb.clone(), ac.clone())
+        tk.adagrad_dense_pass(tb, ac, dg, 0.05)
+        tk.adagrad_dense_pass(*again, dg, 0.05)
+        if not (torch.equal(tb, again[0]) and torch.equal(ac, again[1])):
+            fail(f"adagrad_dense_pass at V={v} D={d} is not bit-equal on a "
+                 f"repeat")
+        tk.adagrad_dense_pass_plain(*want, dg, 0.05)
+        for name, got, ref, start in (("rows", tb, want[0], old[0]),
+                                      ("accumulators", ac, want[1], old[1])):
+            compare(f"V={v} D={d} {name}", got, ref, 0.0, rel=1e-6)
+            visible(f"the {name}' update", ref - start,
+                    float(ref.abs().max()), rel=1e-6)
+    v, d = CAN_ROWS, CAN_DIM
+    tb, ac = rand(v, d, scale=0.05), torch.full((v,), 0.1, device=dev)
+    dg = rand(v, d)
+    # as at D = 16: table and g read, table written, acc read and written
+    timed(f"B9 V={v} D={d}", lambda: tk.adagrad_dense_pass(tb, ac, dg, 0.05),
+          lambda: tk.adagrad_dense_pass_plain(tb, ac, dg, 0.05),
+          v * (4 * d + 5), v * (3 * d + 2) * 4)
+
+    print("adam_dense_pass at wide widths vs plain:")
+    touched = torch.zeros(CAN_ROWS, dtype=torch.bool, device=dev)
+    touched.index_fill_(0, ids, True)
+    cases = ((CAN_ROWS, CAN_DIM, touched),
+             (12345, 45, (torch.rand(12345, generator=gen) < 0.3).to(dev)),
+             (1001, 72, (torch.rand(1001, generator=gen) < 0.3).to(dev)),
+             # rows touched only in a partial last 64-flag chunk
+             (1000, 272, torch.arange(1000, device=dev) >= 960))
+    for v, d, tch in cases:
+        for t in (1, 1000):
+            tb, m1 = rand(v, d, scale=0.05), rand(v, d, scale=1e-3)
+            v1 = rand(v, d, scale=1e-3).square()
+            dg = rand(v, d, scale=1e-3) * tch[:, None]
+            dg[::7] = 0.0              # touched rows with a zero gradient
+            cnt = torch.tensor(t, dtype=torch.int32, device=dev)
+            before = [x.clone() for x in (tb, m1, v1)]
+            want = [x.clone() for x in (tb, m1, v1)]
+            again = [x.clone() for x in (tb, m1, v1)]
+            tk.adam_dense_pass(tb, m1, v1, dg, tch, cnt, 1e-3)
+            tk.adam_dense_pass(*again, dg, tch, cnt, 1e-3)
+            if not all(torch.equal(u, r) for u, r in zip((tb, m1, v1),
+                                                         again)):
+                fail(f"adam_dense_pass at V={v} D={d} is not bit-equal on a "
+                     f"repeat")
+            tk.adam_dense_pass_plain(*want, dg, tch, cnt, 1e-3, 0.9, 0.999,
+                                     1e-7)
+            for name, got, ref, start in zip(("rows", "m", "v"),
+                                             (tb, m1, v1), want, before):
+                compare(f"V={v} D={d} t={t} {name}", got, ref, 0.0)
+                if not torch.equal(got[~tch], start[~tch]):
+                    fail(f"adam_dense_pass changed an untouched {name}")
+                visible(f"the touched {name}' change", ref[tch] - start[tch],
+                        float(ref.abs().max()))
+    v, d = CAN_ROWS, CAN_DIM
+    tb, m1 = rand(v, d, scale=0.05), rand(v, d, scale=1e-3)
+    v1, dg = rand(v, d, scale=1e-3).square(), rand(v, d)
+    cnt = torch.tensor(1, dtype=torch.int32, device=dev)
+    # the flags, then table, m, v and g read and table, m, v written for
+    # each touched row; ~14 operations a touched element
+    timed(f"B10 V={v} D={d}, {distinct} rows touched",
+          lambda: tk.adam_dense_pass(tb, m1, v1, dg, touched, cnt, 1e-3),
+          lambda: tk.adam_dense_pass_plain(tb, m1, v1, dg, touched, cnt,
+                                           1e-3, 0.9, 0.999, 1e-7),
+          14 * distinct * d, v + distinct * 7 * d * 4 + 4)
+    del m1, v1
+
+    print(f"gather_rows and scatter_add_rows at D={CAN_DIM} with the "
+          f"batch's CAN ids:")
+    got, want = gk.gather_rows(tb, ids), gk.gather_rows_plain(tb, ids)
+    if not (torch.equal(got, want) and float(got.abs().max()) > 0):
+        fail(f"gather_rows at D={CAN_DIM} differs from its plain version")
+    print(f"  gather_rows: shape {tuple(got.shape)} equal")
+    vals = rand(n, CAN_DIM, scale=1e-3)
+    buf, ref = torch.zeros_like(tb), torch.zeros_like(tb)
+    ek.scatter_add_rows(buf, ids, vals)
+    ek.scatter_add_rows_plain(ref, ids, vals)
+    scale = float(torch.zeros_like(tb).index_add_(0, ids, vals.abs()).max())
+    compare_sum(f"scatter_add_rows D={CAN_DIM}", buf, ref, scale)
+    visible("the added rows", ref, scale, rel=SUM_TOL)
+    # B11: the distinct rows read, the (n, D) rows written, the ids read;
+    # B12: the values and ids read, the distinct rows read and written
+    timed(f"B11 D={CAN_DIM}, {n} ids", lambda: gk.gather_rows(tb, ids),
+          lambda: gk.gather_rows_plain(tb, ids), 0,
+          (distinct + n) * CAN_DIM * 4 + n * 8,
+          ("index_select", lambda: torch.index_select(tb, 0, ids)))
+    timed(f"B12 D={CAN_DIM}, {n} ids",
+          lambda: ek.scatter_add_rows(buf, ids, vals),
+          lambda: ek.scatter_add_rows_plain(buf, ids, vals), n * CAN_DIM,
+          (n + 2 * distinct) * CAN_DIM * 4 + n * 8,
+          ("index_add_", lambda: buf.index_add_(0, ids, vals)))
+
+
 def cli_launches(per_step: dict, steps: int, eval_batches: int) -> dict:
     """Launches of a CLI run: ``per_step`` for each step, and one row
     gather for each batch of its one (final) eval."""
@@ -943,8 +1088,9 @@ def main() -> int:
     from rec_now_tpu_torch.embedding.table import EmbeddingTable
     from rec_now_tpu_torch.layers.multi_dense_layer import MultiDenseLayer
     from rec_now_tpu_torch.losses.pairwise import pairwise_loss
-    from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig,
-                                          MultiTaskModel, XDeepFMModel)
+    from rec_now_tpu_torch.models import (CANDCNModel, DCNv2Model,
+                                          FeatureConfig, MultiTaskModel,
+                                          XDeepFMModel)
     from rec_now_tpu_torch.ops import _build, cin_kernel as ck
     from rec_now_tpu_torch.ops import expand_kernel as expand_k
     from rec_now_tpu_torch.ops import gather_kernel as gather_k
@@ -959,6 +1105,7 @@ def main() -> int:
     from rec_now_tpu_torch.training import SyntheticCriteo, Trainer, \
         TrainerConfig
 
+    t_start = time.perf_counter()
     card = smi()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1285,6 +1432,12 @@ def main() -> int:
         plain_ms=cuda_ms(torch, lambda: tk.adagrad_dense_pass_plain(
             tb, ac, dg, 0.05)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    on_dev = profiled_ms(torch, lambda: tk.adagrad_dense_pass(tb, ac, dg,
+                                                              0.05))
+    print(f"  B9 V={v} D={d}: {kern['adagrad_dense_pass']['ms']:.4f} ms by "
+          f"events, {on_dev:.4f} on the device (torch.profiler), bound "
+          f"{b_ms:.4f} ({b_by}), {100 * b_ms / on_dev:.1f}% of the device "
+          f"time [{card}]")
     print("multi_dense vs plain:")
     err = 0.0
     t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_ops=0.0, t_bytes=0.0,
@@ -1735,6 +1888,9 @@ def main() -> int:
     grads8k = rand(ids8k.numel(), 16, scale=1e-3)
     check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gather_k,
                          expand_k, ShardedEmbeddingTable, dev, card)
+    # -- B9-B12 at config 5's CAN table and other widths of a warp a row --
+    check_wide_tables(torch, rand, gen, pb, tk, gather_k, expand_k, dev, card)
+    torch.cuda.empty_cache()
 
     print(f"update paths of the table (auto), median of {UPDATE_ROUNDS} "
           f"interleaved rounds of 10 calls each:")
@@ -1794,6 +1950,12 @@ def main() -> int:
           f"{table_t.numel() * 4 / 1e6:.1f} MB on {table_t.device}")
     cpu_table = EmbeddingTable(fc.total_rows, fc.embedding_dim, device="cpu")
     cpu_table_t = table_t.cpu()
+    # config 5's second table, rows U(-0.05, 0.05) as the trainer draws
+    can_table = EmbeddingTable(CAN_ROWS, CAN_DIM, device=dev,
+                               initializer_scale=0.05)
+    can_t = can_table.init(torch.Generator().manual_seed(2))
+    cpu_can_table = EmbeddingTable(CAN_ROWS, CAN_DIM, device="cpu")
+    cpu_can_t = can_t.cpu()
 
     # the function holding each kernel's launch count
     counter = {"cin_stack_sum": ck.cin_stack_sum, "cin_flat": ck.cin_flat,
@@ -1929,6 +2091,32 @@ def main() -> int:
             if relu and not ((want == 0).any() and (want > 0).any()):
                 fail(f"call {i}'s ReLU cuts nothing or everything")
 
+    def check_can(model, batch) -> None:
+        """Serving: the CAN layer on this run's embeddings and CAN rows
+        against a float64 plain evaluation of the per-sample DNN, relative
+        to its output's scale; then the share of that output that the
+        products (not the biases) make, and the CAN output's share of the
+        logits, each of which the check must see."""
+        ids = torch.as_tensor(batch.sparse_ids, device=dev)
+        emb = table.lookup(table_t, fc.global_ids(ids))       # (B, F, D)
+        can_emb = can_table.lookup(can_t, ids[:, CAN_FIELD] % CAN_ROWS)
+        hist = emb[:, :8]                                     # (B, L, D)
+        got = model.can(hist, can_emb)
+        h, p = hist.double(), can_emb.double()
+        d, u = fc.embedding_dim, CAN_DIM // (fc.embedding_dim + 1)
+        kernel, bias = p[:, :d * u].reshape(-1, d, u), p[:, d * u:]
+        mask = (h != 0).any(-1, keepdim=True).double()
+        prods = torch.einsum("bld,bdu->blu", h, kernel)
+        want = ((prods + bias[:, None]) * mask).sum(1)
+        compare("main-path CAN layer vs float64", got, want.float(), 0.0)
+        visible("the products' share of the CAN output",
+                (prods * mask).sum(1), float(want.abs().max()))
+        dense = torch.as_tensor(batch.dense, device=dev)
+        logits = model(dense, emb, can_emb)
+        zero = model(dense, emb, torch.zeros_like(can_emb))   # CAN out 0
+        visible("the CAN output's share of the logits", logits - zero,
+                max(1.0, float(logits.abs().max())))
+
     def xdeepfm(sum_channel: bool):
         return lambda device: XDeepFMModel(fc, cin_sum_channel=sum_channel,
                                            device=device, seed=0)
@@ -1940,6 +2128,14 @@ def main() -> int:
     UPDATE = {"gather_rows": 1, "scatter_add_rows": 1}
     cfg3 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=1.0,
                          click_occurance_power=-0.5)
+    # config 5 (bench_all.py:132-135): a second table, looked up and
+    # updated once each a request or step beside the first
+    cfg5 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
+                         can_param_field=CAN_FIELD, can_dnn_dims=(16,))
+    TWO = {"gather_rows": 2, "scatter_add_rows": 2}
+
+    def can_dcn(device):
+        return CANDCNModel(fc, device=device, seed=0)
     runs = (
         dict(what="config 3, cin_sum_channel=True", make=xdeepfm(True),
              heads=None, reqs=rng_batches[:5] + [small],
@@ -1982,7 +2178,22 @@ def main() -> int:
              keys={"loss", "pointwise", "pairwise"}, taps=lambda m: [],
              check_step=lambda taps: None,
              train={"pair_loss_sum": 1, "adam_dense_pass": 1, **UPDATE},
-             steps=(2, 10)))
+             steps=(2, 10)),
+        dict(what="config 5 (CANDCNModel)", make=can_dcn, can=True,
+             heads=None, reqs=rng_batches[:5] + [small],
+             serve={"gather_rows": 2}, check_serve=check_can, cfg=cfg5,
+             keys={"loss", "pointwise", "pairwise"}, taps=lambda m: [],
+             check_step=lambda taps: None,
+             train={"pair_loss_sum": 1, "adagrad_dense_pass": 2, **TWO},
+             steps=(2, 10)),
+        # B10's wide path on a real step's tensors: a first step only
+        dict(what="config 5 (CANDCNModel) + lazy Adam", make=can_dcn,
+             can=True, heads=None, serve=None, cfg=dataclasses.replace(
+                 cfg5, sparse_optimizer="adam", sparse_lr=1e-3),
+             keys={"loss", "pointwise", "pairwise"}, taps=lambda m: [],
+             check_step=lambda taps: None,
+             train={"pair_loss_sum": 1, "adam_dense_pass": 2, **TWO},
+             steps=None))
 
     # -- 4. serve at full width ----------------------------------------------
     def serve(run) -> None:
@@ -1992,10 +2203,15 @@ def main() -> int:
         the same model and table on the CPU."""
         what, reqs = run["what"], run["reqs"]
         model = run["make"](dev)
-        state = ServingState(dict(model.named_parameters()), table_t)
-        fronts = {"raw": build_scorer(model, fc, table, device=dev),
-                  "u8": WireScorer(model, fc, table, "u8", device=dev),
-                  "f16": WireScorer(model, fc, table, "f16", device=dev)}
+        can = run.get("can", False)
+        kw = (dict(can_table=can_table, can_param_field=CAN_FIELD) if can
+              else {})
+        state = ServingState(dict(model.named_parameters()), table_t,
+                             can_t if can else None)
+        fronts = {"raw": build_scorer(model, fc, table, device=dev, **kw),
+                  "u8": WireScorer(model, fc, table, "u8", device=dev, **kw),
+                  "f16": WireScorer(model, fc, table, "f16", device=dev,
+                                    **kw)}
         for fn in fronts.values():                 # warm-up, not counted
             fn(state, reqs[0].dense, reqs[0].sparse_ids)
         torch.cuda.synchronize()
@@ -2036,8 +2252,11 @@ def main() -> int:
                 run["check_serve"](model, reqs[0])
         cpu_model = run["make"]("cpu")
         cpu_state = ServingState(dict(cpu_model.named_parameters()),
-                                 cpu_table_t)
-        score = build_scorer(cpu_model, fc, cpu_table, device="cpu")
+                                 cpu_table_t, cpu_can_t if can else None)
+        score = build_scorer(cpu_model, fc, cpu_table, device="cpu",
+                             **(dict(can_table=cpu_can_table,
+                                     can_param_field=CAN_FIELD) if can
+                                else {}))
         for batch, out in ((reqs[0], outs[0]), (reqs[-1], outs[-1])):
             want = score(cpu_state, batch.dense, batch.sparse_ids)
             e = float((out["raw"].cpu() - want).abs().max())
@@ -2047,21 +2266,27 @@ def main() -> int:
                 fail(f"{what}: card logits disagree with the CPU reference")
 
     for run in runs:
-        serve(run)
+        if run["serve"] is not None:
+            serve(run)
 
     # -- 5. one training step: card vs CPU, kernels on its own tensors -------
     step_batch = next(data.batches(2048, 1, seed=3))
 
-    def one_step(run, device, cfg=None):
+    def one_step(run, device, cfg=None, count=False):
         """The run's first step on ``device`` from the seed's weights and
-        table (``cfg`` in place of the run's own); returns what it saw and
+        tables (``cfg`` in place of the run's own; with ``count``, its
+        launches held to the run's per step); returns what it saw and
         produced: the logits, each tapped module's input, weights before
-        the step and output gradient, the table's ids and gradients, the
+        the step and output gradient, each table's ids and gradients, the
         metrics, grads, params and state."""
         model = run["make"](device)
         trainer = Trainer(model, fc, cfg or run["cfg"], device=device)
+        can_state = None
+        if trainer.can_table is not None:
+            can_state = trainer.can_table.state_from(
+                can_t.to(device, copy=True))
         state = trainer.init(None, table=trainer.table.state_from(
-            table_t.to(device, copy=True)))
+            table_t.to(device, copy=True)), can_table=can_state)
         seen = {"taps": []}
 
         def on_model(mod, args, out):
@@ -2080,9 +2305,23 @@ def main() -> int:
             return apply(st, ids, grads, lr)
 
         trainer.table.apply_grads = record_apply
+        if trainer.can_table is not None:
+            can_apply = trainer.can_table.apply_grads
+
+            def record_can(st, ids, grads, lr):
+                seen["can_ids"], seen["dcan"] = ids, grads
+                return can_apply(st, ids, grads, lr)
+
+            trainer.can_table.apply_grads = record_can
         hooks = [model.register_forward_hook(on_model)] + [
             m.register_forward_hook(on_tap) for m in run["taps"](model)]
-        state, metrics = trainer.train_step(state, *trainer.put(step_batch))
+        inputs = trainer.put(step_batch)
+        if count:
+            state, metrics = counted(
+                f"first step, {run['what']}, B=2048", 1, run["train"],
+                lambda: trainer.train_step(state, *inputs))
+        else:
+            state, metrics = trainer.train_step(state, *inputs)
         for h in hooks:
             h.remove()
         seen["metrics"] = {k: float(v) for k, v in metrics.items()}
@@ -2094,7 +2333,7 @@ def main() -> int:
     def check_step(run) -> None:
         cfg = run["cfg"]
         print(f"first step, {run['what']}, B=2048: card vs CPU plain")
-        card, cpu = one_step(run, dev), one_step(run, "cpu")
+        card, cpu = one_step(run, dev, count=True), one_step(run, "cpu")
         if set(cpu["metrics"]) != run["keys"]:
             fail(f"{run['what']}: metrics {sorted(cpu['metrics'])}")
         for key, want in cpu["metrics"].items():
@@ -2114,16 +2353,25 @@ def main() -> int:
         # f32 ulp (7.5e-9): held to a few ulps of 0.1
         acc_tol = 2.0 ** -22
         adam = cfg.sparse_optimizer == "adam"
-        rows = torch.unique(cpu["gids"])
         parts = ((("table", REL_TOL), ("m", REL_TOL), ("v", REL_TOL)) if adam
                  else (("table", REL_TOL), ("accumulator", acc_tol)))
-        for what, rel in parts:
-            got = getattr(card["state"].table, what)[rows.to(dev)].cpu()
-            want = getattr(cpu["state"].table, what)[rows]
-            compare(f"{len(rows)} touched rows' {what}", got, want, 0.0, rel)
-        if adam and not int(card["state"].table.count) == int(
-                cpu["state"].table.count) == 1:
-            fail("the Adam count is not 1 after the first step")
+        # each table: (label, its state's field, the ids and row gradients
+        # the step applied, its rows before the step)
+        tables = [("", "table", "gids", "demb", table_t)]
+        if "can_ids" in card:
+            tables.append(("CAN table: ", "can_table", "can_ids", "dcan",
+                           can_t))
+        for label, field, ids_key, _, _ in tables:
+            rows = torch.unique(cpu[ids_key])
+            for what, rel in parts:
+                got = getattr(getattr(card["state"], field),
+                              what)[rows.to(dev)].cpu()
+                want = getattr(getattr(cpu["state"], field), what)[rows]
+                compare(f"{label}{len(rows)} touched rows' {what}", got,
+                        want, 0.0, rel)
+            if adam and not int(getattr(card["state"], field).count) == int(
+                    getattr(cpu["state"], field).count) == 1:
+                fail(f"{label}the Adam count is not 1 after the first step")
 
         print("  the kernels on this step's own tensors (card):")
         run["check_step"](card["taps"])
@@ -2146,48 +2394,67 @@ def main() -> int:
             fail(f"{name} count {float(got[1])} vs plain {float(want[1])}")
         print(f"    {name}: count {int(want[1])}")
         compare_all(f"{name} (loss, count, dlogits)", got, want)
-        gids = card["gids"].reshape(-1)
-        dense_g = torch.zeros_like(table_t)
-        dense_g.index_add_(0, gids, card["demb"].reshape(-1, fc.embedding_dim))
-        rows = torch.unique(gids)
-        st0 = ShardedEmbeddingTable(
-            fc.total_rows, fc.embedding_dim, device=dev,
-            optimizer=cfg.sparse_optimizer).state_from(table_t)
+        for label, _, ids_key, grads_key, start in tables:
+            ids = card[ids_key].reshape(-1).long()
+            dense_g = torch.zeros_like(start)
+            dense_g.index_add_(0, ids, card[grads_key].reshape(
+                -1, start.shape[1]))
+            rows = torch.unique(ids)
+            st0 = ShardedEmbeddingTable(
+                *start.shape, device=dev,
+                optimizer=cfg.sparse_optimizer).state_from(start)
+            if adam:
+                touched = torch.zeros(len(start), dtype=torch.bool,
+                                      device=dev)
+                touched.index_fill_(0, ids, True)
+                cnt = torch.ones((), dtype=torch.int32, device=dev)
+                got = [start.clone(), st0.m.clone(), st0.v.clone()]
+                want = [x.clone() for x in got]
+                tk.adam_dense_pass(*got, dense_g, touched, cnt,
+                                   cfg.sparse_lr)
+                tk.adam_dense_pass_plain(*want, dense_g, touched, cnt,
+                                         cfg.sparse_lr, 0.9, 0.999, 1e-7)
+                for name, a, b, old in zip(("rows", "m", "v"), got, want,
+                                           (start, st0.m, st0.v)):
+                    compare(f"{label}adam_dense_pass updated {name}",
+                            a[rows], b[rows], 0.0)
+                    visible(f"the {name}' update", b[rows] - old[rows],
+                            float(b[rows].abs().max()))
+                continue
+            tb, ac = start.clone(), st0.accumulator.clone()
+            t2, a2 = tb.clone(), ac.clone()
+            tk.adagrad_dense_pass(tb, ac, dense_g, cfg.sparse_lr)
+            tk.adagrad_dense_pass_plain(t2, a2, dense_g, cfg.sparse_lr)
+            compare(f"{label}adagrad_dense_pass updated rows", tb[rows],
+                    t2[rows], 0.0)
+            visible("the rows' update", t2[rows] - start[rows],
+                    float(t2[rows].abs().max()))
+            compare(f"{label}adagrad_dense_pass accumulators", ac[rows],
+                    a2[rows], 0.0, rel=acc_tol)
+            # the mean g^2 a row adds, which on 0.1 can be below an ulp
+            # (config 5's main table): the same pass from zero
+            # accumulators, its sums at their own scale
+            z, z2 = torch.zeros_like(ac), torch.zeros_like(a2)
+            tk.adagrad_dense_pass(start.clone(), z, dense_g, cfg.sparse_lr)
+            tk.adagrad_dense_pass_plain(start.clone(), z2, dense_g,
+                                        cfg.sparse_lr)
+            compare(f"{label}adagrad_dense_pass accumulators from zero",
+                    z[rows], z2[rows], 0.0)
+            visible("the accumulators' increase", z2[rows],
+                    float(z2[rows].abs().max()))
         if adam:
-            touched = torch.zeros(len(table_t), dtype=torch.bool, device=dev)
-            touched.index_fill_(0, gids, True)
-            cnt = torch.ones((), dtype=torch.int32, device=dev)
-            got = [table_t.clone(), st0.m.clone(), st0.v.clone()]
-            want = [x.clone() for x in got]
-            tk.adam_dense_pass(*got, dense_g, touched, cnt, cfg.sparse_lr)
-            tk.adam_dense_pass_plain(*want, dense_g, touched, cnt,
-                                     cfg.sparse_lr, 0.9, 0.999, 1e-7)
-            for name, a, b, old in zip(("rows", "m", "v"), got, want,
-                                       (table_t, st0.m, st0.v)):
-                compare(f"adam_dense_pass updated {name}", a[rows], b[rows],
-                        0.0)
-                visible(f"the {name}' update", b[rows] - old[rows],
-                        float(b[rows].abs().max()))
             # the same step through the sparse path, on the card
             sparse = one_step(run, dev, dataclasses.replace(
                 cfg, sparse_update_mode="sparse"))
-            for what in ("table", "m", "v"):
-                compare(f"sparse vs dense update: touched rows' {what}",
-                        getattr(sparse["state"].table, what)[rows],
-                        getattr(card["state"].table, what)[rows], 0.0)
-            return
-        tb, ac = table_t.clone(), st0.accumulator.clone()
-        t2, a2 = tb.clone(), ac.clone()
-        tk.adagrad_dense_pass(tb, ac, dense_g, cfg.sparse_lr)
-        tk.adagrad_dense_pass_plain(t2, a2, dense_g, cfg.sparse_lr)
-        compare("adagrad_dense_pass updated rows", tb[rows], t2[rows], 0.0)
-        visible("the rows' update", t2[rows] - table_t[rows],
-                float(t2[rows].abs().max()))
-        compare("adagrad_dense_pass accumulators", ac[rows], a2[rows], 0.0,
-                rel=acc_tol)
-        visible("the accumulators' increase",
-                a2[rows] - st0.accumulator[rows],
-                float(a2[rows].abs().max()), rel=acc_tol)
+            for label, field, ids_key, _, _ in tables:
+                rows = torch.unique(card[ids_key])
+                for what in ("table", "m", "v"):
+                    compare(f"{label}sparse vs dense update: touched rows' "
+                            f"{what}",
+                            getattr(getattr(sparse["state"], field),
+                                    what)[rows],
+                            getattr(getattr(card["state"], field),
+                                    what)[rows], 0.0)
 
     for run in runs:
         check_step(run)
@@ -2198,6 +2465,8 @@ def main() -> int:
     def train(run) -> None:
         """Warm-up steps, then timed steps (host clock, each ending in a
         synchronize) with exact launches; every loss finite and > 0."""
+        if run["steps"] is None:
+            return
         (warm, timed), what = run["steps"], run["what"]
         model = run["make"](dev)
         trainer = Trainer(model, fc, run["cfg"], device=dev)
@@ -2307,6 +2576,8 @@ def main() -> int:
     train_cli_phase(torch, counted, card)
 
     # -- 9. result ------------------------------------------------------------
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          f"first phase to the result, the build included [{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_per_step")

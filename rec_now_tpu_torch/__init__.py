@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of ``rec_now_tpu`` for NVIDIA Hopper (H100).
 
 Covers serving and one-device training of FM (config 1), DCN-v2 + SENET
-(config 2, with lazy sparse Adam on the rows), xDeepFM (config 3) and the
-MMoE + PLE + STAR multitask model (config 4) today: feature layout,
-(V, D) embedding table with row-wise Adagrad or lazy Adam (dense-apply or
-sparse), FM, SENET, DCN-mix, CIN, inner-PNN, DNN tower, the multi-expert
+(config 2, with lazy sparse Adam on the rows), xDeepFM (config 3), the
+MMoE + PLE + STAR multitask model (config 4) and CAN with DCN-v2
+(config 5, with its second table of per-item CAN parameters) today:
+feature layout, (V, D) embedding tables of any width with row-wise
+Adagrad or lazy Adam (dense-apply or sparse), FM, SENET, DCN-mix, CIN,
+inner-PNN, CAN, pooling, DNN tower, the multi-expert
 dense, MMoE, PLE, the Parasitic STAR tower, the pointwise, in-batch
 pairwise (the public ``pairwise_loss`` with every option of the JAX
 kernel path) and listwise losses, ``Trainer`` with the windowed loop over

@@ -32,7 +32,13 @@ Inputs are numpy arrays (a caller holding JAX arrays passes
 A JAX ``TrainState`` at init carries over as ``Trainer.init(gen,
 params=from_jax_params(params), table=table_state_from_jax(
 jax.device_get(state.table), 1, dim))``; its dense Adam state is all
-zeros, as a new ``torch.optim.Adam``'s is.
+zeros, as a new ``torch.optim.Adam``'s is.  A config-5 state's CAN table
+(``state.can_table``, ``rows_per_field`` rows of the CAN layer's
+parameter count, 272 wide at full width and 72 in the JAX CAN tests:
+widths that divide no 128-lane line, so the TPU packs one row a line)
+carries over the same way, at its own width:
+``can_table=table_state_from_jax(jax.device_get(state.can_table), 1,
+can_dim)``.
 """
 from __future__ import annotations
 

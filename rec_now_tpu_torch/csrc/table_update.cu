@@ -11,17 +11,30 @@
 // Rows whose gradient is zero keep their values exactly.
 //
 // Taken from the math, not from the TPU blocks: the TPU packs 128 / D
-// rows per lane line and turns the per-row mean and the scale broadcast
-// into matmuls against (W, P) group matrices.  Here the table is the
-// logical (V, D) tensor: D / 4 consecutive threads own one row, one
-// float4 each, so a warp reads and writes whole 64-byte rows with 16-byte
-// accesses, and the row's sum of squares is a butterfly of D / 4 lanes
-// (__shfl_xor_sync).  The update multiplies and subtracts without
-// contraction to an FMA, as the plain PyTorch version does.
+// rows per lane line (pack 1 where D does not divide 128) and turns the
+// per-row mean and the scale broadcast into matmuls against (W, P) group
+// matrices.  Here the table is the logical (V, D) tensor, and the pass
+// takes any D >= 1, as the TPU kernel does, by one of three layouts:
+//   * D in {4, 8, 16, 32, 64, 128}, every tensor on the 16-byte grid
+//     (adagrad_kernel): D / 4 consecutive threads own one row, one float4
+//     each, so a warp reads and writes whole rows with 16-byte accesses,
+//     and the row's sum of squares is a butterfly of D / 4 lanes
+//     (__shfl_xor_sync);
+//   * any other D % 4 == 0 on the grid (config 5's CAN table, D = 272 =
+//     68 float4s): a warp per row (adagrad_row_kernel<float4>), its lanes
+//     striding over the row's float4s, the sum of squares a full-warp
+//     butterfly;
+//   * D % 4 != 0, or a tensor off the grid: the same warp per row on
+//     float lanes (adagrad_row_kernel<float>), as gather.cu's 1-float
+//     kernels.
+// The update multiplies and subtracts without contraction to an FMA, as
+// the plain PyTorch version does.
 //
 // What bounds it: bytes.  Each element of table and g is read once, each
 // of table written once, acc read and written once: (3 D + 2) * 4 bytes a
-// row, 520 MB for 2.6M rows of D = 16, 0.155 ms at 3.35 TB/s.
+// row, 520 MB for 2.6M rows of D = 16, 0.155 ms at 3.35 TB/s; 327 MB for
+// 100,000 rows of D = 272, 0.0977 ms.  The warp-per-row kernel reads g
+// twice (the sum, then the update): the second read finds the row in L1.
 //
 // ---- adam_dense_f32 ----
 //
@@ -43,7 +56,15 @@
 // reads 2 with one 2-byte load, a ballot leaves at once a chunk with no
 // row touched, and a warp scan lists the chunk's touched rows in shared
 // memory in row order.  The warp then updates them D / 4 lanes a row, 32 /
-// (D / 4) rows at a time, one float4 each of g, m, v and the table.  A B =
+// (D / 4) rows at a time, one float4 each of g, m, v and the table, for D
+// in {4, 8, 16, 32, 64, 128} on the 16-byte grid (adam_chunk_kernel).  Any
+// other D (config 5's CAN table: 272) runs adam_rows_kernel: a warp per 8
+// flags, taking its touched rows one at a time, its lanes striding over a
+// row's float4s (D % 4 == 0 on the grid) or floats, each lane's loads of
+// up to 4 vectors issued together.  Its first form gave a warp 64 flags
+// and a row's vectors one load at a time: a B = 8,192 batch's 1,427 CAN
+// rows fill every row of its hottest chunks (64 of 64), and the warp of
+// such a chunk took 192 dependent steps, 0.1416 ms on the H100.  A B =
 // 8,192 batch touches 36,302 of config 2's 2.6M rows (1.4%), so the grid is
 // V / 64 warps (1.3M threads), where a thread per float4 of the table
 // (10.4M threads) spent the pass on threads that read a flag and left.  The
@@ -68,12 +89,15 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 64;         // flags a warp: 2 a lane
 constexpr int kWarps = kThreads / 32;
+constexpr int kRowFlags = 8;       // flags a warp of the wide Adam pass
+constexpr int kBatch = 4;          // vectors a lane loads at once there
 
 __global__ void __launch_bounds__(kThreads)
 adagrad_kernel(float4* __restrict__ table, float* __restrict__ acc,
@@ -98,6 +122,48 @@ adagrad_kernel(float4* __restrict__ table, float* __restrict__ acc,
   tv.w = __fsub_rn(tv.w, __fmul_rn(scale, gv.w));
   table[idx] = tv;
   if (idx % lanes == 0) acc[row] = a;
+}
+
+// A lane's vector (a float4 or one float) of a row: its sum of squares
+// and the scaled subtraction, each product rounded on its own.
+__device__ __forceinline__ float sumsq(float4 v) {
+  return v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+}
+__device__ __forceinline__ float sumsq(float v) { return v * v; }
+__device__ __forceinline__ void sub_scaled(float4& t, float s, float4 g) {
+  t.x = __fsub_rn(t.x, __fmul_rn(s, g.x));
+  t.y = __fsub_rn(t.y, __fmul_rn(s, g.y));
+  t.z = __fsub_rn(t.z, __fmul_rn(s, g.z));
+  t.w = __fsub_rn(t.w, __fmul_rn(s, g.w));
+}
+__device__ __forceinline__ void sub_scaled(float& t, float s, float g) {
+  t = __fsub_rn(t, __fmul_rn(s, g));
+}
+
+// A warp per row of n vectors (D / 4 float4s, or D floats): the lanes
+// stride over the row, the sum of squares is a full-warp butterfly.
+template <typename Vec>
+__global__ void __launch_bounds__(kThreads)
+adagrad_row_kernel(Vec* __restrict__ table, float* __restrict__ acc,
+                   const Vec* __restrict__ g, long long V, int n, int D,
+                   float lr, float eps) {
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= V) return;                 // the whole warp
+  const int lane = threadIdx.x & 31;
+  const Vec* gr = g + row * n;
+  float sq = 0.f;
+  for (int i = lane; i < n; i += 32) sq += sumsq(gr[i]);
+  for (int off = 16; off > 0; off >>= 1)
+    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  const float a = acc[row] + sq / (float)D;
+  const float scale = lr / sqrtf(fmaxf(a, eps));
+  Vec* tr = table + row * n;
+  for (int i = lane; i < n; i += 32) {
+    Vec tv = tr[i];
+    sub_scaled(tv, scale, gr[i]);
+    tr[i] = tv;
+  }
+  if (lane == 0) acc[row] = a;
 }
 
 __device__ __forceinline__ void adam_lane(float& w, float& m, float& v,
@@ -164,6 +230,91 @@ adam_chunk_kernel(float4* __restrict__ table, float4* __restrict__ m,
   }
 }
 
+struct AdamArgs {
+  float lr, b1, omb1, b2, omb2, eps;
+};
+
+__device__ __forceinline__ void adam_vec(float4& w, float4& m, float4& v,
+                                         float4 g, const AdamArgs& a,
+                                         float c1, float c2) {
+  adam_lane(w.x, m.x, v.x, g.x, a.lr, a.b1, a.omb1, a.b2, a.omb2, c1, c2,
+            a.eps);
+  adam_lane(w.y, m.y, v.y, g.y, a.lr, a.b1, a.omb1, a.b2, a.omb2, c1, c2,
+            a.eps);
+  adam_lane(w.z, m.z, v.z, g.z, a.lr, a.b1, a.omb1, a.b2, a.omb2, c1, c2,
+            a.eps);
+  adam_lane(w.w, m.w, v.w, g.w, a.lr, a.b1, a.omb1, a.b2, a.omb2, c1, c2,
+            a.eps);
+}
+__device__ __forceinline__ void adam_vec(float& w, float& m, float& v,
+                                         float g, const AdamArgs& a,
+                                         float c1, float c2) {
+  adam_lane(w, m, v, g, a.lr, a.b1, a.omb1, a.b2, a.omb2, c1, c2, a.eps);
+}
+
+// Any other D: a warp per kRowFlags flags (a zipf batch touches every row
+// of its hottest chunks, so a warp of 64 flags would take up to 64 rows
+// one after another); the warp takes its touched rows one at a time, its
+// lanes striding over a row's n vectors (D / 4 float4s, or D floats),
+// each lane's loads for kBatch of them issued before their update.
+template <typename Vec>
+__global__ void __launch_bounds__(kThreads)
+adam_rows_kernel(Vec* __restrict__ table, Vec* __restrict__ m,
+                 Vec* __restrict__ v, const Vec* __restrict__ g,
+                 const unsigned char* __restrict__ touched,
+                 const int* __restrict__ count, long long V, int n,
+                 AdamArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long base =
+      ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRowFlags;
+  if (base >= V) return;                // the whole warp
+  const bool mine = lane < kRowFlags && base + lane < V &&
+                    __ldg(touched + base + lane) != 0;
+  unsigned rows = __ballot_sync(0xffffffffu, mine);  // bit b: base + b
+  if (rows == 0u) return;
+  const float t = (float)__ldg(count);
+  const float c1 = __fsub_rn(1.f, powf(a.b1, t));
+  const float c2 = __fsub_rn(1.f, powf(a.b2, t));
+  for (; rows; rows &= rows - 1u) {
+    const long long r0 = (base + __ffs(rows) - 1) * n;
+    for (int i0 = 0; i0 < n; i0 += 32 * kBatch) {
+      Vec tv[kBatch], mv[kBatch], vv[kBatch], gv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u + lane;
+        if (i < n) {
+          tv[u] = table[r0 + i];
+          mv[u] = m[r0 + i];
+          vv[u] = v[r0 + i];
+          gv[u] = g[r0 + i];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + 32 * u + lane;
+        if (i < n) {
+          adam_vec(tv[u], mv[u], vv[u], gv[u], a, c1, c2);
+          table[r0 + i] = tv[u];
+          m[r0 + i] = mv[u];
+          v[r0 + i] = vv[u];
+        }
+      }
+    }
+  }
+}
+
+// How a pass lays a (V, D) table on the lanes: D / 4 threads a row (D in
+// {4, ..., 128}, every tensor 16-byte aligned), a warp per row on float4s
+// (other D % 4 == 0, aligned), or a warp per row on floats.
+enum class Layout { kLanes, kRowVec4, kRowFloat };
+
+Layout layout_of(int D, std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  if (D % 4 != 0 || (bits & 15) != 0) return Layout::kRowFloat;
+  return 32 % (D / 4) == 0 ? Layout::kLanes : Layout::kRowVec4;
+}
+
 // Makes `device` current, setting it only when it is not (cudaSetDevice
 // costs host time even then), and first clears an unread error of an
 // earlier runtime call, so that the check after the launch reports the
@@ -184,44 +335,75 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// table (V, D), g (V, D), acc (V,): f32, contiguous, 16-byte aligned;
-// D a multiple of 4 with D / 4 dividing 32.  Returns a cudaError_t.
+// table (V, D), g (V, D), acc (V,): f32, contiguous; any D >= 1 (the
+// layout from D and the pointers' alignment).  Returns a cudaError_t.
 int adagrad_dense_f32(float* table, float* acc, const float* g, long long V,
                       int D, float lr, float eps, int device, void* stream) {
-  if (D % 4 != 0 || 32 % (D / 4) != 0) return cudaErrorInvalidValue;
+  if (D < 1) return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  const long long n4 = V * (D / 4);
-  if (n4 == 0) return cudaSuccess;
-  const long long blocks = (n4 + kThreads - 1) / kThreads;
-  adagrad_kernel<<<(unsigned)blocks, kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<float4*>(table), acc,
-      reinterpret_cast<const float4*>(g), n4, D / 4, D, lr, eps);
+  if (V == 0) return cudaSuccess;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long row_blocks = (V + kWarps - 1) / kWarps;
+  switch (layout_of(D, {table, g})) {
+    case Layout::kLanes: {
+      const long long n4 = V * (D / 4);
+      const long long blocks = (n4 + kThreads - 1) / kThreads;
+      adagrad_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+          reinterpret_cast<float4*>(table), acc,
+          reinterpret_cast<const float4*>(g), n4, D / 4, D, lr, eps);
+      break;
+    }
+    case Layout::kRowVec4:
+      adagrad_row_kernel<float4><<<(unsigned)row_blocks, kThreads, 0, s>>>(
+          reinterpret_cast<float4*>(table), acc,
+          reinterpret_cast<const float4*>(g), V, D / 4, D, lr, eps);
+      break;
+    case Layout::kRowFloat:
+      adagrad_row_kernel<float><<<(unsigned)row_blocks, kThreads, 0, s>>>(
+          table, acc, g, V, D, D, lr, eps);
+      break;
+  }
   return cudaGetLastError();
 }
 
-// table, m, v, g (V, D) f32, contiguous, 16-byte aligned; touched (V,) bytes
-// (0 or 1); count a device int32 (the step, already advanced); D a multiple
-// of 4 with D / 4 dividing 32; omb1 = 1 - b1 and omb2 = 1 - b2 as the host
-// rounds them.  Returns a cudaError_t.
+// table, m, v, g (V, D) f32, contiguous, any D >= 1; touched (V,) bytes (0
+// or 1); count a device int32 (the step, already advanced); omb1 = 1 - b1
+// and omb2 = 1 - b2 as the host rounds them.  Returns a cudaError_t.
 int adam_dense_f32(float* table, float* m, float* v, const float* g,
                    const unsigned char* touched, const int* count,
                    long long V, int D, float lr, float b1, float omb1,
                    float b2, float omb2, float eps, int device,
                    void* stream) {
-  if (D % 4 != 0 || 32 % (D / 4) != 0) return cudaErrorInvalidValue;
+  if (D < 1) return cudaErrorInvalidValue;
   cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
   if (V == 0) return cudaSuccess;
-  const long long chunks = (V + kChunk - 1) / kChunk;
-  const long long blocks = (chunks + kWarps - 1) / kWarps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool flags2 = reinterpret_cast<uintptr_t>(touched) % 2 == 0;
-  adam_chunk_kernel<<<(unsigned)blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<float4*>(table), reinterpret_cast<float4*>(m),
-      reinterpret_cast<float4*>(v), reinterpret_cast<const float4*>(g),
-      touched, count, V, D / 4, flags2, lr, b1, omb1, b2, omb2, eps);
+  const Layout layout = layout_of(D, {table, m, v, g});
+  const long long flags_a_block =
+      (long long)kWarps * (layout == Layout::kLanes ? kChunk : kRowFlags);
+  const unsigned blocks = (unsigned)((V + flags_a_block - 1) / flags_a_block);
+  const AdamArgs a{lr, b1, omb1, b2, omb2, eps};
+  switch (layout) {
+    case Layout::kLanes:
+      adam_chunk_kernel<<<blocks, kThreads, 0, s>>>(
+          reinterpret_cast<float4*>(table), reinterpret_cast<float4*>(m),
+          reinterpret_cast<float4*>(v), reinterpret_cast<const float4*>(g),
+          touched, count, V, D / 4, flags2, lr, b1, omb1, b2, omb2, eps);
+      break;
+    case Layout::kRowVec4:
+      adam_rows_kernel<float4><<<blocks, kThreads, 0, s>>>(
+          reinterpret_cast<float4*>(table), reinterpret_cast<float4*>(m),
+          reinterpret_cast<float4*>(v), reinterpret_cast<const float4*>(g),
+          touched, count, V, D / 4, a);
+      break;
+    case Layout::kRowFloat:
+      adam_rows_kernel<float><<<blocks, kThreads, 0, s>>>(
+          table, m, v, g, touched, count, V, D, a);
+      break;
+  }
   return cudaGetLastError();
 }
 

@@ -63,7 +63,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from rec_now_tpu_torch.embedding.table import EmbeddingTable
+from rec_now_tpu_torch.embedding.table import INIT_SCALE, EmbeddingTable
 from rec_now_tpu_torch.ops import table_update_kernel
 from rec_now_tpu_torch.ops.expand_kernel import scatter_add_rows
 from rec_now_tpu_torch.ops.gather_kernel import gather_rows
@@ -87,8 +87,11 @@ class ShardedEmbeddingTable:
     the rows are the serving :class:`EmbeddingTable`'s.
 
     Args:
-        vocab_size, dim: the table's shape.
+        vocab_size, dim: the table's shape; any dim >= 1 runs both
+            update paths (config 5's CAN table is 100,000 x 272).
         device: where it lives ("cuda" unless asked otherwise).
+        initializer_scale: rows start in U(-scale, scale) (the JAX
+            table's 1e-3 default; the CAN table takes 0.05).
         optimizer: ``"adagrad"`` (row-wise) or ``"adam"`` (lazy).
         update_mode: ``"auto"``, ``"dense"`` or ``"sparse"``.
         beta1, beta2, eps: Adam's (the JAX table's defaults; eps 1e-7,
@@ -107,6 +110,7 @@ class ShardedEmbeddingTable:
 
     def __init__(self, vocab_size: int, dim: int,
                  device: Union[str, torch.device] = "cuda",
+                 initializer_scale: float = INIT_SCALE,
                  optimizer: str = "adagrad", update_mode: str = "auto",
                  beta1: float = 0.9, beta2: float = 0.999,
                  eps: float = 1e-7):
@@ -114,7 +118,8 @@ class ShardedEmbeddingTable:
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if update_mode not in ("auto", "dense", "sparse"):
             raise ValueError(f"unknown update_mode {update_mode!r}")
-        self.rows = EmbeddingTable(vocab_size, dim, device)
+        self.rows = EmbeddingTable(vocab_size, dim, device,
+                                   initializer_scale)
         self.vocab_size, self.dim = vocab_size, dim
         self.device = self.rows.device
         self.optimizer = optimizer
@@ -126,9 +131,9 @@ class ShardedEmbeddingTable:
         self.update_mode = update_mode
 
     def init(self, generator: torch.Generator) -> ShardedTableState:
-        """Rows ~ U(-1e-3, 1e-3) drawn on the CPU, accumulators at 0.1
-        and, under Adam, zero moments and count, all on the device
-        (``sharded.py:283-315``)."""
+        """Rows ~ U(-initializer_scale, initializer_scale) drawn on the
+        CPU, accumulators at 0.1 and, under Adam, zero moments and count,
+        all on the device (``sharded.py:283-315``)."""
         return self.state_from(self.rows.init(generator))
 
     def state_from(self, table: torch.Tensor) -> ShardedTableState:

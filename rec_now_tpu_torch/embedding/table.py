@@ -5,7 +5,8 @@ Counterpart of ``rec_now_tpu/embedding/table.py`` and of the one-shard
 The table is a plain row-major (V, D) float32 tensor; the TPU's lane
 packing of ``128 // D`` rows per line is not kept (``convert.
 table_from_packed`` reads a packed JAX table into this layout).  Rows
-start uniform in +-``INIT_SCALE``, as the JAX table does.
+start uniform in +-``initializer_scale`` (``INIT_SCALE`` unless set; the
+trainer's CAN table takes 0.05), as the JAX table does.
 """
 from __future__ import annotations
 
@@ -30,15 +31,18 @@ class EmbeddingTable:
     """
 
     def __init__(self, vocab_size: int, dim: int,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 initializer_scale: float = INIT_SCALE):
         self.vocab_size = vocab_size
         self.dim = dim
         self.device = resolve_device(device)
+        self.initializer_scale = initializer_scale
 
     def init(self, generator: torch.Generator) -> torch.Tensor:
-        """Rows ~ U(-INIT_SCALE, INIT_SCALE), drawn on the CPU, placed on
-        the device."""
-        t = uniform((self.vocab_size, self.dim), INIT_SCALE, generator)
+        """Rows ~ U(-initializer_scale, initializer_scale), drawn on the
+        CPU, placed on the device."""
+        t = uniform((self.vocab_size, self.dim), self.initializer_scale,
+                    generator)
         return t.to(self.device)
 
     def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,11 @@
 (``csrc/table_update.cu``), their wrappers and plain versions.
 
 Counterparts of ``rec_now_tpu/ops/pallas/table_update_kernel.py`` on the
-logical (V, D) table, without the TPU's lane packing:
+logical (V, D) table, without the TPU's lane packing, at any width D >= 1
+as the TPU kernels take (on the card, D in {4, 8, 16, 32, 64, 128} runs
+D / 4 threads a row; any other width, such as config 5's CAN table at
+D = 272, a warp a row, on float4s where D % 4 == 0 and the tensors sit on
+the 16-byte grid, else on floats):
 
 * :func:`adagrad_dense_pass` (kernel B9) -- row-wise Adagrad, with a
   (V,) accumulator::
@@ -32,8 +36,6 @@ import torch
 
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops._build import check_input, check_rc, is_cpu
-
-_DIMS = (4, 8, 16, 32, 64, 128)
 
 
 def adagrad_dense_pass_plain(table: torch.Tensor, acc: torch.Tensor,
@@ -78,21 +80,20 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check_rows(what: str, rows: int, d: int, **tensors) -> None:
+    if d < 1:
+        raise ValueError(f"{what}: embedding dim {d} < 1")
     for name, t in tensors.items():
         if t.shape[0] != rows or (t.dim() == 2 and t.shape[1] != d):
             raise ValueError(f"{what}: {name} {tuple(t.shape)} does not "
                              f"match the table's ({rows}, {d})")
-    if d not in _DIMS:
-        raise ValueError(f"{what}: embedding dim {d} is not one of "
-                         f"{', '.join(map(str, _DIMS))}")
 
 
 def adagrad_dense_pass(table: torch.Tensor, acc: torch.Tensor,
                        dense_g: torch.Tensor, lr: float,
                        eps: float = 1e-12) -> None:
     """Row-wise Adagrad over the whole table, in place: table (V, D),
-    acc (V,), dense_g (V, D), all float32.  On CUDA, D must be a
-    multiple of 4 with D / 4 dividing 32 (4, 8, 16, 32, 64 or 128)."""
+    acc (V,), dense_g (V, D), all float32, any D >= 1; the mean of the
+    squares divides by D."""
     if is_cpu(table, "adagrad_dense_pass"):
         adagrad_dense_pass_plain(table, acc, dense_g, lr, eps)
         return
@@ -118,8 +119,8 @@ def adam_dense_pass(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                     count: torch.Tensor, lr: float, b1: float = 0.9,
                     b2: float = 0.999, eps: float = 1e-7) -> None:
     """Lazy Adam over the whole table, in place: table, m, v, dense_g
-    (V, D) float32, touched (V,) bool, count a 0-d int32 step count (read
-    on the device).  On CUDA, D is 4, 8, 16, 32, 64 or 128."""
+    (V, D) float32, any D >= 1, touched (V,) bool, count a 0-d int32 step
+    count (read on the device)."""
     if is_cpu(table, "adam_dense_pass"):
         adam_dense_pass_plain(table, m, v, dense_g, touched, count, lr, b1,
                               b2, eps)

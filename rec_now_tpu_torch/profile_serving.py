@@ -1,11 +1,13 @@
 """Where a serving request's time goes on the card.
 
     python -m rec_now_tpu_torch.profile_serving \
-        [--model xdeepfm|multitask|dcnv2|fm]
+        [--model xdeepfm|multitask|dcnv2|fm|can_dcn]
 
 Builds a full-width model (``FeatureConfig()``; ``XDeepFMModel()``,
 config 3, ``MultiTaskModel()``, config 4, ``DCNv2Model()``, config 2, or
-``FMModel()``, config 1; random weights from a seed), warms up, then
+``FMModel()``, config 1, or ``CANDCNModel()``, config 5, with its
+100,000 x 272 CAN table looked up by field 8; random weights and tables
+from a seed), warms up, then
 scores 5 requests of B = 8,192 per front end (raw, u8 wire, f16 wire)
 under ``torch.profiler``.  Prints, per front end, the wall ms per request,
 the device's busy share of that window (sum of kernel times over wall
@@ -25,8 +27,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from rec_now_tpu_torch.embedding.table import EmbeddingTable
-from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig, FMModel,
-                                      MultiTaskModel, XDeepFMModel)
+from rec_now_tpu_torch.models import (CANDCNModel, DCNv2Model,
+                                      FeatureConfig, FMModel, MultiTaskModel,
+                                      XDeepFMModel)
 from rec_now_tpu_torch.ops import cin_kernel as ck
 from rec_now_tpu_torch.ops import expand_kernel as ek
 from rec_now_tpu_torch.ops import gather_kernel as gk
@@ -39,7 +42,9 @@ from rec_now_tpu_torch.training.data import SyntheticCriteo
 
 REQUESTS, BATCH = 5, 8192
 MODELS = {"xdeepfm": XDeepFMModel, "multitask": MultiTaskModel,
-          "dcnv2": DCNv2Model, "fm": FMModel}
+          "dcnv2": DCNv2Model, "fm": FMModel, "can_dcn": CANDCNModel}
+# config 5's CAN table: looked up by this field (bench_all.py:132-135)
+CAN_FIELD = 8
 # the port's kernel wrappers, each counting its launches
 WRAPPERS = (ck.cin_stack_sum, ck.cin_flat, ck.cin_stack_sum_bwd,
             ck.cin_flat_bwd, pk.pair_loss_sum, pk.pair_row_counts,
@@ -83,13 +88,21 @@ def main() -> None:
     fc = FeatureConfig()
     model = MODELS[args.model](fc, seed=0)
     table = EmbeddingTable(fc.total_rows, fc.embedding_dim)
-    state = ServingState(dict(model.named_parameters()),
-                         table.init(torch.Generator().manual_seed(1)))
+    gen = torch.Generator().manual_seed(1)
+    state = ServingState(dict(model.named_parameters()), table.init(gen))
+    can = {}
+    if args.model == "can_dcn":
+        can_table = EmbeddingTable(
+            fc.rows_per_field,
+            CANDCNModel.can_param_size(fc.embedding_dim, (16,)),
+            initializer_scale=0.05)
+        state = state._replace(can_table=can_table.init(gen))
+        can = dict(can_table=can_table, can_param_field=CAN_FIELD)
     data = SyntheticCriteo(seed=0)
     reqs = list(data.batches(BATCH, REQUESTS + 1, seed=1))
-    fronts = {"raw": build_scorer(model, fc, table),
-              "u8": WireScorer(model, fc, table, "u8"),
-              "f16": WireScorer(model, fc, table, "f16")}
+    fronts = {"raw": build_scorer(model, fc, table, **can),
+              "u8": WireScorer(model, fc, table, "u8", **can),
+              "f16": WireScorer(model, fc, table, "f16", **can)}
     for name, fn in fronts.items():
         fn(state, reqs[0].dense, reqs[0].sparse_ids)         # warm-up
         torch.cuda.synchronize()

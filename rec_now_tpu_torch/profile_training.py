@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python -m rec_now_tpu_torch.profile_training \
-        [--model xdeepfm|multitask|dcnv2|fm]
+        [--model xdeepfm|multitask|dcnv2|fm|can_dcn]
 
 Trains at full width (``FeatureConfig()``, random weights from a seed,
 B = 8,192) either config 3 (``XDeepFMModel()``,
@@ -10,7 +10,9 @@ B = 8,192) either config 3 (``XDeepFMModel()``,
 (``MultiTaskModel()``, ``TrainerConfig(pointwise_weight=1.0,
 listwise_weight=0.5, num_tasks=2)``), or config 2 (``DCNv2Model()`` with
 lazy sparse Adam, :data:`CONFIG2`), or config 1 (``FMModel()``, the
-CLI's defaults: pointwise loss, Adagrad rows): two warm-up steps and one
+CLI's defaults: pointwise loss, Adagrad rows), or config 5
+(``CANDCNModel()``, :data:`CONFIG5`: its 100,000 x 272 CAN table beside
+the main one, Adagrad on both): two warm-up steps and one
 profiled and dropped, then 5 steps under ``torch.profiler``.
 Prints, per run, the wall ms per step, the device's busy share of
 that window (sum of kernel and copy times over wall time), the port's
@@ -28,8 +30,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from rec_now_tpu_torch.models import (DCNv2Model, FeatureConfig, FMModel,
-                                      MultiTaskModel, XDeepFMModel)
+from rec_now_tpu_torch.models import (CANDCNModel, DCNv2Model,
+                                      FeatureConfig, FMModel, MultiTaskModel,
+                                      XDeepFMModel)
 from rec_now_tpu_torch.profile_serving import (_device_us, launches_per,
                                                reset_launches)
 from rec_now_tpu_torch.training import SyntheticCriteo, Trainer, TrainerConfig
@@ -39,6 +42,9 @@ STEPS, WARMUP, BATCH = 5, 2, 8192
 CONFIG2 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
                         click_occurance_power=-0.5, sparse_optimizer="adam",
                         sparse_lr=1e-3)
+# config 5's trainer (bench_all.py:132-135)
+CONFIG5 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
+                        can_param_field=8, can_dnn_dims=(16,))
 
 
 def _runs(model: str, fc: FeatureConfig):
@@ -46,6 +52,9 @@ def _runs(model: str, fc: FeatureConfig):
     comes."""
     if model == "dcnv2":
         yield "dcnv2+adam", DCNv2Model(fc, seed=0), CONFIG2
+        return
+    if model == "can_dcn":
+        yield "can_dcn", CANDCNModel(fc, seed=0), CONFIG5
         return
     if model == "fm":
         yield "fm", FMModel(fc, seed=0), TrainerConfig()
@@ -64,7 +73,8 @@ def _runs(model: str, fc: FeatureConfig):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="xdeepfm",
-                    choices=("xdeepfm", "multitask", "dcnv2", "fm"))
+                    choices=("xdeepfm", "multitask", "dcnv2", "fm",
+                             "can_dcn"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")

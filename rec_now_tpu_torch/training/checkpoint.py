@@ -6,7 +6,8 @@ Counterpart of ``rec_now_tpu/training/checkpoint.py`` (its
 ``torch.load`` instead of Orbax.  A save takes a synchronous CPU snapshot
 of the whole :class:`TrainState` -- the params, the Adam ``state_dict``,
 the table state (rows, accumulator and, under lazy Adam, m, v and the
-count) and the step -- and writes ``<directory>/<step>/state.pt``
+count), the CAN table's state in the same form where the state has one
+(config 5), and the step -- and writes ``<directory>/<step>/state.pt``
 through a temporary file, so a directory that exists holds a whole
 checkpoint.  The oldest directories past ``max_to_keep`` are removed.
 
@@ -37,6 +38,11 @@ def _cpu(x: Any) -> Any:
     return x
 
 
+def _table_dict(table) -> Dict[str, Any]:
+    """A table state's tensors by name (the ones it has)."""
+    return {k: v for k, v in table._asdict().items() if v is not None}
+
+
 class CheckpointManager:
     """Step-numbered checkpoints under ``directory``, newest
     ``max_to_keep`` kept."""
@@ -55,14 +61,15 @@ class CheckpointManager:
     def save(self, step: int, state) -> None:
         """Snapshot ``state`` (a ``TrainState``) to the CPU and write it
         as checkpoint ``step``; returns when the file is written."""
-        table = state.table
-        payload = _cpu({
+        payload = {
             "params": dict(state.params),
             "opt": state.opt.state_dict(),
-            "table": {k: v for k, v in table._asdict().items()
-                      if v is not None},
+            "table": _table_dict(state.table),
             "step": state.step,
-        })
+        }
+        if state.can_table is not None:
+            payload["can_table"] = _table_dict(state.can_table)
+        payload = _cpu(payload)
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".{step}.tmp")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -93,16 +100,26 @@ class CheckpointManager:
         if set(payload["params"]) != set(target.params):
             raise ValueError(f"checkpoint params {sorted(payload['params'])}"
                              f" do not match {sorted(target.params)}")
-        have = {k for k, v in target.table._asdict().items() if v is not None}
-        if set(payload["table"]) != have:
-            raise ValueError(f"checkpoint table state "
-                             f"{sorted(payload['table'])} does not match "
-                             f"{sorted(have)}")
+        if ("can_table" in payload) != (target.can_table is not None):
+            raise ValueError(
+                f"checkpoint {'has' if 'can_table' in payload else 'lacks'}"
+                f" a CAN table but the target state "
+                f"{'lacks' if target.can_table is None else 'has'} one")
+        tables = [("table", target.table)]
+        if target.can_table is not None:
+            tables.append(("can_table", target.can_table))
+        for key, table in tables:
+            have = set(_table_dict(table))
+            if set(payload[key]) != have:
+                raise ValueError(f"checkpoint {key} state "
+                                 f"{sorted(payload[key])} does not match "
+                                 f"{sorted(have)}")
         with torch.no_grad():
             for name, p in target.params.items():
                 p.copy_(payload["params"][name])
-            for name, t in payload["table"].items():
-                getattr(target.table, name).copy_(t)
+            for key, table in tables:
+                for name, t in payload[key].items():
+                    getattr(table, name).copy_(t)
         target.opt.load_state_dict(payload["opt"])
         return target._replace(step=payload["step"].to(target.step.device))
 

@@ -27,6 +27,17 @@ A step works as ``_step_body`` (:353-391):
    and their moments move), by the path ``sparse_update_mode`` picks
    (``"auto"``, ``"dense"``, ``"sparse"``; ``embedding/sharded.py``).
 
+With ``can_param_field`` set (config 5, ``CANDCNModel``; :75-79,
+:125-140), a second table, ``can_table`` (``rows_per_field`` rows of the
+CAN layer's parameter count, ``CANDCNModel.can_param_size``: 272 at
+D = 16 and ``can_dnn_dims=(16,)``; rows U(-0.05, 0.05), the same
+optimizer and update mode), is looked up by that field's raw ids modulo
+``rows_per_field``; its rows are the model's third input, take their
+gradient in step 4 with the others and are updated in step 6 at
+``sparse_lr`` (:357-391).  Every loop (``train_step``, ``eval_step``
+and the loops on them: ``train_many``, ``train_many_packed``,
+``evaluate``, ``evaluate_device``) goes through the second lookup.
+
 The model's parameters, the Adam state and the table are updated in
 place (JAX donates its state instead).  Metrics stay tensors on the
 device: nothing in a step waits for the card.
@@ -73,6 +84,7 @@ from rec_now_tpu_torch.losses.listwise import listwise_loss_sum
 from rec_now_tpu_torch.losses.pairwise import pairwise_loss
 from rec_now_tpu_torch.losses.pointwise import \
     sigmoid_cross_entropy_with_logits
+from rec_now_tpu_torch.models.can_dcn_model import CANDCNModel
 from rec_now_tpu_torch.models.feature_config import FeatureConfig
 from rec_now_tpu_torch.training.data import Batch
 from rec_now_tpu_torch.training.metrics import (CorpusGroupIndexer,
@@ -99,6 +111,10 @@ class TrainerConfig:
     sparse_optimizer: str = "adagrad"   # "adagrad" | "adam" (lazy, rowwise)
     sparse_update_mode: str = "auto"    # "auto" | "sparse" | "dense"
     num_tasks: int = 1          # >1: multi-task (CTR + CVR) heads
+    # CAN co-action (config 5): this field's ids look up per-item CAN
+    # parameters in a second table, the model's third input
+    can_param_field: Optional[int] = None
+    can_dnn_dims: tuple = (16,)
     wire_dense_mode: str = "f16"        # "f16" | "u8" (training/wire.py)
 
 
@@ -108,6 +124,7 @@ class TrainState(NamedTuple):
     opt: torch.optim.Adam                # Adam over ``params``
     table: ShardedTableState             # with m, v, count under Adam
     step: torch.Tensor                   # () int64 on the device
+    can_table: Optional[ShardedTableState] = None   # with can_param_field
 
 
 class Trainer:
@@ -116,7 +133,8 @@ class Trainer:
     Args:
         model: an ``nn.Module`` ``model(dense, sparse_emb) -> (B,)``
             logits, or (T, B) with ``num_tasks`` = T > 1, on ``device``;
-            its ``forward`` may take ``domain_idx``.
+            its ``forward`` may take ``domain_idx``; with
+            ``can_param_field``, ``model(dense, sparse_emb, can_params)``.
         feature_config: the input layout.
         config: loss weights and learning rates.
         device: where the table and the step run ("cuda" unless asked).
@@ -133,6 +151,17 @@ class Trainer:
             feature_config.total_rows, feature_config.embedding_dim,
             device=self.device, optimizer=config.sparse_optimizer,
             update_mode=config.sparse_update_mode)
+        self.can_table = None
+        if config.can_param_field is not None:
+            # co-action params multiply embeddings: a small centred init
+            # (the CAN output starts near zero and the table learns)
+            self.can_table = ShardedEmbeddingTable(
+                feature_config.rows_per_field,
+                CANDCNModel.can_param_size(feature_config.embedding_dim,
+                                           config.can_dnn_dims),
+                device=self.device, initializer_scale=0.05,
+                optimizer=config.sparse_optimizer,
+                update_mode=config.sparse_update_mode)
         # the per-sample domain goes only to models that route on it
         # (MultiTaskModel's STAR towers)
         self._takes_domain = "domain_idx" in inspect.signature(
@@ -159,11 +188,13 @@ class Trainer:
 
     def init(self, generator: torch.Generator,
              params: Optional[Mapping[str, torch.Tensor]] = None,
-             table: Optional[ShardedTableState] = None) -> TrainState:
+             table: Optional[ShardedTableState] = None,
+             can_table: Optional[ShardedTableState] = None) -> TrainState:
         """A fresh state: the model's own parameters (or ``params``, a
         state_dict such as ``convert.from_jax_params`` gives, copied into
-        them), a table drawn from ``generator`` (or ``table``), a new
-        Adam."""
+        them), a table drawn from ``generator`` (or ``table``), then, with
+        ``can_param_field``, the CAN table drawn from the same generator
+        (or ``can_table``), and a new Adam."""
         own = dict(self.model.named_parameters())
         if params is not None:
             if set(params) != set(own):
@@ -174,19 +205,35 @@ class Trainer:
                     p.copy_(torch.as_tensor(params[name]))
         if table is None:
             table = self.table.init(generator)
+        if self.can_table is None:
+            can_table = None
+        elif can_table is None:
+            can_table = self.can_table.init(generator)
         opt = torch.optim.Adam(list(own.values()), lr=self.cfg.dense_lr)
         return TrainState(own, opt, table,
                           torch.zeros((), dtype=torch.int64,
-                                      device=self.device))
+                                      device=self.device), can_table)
 
-    def _forward(self, params, dense, emb, domain) -> torch.Tensor:
+    def _lookup(self, state: TrainState, ids: torch.Tensor):
+        """(global ids, their rows, CAN ids, their CAN rows): the CAN pair
+        is (None, None) without ``can_param_field``."""
+        gids = self.fc.global_ids(ids)
+        emb = self.table.lookup(state.table, gids)
+        if self.can_table is None:
+            return gids, emb, None, None
+        can_ids = ids[:, self.cfg.can_param_field] % self.fc.rows_per_field
+        return gids, emb, can_ids, self.can_table.lookup(state.can_table,
+                                                          can_ids)
+
+    def _forward(self, params, dense, emb, can_emb, domain) -> torch.Tensor:
         kw = {"domain_idx": domain} if self._takes_domain else {}
-        return functional_call(self.model, params, (dense, emb), kw)
+        args = (dense, emb) if can_emb is None else (dense, emb, can_emb)
+        return functional_call(self.model, params, args, kw)
 
-    def _loss_fn(self, params, emb, dense, labels, groups, cvr, domain
-                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def _loss_fn(self, params, emb, can_emb, dense, labels, groups, cvr,
+                 domain) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        logits = self._forward(params, dense, emb, domain)
+        logits = self._forward(params, dense, emb, can_emb, domain)
         metrics = {}
         if cfg.num_tasks > 1:
             task_logits = logits                            # (T, B)
@@ -227,18 +274,23 @@ class Trainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimization step on :meth:`put`'s tuple; ``state`` is
         updated in place and returned with the step count advanced."""
-        gids = self.fc.global_ids(ids)
-        emb = self.table.lookup(state.table, gids).requires_grad_()
-        loss, metrics = self._loss_fn(state.params, emb, dense, labels,
-                                      groups, cvr, domain)
+        gids, emb, can_ids, can_emb = self._lookup(state, ids)
+        leaves = [emb.requires_grad_()]
+        if can_emb is not None:
+            leaves.append(can_emb.requires_grad_())
+        loss, metrics = self._loss_fn(state.params, emb, can_emb, dense,
+                                      labels, groups, cvr, domain)
         names = list(state.params)
         grads = torch.autograd.grad(
-            loss, [state.params[n] for n in names] + [emb])
+            loss, [state.params[n] for n in names] + leaves)
         for name, g in zip(names, grads):
             state.params[name].grad = g
         state.opt.step()
-        self.table.apply_grads(state.table, gids, grads[-1],
-                               lr=self.cfg.sparse_lr)
+        lr = self.cfg.sparse_lr
+        self.table.apply_grads(state.table, gids, grads[len(names)], lr=lr)
+        if can_emb is not None:
+            self.can_table.apply_grads(state.can_table, can_ids,
+                                       grads[len(names) + 1], lr=lr)
         return state._replace(step=state.step + 1), metrics
 
     def eval_step(self, state: TrainState, dense: torch.Tensor,
@@ -251,8 +303,8 @@ class Trainer:
             domain = torch.zeros(ids.shape[0], dtype=torch.int32,
                                  device=ids.device)
         with torch.no_grad():
-            emb = self.table.lookup(state.table, self.fc.global_ids(ids))
-            return self._forward(state.params, dense, emb, domain)
+            _, emb, _, can_emb = self._lookup(state, ids)
+            return self._forward(state.params, dense, emb, can_emb, domain)
 
     def train_many(self, state: TrainState, batches: Iterable[Batch]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:

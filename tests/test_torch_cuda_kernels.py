@@ -362,15 +362,25 @@ def test_pair_loss_without_pairs_is_zero(dev):
     assert torch.isfinite(dx).all() and not dx.any()
 
 
-@pytest.mark.parametrize("v,d", [(1, 4), (1000, 16), (12345, 16), (777, 8),
-                                 (300, 128)])
-def test_adagrad_dense_pass_matches_plain(dev, v, d):
+# the widths of D / 4 threads a row (4 to 128), a warp a row on float4s
+# (72, and config 5's CAN table at 272 over 100,000 rows) and on floats (45,
+# 5, and D = 16 with the tensors off the 16-byte grid); each repeated bit
+# for bit
+@pytest.mark.parametrize("v,d,off_grid", [
+    (1, 4, False), (1000, 16, False), (12345, 16, False), (777, 8, False),
+    (300, 128, False), (1001, 45, False), (777, 72, False), (33, 5, False),
+    (100_000, 272, False), (1000, 16, True), (513, 272, True)])
+def test_adagrad_dense_pass_matches_plain(dev, v, d, off_grid):
     gen = torch.Generator().manual_seed(v + d)
     table = _rand(gen, dev, v, d)
     acc = _rand(gen, dev, v).abs() * 0.1
     g = _rand(gen, dev, v, d) * (torch.arange(v, device=dev) % 3 == 0
                                  )[:, None]
+    if off_grid:
+        table, g = _off_grid(table), _off_grid(g)
     t2, a2 = table.clone(), acc.clone()
+    # the repeat on the same layout (a clone lands on the grid)
+    again = [_off_grid(table) if off_grid else table.clone(), acc.clone()]
     before = tk.adagrad_dense_pass.launches
     tk.adagrad_dense_pass(table, acc, g, 0.05)
     assert tk.adagrad_dense_pass.launches == before + 1
@@ -379,13 +389,19 @@ def test_adagrad_dense_pass_matches_plain(dev, v, d):
     torch.testing.assert_close(table, t2, rtol=1e-6, atol=1e-7)
     untouched = torch.arange(v, device=dev) % 3 != 0
     assert torch.equal(table[untouched], t2[untouched])
+    tk.adagrad_dense_pass(*again, g, 0.05)
+    assert torch.equal(again[0], table) and torch.equal(again[1], acc)
 
 
 def test_new_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError):
         tk.adagrad_dense_pass(torch.zeros(8, 12, device=dev),
                               torch.zeros(8, device=dev),
-                              torch.zeros(8, 12, device=dev), 0.1)
+                              torch.zeros(8, 16, device=dev), 0.1)
+    with pytest.raises(ValueError):
+        tk.adagrad_dense_pass(torch.zeros(8, 0, device=dev),
+                              torch.zeros(8, device=dev),
+                              torch.zeros(8, 0, device=dev), 0.1)
     with pytest.raises(ValueError):
         pk.pair_loss_fused(torch.zeros(8, device=dev),
                            torch.zeros(7, device=dev),
@@ -565,14 +581,19 @@ def _touched(v, flags, gen):
     return torch.arange(v) % 3 != 1
 
 
-# ragged V, every D; flags none, all, in a partial last chunk only (V =
-# 513, 1,025), zipf-clustered, and a flag tensor off the 16-byte grid (the
-# byte loads); each repeated bit for bit
+# ragged V, every D of D / 4 threads a row, and widths of a warp a row on
+# float4s (72, 272: config 5's CAN table) and on floats (45, 5, and D = 16
+# with the tables off the 16-byte grid); flags none, all, in a partial
+# last chunk only (V = 513, 1,025), zipf-clustered, and a flag tensor off
+# the 16-byte grid (the byte loads); each repeated bit for bit
 @pytest.mark.parametrize("v,d,flags", [
     (1, 4, "thirds"), (777, 8, "thirds"), (12345, 16, "thirds"),
     (1000, 32, "thirds"), (301, 64, "thirds"), (300, 128, "thirds"),
     (5000, 16, "none"), (5000, 16, "all"), (513, 16, "tail"),
-    (1025, 8, "tail"), (100_000, 16, "zipf"), (1000, 16, "off grid")])
+    (1025, 8, "tail"), (100_000, 16, "zipf"), (1000, 16, "off grid"),
+    (1001, 45, "thirds"), (777, 72, "thirds"), (33, 5, "thirds"),
+    (513, 72, "tail"), (100_000, 272, "zipf"), (1000, 45, "off grid"),
+    (1000, 16, "tables off grid"), (300, 272, "tables off grid")])
 @pytest.mark.parametrize("t", [1, 1000])
 def test_adam_dense_pass_matches_plain(dev, v, d, flags, t):
     gen = torch.Generator().manual_seed(v + d + t)
@@ -582,11 +603,14 @@ def test_adam_dense_pass_matches_plain(dev, v, d, flags, t):
     touched = _touched(v, flags, gen).to(dev)
     if flags == "off grid":
         touched = _off_grid(touched)
+    if flags == "tables off grid":
+        table, m, vv = _off_grid(table), _off_grid(m), _off_grid(vv)
     g = _rand(gen, dev, v, d) * touched[:, None]
     g[::6] = 0.0                 # touched rows with a zero gradient
     count = torch.tensor(t, dtype=torch.int32, device=dev)
     want = [x.clone() for x in (table, m, vv)]
-    again = [x.clone() for x in (table, m, vv)]
+    again = [_off_grid(x) if flags == "tables off grid" else x.clone()
+             for x in (table, m, vv)]
     before = tk.adam_dense_pass.launches
     tk.adam_dense_pass(table, m, vv, g, touched, count, 1e-3)
     assert tk.adam_dense_pass.launches == before + 1
@@ -833,8 +857,11 @@ def test_slice4_wrappers_reject_bad_inputs(dev):
     z = torch.zeros(8, 8, device=dev)
     t = torch.zeros(8, dtype=torch.bool, device=dev)
     c = torch.ones((), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):      # D = 12
-        tk.adam_dense_pass(*(torch.zeros(8, 12, device=dev),) * 4, t, c,
+    with pytest.raises(ValueError):      # m of another width (D = 12)
+        tk.adam_dense_pass(z, torch.zeros(8, 12, device=dev), z.clone(),
+                           z.clone(), t, c, 1e-3)
+    with pytest.raises(ValueError):      # D = 0
+        tk.adam_dense_pass(*(torch.zeros(8, 0, device=dev),) * 4, t, c,
                            1e-3)
     with pytest.raises(TypeError):       # a float touched flag
         tk.adam_dense_pass(z, z.clone(), z.clone(), z.clone(), t.float(), c,

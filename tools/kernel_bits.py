@@ -1,10 +1,11 @@
-"""Hold the in-batch loss and count kernels (B3, B6, B7a, B7c) and lazy
-Adam (B10) of two trees of the port bit for bit, on the card, and time
-the pair counts (B7a/b/c) and the general pairwise loss of one tree.
+"""Hold the in-batch loss and count kernels (B3, B6, B7a, B7c), the dense
+Adagrad pass (B9) and lazy Adam (B10) of two trees of the port bit for
+bit, on the card, and time the pair counts (B7a/b/c), the general
+pairwise loss, B9 and B10 of one tree.
 
     python tools/kernel_bits.py dump TREE OUT.pt  # TREE/rec_now_tpu_torch
     python tools/kernel_bits.py compare A.pt B.pt  # exit 1 on a difference
-    python tools/kernel_bits.py time TREE          # B7a/b/c, general ms
+    python tools/kernel_bits.py time TREE          # B7a/b/c, general, B9, B10
 
 ``dump`` runs each kernel of ``TREE``'s package (built into its own
 ``_build/``) on inputs made from fixed seeds and saves the outputs: B3
@@ -14,15 +15,19 @@ the int32 ends, 1,100 random ids), power 0 and -0.5; B6 (the listwise
 loss) on the clicks and each of the five; B7a on the same five with the batch's graded labels (click + conversion),
 its domain as the second condition and a 0/1 mask, with and without the
 wrong-order filter; B7c on the five main groups with the clicks, with
-and without a 0/1 mask; B10 on tables of 2.6M, 12,345, 1,001 and 513
-rows with a share of rows touched, t = 1 and 1,000.  ``compare`` prints
-how many of the cases differ.  ``time`` prints B7a, B7b and B7c on the
-inputs of ``chip_smoke.py`` phase 3's timing (B7a the graded labels, two
-conditions and the mask; B7b the group vector and B7a's counts; B7c the
-clicks and the mask) through the public wrappers, and the general call
-of the public ``pairwise_loss`` (the graded labels, the two conditions,
-the mask, power -0.5, the loss's sum and its dlogits by autograd, the
-entry point's own ops included): CUDA events (median of 20) and the
+and without a 0/1 mask; B9 and B10 at every width of D / 4 threads a row
+(4 to 128) on tables of 2.6M (D = 16), 12,345, 1,001, 777, 513 and 300
+rows, B10 with a share of rows touched, t = 1 and 1,000.  ``compare``
+prints how many of the cases differ.  ``time`` prints B7a, B7b and B7c
+on the inputs of ``chip_smoke.py`` phase 3's timing (B7a the graded
+labels, two conditions and the mask; B7b the group vector and B7a's
+counts; B7c the clicks and the mask) through the public wrappers, the
+general call of the public ``pairwise_loss`` (the graded labels, the two
+conditions, the mask, power -0.5, the loss's sum and its dlogits by
+autograd, the entry point's own ops included), B9 over the 2.6M x 16
+table and config 5's 100,000 x 272 CAN table, and B10 over the 2.6M x 16
+table with 212,992 random rows touched and over the CAN table with the
+batch's field-8 rows (a width the tree refuses is named so): CUDA events (median of 20) and the
 device time by kernel (``torch.profiler``, a call's mean over 20, with
 the count of device operations a call).  Run each mode once per tree,
 each in its own process: both trees name their package
@@ -54,6 +59,8 @@ def _inputs(dev):
     return dict(
         x=x, groups=groups, gen=gen,
         lab=torch.as_tensor(batch.labels).to(dev),
+        can_ids=torch.as_tensor(batch.sparse_ids[:, 8] % 100_000).long()
+        .to(dev),
         graded=torch.as_tensor(batch.labels + batch.cvr_labels).to(dev),
         dom=torch.as_tensor(batch.domain_idx).to(dev),
         mask=(torch.rand(8192, generator=gen) > 0.1).float().to(dev))
@@ -82,8 +89,17 @@ def dump(tree: str, out: str) -> None:
         for mask in (inp["mask"], None):
             got = pk.group_pair_counts_binary(g, lab, mask)
             res[f"B7c {name} mask={mask is not None}"] = [got.cpu()]
+    for v, d in ((2_600_000, 16), (12345, 16), (1001, 8), (513, 4),
+                 (777, 32), (300, 64), (300, 128)):
+        table = torch.randn(v, d, generator=gen).to(dev) * 1e-3
+        acc = torch.rand(v, generator=gen).to(dev) * 0.1
+        g = torch.randn(v, d, generator=gen).to(dev) * (
+            torch.rand(v, generator=gen) < 0.3).to(dev)[:, None]
+        tk.adagrad_dense_pass(table, acc, g, 0.05)
+        res[f"B9 V={v} D={d}"] = [table.cpu(), acc.cpu()]
     for v, d, share in ((2_600_000, 16, 0.014), (12345, 16, 0.3),
-                        (1001, 8, 0.5), (513, 16, 0.5)):
+                        (1001, 8, 0.5), (513, 16, 0.5), (513, 4, 0.5),
+                        (777, 32, 0.5), (300, 64, 0.5), (300, 128, 0.5)):
         touched = (torch.rand(v, generator=gen) < share).to(dev)
         table = torch.randn(v, d, generator=gen).to(dev) * 1e-3
         m = torch.randn(v, d, generator=gen).to(dev) * 1e-3
@@ -104,6 +120,7 @@ def time_counts(tree: str) -> None:
     sys.path.insert(0, tree)
     from rec_now_tpu_torch.losses.pairwise import pairwise_loss
     from rec_now_tpu_torch.ops import pairwise_kernel as pk
+    from rec_now_tpu_torch.ops import table_update_kernel as tk
     dev = torch.device("cuda", 0)
     inp = _inputs(dev)
     grp, mask = inp["groups"]["zipf"], inp["mask"]
@@ -117,15 +134,46 @@ def time_counts(tree: str) -> None:
                              reduce_mean=False)
         return torch.autograd.grad(loss, xg)
 
+    gen = inp["gen"]
+    ids = torch.randint(0, 2_600_000, (212_992,), generator=gen).to(dev)
+    touched = torch.zeros(2_600_000, dtype=torch.bool, device=dev)
+    touched.index_fill_(0, ids, True)
+    tables = {d: [torch.randn(v, d, generator=gen).to(dev) * 1e-3,
+                  torch.full((v,), 0.1, device=dev),
+                  torch.randn(v, d, generator=gen).to(dev)]
+              for v, d in ((2_600_000, 16), (100_000, 272))}
+    t16, _, g16 = tables[16]
+    m16, v16 = torch.zeros_like(t16), torch.zeros_like(t16)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    # config 5's CAN table with the batch's field-8 rows touched
+    t272, _, g272 = tables[272]
+    m272, v272 = torch.zeros_like(t272), torch.zeros_like(t272)
+    can = torch.zeros(100_000, dtype=torch.bool, device=dev)
+    can.index_fill_(0, inp["can_ids"], True)
     calls = {"B7a pair_row_counts": lambda: pk.pair_row_counts(
                  inp["x"], inp["graded"], two, mask),
              "B7b same_group_matvec": lambda: pk.same_group_matvec(
                  grp, counts),
              "B7c group_pair_counts_binary": lambda: pk
              .group_pair_counts_binary(grp, inp["lab"], mask),
-             "general pairwise_loss, fwd + bwd": general}
+             "general pairwise_loss, fwd + bwd": general,
+             "B9 adagrad_dense_pass V=2600000 D=16": lambda: tk
+             .adagrad_dense_pass(*tables[16], 0.05),
+             "B9 adagrad_dense_pass V=100000 D=272": lambda: tk
+             .adagrad_dense_pass(*tables[272], 0.05),
+             f"B10 adam_dense_pass V=2600000 D=16, {int(touched.sum())} "
+             f"rows touched": lambda: tk.adam_dense_pass(
+                 t16, m16, v16, g16, touched, one, 1e-3),
+             f"B10 adam_dense_pass V=100000 D=272, {int(can.sum())} rows "
+             f"touched": lambda: tk.adam_dense_pass(
+                 t272, m272, v272, g272, can, one, 1e-3)}
     card = cs.smi()
     for what, fn in calls.items():
+        try:
+            fn()
+        except ValueError as e:            # a width the tree refuses
+            print(f"{tree}: {what} refused: {e} [{card}]")
+            continue
         ms = cs.cuda_ms(torch, fn)
         seq = cs.profiled_sequence(torch, fn)
         by = {}
