@@ -142,8 +142,33 @@ gradients once (B12).
    evaluated again gives the CLI's eval; ms per step and examples/s of
    the windowed and the stepwise loop through the CLI, which draws each
    synthetic batch as it runs;
-9. print one JSON line for the kernels, the card again, and finally
-   ``{"ok": true, "device": {...}}``.
+9. the training entry point on a data file: a full-width Criteo TSV
+   written by the port's ``write_synthetic_tsv`` (34 batches of 8,192:
+   26 fields of 100,000 ids, 13 dense) and a 4-batch eval file; the
+   native parser (``io/native/criteo_parser.cpp``, built by g++) against
+   its plain version on the first 2,000 lines (ids, labels and groups
+   exact, dense 1e-6 relative) and its time per 8,192 rows; on the
+   file's first window, the C++ pack against the numpy pack, byte-equal,
+   in both id modes (packed and hot8), with their times and bytes per
+   example (``wire_cost`` and as packed); then ``main`` four times on the
+   flagship setting from the file, device eval: with ``--eval-file`` and
+   ``--wire-id-mode hot8``, the same with packed ids (the first window's
+   losses within 1e-4 relative of the hot8 run's), the held-out eval
+   (no ``eval_on_train``), and ``--steps`` past the file's end (the
+   ``warning`` line, then ``eval_on_train`` on the final line); each
+   run's launches exact, losses finite and > 0, final auc and gauc
+   finite, and every window it packed decoded on the card to the host
+   ids it was packed from; ms per step of the hot8 and packed runs
+   beside phase 8's synthetic stream; the CLI's windowed loop in
+   process, fed from the file (the parse and the pack on their own
+   threads, as the CLI runs them) and on windows placed beforehand, in
+   both id modes and with the parser on fewer threads, in turns; then
+   the stale-table check: hot8 windows whose ids shift mid-stream
+   through the prefetch thread, which relearns the table while windows
+   packed with the first one wait in its queue, each decoding to its own
+   ids;
+10. print one JSON line for the kernels, the card again, and finally
+    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
 result.
@@ -199,6 +224,12 @@ CLI_FLAGSHIP = ["--model", "dcnv2", "--batch-size", "8192",
 CLI_COMMON = ["--steps", "60", "--log-every", "5", "--eval-batches", "8"]
 # the FM run's steps and eval batches
 FM_STEPS, FM_EVAL = 10, 4
+# phase 9: the data file's batches (30 to train, 4 held out), and the lines
+# the native parser is held to its plain version on
+FILE_STEPS, FILE_EVAL = 30, 4
+PARSE_CHECK_LINES = 2000
+# parser threads of the extra file-fed loops (the default takes every core)
+PARSE_THREADS = (4, 2)
 # steps of each in-process loop timing (after the first window)
 LOOP_STEPS = 30
 # config 4's six multi-expert dense launches per forward at B = 8192:
@@ -817,13 +848,15 @@ def cli_launches(per_step: dict, steps: int, eval_batches: int) -> dict:
     return want
 
 
-def run_cli(cli, counted, args, what: str, launches: dict):
+def run_cli(cli, counted, args, what: str, launches: dict,
+            lines_out: list = None):
     """``rec_now_tpu_torch.train.main(args)``, which ``python -m
     rec_now_tpu_torch.train`` runs, in this process with its output
     captured and every launch count set to 0 just before it and held to
     ``launches`` just after -> (its periodic log lines, its final eval);
-    fails on a non-zero exit, a loss that is not finite and > 0, or a
-    final eval without a finite auc and gauc."""
+    every JSON line it printed goes to ``lines_out`` when given; fails on
+    a non-zero exit, a loss that is not finite and > 0, or a final eval
+    without a finite auc and gauc."""
     out = io.StringIO()
 
     def main():
@@ -842,6 +875,8 @@ def run_cli(cli, counted, args, what: str, launches: dict):
         fail(f"{what}: the training CLI exited {rc}")
     lines = [json.loads(ln) for ln in out.getvalue().splitlines()
              if ln.startswith("{")]
+    if lines_out is not None:
+        lines_out.extend(lines)
     logs = [ln for ln in lines if "examples_per_sec" in ln]
     finals = [ln for ln in lines if "final_eval" in ln]
     for ln in logs:
@@ -869,8 +904,10 @@ def steady_ms(logs, batch: int) -> float:
     return (tb - ta) / (b["step"] - a["step"]) * 1e3
 
 
-def train_cli_phase(torch, counted, card: str) -> None:
-    """Phase 8: the training entry point on the card (module docstring)."""
+def train_cli_phase(torch, counted, card: str) -> dict:
+    """Phase 8: the training entry point on the card (module docstring);
+    returns the windowed CLI runs' ms per step (A: device eval, B: exact
+    eval) for phase 9."""
     import numpy as np
     from rec_now_tpu_torch import train as cli
     from rec_now_tpu_torch.training.checkpoint import CheckpointManager
@@ -879,7 +916,7 @@ def train_cli_phase(torch, counted, card: str) -> None:
     ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         args = cli.parse_args(CLI_FLAGSHIP + CLI_COMMON)
-        batches, make_eval = cli.data_streams(args)
+        batches, make_eval, _ = cli.data_streams(args)
         first = [next(batches) for _ in range(args.scan_window)]
         per_step = {"gather_rows": 1, "scatter_add_rows": 1,
                     "pair_loss_sum": 1, "adagrad_dense_pass": 1}
@@ -1074,8 +1111,294 @@ def train_cli_phase(torch, counted, card: str) -> None:
               f"{w_ms:.3f} ms/step, {8192 / w_ms * 1e3:.0f} examples/s; "
               f"stepwise {s_ms:.3f} ms/step, {8192 / s_ms * 1e3:.0f} "
               f"examples/s [{card}]")
+        return {"A": steady_ms(a_logs, 8192), "B": w_ms}
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def median_ms(fn, reps: int) -> float:
+    """The median host ms of ``reps`` calls of ``fn`` (host work only)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def file_cli_phase(torch, counted, card: str, synthetic_ms: dict) -> None:
+    """Phase 9: the training entry point on a data file (module
+    docstring), at the flagship setting's batch size and rows a field."""
+    import numpy as np
+    from rec_now_tpu_torch import train as cli
+    from rec_now_tpu_torch.io import (CriteoTSV, build as io_build,
+                                      parse_chunk, write_synthetic_tsv)
+    from rec_now_tpu_torch.training.prefetch import WindowPrefetcher
+    from rec_now_tpu_torch.training.trainer import Trainer
+    from rec_now_tpu_torch.training.wire import WireFormat
+    setting = cli.parse_args(CLI_FLAGSHIP)
+    bsz, rows_pf = setting.batch_size, setting.rows_per_field
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tsv_")
+    put_window = Trainer.put_packed_window
+    try:
+        # the files: the port's writer, full width
+        train_tsv = os.path.join(tmp, "train.tsv")
+        eval_tsv = os.path.join(tmp, "eval.tsv")
+        t0 = time.perf_counter()
+        n_rows = (FILE_STEPS + FILE_EVAL) * bsz
+        write_synthetic_tsv(train_tsv, n_rows, rows_per_field=rows_pf)
+        t1 = time.perf_counter()
+        write_synthetic_tsv(eval_tsv, FILE_EVAL * bsz,
+                            rows_per_field=rows_pf, sample_seed=99)
+        print(f"data files: {n_rows} rows ("
+              f"{os.path.getsize(train_tsv) / 1e6:.1f} MB) in "
+              f"{t1 - t0:.1f} s and {FILE_EVAL * bsz} eval rows in "
+              f"{time.perf_counter() - t1:.1f} s (write_synthetic_tsv, one "
+              f"host thread)")
+
+        # the parser: its build, native vs plain, its time
+        t0 = time.perf_counter()
+        lib_path = io_build.load()._name
+        print(f"native parser: {os.path.basename(lib_path)} loaded in "
+              f"{time.perf_counter() - t0:.2f} s (g++, built if stale)")
+        with open(train_tsv, "rb") as f:
+            chunk = f.read(8 << 20)                 # CriteoTSV's chunk
+        chunk = chunk[:chunk.rfind(b"\n") + 1]
+        head = b"\n".join(chunk.split(b"\n", PARSE_CHECK_LINES)
+                          [:PARSE_CHECK_LINES]) + b"\n"
+        nat = parse_chunk(head, rows_per_field=rows_pf)
+        py = parse_chunk(head, rows_per_field=rows_pf, force_python=True)
+        same = (nat[4] == py[4] == PARSE_CHECK_LINES
+                and all(np.array_equal(nat[k], py[k]) for k in (1, 2, 3)))
+        rel = float(np.max(np.abs(nat[0] - py[0])
+                           / np.maximum(np.abs(py[0]), 1e-30)))
+        print(f"native parser vs its plain version on the first "
+              f"{PARSE_CHECK_LINES} lines: ids, labels and groups "
+              f"{'equal' if same else 'DIFFERENT'}, dense max relative "
+              f"error {rel:.2e} (tol 1e-6)")
+        if not same or rel > 1e-6:
+            fail("the native parser differs from its plain version")
+        rows = chunk.count(b"\n")
+        threads = min(os.cpu_count() or 1, 16)
+        nat_ms = median_ms(lambda: parse_chunk(
+            chunk, rows_per_field=rows_pf), 7) * 8192 / rows
+        py_ms = median_ms(lambda: parse_chunk(
+            head, rows_per_field=rows_pf, force_python=True),
+            1) * 8192 / PARSE_CHECK_LINES
+        tsv = functools.partial(CriteoTSV, rows_per_field=rows_pf)
+        t0 = time.perf_counter()
+        n_file = sum(1 for _ in tsv(train_tsv).batches(bsz))
+        tsv_ms = (time.perf_counter() - t0) * 1e3 / n_file
+        print(f"parse per 8,192 rows: native {nat_ms:.2f} ms ({threads} "
+              f"threads, an 8 MB chunk of {rows} rows, median of 7), plain "
+              f"{py_ms:.1f} ms (one thread); CriteoTSV.batches "
+              f"{tsv_ms:.2f} ms a batch of {bsz} over the file's {n_file} "
+              f"(reads, "
+              f"parse, concatenation) on the host [{card}]")
+        if n_file != FILE_STEPS + FILE_EVAL:
+            fail(f"the file gave {n_file} batches")
+
+        # the wire on the file's first window: C++ vs numpy, both id modes
+        first = list(tsv(train_tsv).batches(bsz, 5))
+        for mode in ("packed", "hot8"):
+            wires = [WireFormat(26, rows_pf, "u8", id_mode=mode)
+                     for _ in range(2)]
+            t0 = time.perf_counter()
+            want = wires[0].pack_window(first)
+            t1 = time.perf_counter()
+            got = wires[1].pack_window_native(first)
+            t2 = time.perf_counter()
+            same = all(a.dtype == b.dtype and a.shape == b.shape
+                       and np.array_equal(a, b) for a, b in zip(got, want))
+            np_ms = median_ms(lambda: wires[0].pack_window(first), 5)
+            cc_ms = median_ms(lambda: wires[1].pack_window_native(first), 5)
+            cost = WireFormat.wire_cost(13, 26, rows_pf, "u8", mode)[0]
+            measured = sum(a.nbytes for a in got) / (5 * bsz)
+            esc = ""
+            if mode == "hot8":
+                esc = (f", escapes {float((got.id_words == 255).mean()):.4f}"
+                       f" of the ids, table version "
+                       f"{wires[1].hot_version}")
+            print(f"wire {mode}, the file's first window (5 x {bsz}, u8 "
+                  f"dense): C++ pack vs numpy "
+                  f"{'equal' if same else 'DIFFERENT'} bytes; first pack "
+                  f"numpy {(t1 - t0) * 1e3:.1f} ms, C++ "
+                  f"{(t2 - t1) * 1e3:.1f} ms; then numpy {np_ms:.1f} ms, "
+                  f"C++ {cc_ms:.1f} ms a window (median of 5); "
+                  f"{measured:.3f} B/example as packed (wire_cost {cost})"
+                  f"{esc} [{card}]")
+            if not same:
+                fail(f"the C++ {mode} pack differs from the numpy pack")
+
+        # every window the runs pack, kept with its host ids and decoded on
+        # the card after the run
+        packed_windows = []
+
+        def recording(self, batches, raw_groups=False):
+            batches = list(batches)
+            out = put_window(self, batches, raw_groups=raw_groups)
+            packed_windows.append((self.wire, np.stack(
+                [b.sparse_ids for b in batches]), out))
+            return out
+
+        def check_windows(what: str) -> None:
+            bad = sum(not np.array_equal(
+                wire.decode(dev)[1].cpu().numpy(), ids)
+                for wire, ids, dev in packed_windows)
+            modes = sorted({w.id_mode for w, _, _ in packed_windows})
+            print(f"  {what}: {len(packed_windows)} windows ({modes}) "
+                  f"decoded on the card, {bad} off their host ids")
+            if bad or not packed_windows:
+                fail(f"{what}: a window decodes to other ids")
+            packed_windows.clear()
+
+        Trainer.put_packed_window = recording
+        per_step = {"gather_rows": 1, "scatter_add_rows": 1,
+                    "pair_loss_sum": 1, "adagrad_dense_pass": 1}
+        base = CLI_FLAGSHIP + ["--eval-mode", "device", "--log-every", "5",
+                               "--eval-batches", str(FILE_EVAL),
+                               "--data-file", train_tsv]
+        runs = {}
+        for key, extra, steps, what in (
+                ("1", ["--eval-file", eval_tsv, "--wire-id-mode", "hot8"],
+                 FILE_STEPS, "--eval-file, hot8"),
+                ("2", ["--eval-file", eval_tsv, "--wire-id-mode", "packed"],
+                 FILE_STEPS, "--eval-file, packed ids"),
+                ("3", ["--wire-id-mode", "hot8"], FILE_STEPS,
+                 "held-out eval, hot8"),
+                ("4", ["--wire-id-mode", "hot8"], FILE_STEPS + FILE_EVAL,
+                 "steps past the file's end, hot8")):
+            lines = []
+            args = base + extra + ["--steps", str(steps + (key == "4"))]
+            logs, res = run_cli(
+                cli, counted, args,
+                f"file CLI {key}: {setting.model} from the file, windowed, u8, "
+                f"device eval, {what}",
+                cli_launches(per_step, steps, FILE_EVAL), lines)
+            check_windows(f"file CLI {key}")
+            runs[key] = (logs, res, lines)
+
+        (l1, _, _), (l2, _, _) = runs["1"], runs["2"]
+        for k in ("loss", "pointwise", "pairwise"):
+            a, b = l1[0][k], l2[0][k]
+            print(f"  step {l1[0]['step']} {k}: hot8 {a} packed {b}")
+            if not abs(a - b) <= 1e-4 * abs(b):
+                fail("hot8 and packed ids train differently")
+        for key, on_train in (("3", False), ("4", True)):
+            lines = runs[key][2]
+            warned = [ln for ln in lines if "warning" in ln]
+            final = lines[-1]
+            flagged = [ln.get("eval_on_train") for ln in lines
+                       if "eval" in ln or "final_eval" in ln]
+            print(f"  file CLI {key}: warning lines {len(warned)}, "
+                  f"eval_on_train on the eval lines {flagged}")
+            if on_train != bool(warned) or "final_eval" not in final or \
+                    flagged != [True if on_train else None]:
+                fail(f"file CLI {key}: the held-out marking is wrong")
+            if on_train and lines.index(warned[0]) > lines.index(final):
+                fail("the warning line comes after the final line")
+        ms1, ms2 = steady_ms(l1, bsz), steady_ms(l2, bsz)
+        print(f"train CLI from a file, {setting.model} at B={bsz}, steps "
+              f"{l1[len(l1) // 2]['step']}-{l1[-1]['step']}: hot8 "
+              f"{ms1:.3f} ms/step, packed ids {ms2:.3f} ms/step; the "
+              f"synthetic stream (phase 8, windowed) {synthetic_ms['A']:.3f} "
+              f"(device eval) / {synthetic_ms['B']:.3f} (exact eval) "
+              f"ms/step [{card}]")
+
+        # the CLI's windowed loop fed from the file (the parse on a thread
+        # of its own, the pack and copy on another) against the same loop
+        # on windows placed beforehand, hot8 and packed ids, in turns; each
+        # read from the first window's arrival (the pipeline's fill left
+        # out), the median of 4
+        Trainer.put_packed_window = put_window
+        file_batches = list(tsv(train_tsv).batches(bsz, FILE_STEPS))
+
+        def from_file(tr, st, _, threads=None):
+            arrived = None
+            with WindowPrefetcher(tsv(train_tsv, num_threads=threads).batches(
+                    bsz, FILE_STEPS), tr.put_packed_window, 5) as wins:
+                for dev_win, _ in wins:
+                    arrived = arrived or time.perf_counter()
+                    st, _ = tr.train_many_packed(st, dev_win)
+            return st, arrived
+
+        def placed(tr, st, wins):
+            arrived = time.perf_counter()
+            for dev_win in wins:
+                st, _ = tr.train_many_packed(st, dev_win)
+            return st, arrived
+
+        loops, ready = {}, {}
+        for mode in ("hot8", "packed"):
+            args = cli.parse_args(CLI_FLAGSHIP + ["--wire-id-mode", mode])
+            tr = cli.make_trainer(args)
+            ready[mode] = [tr, cli.init_state(tr, args), [
+                tr.put_packed_window(file_batches[i:i + 5])
+                for i in range(0, FILE_STEPS, 5)]]
+            loops[f"{mode} from the file"] = (mode, from_file)
+            loops[f"{mode} on placed windows"] = (mode, placed)
+        # the parser's threads share the host's cores with the loop thread,
+        # which dispatches the steps: the same loop with fewer of them
+        for n in PARSE_THREADS:
+            loops[f"hot8 from the file, the parser on {n} threads"] = (
+                "hot8", functools.partial(from_file, threads=n))
+        loop_ms = {k: [] for k in loops}
+        for r in range(4):
+            for name in list(loops)[::1 if r % 2 == 0 else -1]:
+                mode, loop = loops[name]
+                tr, st, wins = ready[mode]
+                torch.cuda.synchronize()
+                st, arrived = counted(
+                    f"{name}, {FILE_STEPS} steps at B={bsz}", FILE_STEPS,
+                    per_step, lambda: loop(tr, st, wins))
+                torch.cuda.synchronize()
+                loop_ms[name].append(
+                    (time.perf_counter() - arrived) / FILE_STEPS * 1e3)
+                ready[mode][1] = st
+        print(f"windowed loop, {setting.model} at B={bsz}, ms/step from the "
+              f"first window's arrival, 4 turns: " + "; ".join(
+                  f"{k} " + ", ".join(f"{v:.3f}" for v in vs)
+                  + f" (median {statistics.median(vs):.3f})"
+                  for k, vs in loop_ms.items()) + f" [{card}]")
+        del ready, file_batches
+
+        # the stale-table check: the prefetch thread relearns the table
+        # while windows packed with the first one wait in its queue
+        args = cli.parse_args(CLI_FLAGSHIP + ["--wire-id-mode", "hot8"])
+        trainer = cli.make_trainer(args)
+        head = list(tsv(train_tsv).batches(bsz, 15))
+        moved = [b._replace(
+            sparse_ids=(b.sparse_ids + rows_pf // 2) % rows_pf) for b in head]
+        versions, bad = [], 0
+
+        def put(batches):
+            dev = trainer.put_packed_window(batches)
+            return dev, np.stack([b.sparse_ids for b in batches]), \
+                trainer.wire.hot_version
+
+        with WindowPrefetcher(iter(head + moved), put, 5, depth=2,
+                              parse_ahead=False) as wins:
+            for k, ((dev, ids, version), _) in enumerate(wins):
+                if k == 0:
+                    deadline = time.monotonic() + 120
+                    while not (wins._inner._q.full()
+                               and trainer.wire.hot_version >= 2):
+                        if time.monotonic() > deadline:
+                            fail("the prefetch thread did not relearn")
+                        time.sleep(0.01)
+                versions.append(version)
+                bad += not np.array_equal(
+                    trainer.wire.decode(dev)[1].cpu().numpy(), ids)
+        print(f"stale-table check: {len(versions)} hot8 windows through "
+              f"the prefetch thread, table versions {versions} (windows 2-3 "
+              f"waited in its queue while it relearned), {bad} decoded off "
+              f"their host ids")
+        if bad or versions[:3] != [1, 1, 1] or versions[3] < 2:
+            fail("a hot8 window packed before a relearn decodes wrongly")
+        del trainer
+    finally:
+        Trainer.put_packed_window = put_window
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -2573,9 +2896,12 @@ def main() -> int:
         fail("group_pair_counts_binary found no pair")
 
     # -- 8. the training entry point ------------------------------------------
-    train_cli_phase(torch, counted, card)
+    synthetic_ms = train_cli_phase(torch, counted, card)
 
-    # -- 9. result ------------------------------------------------------------
+    # -- 9. the training entry point on a data file ---------------------------
+    file_cli_phase(torch, counted, card, synthetic_ms)
+
+    # -- 10. result -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"first phase to the result, the build included [{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -10,8 +10,11 @@ inner-PNN, CAN, pooling, DNN tower, the multi-expert
 dense, MMoE, PLE, the Parasitic STAR tower, the pointwise, in-batch
 pairwise (the public ``pairwise_loss`` with every option of the JAX
 kernel path) and listwise losses, ``Trainer`` with the windowed loop over
-the compressed wire, exact and device-resident eval metrics, prefetching,
-checkpoints, the training CLI (``python -m rec_now_tpu_torch.train``),
+the compressed wire (bit-packed or hot8 ids), exact and device-resident
+eval metrics, prefetching, checkpoints, Criteo-TSV ingestion on a native
+parser (``io/``), the training CLI (``python -m rec_now_tpu_torch.train``,
+on the synthetic stream or a data file), the debug, profiling and shape
+helpers (``core/``, ``util/``),
 and ``build_scorer`` / ``WireScorer`` / ``export_serving`` /
 ``load_serving``.  Every Pallas TPU kernel of the JAX package is a
 hand-written CUDA kernel in ``csrc/`` (CIN forward and backward, the

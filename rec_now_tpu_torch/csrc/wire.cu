@@ -11,7 +11,14 @@
 //   * group ids: each batch's ids replaced by their rank among the batch's
 //     sorted distinct ids (np.unique's inverse), uint16;
 //   * flags: (label > 0) | (cvr > 0) << 1 | uint8(domain) << 2, with
-//     uint8(domain) < 64.
+//     uint8(domain) < 64;
+//   * hot8 ids (the ``hot8`` id mode, wire.py:262-304): each id's byte
+//     code from the (F, rows) inverse map of the current table (255 =
+//     escape), and each batch shard's escaped ids, in the shard's
+//     (rows, F) row-major order, as little-endian 3-byte triples padded
+//     with zeros to the cap.  A shard with more escapes than the cap is
+//     reported, not encoded: learning and relearning the table stay in
+//     Python, which calls again after a relearn.
 //
 // Why C++: a prefetch thread packs window k + 1 while the loop thread
 // dispatches window k's steps, and a pack of some hundred numpy calls hands
@@ -30,7 +37,10 @@
 
 namespace {
 
-enum : int { kOk = 0, kBadArgs = 1, kDomainTooLarge = 2 };
+enum : int {
+  kOk = 0, kBadArgs = 1, kDomainTooLarge = 2, kEscOverflow = 3,
+  kIdOutOfRange = 4
+};
 
 // As numpy: the id's uint32 shifted to its offset within its word (bits
 // shifted past bit 31 are lost), and a field that crosses a word boundary
@@ -83,6 +93,36 @@ int flags_rows(const float* labels, const float* cvr, const T* domain,
   return kOk;
 }
 
+// s window steps of b rows, each in ``shards`` shards of c = b / shards
+// rows; every shard's escapes go to its own cap-triple slot of esc
+template <typename T>
+int encode_hot_rows(const T* ids, long long s, long long b, int f,
+                    int shards, long long cap, const uint8_t* inv,
+                    long long rows, uint8_t* codes, uint8_t* esc) {
+  const long long c = b / shards;
+  for (long long k = 0; k < s * shards; ++k) {
+    const T* x = ids + k * c * f;
+    uint8_t* ck = codes + k * c * f;
+    uint8_t* ek = esc + k * cap * 3;
+    std::fill(ek, ek + cap * 3, uint8_t{0});
+    long long n = 0;
+    for (long long r = 0; r < c; ++r)
+      for (int j = 0; j < f; ++j) {
+        const long long v = static_cast<long long>(x[r * f + j]);
+        if (v < 0 || v >= rows) return kIdOutOfRange;
+        const uint8_t code = inv[j * rows + v];
+        ck[r * f + j] = code;
+        if (code != 255) continue;
+        if (n == cap) return kEscOverflow;
+        uint8_t* t = ek + 3 * n++;
+        t[0] = static_cast<uint8_t>(v & 0xFF);
+        t[1] = static_cast<uint8_t>((v >> 8) & 0xFF);
+        t[2] = static_cast<uint8_t>((v >> 16) & 0xFF);
+      }
+  }
+  return kOk;
+}
+
 }  // namespace
 
 extern "C" {
@@ -92,6 +132,8 @@ const char* error_string(int code) {
     case kOk: return "no error";
     case kBadArgs: return "bad arguments";
     case kDomainTooLarge: return "a domain index >= 64";
+    case kEscOverflow: return "a shard's hot8 escapes overflow the cap";
+    case kIdOutOfRange: return "a hot8 id outside [0, rows)";
     default: return "unknown error";
   }
 }
@@ -167,6 +209,24 @@ int wire_pack_flags(const float* labels, const float* cvr, const void* domain,
     return flags_rows(labels, cvr, static_cast<const int64_t*>(domain), n,
                       out);
   return flags_rows(labels, cvr, static_cast<const int32_t*>(domain), n, out);
+}
+
+// hot8: ids (s, b, f) int32 (ids64 = 0) or int64 (ids64 = 1), contiguous;
+// inv (f, rows) uint8 codes; codes out (s, b, f) uint8; esc out (s, shards,
+// cap * 3) uint8.  b % shards == 0.  Returns kEscOverflow when a shard has
+// more than cap escapes and kIdOutOfRange for an id outside [0, rows): the
+// outputs are then incomplete.
+int wire_encode_hot(const void* ids, int ids64, long long s, long long b,
+                    int f, int shards, long long cap, const uint8_t* inv,
+                    long long rows, uint8_t* codes, uint8_t* esc) {
+  if (s < 0 || b < 1 || f < 1 || shards < 1 || b % shards || cap < 1 ||
+      rows < 1)
+    return kBadArgs;
+  if (ids64)
+    return encode_hot_rows(static_cast<const int64_t*>(ids), s, b, f, shards,
+                           cap, inv, rows, codes, esc);
+  return encode_hot_rows(static_cast<const int32_t*>(ids), s, b, f, shards,
+                         cap, inv, rows, codes, esc);
 }
 
 }  // extern "C"

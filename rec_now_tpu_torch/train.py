@@ -9,19 +9,27 @@ Usage:
         --batch-size 8192 --pairwise-weight 0.5 --eval-batches 8 \\
         --scan-window 5 --wire-dense-mode u8 --eval-mode device \\
         --checkpoint-dir /path/to/ckpt
+    python -m rec_now_tpu_torch.train --data-file train.tsv \\
+        --eval-file eval.tsv --wire-id-mode hot8 --scan-window 5 ...
 
 Models: fm | dcnv2 | xdeepfm | multitask (the four benchmark families),
-trained on the synthetic planted-model stream.  ``--scan-window W > 1``
-runs the windowed loop: a worker thread packs W host batches into the
-compressed wire and moves them to the device while the loop runs the
-previous window (``Trainer.train_many_packed``); otherwise one step per
-batch, placed ahead by a worker thread.  Prints a JSON line every
-``--log-every`` steps (at window granularity in the windowed loop), one
-per eval, and the final eval.  Flags whose path is not ported yet stop
-with "not ported yet" and the roadmap item: ``--data-file``,
-``--eval-file`` (A16), ``--multihost``, ``--sparse-route-mode routed``
-and ``--route-cap-factor`` / ``--route-ov-cap`` off their defaults
-(A11), ``--wire-id-mode hot8`` (A17).
+trained on the synthetic planted-model stream or, with ``--data-file``,
+on a Criteo-format TSV read by the native parser (``io/criteo.py``).
+Eval then reads ``--eval-file``, or the file's batches past ``--steps``
+(held out); a file with none past them is evaluated on its first
+batches, after a ``warning`` line, and every eval line and the final
+line carry ``"eval_on_train": true``.  ``--eval-file`` without
+``--data-file`` is ignored, as in JAX.  ``--scan-window W > 1`` runs the
+windowed loop: a worker thread packs W host batches into the compressed
+wire (``--wire-id-mode``: bit-packed ids, or hot8 byte codes) and moves
+them to the device while the loop runs the previous window
+(``Trainer.train_many_packed``); otherwise one step per batch, placed
+ahead by a worker thread.  Prints a JSON line every ``--log-every``
+steps (at window granularity in the windowed loop), one per eval, and
+the final eval.  Flags whose path is not ported yet stop with "not
+ported yet" and the roadmap item: ``--multihost``,
+``--sparse-route-mode routed`` and ``--route-cap-factor`` /
+``--route-ov-cap`` off their defaults (A11).
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ import json
 import math
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 
 def build_model(name: str, fc, device, seed: int):
@@ -104,20 +112,23 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data-file", default=None)
-    p.add_argument("--eval-file", default=None)
-    p.add_argument("--num-groups", type=int, default=50_000)
+    p.add_argument("--data-file", default=None,
+                   help="Criteo-format TSV to train from (native parser); "
+                        "default: the synthetic planted-model stream")
+    p.add_argument("--eval-file", default=None,
+                   help="Criteo-format TSV to evaluate on; default with "
+                        "--data-file: the file's batches past --steps")
+    p.add_argument("--num-groups", type=int, default=50_000,
+                   help="group-id hash space of --data-file (the in-batch "
+                        "pairwise / listwise grouping key)")
     p.add_argument("--multihost", action="store_true")
     args = p.parse_args(argv)
     for flag, on, item in (
-            ("--data-file", args.data_file, "A16"),
-            ("--eval-file", args.eval_file, "A16"),
             ("--multihost", args.multihost, "A11"),
             ("--sparse-route-mode routed",
              args.sparse_route_mode == "routed", "A11"),
             ("--route-cap-factor", args.route_cap_factor != 2.0, "A11"),
-            ("--route-ov-cap", args.route_ov_cap != 0, "A11"),
-            ("--wire-id-mode hot8", args.wire_id_mode == "hot8", "A17")):
+            ("--route-ov-cap", args.route_ov_cap != 0, "A11")):
         if on:
             raise SystemExit(f"{flag}: not ported yet (ROADMAP {item})")
     return args
@@ -139,6 +150,7 @@ def make_trainer(args: argparse.Namespace):
         sparse_optimizer=args.sparse_optimizer,
         sparse_update_mode=args.sparse_update_mode,
         wire_dense_mode=args.wire_dense_mode,
+        wire_id_mode=args.wire_id_mode,
         num_tasks=num_tasks)
     return Trainer(model, fc, cfg, device=args.device)
 
@@ -150,14 +162,53 @@ def init_state(trainer, args: argparse.Namespace):
     return trainer.init(torch.Generator().manual_seed(args.seed))
 
 
-def data_streams(args: argparse.Namespace):
-    """(training batches, eval-batch maker) of the synthetic stream."""
-    from rec_now_tpu_torch.training import SyntheticCriteo
-    data = SyntheticCriteo(rows_per_field=args.rows_per_field,
-                           seed=args.seed)
-    train = data.batches(args.batch_size, args.steps, seed=args.seed + 1)
-    return train, lambda: data.batches(args.batch_size, args.eval_batches,
-                                       seed=args.seed + 999)
+class Streams(NamedTuple):
+    """A run's data: its training batches, a maker of one eval's batches,
+    and whether eval scores training rows (a data file with none held
+    out)."""
+    train: Iterator
+    make_eval: Callable[[], Iterator]
+    eval_on_train: bool = False
+
+
+def data_streams(args: argparse.Namespace) -> Streams:
+    """The run's :class:`Streams`: the synthetic stream, or with
+    ``--data-file`` the file's first ``--steps`` batches, eval from
+    ``--eval-file`` or the file's next ``--eval-batches`` batches (read
+    now, by a second pass that skips the training range, as
+    ``rec_now_tpu/train.py:172-206``).  A file with no batch past the
+    training range prints the JAX ``warning`` line and evaluates its
+    first batches."""
+    if not args.data_file:
+        from rec_now_tpu_torch.training import SyntheticCriteo
+        data = SyntheticCriteo(rows_per_field=args.rows_per_field,
+                               seed=args.seed)
+        return Streams(
+            data.batches(args.batch_size, args.steps, seed=args.seed + 1),
+            lambda: data.batches(args.batch_size, args.eval_batches,
+                                 seed=args.seed + 999))
+    from rec_now_tpu_torch.io import CriteoTSV
+
+    def tsv(path: str) -> CriteoTSV:
+        return CriteoTSV(path, rows_per_field=args.rows_per_field,
+                         num_groups=args.num_groups)
+
+    ds = tsv(args.data_file)
+    train = ds.batches(args.batch_size, args.steps)
+    if args.eval_file:
+        eval_ds = tsv(args.eval_file)
+        return Streams(train, lambda: eval_ds.batches(args.batch_size,
+                                                      args.eval_batches))
+    held_out = list(ds.batches(args.batch_size, args.eval_batches,
+                               skip=args.steps))
+    on_train = not held_out
+    if on_train:
+        print(json.dumps({
+            "warning": "data file has no rows past the training range; "
+                       "eval scores TRAINING data (eval_on_train=true)"}),
+              flush=True)
+        held_out = list(ds.batches(args.batch_size, args.eval_batches))
+    return Streams(train, lambda: iter(held_out), on_train)
 
 
 def eval_slots(args: argparse.Namespace) -> int:
@@ -176,7 +227,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                                      WindowPrefetcher)
 
     trainer = make_trainer(args)
-    batches, make_eval_batches = data_streams(args)
+    batches, make_eval_batches, on_train = data_streams(args)
     state = init_state(trainer, args)
     ckpt = (CheckpointManager(args.checkpoint_dir)
             if args.checkpoint_dir else None)
@@ -189,8 +240,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     def run_eval(step: int) -> None:
         res = eval_fn(state, make_eval_batches())
-        print(json.dumps({"step": step, "eval": res,
-                          "eval_mode": args.eval_mode}), flush=True)
+        line = {"step": step, "eval": res, "eval_mode": args.eval_mode}
+        if on_train:
+            line["eval_on_train"] = True
+        print(json.dumps(line), flush=True)
 
     def log(step: int, metrics) -> None:
         # the floats wait for the step's work, so the rate counts it
@@ -236,9 +289,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     ckpt.save(step, state)
 
     res = eval_fn(state, make_eval_batches())
-    print(json.dumps({"final_eval": res, "steps": args.steps,
-                      "model": args.model, "eval_mode": args.eval_mode}),
-          flush=True)
+    final = {"final_eval": res, "steps": args.steps, "model": args.model,
+             "eval_mode": args.eval_mode}
+    if on_train:
+        final["eval_on_train"] = True
+    print(json.dumps(final), flush=True)
     if ckpt:
         ckpt.save(args.steps, state)
         ckpt.wait()

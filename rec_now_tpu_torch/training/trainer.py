@@ -46,8 +46,9 @@ device: nothing in a step waits for the card.
 domain)`` and ``train_step`` takes it.
 
 The windowed loop (``trainer.py:443-622``): ``put_packed_window`` packs a
-window of host batches in the compressed wire (``training/wire.py``; on
-the card by its C++ pack) and moves it to the device; on the card the
+window of host batches in the compressed wire (``training/wire.py``, ids
+bit-packed or, with ``wire_id_mode="hot8"``, byte codes with the window's
+own table; on the card by its C++ pack) and moves it to the device; on the card the
 copy runs on a side stream from pinned memory and the call returns once
 it has landed, so a prefetch thread (``training/prefetch.py``) carries
 the wait while the loop thread computes.  ``train_many_packed`` then runs
@@ -116,6 +117,9 @@ class TrainerConfig:
     can_param_field: Optional[int] = None
     can_dnn_dims: tuple = (16,)
     wire_dense_mode: str = "f16"        # "f16" | "u8" (training/wire.py)
+    # "packed" | "hot8" (lossless byte codes of each field's hot ids; each
+    # window carries the table it was encoded with)
+    wire_id_mode: str = "packed"
 
 
 class TrainState(NamedTuple):
@@ -318,11 +322,15 @@ class Trainer:
     # -- packed wire path ---------------------------------------------------
     @property
     def wire(self) -> WireFormat:
-        """The wire bound to this trainer's feature layout (one shard)."""
+        """The wire bound to this trainer's feature layout (one shard).
+        One device has one process, so hot8 runs as asked; JAX falls back
+        to packed ids on a pod slice (``trainer.py:482-489``), which comes
+        with multi-device training (ROADMAP A11)."""
         if self._wire is None:
             self._wire = WireFormat(self.fc.num_sparse,
                                     self.fc.rows_per_field,
-                                    dense_mode=self.cfg.wire_dense_mode)
+                                    dense_mode=self.cfg.wire_dense_mode,
+                                    id_mode=self.cfg.wire_id_mode)
         return self._wire
 
     def put_packed_window(self, batches: Iterable[Batch],
@@ -361,7 +369,8 @@ class Trainer:
 
     def _steps_of(self, packed: PackedBatch):
         """Each step's decoded slice of a device window, in order: the
-        window is decoded at once (one set of launches, not one a step)."""
+        window is decoded at once (one set of launches, not one a step),
+        a hot8 window with the table it carries."""
         decoded = self.wire.decode(packed)
         for s in range(packed.dense.shape[0]):
             yield tuple(x[s] for x in decoded)

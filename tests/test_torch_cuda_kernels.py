@@ -1030,3 +1030,36 @@ def test_native_wire_pack_matches_numpy(dev, mode, shards, rows):
     with pytest.raises(TypeError, match="dense"):
         wire.pack_window_native([base[0]._replace(
             dense=base[0].dense.astype(np.float64))])
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_native_hot8_pack_matches_numpy(dev, shards):
+    """The C++ hot8 encode (csrc/wire.cu, built by nvcc, what
+    put_packed_window runs on the card) gives pack_window's bytes and
+    table: zipf ids at 26 x 100,000, then a window from another id space
+    that overflows the cap and relearns, then a flat window that raises;
+    each window decodes on the card to its own ids."""
+    from rec_now_tpu_torch.training import SyntheticCriteo
+    from rec_now_tpu_torch.training.wire import (PackedBatch, WireFormat,
+                                                 to_tensors)
+    numpy_wire = WireFormat(26, 100_000, "u8", shards, id_mode="hot8")
+    native = WireFormat(26, 100_000, "u8", shards, id_mode="hot8")
+    zipf = list(SyntheticCriteo().batches(1024, 3))
+    rng = np.random.default_rng(shards)
+    moved = [b._replace(sparse_ids=(b.sparse_ids + 50_000) % 100_000)
+             for b in zipf]
+    for batches, version in ((zipf, 1), (moved, 2), (zipf[:1], 3)):
+        want = numpy_wire.pack_window(batches)
+        got = native.pack_window_native(batches)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+        assert native.hot_version == numpy_wire.hot_version == version
+        on_card = PackedBatch(*[t.to(dev) for t in to_tensors(got)])
+        ids = native.decode(on_card)[1].cpu().numpy()
+        np.testing.assert_array_equal(
+            ids, np.stack([b.sparse_ids for b in batches]))
+    flat = zipf[0]._replace(sparse_ids=rng.integers(0, 100_000, (1024, 26)))
+    with pytest.raises(ValueError, match="esc_cap_frac"):
+        WireFormat(26, 100_000, id_mode="hot8",
+                   esc_cap_frac=0.05).pack_window_native([flat])

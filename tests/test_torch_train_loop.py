@@ -258,10 +258,8 @@ def test_cli_runs_every_model(capsys, model, keys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--data-file", "x.tsv"], "A16"), (["--eval-file", "x.tsv"], "A16"),
     (["--multihost"], "A11"), (["--sparse-route-mode", "routed"], "A11"),
-    (["--route-cap-factor", "3.0"], "A11"), (["--route-ov-cap", "64"], "A11"),
-    (["--wire-id-mode", "hot8"], "A17")])
+    (["--route-cap-factor", "3.0"], "A11"), (["--route-ov-cap", "64"], "A11")])
 def test_cli_flags_not_ported_stop_it(flags, item):
     with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP {item}"):
         cli.main(TINY + flags)

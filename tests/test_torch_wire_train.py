@@ -7,7 +7,9 @@ words as int32 and the groups as int16 bit patterns) and must give JAX's
 values exactly: the u8 affine is one fused multiply-add on both sides
 (JAX's decode jitted, as its trainer runs it).
 Where JAX's ``pack`` ignores its ``num_shards`` override in the escape
-placeholder (``wire.py:377``), the port honors it.
+placeholder (``wire.py:377``), the port honors it.  The port's windows
+carry one field more, the hot8 table (empty here, in the packed id mode;
+``test_torch_wire_hot8.py`` holds the hot8 mode).
 """
 import jax
 import jax.numpy as jnp
@@ -30,8 +32,10 @@ def _batches(n=3, b=64, seed=0):
 
 
 def _same_bytes(got, want, skip=()):
-    assert got._fields == want._fields
-    for name in got._fields:
+    # the port's window also carries its hot8 table: empty in packed mode
+    assert got._fields == want._fields + ("hot_table",)
+    assert got.hot_table.shape == (0, 255)
+    for name in want._fields:
         if name in skip:
             continue
         a, b = getattr(got, name), getattr(want, name)
@@ -112,8 +116,10 @@ def test_flags_domain_and_group_limits_raise():
         twire.remap_groups(np.zeros((1, 70000), np.int32))
     with pytest.raises(ValueError, match="divide"):
         twire.WireFormat(26, ROWS, num_shards=3).pack(batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        twire.WireFormat(26, ROWS, id_mode="hot8")
+    with pytest.raises(ValueError, match="2\\^24"):
+        twire.WireFormat(26, 1 << 25, id_mode="hot8")
+    with pytest.raises(ValueError, match="id_mode"):
+        twire.WireFormat(26, ROWS, id_mode="hot16")
     with pytest.raises(ValueError, match="num_shards"):
         twire.WireFormat(26, ROWS, num_shards=0)
 
