@@ -167,7 +167,28 @@ gradients once (B12).
    through the prefetch thread, which relearns the table while windows
    packed with the first one wait in its queue, each decoding to its own
    ids;
-10. print one JSON line for the kernels, the card again, and finally
+10. the multi-process path (``--multihost``, ``Trainer(..., mesh=)``,
+    the mod-sharded tables) in a NCCL group of one on the card, every
+    collective it calls counted by wrapping ``torch.distributed``'s
+    functions (NCCL may run a group of one without a kernel of its own,
+    so kernel names prove nothing) and held to its count, each run's
+    kernel launches exact: (b) configs 4 and 5 for 3 steps at B = 8192
+    with a mesh, without, and without again: every metric of the mesh's
+    within 1e-5 relative of the one-device run's; after step 1 its
+    parameters bit-equal and its tables within ``SUM_TOL`` of their
+    largest value (B12's atomics); after 3 steps its parameters and
+    tables within 1e-3 of their largest value, printed beside the
+    one-device run's own repeat (``profile_repeat.py`` shows why that
+    spreads); (d)
+    the step of config 2 (the CLI's flagship trainer), 4 and 5 with a
+    mesh and without, in turns, wall ms by the host clock (each step
+    synchronized, and steps back to back) and busy ms by
+    ``torch.profiler``; (a) ``main``
+    with phase 8's run B flags and ``--multihost``, its logged losses
+    within 1e-5 relative of run B's (and the log's rounding to 5
+    decimals) and its final eval within 1e-5 relative; the group is left
+    at the end.  If NCCL cannot form the group, the phase fails;
+11. print one JSON line for the kernels, the card again, and finally
     ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -265,6 +286,19 @@ MS_COVERS = {"cin_flat": 2, "cin_flat_bwd": 2, "multi_dense": 6}
 # config 5's CAN table (bench_all.py:132-135): rows_per_field rows of the
 # CAN layer's 16 x 16 kernel and 16 biases, looked up by field 8
 CAN_ROWS, CAN_DIM, CAN_FIELD = 100_000, 272, 8
+# phase 10: the torch.distributed functions the multi-process path calls
+# (counted by wrapping them: NCCL may run a group of one without a kernel
+# of its own, so kernel names prove nothing), the steps each config runs
+# with a mesh and without, and the steps of each timed round
+COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
+               "all_reduce", "broadcast", "all_gather_object")
+MESH_STEPS, MESH_TIMED = 3, 5
+# a mesh run against the one-device run: its metrics; its parameters and
+# tables after MESH_STEPS steps, over each one's largest value (the
+# one-device run repeated moves config 5's by up to 2.28e-4 on the card:
+# B12 adds a hot row's terms in no fixed order, and one sample of step 3
+# is a near-tie that such a change flips; profile_repeat.py)
+MESH_TOL, STATE_TOL = 1e-5, 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1111,9 +1145,254 @@ def train_cli_phase(torch, counted, card: str) -> dict:
               f"{w_ms:.3f} ms/step, {8192 / w_ms * 1e3:.0f} examples/s; "
               f"stepwise {s_ms:.3f} ms/step, {8192 / s_ms * 1e3:.0f} "
               f"examples/s [{card}]")
-        return {"A": steady_ms(a_logs, 8192), "B": w_ms}
+        return {"A": steady_ms(a_logs, 8192), "B": w_ms, "B_logs": b_logs,
+                "B_res": b_res}
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def step_collectives(tables: int, steps: int = 1) -> dict:
+    """The collectives ``steps`` training steps call on a mesh: each
+    table's lookup gathers the ids and reduce-scatters the rows, its
+    update gathers the ids and their gradients; one all_reduce sums the
+    loss terms' sums and counts, one the parameter gradients."""
+    return {"all_gather_into_tensor": 3 * tables * steps,
+            "reduce_scatter_tensor": tables * steps, "all_reduce": 2 * steps}
+
+
+def snapshot(state) -> dict:
+    """A copy of a training state's parameters and tables."""
+    out = {"params": {n: p.detach().clone() for n, p in state.params.items()},
+           "table": state.table.table.clone()}
+    if state.can_table is not None:
+        out["can_table"] = state.can_table.table.clone()
+    return out
+
+
+def spread(a: dict, b: dict) -> dict:
+    """Each part's largest difference between two snapshots over its
+    largest value (the largest over the parameters)."""
+    out = {"params": max(
+        float((a["params"][n] - p).abs().max())
+        / max(float(p.abs().max()), 1e-30) for n, p in b["params"].items())}
+    for key in b:
+        if key != "params":
+            out[key] = float((a[key] - b[key]).abs().max()) / float(
+                b[key].abs().max())
+    return out
+
+
+def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
+               dev) -> None:
+    """Phase 10: the multi-process path in a NCCL group of one on ``dev``
+    (module docstring)."""
+    import torch.distributed as dist
+    from rec_now_tpu_torch import train as cli
+    from rec_now_tpu_torch.parallel import make_mesh
+    from rec_now_tpu_torch.training import Trainer
+    calls = dict.fromkeys(COLLECTIVES, 0)
+    real = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrapped(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    def collectives(what: str, want: dict, run):
+        """``run()`` with every collective count set to 0 just before it;
+        each must be called exactly as ``want`` says (0 where not
+        named)."""
+        for name in calls:
+            calls[name] = 0
+        out = run()
+        print(f"{what}: collective calls {calls}")
+        for name, c in calls.items():
+            if c != want.get(name, 0):
+                fail(f"{what}: {name} called {c} times, expected "
+                     f"{want.get(name, 0)}")
+        return out
+
+    def close(what: str, got: float, want: float, rounding: float = 0.0):
+        if not abs(got - want) <= MESH_TOL * abs(want) + rounding:
+            fail(f"{what}: mesh {got!r} vs one device {want!r}")
+
+    for name in COLLECTIVES:
+        setattr(dist, name, wrapped(name))
+    try:
+        t0 = time.perf_counter()
+        mesh = make_mesh(dev)
+        print(f"process group: rank {mesh.rank} of {mesh.size} on "
+              f"{mesh.device}, backend {dist.get_backend()}, formed in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if (mesh.size, dist.get_backend()) != (
+                1, "nccl" if dev.type == "cuda" else "gloo"):
+            fail("the mesh is not a NCCL group of one")
+
+        # (b) configs 4 and 5 in process: MESH_STEPS steps each with and
+        # without the mesh, then both timed in turns beside config 2
+        args = cli.parse_args(CLI_FLAGSHIP + CLI_COMMON)
+        flagship = {"gather_rows": 1, "scatter_add_rows": 1,
+                    "pair_loss_sum": 1, "adagrad_dense_pass": 1}
+        # what (d) times: (the trainers without and with the mesh, their
+        # launches a step, their tables)
+        timed = {"config 2 (the CLI's flagship trainer)": (
+            [cli.make_trainer(args, m) for m in (None, mesh)], flagship, 1)}
+        for run in runs:
+            if run["what"] not in ("config 4 (MultiTaskModel)",
+                                   "config 5 (CANDCNModel)"):
+                continue
+            what, tables = run["what"], 2 if run.get("can") else 1
+            trainers, out = [], []
+            for tag, m in (("one device", None), ("one device again", None),
+                           ("mesh", mesh)):
+                trainer = Trainer(run["make"](dev), fc, run["cfg"],
+                                  device=dev, mesh=m)
+                state = collectives(
+                    f"{what}, {tag}: init", {"broadcast": 1} if m else {},
+                    lambda: trainer.init(torch.Generator().manual_seed(1)))
+
+                def steps(trainer=trainer, state=state):
+                    seq, after = [], []
+                    for b in batches[:MESH_STEPS]:
+                        state, m = trainer.train_step(
+                            state, *trainer.put_local(b))
+                        seq.append({k: float(v) for k, v in m.items()})
+                        if len(after) < 1:
+                            after.append(snapshot(state))
+                    return state, seq, after + [snapshot(state)]
+                want = step_collectives(tables, MESH_STEPS) if m else {}
+                out.append(counted(
+                    f"{what}, {tag}: {MESH_STEPS} steps at B=8192",
+                    MESH_STEPS, run["train"],
+                    lambda: collectives(f"{what}, {tag}: {MESH_STEPS} steps",
+                                        want, steps)))
+                if tag != "one device again":
+                    trainers.append(trainer)
+            (_, one_seq, one), (_, _, again), (_, mesh_seq, on_mesh) = out
+            for i, (a, b) in enumerate(zip(mesh_seq, one_seq)):
+                if set(a) != set(b) or set(b) != run["keys"]:
+                    fail(f"{what}: metric keys {set(a)} vs {set(b)}")
+                for key in sorted(b):
+                    close(f"{what} step {i + 1} {key}", a[key], b[key])
+                print(f"  step {i + 1}: " + ", ".join(
+                    f"{k} mesh {a[k]:.7f} one device {b[k]:.7f}"
+                    for k in sorted(b)))
+            # after step 1 the parameters are bit-equal (no sum in the
+            # dense path's step is atomic) and the tables within SUM_TOL
+            # (B12's atomics); after MESH_STEPS steps the mesh is held to
+            # STATE_TOL, and the one-device run repeated shows what the
+            # order of B12's adds alone moves
+            first = spread(on_mesh[0], one[0])
+            if first["params"] != 0.0:
+                fail(f"{what}: params after step 1 differ by "
+                     f"{first['params']:.3e} of the largest value")
+            for key, d in first.items():
+                if d > SUM_TOL:
+                    fail(f"{what}: {key} after step 1 differs by {d:.3e} "
+                         f"of the largest value (> {SUM_TOL:g})")
+            last, rep = spread(on_mesh[1], one[1]), spread(again[1], one[1])
+            print(f"  largest difference over the largest value, after step "
+                  f"1: " + ", ".join(f"{k} {v:.2e}" for k, v in first.items())
+                  + f"; after {MESH_STEPS} steps: " + ", ".join(
+                      f"{k} {v:.2e} (one device repeated {rep[k]:.2e})"
+                      for k, v in last.items()))
+            for key, d in last.items():
+                if d > STATE_TOL:
+                    fail(f"{what}: {key} after {MESH_STEPS} steps differs "
+                         f"by {d:.3e} of the largest value (> {STATE_TOL:g})")
+            del out, one, again, on_mesh
+            timed[what] = (trainers, run["train"], tables)
+
+        # (d) each config's step with and without the mesh, in turns
+        # (one device, mesh, mesh, one device), on batches placed
+        # beforehand: wall ms by the host clock, each step ending in a
+        # synchronize (as phase 6) and, in the same turn, the steps back
+        # to back with one synchronize at the end (as a training loop runs
+        # them); busy ms on the device
+        for what, (pair, per_step, tables) in timed.items():
+            states = [t.init(torch.Generator().manual_seed(1)) for t in pair]
+            dev_batches = [[t.put_local(b) for b in batches[:MESH_TIMED]]
+                           for t in pair]
+            wall = {0: [], 1: []}
+            stream = {0: [], 1: []}
+            for i in (0, 1, 1, 0):
+                trainer, state = pair[i], states[i]
+
+                def turn(trainer=trainer, state=state, i=i):
+                    times = []
+                    for b in dev_batches[i]:
+                        t0 = time.perf_counter()
+                        state, _ = trainer.train_step(state, *b)
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    for b in dev_batches[i]:
+                        state, _ = trainer.train_step(state, *b)
+                    torch.cuda.synchronize()
+                    return times, (time.perf_counter() - t0) * 1e3 / len(
+                        dev_batches[i])
+                tag = "mesh" if i else "one device"
+                times, back_to_back = counted(
+                    f"{what}, {tag}: 2 x {MESH_TIMED} timed steps",
+                    2 * MESH_TIMED, per_step, lambda: collectives(
+                        f"{what}, {tag}: 2 x {MESH_TIMED} timed steps",
+                        step_collectives(tables, 2 * MESH_TIMED) if i
+                        else {}, turn))
+                wall[i] += times
+                stream[i].append(back_to_back)
+            busy = [profiled_ms(torch, lambda i=i: pair[i].train_step(
+                states[i], *dev_batches[i][0]), reps=5) for i in (0, 1)]
+            print(f"{what} at B=8192, ms/step: one device wall "
+                  f"{statistics.median(wall[0]):.3f} (median of "
+                  f"{2 * MESH_TIMED}, each synchronized), back to back "
+                  f"{', '.join(f'{x:.3f}' for x in stream[0])}, busy "
+                  f"{busy[0]:.3f}; mesh of one (NCCL) wall "
+                  f"{statistics.median(wall[1]):.3f}, back to back "
+                  f"{', '.join(f'{x:.3f}' for x in stream[1])}, busy "
+                  f"{busy[1]:.3f}; collective calls a step "
+                  f"{step_collectives(tables)} [{card}]")
+            del states, dev_batches
+        del timed
+
+        # (a) the CLI's flagship run under --multihost against phase 8's
+        # run B (the same flags without it)
+        steps, evals = args.steps, args.eval_batches
+        want = step_collectives(1, steps)
+        # the eval batches' lookups and their gathered columns; init's
+        # broadcast of the parameters
+        want["all_gather_into_tensor"] += 2 * evals
+        want["reduce_scatter_tensor"] += evals
+        want["broadcast"] = 1
+        what = "train CLI E: run B's flags with --multihost"
+        logs, res = collectives(what, want, lambda: run_cli(
+            cli, counted, CLI_FLAGSHIP + CLI_COMMON
+            + ["--eval-mode", "exact", "--multihost"], what,
+            cli_launches(flagship, steps, evals)))
+        b_logs, b_res = phase8["B_logs"], phase8["B_res"]
+        if [ln["step"] for ln in logs] != [ln["step"] for ln in b_logs]:
+            fail(f"{what}: logged other steps than run B")
+        for a, b in zip(logs, b_logs):
+            for key in sorted(b):
+                if key in ("step", "examples_per_sec", "sparse_dropped"):
+                    continue
+                # the log rounds to 5 decimals: 1e-5 apart at most from it
+                close(f"{what} step {b['step']} {key}", a[key], b[key],
+                      1e-5)
+        for key in sorted(b_res):
+            close(f"{what} final {key}", res[key], b_res[key])
+            print(f"  final {key}: --multihost {res[key]!r} vs run B "
+                  f"{b_res[key]!r}")
+        print(f"  {len(logs)} log lines within {MESH_TOL:g} relative of run "
+              f"B's (and the log's rounding to 5 decimals)")
+        print(f"train CLI, config 2 at B=8192, --multihost (NCCL group of "
+              f"one): windowed {steady_ms(logs, 8192):.3f} ms/step vs run B "
+              f"{phase8['B']:.3f} [{card}]")
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def median_ms(fn, reps: int) -> float:
@@ -2901,7 +3180,10 @@ def main() -> int:
     # -- 9. the training entry point on a data file ---------------------------
     file_cli_phase(torch, counted, card, synthetic_ms)
 
-    # -- 10. result -----------------------------------------------------------
+    # -- 10. the multi-process path in a NCCL group of one --------------------
+    mesh_phase(torch, counted, card, fc, runs, batches, synthetic_ms, dev)
+
+    # -- 11. result -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"first phase to the result, the build included [{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,6 +1,8 @@
 """PyTorch / CUDA port of ``rec_now_tpu`` for NVIDIA Hopper (H100).
 
-Covers serving and one-device training of FM (config 1), DCN-v2 + SENET
+Covers serving and training, on one device or on one process per device
+(``parallel/``: ``torch.distributed``, the tables mod-sharded over the
+processes on the allgather exchange), of FM (config 1), DCN-v2 + SENET
 (config 2, with lazy sparse Adam on the rows), xDeepFM (config 3), the
 MMoE + PLE + STAR multitask model (config 4) and CAN with DCN-v2
 (config 5, with its second table of per-item CAN parameters) today:

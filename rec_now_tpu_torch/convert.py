@@ -28,6 +28,9 @@ Inputs are numpy arrays (a caller holding JAX arrays passes
   (table, accumulator and, under lazy Adam, the moments ``m`` / ``v``,
   which share the table's packed layout, and the step ``count``) -> the
   port's ``ShardedTableState``.
+* :func:`table_state_for_rank` -- that logical state -> the rows one
+  process of a mesh owns (ids ``rank``, ``rank + P``, ...), so a JAX
+  state of any shard count starts a P-process port run.
 
 A JAX ``TrainState`` at init carries over as ``Trainer.init(gen,
 params=from_jax_params(params), table=table_state_from_jax(
@@ -47,7 +50,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from rec_now_tpu_torch.embedding.sharded import ShardedTableState
+from rec_now_tpu_torch.embedding.sharded import ShardedTableState, shard_rows
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -118,3 +121,19 @@ def table_state_from_jax(state, num_shards: int,
         table, acc, table_from_packed(state.m, num_shards, dim),
         table_from_packed(state.v, num_shards, dim),
         torch.tensor(int(np.asarray(state.count)), dtype=torch.int32))
+
+
+def table_state_for_rank(state: ShardedTableState, rank: int,
+                         num_ranks: int,
+                         vocab_size: int) -> ShardedTableState:
+    """The logical ``state`` (:func:`table_state_from_jax`'s, whose rows
+    may run past the table's ``vocab_size`` rows into JAX's padding) ->
+    the rows process ``rank`` of ``num_ranks`` holds in the port's
+    mod-sharded table of ``vocab_size`` rows (``ShardedEmbeddingTable(...,
+    mesh=...)``: ``vocab_size`` padded with zero rows to a multiple of
+    ``num_ranks``); the count is kept."""
+    def mine(x):
+        return None if x is None else shard_rows(x[:vocab_size], rank,
+                                                  num_ranks)
+    return ShardedTableState(mine(state.table), mine(state.accumulator),
+                             mine(state.m), mine(state.v), state.count)

@@ -1,7 +1,7 @@
 """Where a training step's time goes on the card.
 
     python -m rec_now_tpu_torch.profile_training \
-        [--model xdeepfm|multitask|dcnv2|fm|can_dcn]
+        [--model xdeepfm|multitask|dcnv2|fm|can_dcn] [--mesh]
 
 Trains at full width (``FeatureConfig()``, random weights from a seed,
 B = 8,192) either config 3 (``XDeepFMModel()``,
@@ -18,7 +18,10 @@ Prints, per run, the wall ms per step, the device's busy share of
 that window (sum of kernel and copy times over wall time), the port's
 kernel launches per step by the wrappers' counts (the row gather B11 and
 the row scatter-add B12 among them), the device work by total time, and
-the multi-expert dense's kernels summed (config 4).  Needs a CUDA device.
+the multi-expert dense's kernels summed (config 4), and the host's ops by
+their own CPU time a step.  With ``--mesh`` the trainer runs on a mesh
+of this process alone (``make_mesh()``: a NCCL group of one, the
+multi-process path with its collectives).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -75,6 +78,9 @@ def main() -> None:
     ap.add_argument("--model", default="xdeepfm",
                     choices=("xdeepfm", "multitask", "dcnv2", "fm",
                              "can_dcn"))
+    ap.add_argument("--mesh", action="store_true",
+                    help="train on a mesh of this process alone (a NCCL "
+                         "group of one)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_training needs a CUDA device")
@@ -87,8 +93,14 @@ def main() -> None:
     fc = FeatureConfig()
     batches = list(SyntheticCriteo(seed=0).batches(BATCH, WARMUP + STEPS,
                                                    seed=5))
+    mesh = None
+    if args.mesh:
+        from rec_now_tpu_torch.parallel import make_mesh
+        mesh = make_mesh()
     for label, model, cfg in _runs(args.model, fc):
-        trainer = Trainer(model, fc, cfg)
+        if mesh is not None:
+            label += ", mesh of one"
+        trainer = Trainer(model, fc, cfg, mesh=mesh)
         state = trainer.init(torch.Generator().manual_seed(1))
         for b in batches[:WARMUP]:
             state, _ = trainer.train_step(state, *trainer.put(b))
@@ -123,6 +135,13 @@ def main() -> None:
         for e in sorted(events, key=_device_us, reverse=True)[:16]:
             print(f"  {_device_us(e) / STEPS / 1e3:8.4f} ms/step "
                   f"x{e.count // STEPS:<3d} {e.key[:90]}")
+        host = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU]
+        print("  host ops by their own CPU time a step:")
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:14]:
+            print(f"  {e.self_cpu_time_total / STEPS / 1e3:8.4f} "
+                  f"ms/step x{e.count // STEPS:<3d} {e.key[:80]}")
         md = [e for e in events if "multi_dense" in e.key]
         if md:
             print(f"  multi_dense's kernels: "
@@ -130,6 +149,8 @@ def main() -> None:
                   f"ms/step over {sum(e.count for e in md) // STEPS} "
                   f"launches")
         del trainer, state, model
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ import torch
 from torch.func import functional_call
 
 from rec_now_tpu_torch.core.config import resolve_device
+from rec_now_tpu_torch.parallel.multihost import refuse_sharded
 from rec_now_tpu_torch.training.wire import WireFormat, unpack_ids
 
 _FILE = "serving.pt"
@@ -174,7 +175,9 @@ def export_serving(directory: str, state: ServingState,
     """Save the inference-only state (params, table and, for a CAN model,
     the CAN table) with torch.save.  With a ``scorer``
     (:func:`build_scorer`'s or a :class:`WireScorer`), a state whose CAN
-    table it would not read, or lacks, raises before writing."""
+    table it would not read, or lacks, raises before writing.  One
+    process only: the export of a sharded state is ROADMAP A11b."""
+    refuse_sharded("export_serving")
     if scorer is not None:
         _check_can_match(scorer.can_param_field,
                          state.can_table is not None,

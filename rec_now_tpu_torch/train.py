@@ -11,6 +11,8 @@ Usage:
         --checkpoint-dir /path/to/ckpt
     python -m rec_now_tpu_torch.train --data-file train.tsv \\
         --eval-file eval.tsv --wire-id-mode hot8 --scan-window 5 ...
+    torchrun --nproc-per-node 2 -m rec_now_tpu_torch.train --multihost \\
+        --batch-size 16384 ...
 
 Models: fm | dcnv2 | xdeepfm | multitask (the four benchmark families),
 trained on the synthetic planted-model stream or, with ``--data-file``,
@@ -26,10 +28,21 @@ them to the device while the loop runs the previous window
 (``Trainer.train_many_packed``); otherwise one step per batch, placed
 ahead by a worker thread.  Prints a JSON line every ``--log-every``
 steps (at window granularity in the windowed loop), one per eval, and
-the final eval.  Flags whose path is not ported yet stop with "not
-ported yet" and the roadmap item: ``--multihost``,
-``--sparse-route-mode routed`` and ``--route-cap-factor`` /
-``--route-ov-cap`` off their defaults (A11).
+the final eval.
+
+``--multihost`` trains on every process of a ``torch.distributed`` group
+(``parallel/multihost.py``: from ``torchrun``'s variables, or a group of
+one without them), one process per device, as JAX's ``--multihost``
+(``rec_now_tpu/train.py:130-148``, :168-171, :283-290): each process
+feeds ``--batch-size / P`` rows of each global batch (a batch that P
+does not divide is refused), draws its synthetic rows with its seeds
+shifted by ``rank * 7919``, and reads ``--data-file`` from its start, as
+JAX does, so each process is launched with its own part of the data.
+The table is mod-sharded over the processes; each prints its own lines,
+whose metrics and evals are global.  Flags whose path is not ported yet
+stop with "not ported yet" and the roadmap item: ``--sparse-route-mode
+routed``, ``--route-cap-factor`` / ``--route-ov-cap`` off their defaults,
+and ``--checkpoint-dir`` on more than one process (A11b).
 """
 from __future__ import annotations
 
@@ -40,6 +53,10 @@ import math
 import sys
 import time
 from typing import Callable, Iterator, NamedTuple, Optional, Sequence
+
+# a process's synthetic seeds are shifted by its rank times this
+# (rec_now_tpu/train.py:168-171)
+PROCESS_SEED_SHIFT = 7919
 
 
 def build_model(name: str, fc, device, seed: int):
@@ -75,11 +92,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    choices=["auto", "sparse", "dense"])
     p.add_argument("--sparse-route-mode", default="auto",
                    choices=["auto", "allgather", "routed"],
-                   help="one device: auto and allgather exchange nothing; "
+                   help="auto and allgather take the allgather exchange; "
                         "routed is not ported yet")
     p.add_argument("--route-strict", action="store_true",
-                   help="fail when the exchange drops ids: one device "
-                        "exchanges none, so it never fails")
+                   help="fail when the exchange drops ids: the allgather "
+                        "exchange drops none, so it never fails")
     p.add_argument("--route-cap-factor", type=float, default=2.0,
                    help="routed exchange only: not ported yet, so only the "
                         "default is accepted")
@@ -121,26 +138,31 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--num-groups", type=int, default=50_000,
                    help="group-id hash space of --data-file (the in-batch "
                         "pairwise / listwise grouping key)")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="train on every process of a torch.distributed "
+                        "group (torchrun's variables; a group of one "
+                        "without them), each feeding its slice of the "
+                        "global --batch-size")
     args = p.parse_args(argv)
-    for flag, on, item in (
-            ("--multihost", args.multihost, "A11"),
+    for flag, on in (
             ("--sparse-route-mode routed",
-             args.sparse_route_mode == "routed", "A11"),
-            ("--route-cap-factor", args.route_cap_factor != 2.0, "A11"),
-            ("--route-ov-cap", args.route_ov_cap != 0, "A11")):
+             args.sparse_route_mode == "routed"),
+            ("--route-cap-factor", args.route_cap_factor != 2.0),
+            ("--route-ov-cap", args.route_ov_cap != 0)):
         if on:
-            raise SystemExit(f"{flag}: not ported yet (ROADMAP {item})")
+            raise SystemExit(f"{flag}: not ported yet (ROADMAP A11b)")
     return args
 
 
-def make_trainer(args: argparse.Namespace):
-    """The trainer ``args`` describe, with its model, on ``--device``."""
+def make_trainer(args: argparse.Namespace, mesh=None):
+    """The trainer ``args`` describe, with its model, on ``--device`` or,
+    on a mesh, on the mesh's device."""
     from rec_now_tpu_torch.models import FeatureConfig
     from rec_now_tpu_torch.training import Trainer, TrainerConfig
     fc = FeatureConfig(rows_per_field=args.rows_per_field,
                        embedding_dim=args.embedding_dim)
-    model, num_tasks = build_model(args.model, fc, args.device, args.seed)
+    device = args.device if mesh is None else mesh.device
+    model, num_tasks = build_model(args.model, fc, device, args.seed)
     cfg = TrainerConfig(
         pointwise_weight=args.pointwise_weight,
         pairwise_weight=args.pairwise_weight,
@@ -152,7 +174,7 @@ def make_trainer(args: argparse.Namespace):
         wire_dense_mode=args.wire_dense_mode,
         wire_id_mode=args.wire_id_mode,
         num_tasks=num_tasks)
-    return Trainer(model, fc, cfg, device=args.device)
+    return Trainer(model, fc, cfg, device=device, mesh=mesh)
 
 
 def init_state(trainer, args: argparse.Namespace):
@@ -171,22 +193,27 @@ class Streams(NamedTuple):
     eval_on_train: bool = False
 
 
-def data_streams(args: argparse.Namespace) -> Streams:
-    """The run's :class:`Streams`: the synthetic stream, or with
-    ``--data-file`` the file's first ``--steps`` batches, eval from
-    ``--eval-file`` or the file's next ``--eval-batches`` batches (read
-    now, by a second pass that skips the training range, as
-    ``rec_now_tpu/train.py:172-206``).  A file with no batch past the
-    training range prints the JAX ``warning`` line and evaluates its
-    first batches."""
+def data_streams(args: argparse.Namespace, rank: int = 0,
+                 processes: int = 1) -> Streams:
+    """The run's :class:`Streams` for process ``rank`` of ``processes``
+    (batches of ``--batch-size / processes`` rows): the synthetic stream
+    (its seeds shifted by ``rank * 7919``), or with ``--data-file`` the
+    file's first ``--steps`` batches, eval from ``--eval-file`` or the
+    file's next ``--eval-batches`` batches (read now, by a second pass
+    that skips the training range, as ``rec_now_tpu/train.py:172-206``).
+    A file with no batch past the training range prints the JAX
+    ``warning`` line and evaluates its first batches."""
+    batch = args.batch_size // processes
     if not args.data_file:
         from rec_now_tpu_torch.training import SyntheticCriteo
         data = SyntheticCriteo(rows_per_field=args.rows_per_field,
                                seed=args.seed)
+        # disjoint synthetic streams per process (train.py:168-171)
+        shift = rank * PROCESS_SEED_SHIFT
         return Streams(
-            data.batches(args.batch_size, args.steps, seed=args.seed + 1),
-            lambda: data.batches(args.batch_size, args.eval_batches,
-                                 seed=args.seed + 999))
+            data.batches(batch, args.steps, seed=args.seed + 1 + shift),
+            lambda: data.batches(batch, args.eval_batches,
+                                 seed=args.seed + 999 + shift))
     from rec_now_tpu_torch.io import CriteoTSV
 
     def tsv(path: str) -> CriteoTSV:
@@ -194,20 +221,19 @@ def data_streams(args: argparse.Namespace) -> Streams:
                          num_groups=args.num_groups)
 
     ds = tsv(args.data_file)
-    train = ds.batches(args.batch_size, args.steps)
+    train = ds.batches(batch, args.steps)
     if args.eval_file:
         eval_ds = tsv(args.eval_file)
-        return Streams(train, lambda: eval_ds.batches(args.batch_size,
+        return Streams(train, lambda: eval_ds.batches(batch,
                                                       args.eval_batches))
-    held_out = list(ds.batches(args.batch_size, args.eval_batches,
-                               skip=args.steps))
+    held_out = list(ds.batches(batch, args.eval_batches, skip=args.steps))
     on_train = not held_out
     if on_train:
         print(json.dumps({
             "warning": "data file has no rows past the training range; "
                        "eval scores TRAINING data (eval_on_train=true)"}),
               flush=True)
-        held_out = list(ds.batches(args.batch_size, args.eval_batches))
+        held_out = list(ds.batches(batch, args.eval_batches))
     return Streams(train, lambda: iter(held_out), on_train)
 
 
@@ -226,8 +252,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from rec_now_tpu_torch.training.prefetch import (DevicePrefetcher,
                                                      WindowPrefetcher)
 
-    trainer = make_trainer(args)
-    batches, make_eval_batches, on_train = data_streams(args)
+    mesh = None
+    if args.multihost:
+        # the group first: it picks this process's device
+        from rec_now_tpu_torch.parallel import make_mesh
+        mesh = make_mesh(args.device)
+        if args.batch_size % mesh.size:
+            raise SystemExit(f"--batch-size {args.batch_size} must divide "
+                             f"by the process count {mesh.size}")
+        if args.checkpoint_dir and mesh.size > 1:
+            raise SystemExit(f"--checkpoint-dir on {mesh.size} processes: "
+                             "not ported yet (ROADMAP A11b)")
+    trainer = make_trainer(args, mesh)
+    batches, make_eval_batches, on_train = data_streams(
+        args, *((0, 1) if mesh is None else (mesh.rank, mesh.size)))
     state = init_state(trainer, args)
     ckpt = (CheckpointManager(args.checkpoint_dir)
             if args.checkpoint_dir else None)
@@ -248,7 +286,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     def log(step: int, metrics) -> None:
         # the floats wait for the step's work, so the rate counts it
         line = {k: round(float(v), 5) for k, v in metrics.items()}
-        # one device exchanges no ids, so none is dropped
+        # the allgather exchange drops no ids
         line.setdefault("sparse_dropped", 0.0)
         eps = args.batch_size * step / (time.perf_counter() - t0)
         line.update(step=step, examples_per_sec=round(eps, 1))
@@ -264,7 +302,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # checkpoint fire at window granularity when the step crosses
         # their cadence
         step = 0
-        with WindowPrefetcher(batches, trainer.put_packed_window,
+        with WindowPrefetcher(batches, trainer.put_packed_auto,
                               args.scan_window) as wins:
             for dev_win, n_steps in wins:
                 state, seq = trainer.train_many_packed(state, dev_win)
@@ -276,7 +314,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 if ckpt and crossed(args.checkpoint_every, prev, step):
                     ckpt.save(step, state)
     else:
-        with DevicePrefetcher(batches, trainer.put) as prefetched:
+        with DevicePrefetcher(batches, trainer.put_local) as prefetched:
             for i, dev_batch in enumerate(prefetched):
                 state, metrics = trainer.train_step(state, *dev_batch)
                 step = i + 1

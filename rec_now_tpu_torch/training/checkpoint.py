@@ -24,6 +24,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from rec_now_tpu_torch.parallel.multihost import refuse_sharded
+
 _FILE = "state.pt"
 
 
@@ -60,7 +62,9 @@ class CheckpointManager:
 
     def save(self, step: int, state) -> None:
         """Snapshot ``state`` (a ``TrainState``) to the CPU and write it
-        as checkpoint ``step``; returns when the file is written."""
+        as checkpoint ``step``; returns when the file is written.  One
+        process only: a sharded state's checkpoint is ROADMAP A11b."""
+        refuse_sharded("a checkpoint save")
         payload = {
             "params": dict(state.params),
             "opt": state.opt.state_dict(),
@@ -84,7 +88,8 @@ class CheckpointManager:
         """Checkpoint ``step`` (None: the latest).  With a ``target``
         ``TrainState`` its tensors are overwritten in place on their own
         devices and a ``TrainState`` is returned; without one, the saved
-        dict of CPU tensors."""
+        dict of CPU tensors.  One process only (ROADMAP A11b)."""
+        refuse_sharded("a checkpoint restore")
         if step is None:
             step = self.latest_step()
             if step is None:

@@ -274,6 +274,11 @@ class CorpusGroupIndexer:
             slots[i] = slot
         return slots[inv]
 
+    def seen(self) -> np.ndarray:
+        """Hash mode: every distinct group id assigned so far, sorted."""
+        return np.array(sorted(set(self._map.values()) | self._collided),
+                        np.int64)
+
 
 class StreamingGAUC:
     """Exact corpus GAUC on the host: buffers (group, label, score) and

@@ -1,10 +1,10 @@
-"""One-device training: lookup -> model -> pointwise + in-batch ranking
-losses -> Adam on the dense params, row-wise Adagrad or lazy sparse Adam on
-the embedding rows.
+"""Training on one device or one process per device: lookup -> model ->
+pointwise + in-batch ranking losses -> Adam on the dense params, row-wise
+Adagrad or lazy sparse Adam on the embedding rows.
 
 Counterpart of ``rec_now_tpu/training/trainer.py`` (``TrainerConfig``,
 ``TrainState``, ``Trainer.put`` / ``init`` / ``train_step`` /
-``eval_step``, :219-441) for one device and the options its callers set.
+``eval_step``, :219-441) for the options its callers set.
 A step works as ``_step_body`` (:353-391):
 
 1. the batch's ids are offset into the table's id space and looked up;
@@ -45,6 +45,35 @@ device: nothing in a step waits for the card.
 ``put`` gives the JAX tuple ``(dense, ids, labels, groups, cvr,
 domain)`` and ``train_step`` takes it.
 
+**On a mesh** (``mesh=``, ``parallel/mesh.py``: P processes, one per
+device, as JAX's trainer on a mesh of P devices) each process feeds its
+own slice of the global batch (``put``), the tables are
+mod-sharded over the processes (``embedding/sharded.py``), and:
+
+* the in-batch ranking losses are built per process, on its own rows,
+  as JAX builds them per data shard (``_ranking_losses``, :252-318); their
+  sums and counts, and the pointwise and CVR sums, are combined by one
+  ``all_reduce`` of a small vector before the backward (JAX's ``psum``,
+  :285-286, :303-304; the global means of :332-337);
+* each process runs its backward on its share of the global loss
+  (``w_pw * sum_local(pointwise) / B_global + w_pair * pair_sum_local /
+  (n_pair_global + 1e-10) + w_lw * list_sum_local / max(L_global, 1) +``
+  the CVR term as the pointwise one), so that the shares add up to the
+  global loss, and the parameter gradients are **summed** by one
+  ``all_reduce``: JAX's dense gradient is the global loss's, which XLA
+  sums over the shards (``DistributedDataParallel`` would average);
+* the parameters start from rank 0's (broadcast in ``init``) and Adam
+  runs alike on every process; the metrics are the global values on
+  every process;
+* ``evaluate`` all-gathers each batch's (group, label, cvr, logit)
+  columns (:657-664); ``evaluate_device`` sums its histograms over the
+  processes and, with more than one, maps corpus groups by hash
+  (:779-780);
+* the wire packs each process's window as one shard
+  (``put_packed_window``; JAX's ``put_packed_window_local``, :517-567);
+  hot8 ids fall back to packed ones with JAX's warning on more than one
+  process (:483-489).
+
 The windowed loop (``trainer.py:443-622``): ``put_packed_window`` packs a
 window of host batches in the compressed wire (``training/wire.py``, ids
 bit-packed or, with ``wire_id_mode="hot8"``, byte codes with the window's
@@ -70,6 +99,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import inspect
+import warnings
 from typing import (Callable, Dict, Iterable, List, Mapping, NamedTuple,
                     Optional, Tuple, Union)
 
@@ -96,6 +126,10 @@ from rec_now_tpu_torch.training.metrics import (CorpusGroupIndexer,
 from rec_now_tpu_torch.training.prefetch import WindowPrefetcher
 from rec_now_tpu_torch.training.wire import (PackedBatch, WireFormat,
                                              to_tensors)
+
+# the columns evaluate gathers from every process: group, label, cvr, and
+# one per task's logits
+_EVAL_COLUMNS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,20 +175,25 @@ class Trainer:
             ``can_param_field``, ``model(dense, sparse_emb, can_params)``.
         feature_config: the input layout.
         config: loss weights and learning rates.
-        device: where the table and the step run ("cuda" unless asked).
+        device: where the table and the step run ("cuda" unless asked;
+            on a mesh, the mesh's device).
+        mesh: a :class:`~rec_now_tpu_torch.parallel.Mesh` of the
+            processes that train together (module docstring), or None
+            for one device.
     """
 
     def __init__(self, model: nn.Module, feature_config: FeatureConfig,
                  config: TrainerConfig,
-                 device: Union[str, torch.device] = "cuda"):
-        self.device = resolve_device(device)
+                 device: Union[str, torch.device] = "cuda", mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.model = model
         self.fc = feature_config
         self.cfg = config
         self.table = ShardedEmbeddingTable(
             feature_config.total_rows, feature_config.embedding_dim,
             device=self.device, optimizer=config.sparse_optimizer,
-            update_mode=config.sparse_update_mode)
+            update_mode=config.sparse_update_mode, mesh=mesh)
         self.can_table = None
         if config.can_param_field is not None:
             # co-action params multiply embeddings: a small centred init
@@ -165,7 +204,7 @@ class Trainer:
                                            config.can_dnn_dims),
                 device=self.device, initializer_scale=0.05,
                 optimizer=config.sparse_optimizer,
-                update_mode=config.sparse_update_mode)
+                update_mode=config.sparse_update_mode, mesh=mesh)
         # the per-sample domain goes only to models that route on it
         # (MultiTaskModel's STAR towers)
         self._takes_domain = "domain_idx" in inspect.signature(
@@ -190,6 +229,13 @@ class Trainer:
                 torch.as_tensor(batch.cvr_labels, dtype=f32, device=dev),
                 torch.as_tensor(batch.domain_idx, device=dev))
 
+    def put_local(self, batch: Batch) -> Tuple[torch.Tensor, ...]:
+        """JAX's name (:165-186) for :meth:`put`, kept to mirror its API:
+        on a mesh each process puts its own slice of the global batch
+        (local batch = global batch / processes) on its own device, and
+        no global array is built."""
+        return self.put(batch)
+
     def init(self, generator: torch.Generator,
              params: Optional[Mapping[str, torch.Tensor]] = None,
              table: Optional[ShardedTableState] = None,
@@ -198,7 +244,9 @@ class Trainer:
         state_dict such as ``convert.from_jax_params`` gives, copied into
         them), a table drawn from ``generator`` (or ``table``), then, with
         ``can_param_field``, the CAN table drawn from the same generator
-        (or ``can_table``), and a new Adam."""
+        (or ``can_table``), and a new Adam.  On a mesh the parameters
+        are rank 0's (broadcast), and ``table`` / ``can_table`` are this
+        process's rows (``convert.table_state_for_rank``)."""
         own = dict(self.model.named_parameters())
         if params is not None:
             if set(params) != set(own):
@@ -207,6 +255,10 @@ class Trainer:
             with torch.no_grad():
                 for name, p in own.items():
                     p.copy_(torch.as_tensor(params[name]))
+        if self.mesh is not None:
+            with torch.no_grad():
+                self._flat_collective(list(own.values()),
+                                      self.mesh.broadcast)
         if table is None:
             table = self.table.init(generator)
         if self.can_table is None:
@@ -236,40 +288,86 @@ class Trainer:
 
     def _loss_fn(self, params, emb, can_emb, dense, labels, groups, cvr,
                  domain) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The loss this process backpropagates and the step's metrics.
+        Each term is a local sum over its count (step 3 of the module
+        docstring); on a mesh the counts, and the sums the metrics read,
+        are every process's, from one ``all_reduce`` of a small vector,
+        so the loss is this process's share of the global one."""
         cfg = self.cfg
         logits = self._forward(params, dense, emb, can_emb, domain)
-        metrics = {}
+        cvr_sum = None
         if cfg.num_tasks > 1:
-            task_logits = logits                            # (T, B)
-            logits = task_logits[0]
-            cvr_loss = sigmoid_cross_entropy_with_logits(
-                cvr, task_logits[1]).mean()
-            metrics["cvr_loss"] = cvr_loss.detach()
-        loss = torch.zeros((), dtype=torch.float32, device=logits.device)
+            cvr_sum = sigmoid_cross_entropy_with_logits(cvr,
+                                                        logits[1]).sum()
+            logits = logits[0]                          # task 0 of (T, B)
+        dev = logits.device
+        b = logits.shape[0]
+        if self.mesh is not None:
+            # made on the device: a count copied from the host would wait
+            # for the card
+            b = torch.full((), b, dtype=torch.float32, device=dev)
+        # (name, weight, local sum with its gradient, local count)
+        terms = []
         if cfg.pointwise_weight != 0.0:
-            pw = sigmoid_cross_entropy_with_logits(labels, logits).mean()
-            metrics["pointwise"] = pw.detach()
-            loss = loss + cfg.pointwise_weight * pw
+            terms.append(("pointwise", cfg.pointwise_weight,
+                          sigmoid_cross_entropy_with_logits(labels,
+                                                            logits).sum(), b))
         if cfg.pairwise_weight != 0.0:
             pl_sum, n_pair = pairwise_loss(
                 logits, labels, groups, factor=cfg.pairwise_factor,
                 click_occurance_power=cfg.click_occurance_power,
                 return_num_pair=True, reduce_mean=False,
                 binary_labels=True)
-            pair = pl_sum / (n_pair + 1e-10)
-            metrics["pairwise"] = pair.detach()
-            loss = loss + cfg.pairwise_weight * pair
+            terms.append(("pairwise", cfg.pairwise_weight, pl_sum, n_pair))
         if cfg.listwise_weight != 0.0:
             lsum, lcount = listwise_loss_sum(logits, labels, groups)
-            listwise = torch.where(lcount > 0,
-                                   lsum / lcount.clamp_min(1.0),
-                                   torch.zeros_like(lsum))
-            metrics["listwise"] = listwise.detach()
-            loss = loss + cfg.listwise_weight * listwise
-        if cfg.num_tasks > 1:
-            loss = loss + cvr_loss
-        metrics["loss"] = loss.detach()
+            terms.append(("listwise", cfg.listwise_weight, lsum, lcount))
+        if cvr_sum is not None:
+            terms.append(("cvr_loss", 1.0, cvr_sum, b))
+        sums = [s.detach() for _, _, s, _ in terms]
+        counts = [c for *_, c in terms]
+        if self.mesh is not None and terms:
+            stats = self.mesh.all_reduce(torch.stack([
+                torch.stack([s, c]).to(torch.float32)
+                for s, c in zip(sums, counts)]))        # (terms, 2) global
+            sums, counts = list(stats[:, 0]), list(stats[:, 1])
+        loss = total = torch.zeros((), dtype=torch.float32, device=dev)
+        metrics = {}
+        for (name, weight, s, _), s_all, c in zip(terms, sums, counts):
+            if name == "pairwise":
+                den = c + 1e-10
+            elif name == "listwise":
+                den = c.clamp_min(1.0)
+            else:
+                den = c
+            share = s / den
+            if name == "listwise":                   # 0 without a group
+                share = torch.where(c > 0, share, torch.zeros_like(share))
+            loss = loss + weight * share
+            if self.mesh is None:
+                metrics[name] = share.detach()
+                continue
+            mean = s_all / den
+            if name == "listwise":
+                mean = torch.where(c > 0, mean, torch.zeros_like(mean))
+            metrics[name] = mean
+            total = total + weight * mean
+        if cvr_sum is not None:                      # JAX's order
+            metrics = {"cvr_loss": metrics.pop("cvr_loss"), **metrics}
+        metrics["loss"] = loss.detach() if self.mesh is None else total
         return loss, metrics
+
+    def _flat_collective(self, tensors: List[torch.Tensor],
+                         op: Callable[[torch.Tensor], torch.Tensor]
+                         ) -> List[torch.Tensor]:
+        """``op`` (a mesh collective, in place) on ``tensors`` as one flat
+        buffer: one call for any number of tensors.  Writes the result
+        back into each and returns them."""
+        flat = op(torch.cat([t.reshape(-1) for t in tensors]))
+        for t, part in zip(tensors, flat.split([t.numel()
+                                                for t in tensors])):
+            t.copy_(part.view_as(t))
+        return tensors
 
     def train_step(self, state: TrainState, dense: torch.Tensor,
                    ids: torch.Tensor, labels: torch.Tensor,
@@ -287,6 +385,11 @@ class Trainer:
         names = list(state.params)
         grads = torch.autograd.grad(
             loss, [state.params[n] for n in names] + leaves)
+        if self.mesh is not None:
+            # summed, not averaged: each process's loss is its share of
+            # the global one
+            self._flat_collective(list(grads[:len(names)]),
+                                  self.mesh.all_reduce)
         for name, g in zip(names, grads):
             state.params[name].grad = g
         state.opt.step()
@@ -322,31 +425,83 @@ class Trainer:
     # -- packed wire path ---------------------------------------------------
     @property
     def wire(self) -> WireFormat:
-        """The wire bound to this trainer's feature layout (one shard).
-        One device has one process, so hot8 runs as asked; JAX falls back
-        to packed ids on a pod slice (``trainer.py:482-489``), which comes
-        with multi-device training (ROADMAP A11)."""
+        """The wire bound to this trainer's feature layout; a process's
+        batch is one shard.  On more than one process hot8 ids fall back
+        to packed ones with JAX's warning (``trainer.py:482-489``): JAX
+        bakes one table into each process's decode.  The port's windows
+        carry their own tables, but per-process tables are left out, as
+        JAX has none."""
         if self._wire is None:
+            id_mode = self.cfg.wire_id_mode
+            if id_mode == "hot8" and self.mesh is not None \
+                    and self.mesh.size > 1:
+                warnings.warn("wire_id_mode='hot8' is single-process "
+                              "only; falling back to 'packed'")
+                id_mode = "packed"
             self._wire = WireFormat(self.fc.num_sparse,
                                     self.fc.rows_per_field,
                                     dense_mode=self.cfg.wire_dense_mode,
-                                    id_mode=self.cfg.wire_id_mode)
+                                    id_mode=id_mode)
         return self._wire
+
+    def _pack(self, batches: List[Batch], raw_groups: bool):
+        """A window's host PackedBatch: the C++ pack for the card (the
+        same bytes, with the interpreter lock released), numpy's for the
+        CPU."""
+        if self.device.type == "cuda":
+            return self.wire.pack_window_native(batches,
+                                                raw_groups=raw_groups)
+        return self.wire.pack_window(batches, raw_groups=raw_groups)
 
     def put_packed_window(self, batches: Iterable[Batch],
                           raw_groups: bool = False) -> PackedBatch:
         """Pack a window of host batches and move it to the device; on the
-        card the pack is the C++ one (the same bytes, with the interpreter
-        lock released), the copy runs on a side stream from pinned memory
-        and this returns when it has landed.  ``raw_groups`` ships group
-        ids unremapped (pre-mapped corpus slots, the device-GAUC eval)."""
+        card the copy runs on a side stream from pinned memory and this
+        returns when it has landed.  ``raw_groups`` ships group ids
+        unremapped (pre-mapped corpus slots, the device-GAUC eval).
+
+        On a mesh the window is this process's slice
+        (``put_packed_window_local``, :517-567): the in-batch group remap
+        is offset by ``rank * local_batch`` so that no two processes'
+        groups share an id, which needs a global batch of at most 65,536
+        (the uint16 group field; raw corpus slots are global already and
+        take no offset).  JAX's check that the mesh is a multiple of the
+        process count has no counterpart: a process has one device."""
+        batches = list(batches)
+        packed = self._pack(batches, raw_groups)
+        if self.mesh is None or raw_groups:
+            return self._place(packed)
+        rank, size = self.mesh.rank, self.mesh.size
+        local_b = int(np.asarray(batches[0].labels).shape[-1])
+        if local_b * size > 0x10000:
+            raise ValueError(
+                "uint16 group wire needs global batch <= 65536 for the "
+                f"in-batch group remap; got {local_b * size}")
+        if size > 1:
+            off = np.uint32(rank * local_b)
+            packed = packed._replace(
+                group_ids=(packed.group_ids.astype(np.uint32)
+                           + off).astype(np.uint16))
+        return self._place(packed)
+
+    def put_packed_window_local(self, batches: Iterable[Batch],
+                                raw_groups: bool = False) -> PackedBatch:
+        """JAX's name (:517-567) for :meth:`put_packed_window`, kept to
+        mirror its API."""
+        return self.put_packed_window(batches, raw_groups)
+
+    def put_packed_auto(self, batches: Iterable[Batch],
+                        raw_groups: bool = False) -> PackedBatch:
+        """JAX's name (:569-575) for :meth:`put_packed_window`, kept to
+        mirror its API."""
+        return self.put_packed_window(batches, raw_groups)
+
+    def _place(self, packed) -> PackedBatch:
+        """A host PackedBatch on the device (module docstring)."""
         dev = self.device
         if dev.type != "cuda":
-            packed = self.wire.pack_window(list(batches),
-                                           raw_groups=raw_groups)
             return PackedBatch(*[t.to(dev) for t in to_tensors(packed)])
-        packed = to_tensors(self.wire.pack_window_native(
-            list(batches), raw_groups=raw_groups))
+        packed = to_tensors(packed)
         with torch.cuda.device(dev):
             # staged by numpy's copy: torch's (pin_memory) wakes its
             # OpenMP team, whose spinning threads take the cores the loop
@@ -419,24 +574,47 @@ class Trainer:
     def evaluate(self, state: TrainState,
                  batches: Iterable[Batch]) -> Dict[str, float]:
         """Exact AUC / corpus GAUC over an eval stream, accumulated on the
-        host; a multi-task model adds ``cvr_auc`` / ``cvr_gauc``."""
+        host; a multi-task model adds ``cvr_auc`` / ``cvr_gauc``.  On a
+        mesh each process scores its slice and every process accumulates
+        the global batch."""
         acc = StreamingGAUC()
         cvr_acc = StreamingGAUC() if self.cfg.num_tasks > 1 else None
         for batch in batches:
             dense, ids, _, _, _, domain = self.put(batch)
-            logits = self.eval_step(state, dense, ids, domain).cpu().numpy()
+            logits = self.eval_step(state, dense, ids, domain)
+            groups, labels, cvr = (batch.group_ids, batch.labels,
+                                   batch.cvr_labels)
+            if self.mesh is not None:
+                groups, labels, cvr, logits = self._gather_eval(
+                    groups, labels, cvr, logits)
+            logits = logits.cpu().numpy()
             if logits.ndim == 2:                           # multi-task
                 if cvr_acc is not None:
-                    cvr_acc.update(batch.group_ids, batch.cvr_labels,
-                                   logits[1])
+                    cvr_acc.update(groups, cvr, logits[1])
                 logits = logits[0]
-            acc.update(batch.group_ids, batch.labels, logits)
+            acc.update(groups, labels, logits)
         result = acc.result()
         if cvr_acc is not None:
             cvr_res = cvr_acc.result()
             result["cvr_auc"] = cvr_res["auc"]
             result["cvr_gauc"] = cvr_res["gauc"]
         return result
+
+    def _gather_eval(self, groups: np.ndarray, labels: np.ndarray,
+                     cvr: np.ndarray, logits: torch.Tensor):
+        """Every process's (group, label, cvr) columns and (b,) or (T, b)
+        logits, in rank order, in one ``all_gather`` of float64 columns
+        (exact for int32 groups and f32 values; ``trainer.py:657-664``)."""
+        f64 = torch.float64
+        cols = [torch.as_tensor(np.asarray(c), device=self.device).to(f64)
+                for c in (groups, labels, cvr)]
+        cols += list(logits.to(f64).reshape(-1, logits.shape[-1]))
+        every = self.mesh.all_gather(torch.stack(cols, 1)).cpu().numpy()
+        logits_all = every[:, _EVAL_COLUMNS:].T.astype(np.float32)
+        return (every[:, 0].astype(np.asarray(groups).dtype),
+                every[:, 1].astype(np.float32), every[:, 2].astype(np.float32),
+                torch.from_numpy(logits_all.reshape(
+                    logits.shape[:-1] + (-1,))))
 
     def evaluate_device(self, state: TrainState, batches: Iterable[Batch],
                         window: int = 8, num_buckets: int = 4096,
@@ -465,8 +643,10 @@ class Trainer:
         if not batches:
             raise ValueError("evaluate_device needs at least one batch")
         indexer = None
+        many = self.mesh is not None and self.mesh.size > 1
         if corpus:
-            indexer = CorpusGroupIndexer(num_group_slots)
+            # every process maps a group to one slot: by hash on many
+            indexer = CorpusGroupIndexer(num_group_slots, use_hash=many)
             batches = [b._replace(group_ids=indexer.assign(b.group_ids))
                        for b in batches]
         dev = self.device
@@ -503,6 +683,21 @@ class Trainer:
                             DeviceGroupedAUC.accumulate(
                                 cvr_ghist, groups, cvr, logits[1],
                                 group_buckets)
+        overflowed = indexer.overflowed if corpus else 0
+        if self.mesh is not None:
+            # the histograms and sums over every process's rows
+            sums = [hist, cvr_hist]
+            if corpus:
+                sums += [ghist, cvr_ghist] if multi else [ghist]
+            else:
+                sums += [win, total]
+            self._flat_collective(sums, self.mesh.all_reduce)
+        if many and corpus:
+            # hash collisions among every process's groups
+            merged = CorpusGroupIndexer(num_group_slots, use_hash=True)
+            merged.assign(np.concatenate(
+                self.mesh.all_gather_object(indexer.seen())))
+            overflowed = merged.overflowed
         h = hist.cpu().numpy()
         result = {"auc": DeviceStreamingAUC.auc_from_hist(h),
                   "gauc_mode": gauc,
@@ -514,8 +709,8 @@ class Trainer:
                 DeviceGroupedAUC.finish(ghist).cpu().numpy())
             result["gauc"] = gr["gauc"]
             result["gauc_groups"] = gr["num_groups"]
-            if indexer.overflowed:
-                result["gauc_overflow"] = float(indexer.overflowed)
+            if overflowed:
+                result["gauc_overflow"] = float(overflowed)
         else:
             result["gauc"] = (float(win / total) if float(total) > 0
                               else 0.5)

@@ -43,8 +43,11 @@ and the row scatter-add (B12) int32 and int64 ids, ragged and empty N,
 ids out of range, D = 5, a misaligned table or vals (the scalar loops),
 D = 128 (float4 atomics) and the full 2.6M x 16 table with a B = 8,192
 batch's count of ids; the windowed training loop (packed windows moved
-on a side stream) against put + train_step; and the wire's C++ window
-pack against its numpy pack (byte-equal).  Tolerance: f32 with a
+on a side stream) against put + train_step; the wire's C++ window
+pack against its numpy pack (byte-equal); and the mod-sharded table in a
+NCCL group of one against the table without a mesh (every update path,
+D = 16 and 272: distinct ids bit for bit, zipf ids with one-signed
+gradients within 1e-5 of the largest move).  Tolerance: f32 with a
 different summation order (the multi-expert dense's tile and the CIN
 layer in split TF32, as close as f32), 1e-5 relative to the largest output (1e-4 for
 gradients through the whole
@@ -1063,3 +1066,72 @@ def test_native_hot8_pack_matches_numpy(dev, shards):
     with pytest.raises(ValueError, match="esc_cap_frac"):
         WireFormat(26, 100_000, id_mode="hot8",
                    esc_cap_frac=0.05).pack_window_native([flat])
+
+
+# -- the mod-sharded table in a NCCL group of one ---------------------------
+
+@pytest.fixture
+def group_of_one(dev):
+    """A NCCL process group of one on the card, left after the test."""
+    import torch.distributed as dist
+    from rec_now_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(dev)
+    assert (mesh.size, dist.get_backend()) == (1, "nccl")
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "adam"])
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+@pytest.mark.parametrize("d", [16, 272])
+@pytest.mark.parametrize("ids_kind", ["distinct", "zipf"])
+def test_sharded_table_in_a_group_of_one_matches_one_device(
+        dev, group_of_one, optimizer, mode, d, ids_kind):
+    """Lookups (B11) are bit for bit: the first on the same table, every
+    one against its own table's rows.  Distinct ids: every update path bit
+    for bit too (B12 adds one term a row; B9 / B10 see the same gradient
+    buffer).  Zipf ids: B12's atomics add a hot row's terms in no fixed
+    order (SUM_TOL, 1e-6 of the summed |terms|); the gradients have one
+    sign, so no sum cancels and each summed gradient moves by at most
+    SUM_TOL of itself, and each row's move is held within 1e-5 of the
+    largest move (Adam, which divides by |g|, too)."""
+    from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    v, n = 100_003, 4096
+    gen = torch.Generator().manual_seed(d + n)
+    if ids_kind == "distinct":
+        ids = torch.randperm(v, generator=gen)[:n]
+    else:
+        ids = (torch.rand(n, generator=gen) ** 4 * v).long()
+    ids = ids.reshape(-1, 8).to(dev)
+    tables = [ShardedEmbeddingTable(v, d, device=dev, optimizer=optimizer,
+                                    update_mode=mode, mesh=mesh)
+              for mesh in (None, group_of_one)]
+    states = [t.init(torch.Generator().manual_seed(3)) for t in tables]
+    start = states[0].table.clone()
+    assert torch.equal(states[1].table, start)
+    for step in range(2):
+        grads = _rand(gen, dev, *ids.shape, d).abs() * 1e-2
+        before = gk.gather_rows.launches
+        looked = [t.lookup(s, ids) for t, s in zip(tables, states)]
+        assert gk.gather_rows.launches == before + 2
+        for got, s in zip(looked, states):
+            assert torch.equal(got, s.table[ids])
+        if step == 0 or ids_kind == "distinct":
+            assert torch.equal(looked[0], looked[1])
+        for t, s in zip(tables, states):
+            t.apply_grads(s, ids, grads, lr=0.05)
+    torch.cuda.synchronize()
+    names = (("table", "accumulator") if optimizer == "adagrad"
+             else ("table", "m", "v", "count"))
+    for name in names:
+        a, b = (getattr(s, name) for s in states)
+        if ids_kind == "distinct":
+            assert torch.equal(a, b), name
+        elif name == "table":
+            moved = a - start
+            tol = 1e-5 * float(moved.abs().max())
+            assert float((b - a).abs().max()) <= tol
+        else:
+            tol = 1e-5 * float(a.abs().max())
+            assert float((b - a).abs().max()) <= tol, name

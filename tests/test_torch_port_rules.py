@@ -45,6 +45,7 @@ def test_port_imports_no_jax():
                                             "optax", "rec_now_tpu")
                      and sys.modules[m] is not None)
         assert not bad, bad
+        assert "rec_now_tpu_torch.parallel.multihost" in mods
         print(len(mods))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
