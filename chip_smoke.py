@@ -184,10 +184,27 @@ gradients once (B12).
     mesh and without, in turns, wall ms by the host clock (each step
     synchronized, and steps back to back) and busy ms by
     ``torch.profiler``; (a) ``main``
-    with phase 8's run B flags and ``--multihost``, its logged losses
-    within 1e-5 relative of run B's (and the log's rounding to 5
-    decimals) and its final eval within 1e-5 relative; the group is left
-    at the end.  If NCCL cannot form the group, the phase fails;
+    with phase 8's run B flags and ``--multihost --sparse-route-mode
+    routed --checkpoint-dir`` (a group of one resolves routed to
+    allgather, as JAX does), its logged losses within 1e-5 relative of
+    run B's (and the log's rounding to 5 decimals) and its final eval
+    within 1e-5 relative; its last checkpoint, restored into a fresh
+    state, bit-equal to the live state at that save; (e) the routed
+    exchange's lookup and update bodies, called directly on config 2's
+    table (2.6M x 16, dense Adagrad, then lazy Adam) and config 5's CAN
+    table (100,000 x 272) with one B = 8192 batch's ids: at the default
+    caps the rows bit-equal to the allgather lookup's with none dropped,
+    one update on dyadic gradients (exact sums in any order) bit-equal to
+    the allgather update's, and on random ones the summed gradients
+    within ``SUM_TOL`` of their terms' summed |values|; at a cap factor
+    of 0.1 the buckets and the overflow lane full, the card's plan equal
+    to the CPU's from the same ids, the dropped count exact and the
+    distinct ids that read zero exactly that many; a routed lookup 2
+    ``all_to_all_single``, 1 ``all_gather_into_tensor`` and 1
+    ``reduce_scatter_tensor``, a routed update 2 and 2
+    ``all_to_all_single`` / ``all_gather_into_tensor``; each way's ms by
+    events, device operations and busy ms a call, and the routed calls'
+    largest kernels; the group is left at the end.  If NCCL cannot form the group, the phase fails;
 11. print one JSON line for the kernels, the card again, and finally
     ``{"ok": true, "device": {...}}``.
 
@@ -291,7 +308,21 @@ CAN_ROWS, CAN_DIM, CAN_FIELD = 100_000, 272, 8
 # of its own, so kernel names prove nothing), the steps each config runs
 # with a mesh and without, and the steps of each timed round
 COLLECTIVES = ("all_gather_into_tensor", "reduce_scatter_tensor",
-               "all_reduce", "broadcast", "all_gather_object")
+               "all_reduce", "broadcast", "all_gather_object",
+               "all_to_all_single")
+# phase 10 (e): the collectives of one routed lookup and one routed update
+# (embedding/sharded.py: the buckets' ids out and rows back, the overflow
+# lane gathered and reduce-scattered; ids and gradients out, the lane's
+# ids and gradients gathered), and the launches of each beside the
+# allgather exchange's
+ROUTED_LOOKUP = {"all_to_all_single": 2, "all_gather_into_tensor": 1,
+                 "reduce_scatter_tensor": 1}
+ROUTED_UPDATE = {"all_to_all_single": 2, "all_gather_into_tensor": 2}
+AG_LOOKUP = {"all_gather_into_tensor": 1, "reduce_scatter_tensor": 1}
+AG_UPDATE = {"all_gather_into_tensor": 2}
+# the forced cap of (e): a tenth of the uniform share fills the buckets and
+# the overflow lane of a B = 8192 batch's 212,992 ids and drops the rest
+FORCED_CAP = 0.1
 MESH_STEPS, MESH_TIMED = 3, 5
 # a mesh run against the one-device run: its metrics; its parameters and
 # tables after MESH_STEPS steps, over each one's largest value (the
@@ -303,6 +334,15 @@ MESH_TOL, STATE_TOL = 1e-5, 1e-3
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def losses_of(what: str, metrics: dict) -> dict:
+    """A step's metrics as floats, less ``sparse_dropped``, which must be
+    there and 0: one device and the allgather exchange drop no id."""
+    vals = {k: float(v) for k, v in metrics.items()}
+    if vals.pop("sparse_dropped", None) != 0.0:
+        fail(f"{what}: sparse_dropped missing or not 0 in {metrics}")
+    return vals
 
 
 def smi() -> str:
@@ -1182,6 +1222,202 @@ def spread(a: dict, b: dict) -> dict:
     return out
 
 
+def full_state(state) -> dict:
+    """A copy of everything a training state holds: params, the Adam
+    state, the step and every tensor of each table."""
+    import copy
+    out = {"params": {n: p.detach().clone() for n, p in state.params.items()},
+           "opt": copy.deepcopy(state.opt.state_dict()),
+           "step": int(state.step)}
+    for key in ("table", "can_table"):
+        t = getattr(state, key)
+        if t is not None:
+            out[key] = {k: v.clone() for k, v in t._asdict().items()
+                        if v is not None}
+    return out
+
+
+def same_state(torch, a, b) -> bool:
+    """Two :func:`full_state` copies (or nests of them) bit for bit."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(same_state(torch, a[k], b[k])
+                                        for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_state(torch, x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def routed_part(torch, counted, collectives, card: str, fc, batch, mesh,
+                dev) -> None:
+    """Phase 10 (e): the routed exchange's lookup and update bodies on the
+    NCCL group of one (where ``route_mode`` resolves to allgather, as in
+    JAX) on config 2's table (dense Adagrad, then lazy Adam) and config 5's
+    CAN table, one B = 8192 batch's ids (module docstring)."""
+    from rec_now_tpu_torch.embedding import exchange
+    from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+    from rec_now_tpu_torch.ops.expand_kernel import scatter_add_rows
+    ids = torch.as_tensor(batch.sparse_ids, device=dev)
+    cases = [("config 2 table, Adagrad", dict(
+                  vocab_size=fc.total_rows, dim=fc.embedding_dim),
+              fc.global_ids(ids).reshape(-1), "adagrad_dense_pass"),
+             ("config 2 table, lazy Adam", dict(
+                  vocab_size=fc.total_rows, dim=fc.embedding_dim,
+                  optimizer="adam"),
+              fc.global_ids(ids).reshape(-1), "adam_dense_pass"),
+             ("config 5 CAN table, Adagrad", dict(
+                  vocab_size=CAN_ROWS, dim=CAN_DIM, initializer_scale=0.05),
+              (ids[:, CAN_FIELD] % CAN_ROWS).reshape(-1),
+              "adagrad_dense_pass")]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for what, kw, flat, update_pass in cases:
+        table = ShardedEmbeddingTable(mesh=mesh, route_mode="routed", **kw)
+        if table.route_mode != "allgather":
+            fail(f"{what}: routed on a group of one resolved to "
+                 f"{table.route_mode}, not allgather (JAX's resolution)")
+        state = table.init(torch.Generator().manual_seed(1))
+        n = flat.shape[0]
+        distinct = int(torch.unique(flat).numel())
+        cap, ov_cap = table._route_caps(n)
+        print(f"routed exchange, {what}: {n} ids, {distinct} distinct, "
+              f"cap {cap}, ov_cap {ov_cap}")
+
+        def lookup_routed(table=table, state=state, flat=flat):
+            return table._lookup_routed(state.table, flat)
+
+        def lookup_ag(table=table, state=state, flat=flat):
+            return table.lookup(state, flat, return_dropped=True)
+
+        rows_r, dropped = collectives(
+            f"{what}: routed lookup", ROUTED_LOOKUP,
+            lambda: counted(f"{what}: routed lookup", 1, {"gather_rows": 2},
+                            lookup_routed))
+        rows_a, _ = collectives(
+            f"{what}: allgather lookup", AG_LOOKUP,
+            lambda: counted(f"{what}: allgather lookup", 1,
+                            {"gather_rows": 1}, lookup_ag))
+        same = torch.equal(rows_r, rows_a)
+        print(f"  routed lookup vs allgather: "
+              f"{'equal' if same else 'DIFFERENT'} rows, dropped "
+              f"{int(dropped)}")
+        if not same or int(dropped) != 0:
+            fail(f"{what}: the routed lookup differs from the allgather one "
+                 f"or dropped {int(dropped)} ids at the default caps")
+
+        # one update each way from the same state on dyadic gradients
+        # (multiples of 2^-8: their sums are exact in any order), so the
+        # states must be bit-equal
+        grads = torch.randint(-64, 64, (n, table.dim), device=dev,
+                              generator=gen).to(torch.float32) / 256
+        lr = 1e-3 if kw.get("optimizer") == "adam" else 0.05
+
+        def clone(st):
+            return type(st)(*[None if t is None else t.clone() for t in st])
+
+        st_r, st_a = clone(state), clone(state)
+        collectives(f"{what}: routed update", ROUTED_UPDATE, lambda: counted(
+            f"{what}: routed update", 1,
+            {"scatter_add_rows": 2, update_pass: 1},
+            lambda: table._apply_owned(
+                st_r, *table._routed_candidates(flat, grads), lr)))
+        collectives(f"{what}: allgather update", AG_UPDATE, lambda: counted(
+            f"{what}: allgather update", 1,
+            {"scatter_add_rows": 1, update_pass: 1},
+            lambda: table.apply_grads(st_a, flat, grads, lr)))
+        same = all(torch.equal(getattr(st_r, k), a)
+                   for k, a in st_a._asdict().items() if a is not None)
+        moved = int((st_a.table != state.table).any(1).sum())
+        # on random gradients the duplicates sum in another order: each
+        # summed element within SUM_TOL of the sum of its terms' |values|
+        rgrads = torch.randn(n, table.dim, device=dev, generator=gen) * 1e-2
+        dense = [scatter_add_rows(torch.zeros_like(state.table), *owned)
+                 for owned in (table._routed_candidates(flat, rgrads),
+                               table._owned(flat, rgrads))]
+        scale = torch.zeros_like(state.table).index_add_(0, flat,
+                                                         rgrads.abs())
+        worst = float(((dense[0] - dense[1]).abs()
+                       / scale.clamp_min(1e-30)).max())
+        print(f"  routed update vs allgather: dyadic gradients, states "
+              f"{'bit-equal' if same else 'DIFFERENT'}, {moved} rows "
+              f"moved; random gradients, summed gradients within "
+              f"{worst:.3e} of their terms' summed |values|")
+        if not same or moved == 0 or worst > SUM_TOL:
+            fail(f"{what}: the routed update is off the allgather one")
+        del dense, scale
+
+        # a cap of a tenth of the share: full buckets, a full lane, drops;
+        # the card's plan equals the CPU's from the same ids
+        forced = ShardedEmbeddingTable(mesh=mesh, route_mode="routed",
+                                       route_cap_factor=FORCED_CAP, **kw)
+        fcap, fov = forced._route_caps(n)
+        uid, slot = exchange.sort_dedup(flat)
+        plan = exchange.plan_route(uid, 1, fcap, fov)
+        cpu_uid, _ = exchange.sort_dedup(flat.cpu())
+        cpu_plan = exchange.plan_route(cpu_uid, 1, fcap, fov)
+        same_plan = all(torch.equal(a.cpu(), b)
+                        for a, b in zip(plan, cpu_plan))
+        rows_f, dropped_f = collectives(
+            f"{what}: routed lookup, cap factor {FORCED_CAP}",
+            ROUTED_LOOKUP, lambda: forced._lookup_routed(state.table, flat))
+        zero = (rows_f == 0).all(1)
+        zero_ids = int(torch.unique(flat[zero]).numel())
+        in_main = int((plan.ret_slot >= 0).sum())
+        in_lane = int((plan.ov_slot >= 0).sum())
+        print(f"  cap factor {FORCED_CAP}: cap {fcap}, ov_cap {fov}: "
+              f"{in_main} ids in the buckets, {in_lane} in the lane, "
+              f"dropped {int(dropped_f)} (the CPU's plan "
+              f"{int(cpu_plan.dropped)}), {zero_ids} distinct ids read "
+              f"zero; plan on the card vs the CPU: "
+              f"{'equal' if same_plan else 'DIFFERENT'}")
+        if not same_plan or int(dropped_f) != int(cpu_plan.dropped) \
+                or zero_ids != int(dropped_f) or int(dropped_f) == 0 \
+                or in_main + in_lane + int(dropped_f) != distinct:
+            fail(f"{what}: the forced-cap plan or its dropped count is off")
+        kept = ~zero
+        if not torch.equal(rows_f[kept], rows_a[kept]):
+            fail(f"{what}: the forced-cap lookup changed a kept row")
+
+        # the plan's own cost on the group of one: ms by events, and the
+        # device operations a call
+        def update_routed(table=table, st=st_r, flat=flat, grads=grads,
+                          lr=lr):
+            table._apply_owned(st, *table._routed_candidates(flat, grads),
+                               lr)
+
+        def update_ag(table=table, st=st_a, flat=flat, grads=grads, lr=lr):
+            table.apply_grads(st, flat, grads, lr)
+
+        parts, tops = [], []
+        for tag, fn in (("lookup routed", lookup_routed),
+                        ("lookup allgather", lookup_ag),
+                        ("update routed", update_routed),
+                        ("update allgather", update_ag)):
+            ms = cuda_ms(torch, fn, reps=10, warmup=2)
+            seq = profiled_sequence(torch, fn, reps=3)
+            parts.append(f"{tag} {ms:.4f} ms ({len(seq) // 3} device "
+                         f"operations, {sum(t for _, t in seq) / 3:.4f} ms "
+                         f"busy)")
+            if tag.endswith("routed"):
+                # where a routed call's device time goes: its largest
+                # kernels by name, ms a call (and how many a call)
+                by = {}
+                for name, t in seq:
+                    k = kernel_name(name)
+                    ms_k, c = by.get(k, (0.0, 0))
+                    by[k] = (ms_k + t / 3, c + 1)
+                top = sorted(by.items(), key=lambda kv: -kv[1][0])[:5]
+                tops.append(f"{tag}: " + ", ".join(
+                    f"{k} {v:.4f} ({c // 3})" for k, (v, c) in top))
+        print(f"  on the NCCL group of one, by events: " + "; ".join(parts)
+              + f" [{card}]")
+        print("  largest device kernels, ms a call (launches a call): "
+              + "; ".join(tops))
+        del state, st_r, st_a, rows_r, rows_a, rows_f
+
+
 def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
                dev) -> None:
     """Phase 10: the multi-process path in a NCCL group of one on ``dev``
@@ -1190,6 +1426,7 @@ def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
     from rec_now_tpu_torch import train as cli
     from rec_now_tpu_torch.parallel import make_mesh
     from rec_now_tpu_torch.training import Trainer
+    from rec_now_tpu_torch.training.checkpoint import CheckpointManager
     calls = dict.fromkeys(COLLECTIVES, 0)
     real = {name: getattr(dist, name) for name in COLLECTIVES}
 
@@ -1257,7 +1494,7 @@ def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
                     for b in batches[:MESH_STEPS]:
                         state, m = trainer.train_step(
                             state, *trainer.put_local(b))
-                        seq.append({k: float(v) for k, v in m.items()})
+                        seq.append(losses_of(what, m))
                         if len(after) < 1:
                             after.append(snapshot(state))
                     return state, seq, after + [snapshot(state)]
@@ -1356,7 +1593,9 @@ def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
         del timed
 
         # (a) the CLI's flagship run under --multihost against phase 8's
-        # run B (the same flags without it)
+        # run B (the same flags without it), on the routed exchange (which
+        # a group of one resolves to allgather) and with checkpoints: the
+        # last one, restored into a fresh state, equals the live state
         steps, evals = args.steps, args.eval_batches
         want = step_collectives(1, steps)
         # the eval batches' lookups and their gathered columns; init's
@@ -1364,11 +1603,40 @@ def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
         want["all_gather_into_tensor"] += 2 * evals
         want["reduce_scatter_tensor"] += evals
         want["broadcast"] = 1
-        what = "train CLI E: run B's flags with --multihost"
-        logs, res = collectives(what, want, lambda: run_cli(
-            cli, counted, CLI_FLAGSHIP + CLI_COMMON
-            + ["--eval-mode", "exact", "--multihost"], what,
-            cli_launches(flagship, steps, evals)))
+        what = ("train CLI E: run B's flags with --multihost "
+                "--sparse-route-mode routed --checkpoint-dir")
+        ckdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+        e_flags = CLI_FLAGSHIP + CLI_COMMON + [
+            "--eval-mode", "exact", "--multihost", "--sparse-route-mode",
+            "routed", "--checkpoint-dir", ckdir]
+        live = {}
+        save = CheckpointManager.save
+
+        def keep_live(self, step, state):
+            live[step] = full_state(state)
+            return save(self, step, state)
+
+        CheckpointManager.save = keep_live
+        try:
+            logs, res = collectives(what, want, lambda: run_cli(
+                cli, counted, e_flags, what,
+                cli_launches(flagship, steps, evals)))
+            mgr = CheckpointManager(ckdir)
+            e_args = cli.parse_args(e_flags)
+            back = mgr.restore(target=cli.init_state(
+                cli.make_trainer(e_args, mesh), e_args))
+            same = (mgr.steps() == [steps] and list(live) == [steps]
+                    and same_state(torch, full_state(back), live[steps]))
+            print(f"  checkpoint {mgr.steps()} restored into a fresh state "
+                  f"vs the live state at its save: "
+                  f"{'equal' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"{what}: the restored checkpoint differs from the "
+                     "live state")
+            del back, live
+        finally:
+            CheckpointManager.save = save
+            shutil.rmtree(ckdir, ignore_errors=True)
         b_logs, b_res = phase8["B_logs"], phase8["B_res"]
         if [ln["step"] for ln in logs] != [ln["step"] for ln in b_logs]:
             fail(f"{what}: logged other steps than run B")
@@ -1388,6 +1656,10 @@ def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
         print(f"train CLI, config 2 at B=8192, --multihost (NCCL group of "
               f"one): windowed {steady_ms(logs, 8192):.3f} ms/step vs run B "
               f"{phase8['B']:.3f} [{card}]")
+
+        # (e) the routed exchange's bodies, called directly
+        routed_part(torch, counted, collectives, card, fc, batches[0], mesh,
+                    dev)
     finally:
         for name, fn in real.items():
             setattr(dist, name, fn)
@@ -2926,7 +3198,7 @@ def main() -> int:
             state, metrics = trainer.train_step(state, *inputs)
         for h in hooks:
             h.remove()
-        seen["metrics"] = {k: float(v) for k, v in metrics.items()}
+        seen["metrics"] = losses_of(run["what"], metrics)
         seen["grads"] = {n: p.grad for n, p in state.params.items()}
         seen["params"] = {n: p.detach() for n, p in state.params.items()}
         seen["state"] = state
@@ -3093,7 +3365,7 @@ def main() -> int:
         for name, per in run["train"].items():
             kern[name]["launches_per_step"] = per
         for i, m in enumerate(metrics):
-            vals = {k: float(x) for k, x in m.items()}
+            vals = losses_of(what, m)
             print(f"  step {warm + i}: " + " ".join(
                 f"{k} {v:.6f}" for k, v in sorted(vals.items()))
                 + f" {times[i]:.3f} ms")

@@ -2,7 +2,9 @@
 
 Covers serving and training, on one device or on one process per device
 (``parallel/``: ``torch.distributed``, the tables mod-sharded over the
-processes on the allgather exchange), of FM (config 1), DCN-v2 + SENET
+processes on the allgather or the routed exchange, ``embedding/
+exchange.py``; checkpoints and the serving export from every process),
+of FM (config 1), DCN-v2 + SENET
 (config 2, with lazy sparse Adam on the rows), xDeepFM (config 3), the
 MMoE + PLE + STAR multitask model (config 4) and CAN with DCN-v2
 (config 5, with its second table of per-item CAN parameters) today:

@@ -131,9 +131,11 @@ def table_state_for_rank(state: ShardedTableState, rank: int,
     the rows process ``rank`` of ``num_ranks`` holds in the port's
     mod-sharded table of ``vocab_size`` rows (``ShardedEmbeddingTable(...,
     mesh=...)``: ``vocab_size`` padded with zero rows to a multiple of
-    ``num_ranks``); the count is kept."""
+    ``num_ranks``); the count is copied (an update adds to it in place,
+    so two states made from one must not share it)."""
     def mine(x):
         return None if x is None else shard_rows(x[:vocab_size], rank,
                                                   num_ranks)
+    count = None if state.count is None else state.count.clone()
     return ShardedTableState(mine(state.table), mine(state.accumulator),
-                             mine(state.m), mine(state.v), state.count)
+                             mine(state.m), mine(state.v), count)

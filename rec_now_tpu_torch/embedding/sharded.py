@@ -2,11 +2,12 @@
 process mesh, with row-wise Adagrad or lazy sparse Adam.
 
 Counterpart of ``rec_now_tpu/embedding/sharded.py``
-``ShardedEmbeddingTable`` (``sharded.py:105-834``) on its ``allgather``
-exchange, with exact dedup (duplicate ids sum before the update).  The
-state is a (V, D) table, a (V,) Adagrad accumulator and, under Adam,
-(V, D) moments ``m``, ``v`` and a device step ``count``; the TPU's lane
-packing is not kept (``convert`` reads a packed JAX state).
+``ShardedEmbeddingTable`` (``sharded.py:105-834``) on both of its
+exchanges, ``allgather`` and ``routed``, with exact dedup (duplicate ids
+sum before the update).  The state is a (V, D) table, a (V,) Adagrad
+accumulator and, under Adam, (V, D) moments ``m``, ``v`` and a device step
+``count``; the TPU's lane packing is not kept (``convert`` reads a packed
+JAX state).
 
 With no ``mesh`` the table is one shard and owns every row (JAX's
 ``n == 1`` path, :393-399, :493-495).  With a mesh of P processes
@@ -16,22 +17,47 @@ padded to a multiple of P (:141-143), so each process holds V / P rows
 (``local_rows``) of the table, the accumulator and the moments.  Every
 process draws the whole logical table from the generator and keeps its
 own rows, so P processes start from the rows one process would.  Each
-process passes its own ids; every process must pass as many.
+process passes its own ids; every process must pass as many.  JAX pads
+the flat ids to a multiple of P (:470-477) because one global array must
+split evenly; here each process sends and gets back its own count, so no
+padding is needed.
 
-* **lookup** (``_lookup_ag_body``, :491-506): ``all_gather`` the flat
-  ids, gather the owned rows (kernel B11; a foreign id reads local row 0
-  and is masked to zero), ``reduce_scatter`` (sum) each row back to the
-  process that asked: exactly one owner adds a non-zero row, so a
-  looked-up row is exact.  JAX pads the flat ids to a multiple of P
-  (:470-477) because one global array must split evenly; here each
-  process gathers and gets back its own count, so no padding is needed.
-* **updates** (``_owned_grad_candidates``, :401-410): ``all_gather`` the
-  ids and their row gradients, keep the owned ones (local row ``i //
-  P``), give every foreign id the out-of-range sentinel ``local_rows``
-  with a zero gradient, then run the one-shard update below on them.
-  Every path drops the sentinel: B12 drops out-of-range rows, the dense
-  Adam touched flag has a spare last slot for it, and the sparse
-  Adagrad's plain accumulator add gives it exactly 0.
+``route_mode`` picks the exchange as JAX does (:161-167): ``"auto"`` is
+routed on 4 or more processes and allgather below, and ``"routed"`` on
+one shard is allgather (there is nothing to route).
+
+* **allgather lookup** (``_lookup_ag_body``, :491-506): ``all_gather``
+  the flat ids, gather the owned rows (kernel B11; a foreign id reads
+  local row 0 and is masked to zero), ``reduce_scatter`` (sum) each row
+  back to the process that asked: exactly one owner adds a non-zero row,
+  so a looked-up row is exact.
+* **allgather update** (``_owned_grad_candidates``, :401-410):
+  ``all_gather`` the ids and their row gradients, keep the owned ones
+  (local row ``i // P``), give every foreign id the out-of-range sentinel
+  ``local_rows`` with a zero gradient.
+* **routed lookup** (``_lookup_routed_body``, :508-533, on
+  ``embedding/exchange.py``): sort-dedup the ids, bucket the distinct ones
+  by owner (``_route_caps``: ``cap`` a bucket, ``ov_cap`` for the
+  overflow lane), ``all_to_all`` the buckets, gather the requested rows
+  on the owner by B11 (sentinels masked to zero, :371-375),
+  ``all_to_all`` them back; the overflow lane is ``all_gather`` of its
+  ids, the owners' rows by B11, then ``reduce_scatter``; then un-dedup.
+  An id past both the bucket and the lane is dropped and reads zero.  The
+  processes' dropped counts ride in the lane's ``all_gather`` (one more
+  id each), so ``lookup(..., return_dropped=True)`` sums them with no
+  collective of its own (JAX's ``psum``, :533).
+* **routed update** (``_owned_grad_candidates``, :411-432): each
+  process's duplicate gradients summed per distinct id (B12), placed by
+  the plan, ``all_to_all`` of the ids and of the gradients,
+  ``all_gather`` of the overflow ids and gradients; every empty place
+  becomes the sentinel ``local_rows`` with a zero gradient.  The update
+  plans again from its ids, as JAX's does.  A dropped id never reaches
+  its owner: its row is not touched (under lazy Adam its moments stay).
+
+Either exchange hands the one-shard update below its candidates
+(``_apply_owned``), which drops the sentinel on every path: B12 drops
+out-of-range rows, the dense Adam touched flag has a spare last slot for
+it, and the sparse Adagrad's plain accumulator add gives it exactly 0.
 
 Two update paths, chosen by ``update_mode`` as in JAX (:598-608):
 
@@ -51,9 +77,10 @@ Two update paths, chosen by ``update_mode`` as in JAX (:598-608):
   ``_expand_scalar`` / ``_fetch_scalars`` are not Pallas.  Nothing waits
   for the card (no ``torch.unique``).
 
-Kernel launches per step: lookup 1 x B11 (``table.lookup``); dense, 1 x
-B12; sparse Adagrad, 2 x B12 (dedup, table); sparse Adam, 2 more x B11
-(m, v) and 4 x B12 (dedup, table, m, v).
+Kernel launches per step: lookup 1 x B11 (``table.lookup``; routed, 2:
+the buckets and the lane); dense, 1 x B12; sparse Adagrad, 2 x B12
+(dedup, table); sparse Adam, 2 more x B11 (m, v) and 4 x B12 (dedup,
+table, m, v); a routed update 1 x B12 more (the pre-sum).
 
 A row that was looked up is touched whatever its summed gradient: under
 Adam its moments decay and it moves by ``lr * m_hat / (sqrt(v_hat) +
@@ -83,7 +110,9 @@ Example:
     state = table.apply_grads(state, ids, emb_grads, lr=1e-3)
 
     # the same on each process of a mesh, each with its own ids
-    table = ShardedEmbeddingTable(2_600_000, 16, mesh=make_mesh())
+    table = ShardedEmbeddingTable(2_600_000, 16, mesh=make_mesh(),
+                                  route_mode="routed")
+    emb, dropped = table.lookup(state, ids, return_dropped=True)
 """
 from __future__ import annotations
 
@@ -92,6 +121,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 
 from rec_now_tpu_torch.core.config import uniform
+from rec_now_tpu_torch.embedding import exchange
 from rec_now_tpu_torch.embedding.table import INIT_SCALE, EmbeddingTable
 from rec_now_tpu_torch.ops import table_update_kernel
 from rec_now_tpu_torch.ops.expand_kernel import scatter_add_rows
@@ -140,6 +170,12 @@ class ShardedEmbeddingTable:
             in the denominator as ``sqrt(v_hat) + eps``).
         mesh: a :class:`~rec_now_tpu_torch.parallel.Mesh` to shard the
             rows over (module docstring), or None for one device.
+        route_mode: the exchange on a mesh, ``"auto"``, ``"allgather"``
+            or ``"routed"`` (resolved as JAX resolves it; module
+            docstring).
+        route_cap_factor: a routed owner's bucket, this times the uniform
+            share of a process's ids.
+        route_ov_cap: the routed overflow lane's length (None: b // 16).
     """
 
     # dense-apply is chosen up to these table bytes (module docstring):
@@ -157,11 +193,15 @@ class ShardedEmbeddingTable:
                  initializer_scale: float = INIT_SCALE,
                  optimizer: str = "adagrad", update_mode: str = "auto",
                  beta1: float = 0.9, beta2: float = 0.999,
-                 eps: float = 1e-7, mesh=None):
+                 eps: float = 1e-7, mesh=None, route_mode: str = "auto",
+                 route_cap_factor: float = 2.0,
+                 route_ov_cap: Optional[int] = None):
         if optimizer not in ("adagrad", "adam"):
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if update_mode not in ("auto", "dense", "sparse"):
             raise ValueError(f"unknown update_mode {update_mode!r}")
+        if route_mode not in ("auto", "allgather", "routed"):
+            raise ValueError(f"unknown route_mode {route_mode!r}")
         self.mesh = mesh
         if mesh is not None:
             device = mesh.device
@@ -180,6 +220,18 @@ class ShardedEmbeddingTable:
             update_mode = ("dense" if self.local_rows * dim * 4 <= limit
                            else "sparse")
         self.update_mode = update_mode
+        if route_mode == "auto":
+            # the redundant (P - 1)-fold row exchange outweighs the dedup
+            # sorts from 4 shards on (sharded.py:161-164)
+            route_mode = "routed" if self.num_shards >= 4 else "allgather"
+        elif self.num_shards == 1:
+            route_mode = "allgather"     # no exchange to route
+        self.route_mode = route_mode
+        self.route_cap_factor = route_cap_factor
+        self.route_ov_cap = route_ov_cap
+        # what a lookup without a routed exchange drops
+        self._no_drops = torch.zeros((), dtype=torch.int64,
+                                     device=self.device)
 
     def init(self, generator: torch.Generator) -> ShardedTableState:
         """Rows ~ U(-initializer_scale, initializer_scale) drawn on the
@@ -205,18 +257,124 @@ class ShardedEmbeddingTable:
             table, acc, torch.zeros_like(table), torch.zeros_like(table),
             torch.zeros((), dtype=torch.int32, device=self.device))
 
-    def lookup(self, state: ShardedTableState,
-               ids: torch.Tensor) -> torch.Tensor:
-        """Gather rows: int global ids of any shape -> ids.shape + (D,)."""
+    def lookup(self, state: ShardedTableState, ids: torch.Tensor,
+               return_dropped: bool = False):
+        """Gather rows: int global ids of any shape -> ids.shape + (D,);
+        with ``return_dropped``, also the () int64 count of ids the routed
+        exchange dropped, summed over every process, on the device (0 on
+        the allgather exchange and on one device)."""
         mesh = self.mesh
+        dropped = self._no_drops
         if mesh is None:
-            return self.rows.lookup(state.table, ids)
-        all_ids = mesh.all_gather(ids.reshape(-1))
-        mine = all_ids % mesh.size == mesh.rank
-        rows = gather_rows(state.table,
-                           torch.where(mine, all_ids // mesh.size, 0))
-        rows = rows * mine.to(rows.dtype)[:, None]
-        return mesh.reduce_scatter(rows).reshape(ids.shape + (self.dim,))
+            rows = self.rows.lookup(state.table, ids)
+        elif self.route_mode == "routed":
+            rows, dropped = self._lookup_routed(state.table, ids.reshape(-1))
+            rows = rows.reshape(ids.shape + (self.dim,))
+        else:
+            all_ids = mesh.all_gather(ids.reshape(-1))
+            mine = all_ids % mesh.size == mesh.rank
+            rows = gather_rows(state.table,
+                               torch.where(mine, all_ids // mesh.size, 0))
+            rows = rows * mine.to(rows.dtype)[:, None]
+            rows = mesh.reduce_scatter(rows).reshape(ids.shape + (self.dim,))
+        return (rows, dropped) if return_dropped else rows
+
+    # -- the routed exchange -------------------------------------------------
+    def _route_caps(self, b: int) -> Tuple[int, int]:
+        """(cap, ov_cap) for b flat ids a process (``sharded.py:325-338``):
+        an owner's bucket is ``route_cap_factor`` times the uniform share,
+        the overflow lane ``route_ov_cap`` or b // 16; each at least 8 and
+        a multiple of 8."""
+        n = self.num_shards
+        cap = int(-(-self.route_cap_factor * b // n))
+        cap = max(8, -(-cap // 8) * 8)
+        ov_cap = self.route_ov_cap
+        if ov_cap is None:
+            ov_cap = max(8, b // 16)
+        ov_cap = max(8, -(-ov_cap // 8) * 8)
+        return cap, ov_cap
+
+    def exchange_bytes(self, flat_per_shard: int) -> dict:
+        """The bytes each process receives for one lookup and one update
+        of ``flat_per_shard`` ids on each exchange (``sharded.py:340-369``:
+        an all_gather or all_to_all of an (n * c,) buffer delivers (n - 1)
+        * c elements; 4-byte ids and rows, as JAX counts them)."""
+        n, d = self.num_shards, self.dim
+        b = flat_per_shard
+        i4 = f4 = 4
+        cap, ov = self._route_caps(b)
+        ag_lookup = (n - 1) * b * i4 + (n - 1) * b * d * f4
+        ag_update = (n - 1) * b * i4 + (n - 1) * b * d * f4
+        rt_lookup = ((n - 1) * cap * i4 + (n - 1) * cap * d * f4
+                     + (n - 1) * ov * i4 + (n - 1) * ov * d * f4)
+        rt_update = ((n - 1) * cap * i4 + (n - 1) * cap * d * f4
+                     + (n - 1) * ov * (i4 + d * f4))
+        return {
+            "n": n, "flat_per_shard": b, "cap": cap, "ov_cap": ov,
+            "allgather": {"lookup": ag_lookup, "update": ag_update,
+                          "total": ag_lookup + ag_update},
+            "routed": {"lookup": rt_lookup, "update": rt_update,
+                       "total": rt_lookup + rt_update},
+        }
+
+    def _owned_rows(self, table: torch.Tensor, ids: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+        """The rows of owned ``ids`` (B11); an invalid place reads zero
+        (``sharded.py:371-375``)."""
+        rows = gather_rows(table, torch.where(valid, ids // self.num_shards,
+                                              0))
+        return rows * valid.to(rows.dtype)[:, None]
+
+    def _lookup_routed(self, table: torch.Tensor, flat: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The routed lookup of this process's (b,) flat ids -> ((b, D)
+        rows, the dropped count over every process)
+        (``_lookup_routed_body``, :508-533): 2 ``all_to_all``, 1
+        ``all_gather`` (the lane, each process's count at its end), 1
+        ``reduce_scatter``."""
+        mesh, n = self.mesh, self.num_shards
+        cap, ov_cap = self._route_caps(flat.shape[0])
+        uid, slot = exchange.sort_dedup(flat.to(torch.int64))
+        plan = exchange.plan_route(uid, n, cap, ov_cap)
+        # block s of req: the ids process s wants from this one
+        req = mesh.all_to_all(plan.send_ids)
+        back = mesh.all_to_all(self._owned_rows(table, req,
+                                                req < exchange.BIG))
+        # the overflow lane: the allgather exchange on the spill alone
+        lane = mesh.all_gather(torch.cat([plan.ov_ids,
+                                          plan.dropped.reshape(1)]))
+        lane = lane.reshape(n, ov_cap + 1)
+        all_ov = lane[:, :ov_cap].reshape(-1)
+        ov_rows = self._owned_rows(
+            table, all_ov, (all_ov < exchange.BIG) & (all_ov % n == mesh.rank))
+        ov_back = mesh.reduce_scatter(ov_rows)
+        return (exchange.gather_planned(plan, back, ov_back, slot),
+                lane[:, ov_cap].sum())
+
+    def _routed_candidates(self, ids: torch.Tensor, grads: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This process's flat ids and row gradients -> the candidates of
+        the rows it owns, as :meth:`_owned`'s (``_owned_grad_candidates``,
+        :411-432): duplicates pre-summed (B12), 2 ``all_to_all``, 2
+        ``all_gather``."""
+        mesh, n = self.mesh, self.num_shards
+        cap, ov_cap = self._route_caps(ids.shape[0])
+        uid, slot = exchange.sort_dedup(ids)
+        gsum = scatter_add_rows(torch.zeros_like(grads), slot, grads)
+        plan = exchange.plan_route(uid, n, cap, ov_cap)
+        send_g, ov_g = exchange.scatter_planned(plan, gsum)
+        recv_ids = mesh.all_to_all(plan.send_ids)
+        recv_g = mesh.all_to_all(send_g)
+        all_ov_ids = mesh.all_gather(plan.ov_ids)
+        all_ov_g = mesh.all_gather(ov_g)
+        ov_mine = (all_ov_ids < exchange.BIG) & (all_ov_ids % n == mesh.rank)
+        cand_ids = torch.cat([recv_ids, torch.where(ov_mine, all_ov_ids,
+                                                    exchange.BIG)])
+        cand_g = torch.cat([recv_g,
+                            all_ov_g * ov_mine.to(all_ov_g.dtype)[:, None]])
+        rows = torch.where(cand_ids < exchange.BIG, cand_ids // n,
+                           self.local_rows)
+        return rows, cand_g
 
     def _owned(self, ids: torch.Tensor, grads: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -238,7 +396,15 @@ class ShardedEmbeddingTable:
         ids = ids.reshape(-1).to(torch.int64)
         grads = grads.reshape(-1, self.dim).to(torch.float32)
         if self.mesh is not None:
-            ids, grads = self._owned(ids, grads)
+            owned = (self._routed_candidates if self.route_mode == "routed"
+                     else self._owned)
+            ids, grads = owned(ids, grads)
+        return self._apply_owned(state, ids, grads, lr)
+
+    def _apply_owned(self, state: ShardedTableState, ids: torch.Tensor,
+                     grads: torch.Tensor, lr: float) -> ShardedTableState:
+        """The one-shard update on (N,) local rows, the sentinel
+        ``local_rows`` among them, and their (N, D) gradients."""
         if self.optimizer == "adam":
             state.count.add_(1)              # before the update (:738)
         if self.update_mode == "dense":

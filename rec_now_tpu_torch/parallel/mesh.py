@@ -7,7 +7,7 @@ chip: the batch is split over it, the dense parameters are replicated and
 their gradients summed, and the embedding rows are mod-sharded over the
 same axis.  The port keeps that layout with one process per device: a
 :class:`Mesh` holds the process group, this process's ``rank``, the group's
-``size`` and the process's ``device``, and runs the four collectives the
+``size`` and the process's ``device``, and runs the collectives the
 sharded table and the trainer call.  Each goes through
 ``torch.distributed``'s function of that name, looked up at the call, so a
 caller can count them.
@@ -52,6 +52,16 @@ class Mesh:
         x = x.contiguous()
         out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
         dist.reduce_scatter_tensor(out, x, group=self.group)
+        return out
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """(size * n, ...) ``x`` whose block s goes to process s -> the
+        blocks every process sent this one, in rank order: (size * n, ...)
+        (JAX's ``all_to_all(x, axis, 0, 0, tiled=True)``; a copy on a
+        group of one)."""
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
         return out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:

@@ -96,11 +96,3 @@ def process_count() -> int:
     ``jax.process_count()``)."""
     return dist.get_world_size() if dist.is_initialized() else 1
 
-
-def refuse_sharded(what: str) -> None:
-    """Raise for ``what`` on more than one process: the sharded
-    checkpoints and serving export of ROADMAP A11b are not ported."""
-    if process_count() > 1:
-        raise NotImplementedError(
-            f"{what} on {process_count()} processes: not ported yet "
-            "(ROADMAP A11b)")

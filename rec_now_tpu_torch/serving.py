@@ -25,6 +25,12 @@ Example:
     scorer = build_scorer(model, fc, table)
     logits = scorer(state, dense, sparse_ids)      # (B,) on the device
 
+A model trained on P processes (``Trainer(..., mesh=)``) is exported by
+every process at once: :func:`export_serving` gathers the rows each holds
+into the logical (V, D) table (and CAN table) on rank 0, which writes the
+file one process would write, so :func:`load_serving` serves it on one
+card.
+
 Any ported model serves this way: ``XDeepFMModel`` (config 3),
 ``DCNv2Model`` (config 2) and ``CANDCNModel`` (config 5, with
 ``can_table=EmbeddingTable(fc.rows_per_field, can_dim)`` and
@@ -40,10 +46,11 @@ from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from rec_now_tpu_torch.core.config import resolve_device
-from rec_now_tpu_torch.parallel.multihost import refuse_sharded
+from rec_now_tpu_torch.parallel.multihost import process_count
 from rec_now_tpu_torch.training.wire import WireFormat, unpack_ids
 
 _FILE = "serving.pt"
@@ -117,6 +124,7 @@ def build_scorer(model, feature_config, table,
                             ids)
 
     scorer.can_param_field = can_param_field
+    scorer.tables = (table, can_table)
     return scorer
 
 
@@ -145,6 +153,7 @@ class WireScorer:
         self.model, self.fc, self.table = model, feature_config, table
         self.can = _can_of(can_table, can_param_field)
         self.can_param_field = can_param_field
+        self.tables = (table, can_table)
 
     def pack(self, dense: np.ndarray, sparse_ids: np.ndarray):
         """Host-side request packing -> (qdense, scale, id_words)."""
@@ -170,14 +179,29 @@ class WireScorer:
         return self.score_packed(state, *self.pack(dense, sparse_ids))
 
 
+def _logical(rows: torch.Tensor, size: int, vocab_size: int
+             ) -> torch.Tensor:
+    """Every process's (L, D) rows of a mod-sharded table (global id g on
+    process g % size at row g // size), gathered in one
+    ``all_gather_into_tensor`` -> the logical (vocab_size, D) table."""
+    rows = rows.contiguous()
+    every = rows.new_empty((size * rows.shape[0],) + tuple(rows.shape[1:]))
+    dist.all_gather_into_tensor(every, rows)
+    return every.reshape((size,) + tuple(rows.shape)).transpose(0, 1) \
+        .reshape(every.shape)[:vocab_size]
+
+
 def export_serving(directory: str, state: ServingState,
                    scorer=None) -> None:
     """Save the inference-only state (params, table and, for a CAN model,
     the CAN table) with torch.save.  With a ``scorer``
     (:func:`build_scorer`'s or a :class:`WireScorer`), a state whose CAN
-    table it would not read, or lacks, raises before writing.  One
-    process only: the export of a sharded state is ROADMAP A11b."""
-    refuse_sharded("export_serving")
+    table it would not read, or lacks, raises before writing.
+
+    On P > 1 processes every process calls it with its own state, whose
+    tables are its rows (``Trainer(..., mesh=)``); the ``scorer`` is then
+    required (its tables give the logical row counts), and rank 0 writes
+    the logical tables: the file one process writes."""
     if scorer is not None:
         _check_can_match(scorer.can_param_field,
                          state.can_table is not None,
@@ -185,8 +209,22 @@ def export_serving(directory: str, state: ServingState,
     payload = {"params": dict(state.params), "table": state.table}
     if state.can_table is not None:
         payload["can_table"] = state.can_table
+    size = process_count()
+    if size > 1:
+        if scorer is None:
+            raise ValueError(f"export_serving on {size} processes needs the "
+                             "scorer: its tables give the rows to gather")
+        for key, table in zip(("table", "can_table"), scorer.tables):
+            if key in payload:
+                payload[key] = _logical(payload[key], size,
+                                        table.vocab_size)
+        if dist.get_rank() != 0:
+            dist.barrier()               # returns once rank 0 has written
+            return
     os.makedirs(directory, exist_ok=True)
     torch.save(payload, os.path.join(directory, _FILE))
+    if size > 1:
+        dist.barrier()
 
 
 def load_serving(directory: str,

@@ -38,11 +38,16 @@ feeds ``--batch-size / P`` rows of each global batch (a batch that P
 does not divide is refused), draws its synthetic rows with its seeds
 shifted by ``rank * 7919``, and reads ``--data-file`` from its start, as
 JAX does, so each process is launched with its own part of the data.
-The table is mod-sharded over the processes; each prints its own lines,
-whose metrics and evals are global.  Flags whose path is not ported yet
-stop with "not ported yet" and the roadmap item: ``--sparse-route-mode
-routed``, ``--route-cap-factor`` / ``--route-ov-cap`` off their defaults,
-and ``--checkpoint-dir`` on more than one process (A11b).
+The table is mod-sharded over the processes and exchanges rows by
+``--sparse-route-mode``: allgather, or the routed exchange (owner
+buckets of ``--route-cap-factor`` times the uniform share and an
+overflow lane of ``--route-ov-cap`` ids; ``auto`` routes on 4 or more
+processes).  Each process prints its own lines, whose metrics (the
+routed exchange's ``sparse_dropped`` among them) and evals are global;
+``--route-strict`` fails the run at a log line that counts a dropped id.
+``--checkpoint-dir`` writes one checkpoint from every process (rank 0
+the parameters, each process its rows; ``training/checkpoint.py``), into
+a directory every process sees.
 """
 from __future__ import annotations
 
@@ -72,8 +77,7 @@ def build_model(name: str, fc, device, seed: int):
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
-    """The JAX CLI's flags and ``--device``; a flag whose path is not
-    ported raises ``SystemExit``."""
+    """The JAX CLI's flags and ``--device``."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="dcnv2",
                    choices=["fm", "dcnv2", "xdeepfm", "multitask"])
@@ -92,17 +96,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    choices=["auto", "sparse", "dense"])
     p.add_argument("--sparse-route-mode", default="auto",
                    choices=["auto", "allgather", "routed"],
-                   help="auto and allgather take the allgather exchange; "
-                        "routed is not ported yet")
+                   help="the sharded table's exchange under --multihost: "
+                        "allgather (every process sees every id), routed "
+                        "(dedup + owner buckets on all_to_all), auto = "
+                        "routed on 4 or more processes; one process has "
+                        "no exchange")
     p.add_argument("--route-strict", action="store_true",
-                   help="fail when the exchange drops ids: the allgather "
-                        "exchange drops none, so it never fails")
+                   help="fail at a log line when the routed exchange has "
+                        "dropped ids to double overflow; sparse_dropped is "
+                        "in every log line either way")
     p.add_argument("--route-cap-factor", type=float, default=2.0,
-                   help="routed exchange only: not ported yet, so only the "
-                        "default is accepted")
+                   help="routed exchange: an owner's bucket is this times "
+                        "the uniform share of a process's ids")
     p.add_argument("--route-ov-cap", type=int, default=0,
-                   help="routed exchange only: not ported yet, so only the "
-                        "default is accepted")
+                   help="routed exchange: the overflow lane's length; 0 = "
+                        "a process's ids // 16")
     p.add_argument("--scan-window", type=int, default=0,
                    help="steps per packed window (0 or 1: one step per "
                         "batch)")
@@ -143,27 +151,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "group (torchrun's variables; a group of one "
                         "without them), each feeding its slice of the "
                         "global --batch-size")
-    args = p.parse_args(argv)
-    for flag, on in (
-            ("--sparse-route-mode routed",
-             args.sparse_route_mode == "routed"),
-            ("--route-cap-factor", args.route_cap_factor != 2.0),
-            ("--route-ov-cap", args.route_ov_cap != 0)):
-        if on:
-            raise SystemExit(f"{flag}: not ported yet (ROADMAP A11b)")
-    return args
+    return p.parse_args(argv)
 
 
-def make_trainer(args: argparse.Namespace, mesh=None):
-    """The trainer ``args`` describe, with its model, on ``--device`` or,
-    on a mesh, on the mesh's device."""
-    from rec_now_tpu_torch.models import FeatureConfig
-    from rec_now_tpu_torch.training import Trainer, TrainerConfig
-    fc = FeatureConfig(rows_per_field=args.rows_per_field,
-                       embedding_dim=args.embedding_dim)
-    device = args.device if mesh is None else mesh.device
-    model, num_tasks = build_model(args.model, fc, device, args.seed)
-    cfg = TrainerConfig(
+def trainer_config(args: argparse.Namespace, num_tasks: int = 1):
+    """The ``TrainerConfig`` of ``args`` (``--route-ov-cap 0``: None, the
+    b // 16 lane, as ``rec_now_tpu/train.py:162``)."""
+    from rec_now_tpu_torch.training import TrainerConfig
+    return TrainerConfig(
         pointwise_weight=args.pointwise_weight,
         pairwise_weight=args.pairwise_weight,
         listwise_weight=args.listwise_weight,
@@ -171,10 +166,26 @@ def make_trainer(args: argparse.Namespace, mesh=None):
         dense_lr=args.dense_lr, sparse_lr=args.sparse_lr,
         sparse_optimizer=args.sparse_optimizer,
         sparse_update_mode=args.sparse_update_mode,
+        sparse_route_mode=args.sparse_route_mode,
+        route_strict=args.route_strict,
+        route_cap_factor=args.route_cap_factor,
+        route_ov_cap=args.route_ov_cap or None,
         wire_dense_mode=args.wire_dense_mode,
         wire_id_mode=args.wire_id_mode,
         num_tasks=num_tasks)
-    return Trainer(model, fc, cfg, device=device, mesh=mesh)
+
+
+def make_trainer(args: argparse.Namespace, mesh=None):
+    """The trainer ``args`` describe, with its model, on ``--device`` or,
+    on a mesh, on the mesh's device."""
+    from rec_now_tpu_torch.models import FeatureConfig
+    from rec_now_tpu_torch.training import Trainer
+    fc = FeatureConfig(rows_per_field=args.rows_per_field,
+                       embedding_dim=args.embedding_dim)
+    device = args.device if mesh is None else mesh.device
+    model, num_tasks = build_model(args.model, fc, device, args.seed)
+    return Trainer(model, fc, trainer_config(args, num_tasks), device=device,
+                   mesh=mesh)
 
 
 def init_state(trainer, args: argparse.Namespace):
@@ -260,9 +271,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if args.batch_size % mesh.size:
             raise SystemExit(f"--batch-size {args.batch_size} must divide "
                              f"by the process count {mesh.size}")
-        if args.checkpoint_dir and mesh.size > 1:
-            raise SystemExit(f"--checkpoint-dir on {mesh.size} processes: "
-                             "not ported yet (ROADMAP A11b)")
     trainer = make_trainer(args, mesh)
     batches, make_eval_batches, on_train = data_streams(
         args, *((0, 1) if mesh is None else (mesh.rank, mesh.size)))
@@ -286,11 +294,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     def log(step: int, metrics) -> None:
         # the floats wait for the step's work, so the rate counts it
         line = {k: round(float(v), 5) for k, v in metrics.items()}
-        # the allgather exchange drops no ids
-        line.setdefault("sparse_dropped", 0.0)
         eps = args.batch_size * step / (time.perf_counter() - t0)
         line.update(step=step, examples_per_sec=round(eps, 1))
         print(json.dumps(line), flush=True)
+        # after the line, as rec_now_tpu/train.py:272, :304
+        trainer.check_dropped(metrics)
 
     def crossed(every: int, prev: int, step: int) -> bool:
         return bool(every) and step // every > prev // every

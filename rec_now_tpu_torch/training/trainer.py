@@ -27,6 +27,13 @@ A step works as ``_step_body`` (:353-391):
    and their moments move), by the path ``sparse_update_mode`` picks
    (``"auto"``, ``"dense"``, ``"sparse"``; ``embedding/sharded.py``).
 
+``metrics["sparse_dropped"]`` counts the ids the routed exchange dropped
+in the step, both tables and every process (0 on one device and on the
+allgather exchange; ``sparse_route_mode``, ``route_cap_factor`` and
+``route_ov_cap`` go to both tables).  It stays on the device; with
+``route_strict``, ``check_dropped`` reads it and raises on a drop, and
+``fit`` calls it at its log cadence (:633-640).
+
 With ``can_param_field`` set (config 5, ``CANDCNModel``; :75-79,
 :125-140), a second table, ``can_table`` (``rows_per_field`` rows of the
 CAN layer's parameter count, ``CANDCNModel.can_param_size``: 272 at
@@ -62,6 +69,10 @@ mod-sharded over the processes (``embedding/sharded.py``), and:
   global loss, and the parameter gradients are **summed** by one
   ``all_reduce``: JAX's dense gradient is the global loss's, which XLA
   sums over the shards (``DistributedDataParallel`` would average);
+* the tables exchange rows by ``sparse_route_mode``: allgather, or the
+  routed exchange (``embedding/exchange.py``), the default on 4 or more
+  processes; the dropped counts come summed from the lookups, so a step
+  still calls ``all_reduce`` twice;
 * the parameters start from rank 0's (broadcast in ``init``) and Adam
   runs alike on every process; the metrics are the global values on
   every process;
@@ -145,6 +156,14 @@ class TrainerConfig:
     sparse_lr: float = 0.05
     sparse_optimizer: str = "adagrad"   # "adagrad" | "adam" (lazy, rowwise)
     sparse_update_mode: str = "auto"    # "auto" | "sparse" | "dense"
+    sparse_route_mode: str = "auto"     # "auto" | "allgather" | "routed"
+    # raise (check_dropped, at log cadence) when the routed exchange drops
+    # ids to double overflow (metrics["sparse_dropped"] > 0)
+    route_strict: bool = False
+    # the routed exchange's owner bucket (this times the uniform share)
+    # and overflow lane (None: b // 16), given to both tables
+    route_cap_factor: float = 2.0
+    route_ov_cap: Optional[int] = None
     num_tasks: int = 1          # >1: multi-task (CTR + CVR) heads
     # CAN co-action (config 5): this field's ids look up per-item CAN
     # parameters in a second table, the model's third input
@@ -190,10 +209,13 @@ class Trainer:
         self.model = model
         self.fc = feature_config
         self.cfg = config
+        route = dict(route_mode=config.sparse_route_mode,
+                     route_cap_factor=config.route_cap_factor,
+                     route_ov_cap=config.route_ov_cap)
         self.table = ShardedEmbeddingTable(
             feature_config.total_rows, feature_config.embedding_dim,
             device=self.device, optimizer=config.sparse_optimizer,
-            update_mode=config.sparse_update_mode, mesh=mesh)
+            update_mode=config.sparse_update_mode, mesh=mesh, **route)
         self.can_table = None
         if config.can_param_field is not None:
             # co-action params multiply embeddings: a small centred init
@@ -204,7 +226,7 @@ class Trainer:
                                            config.can_dnn_dims),
                 device=self.device, initializer_scale=0.05,
                 optimizer=config.sparse_optimizer,
-                update_mode=config.sparse_update_mode, mesh=mesh)
+                update_mode=config.sparse_update_mode, mesh=mesh, **route)
         # the per-sample domain goes only to models that route on it
         # (MultiTaskModel's STAR towers)
         self._takes_domain = "domain_idx" in inspect.signature(
@@ -271,15 +293,18 @@ class Trainer:
                                       device=self.device), can_table)
 
     def _lookup(self, state: TrainState, ids: torch.Tensor):
-        """(global ids, their rows, CAN ids, their CAN rows): the CAN pair
-        is (None, None) without ``can_param_field``."""
+        """(global ids, their rows, CAN ids, their CAN rows, the ids both
+        lookups dropped over every process): the CAN pair is (None, None)
+        without ``can_param_field``."""
         gids = self.fc.global_ids(ids)
-        emb = self.table.lookup(state.table, gids)
+        emb, dropped = self.table.lookup(state.table, gids,
+                                         return_dropped=True)
         if self.can_table is None:
-            return gids, emb, None, None
+            return gids, emb, None, None, dropped
         can_ids = ids[:, self.cfg.can_param_field] % self.fc.rows_per_field
-        return gids, emb, can_ids, self.can_table.lookup(state.can_table,
-                                                          can_ids)
+        can_emb, can_dropped = self.can_table.lookup(
+            state.can_table, can_ids, return_dropped=True)
+        return gids, emb, can_ids, can_emb, dropped + can_dropped
 
     def _forward(self, params, dense, emb, can_emb, domain) -> torch.Tensor:
         kw = {"domain_idx": domain} if self._takes_domain else {}
@@ -376,7 +401,7 @@ class Trainer:
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One optimization step on :meth:`put`'s tuple; ``state`` is
         updated in place and returned with the step count advanced."""
-        gids, emb, can_ids, can_emb = self._lookup(state, ids)
+        gids, emb, can_ids, can_emb, dropped = self._lookup(state, ids)
         leaves = [emb.requires_grad_()]
         if can_emb is not None:
             leaves.append(can_emb.requires_grad_())
@@ -398,7 +423,27 @@ class Trainer:
         if can_emb is not None:
             self.can_table.apply_grads(state.can_table, can_ids,
                                        grads[len(names) + 1], lr=lr)
+        # the same ids drive the lookup and the update, so one count
+        # observes both (trainer.py:384-387)
+        metrics["sparse_dropped"] = dropped
         return state._replace(step=state.step + 1), metrics
+
+    def check_dropped(self, metrics: Mapping) -> None:
+        """With ``route_strict``, raise when ``metrics["sparse_dropped"]``
+        (a step's, or a stack of steps') counts a dropped id
+        (``trainer.py:188-205``).  Reading it waits for the card: call it
+        where the host reads the metrics anyway (the log cadence)."""
+        if not self.cfg.route_strict:
+            return
+        dropped = metrics.get("sparse_dropped")
+        if dropped is None:
+            return
+        d = int(torch.as_tensor(dropped).max())
+        if d > 0:
+            raise RuntimeError(
+                f"routed exchange dropped {d} ids to double overflow "
+                "(route_strict=True); raise route_cap_factor/"
+                "route_ov_cap or switch sparse_route_mode='allgather'")
 
     def eval_step(self, state: TrainState, dense: torch.Tensor,
                   ids: torch.Tensor,
@@ -410,7 +455,7 @@ class Trainer:
             domain = torch.zeros(ids.shape[0], dtype=torch.int32,
                                  device=ids.device)
         with torch.no_grad():
-            _, emb, _, can_emb = self._lookup(state, ids)
+            _, emb, _, can_emb, _ = self._lookup(state, ids)
             return self._forward(state.params, dense, emb, can_emb, domain)
 
     def train_many(self, state: TrainState, batches: Iterable[Batch]
@@ -565,10 +610,12 @@ class Trainer:
             state, metrics = self.train_step(state, *self.put(batch))
             if log_every and (i + 1) % log_every == 0:
                 last = {k: float(v) for k, v in metrics.items()}
+                self.check_dropped(last)
                 if log_fn:
                     log_fn(i + 1, last)
         if not last:
             last = {k: float(v) for k, v in metrics.items()}
+            self.check_dropped(last)
         return state, last
 
     def evaluate(self, state: TrainState,

@@ -288,7 +288,8 @@ def test_five_steps_match_jax_trainer(optimizer):
         np.testing.assert_array_equal(jb.sparse_ids, pb.sparse_ids)
         jstate, jm = jtrainer.train_step(jstate, *jtrainer.put(jb))
         state, m = trainer.train_step(state, *trainer.put(pb))
-        assert set(m) == set(keys)
+        assert set(m) == set(keys) | {"sparse_dropped"}
+        assert int(m["sparse_dropped"]) == int(jm["sparse_dropped"]) == 0
         for key in keys:
             assert float(jm[key]) > 0, key
             np.testing.assert_allclose(float(m[key]), float(jm[key]),

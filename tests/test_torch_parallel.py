@@ -140,8 +140,7 @@ def _jax_trainer():
     metrics = []
     for b in batches:
         jstate, m = jt.train_step(jstate, *jt.put(b))
-        metrics.append({k: float(v) for k, v in m.items()
-                        if k != "sparse_dropped"})
+        metrics.append({k: float(v) for k, v in m.items()})
     every = np.arange(jfc.total_rows)
     return {"params": params, "table": table,
             "batches": [b._asdict() for b in batches],
@@ -245,7 +244,9 @@ def test_two_process_trainer_matches_jax_on_crossing_groups(runs):
     for r in ranks:
         for got, want in zip(r["metrics"], jref["metrics"]):
             assert set(got) == set(want)
-            for key in want:
+            # the allgather exchange drops no id
+            assert got["sparse_dropped"] == want["sparse_dropped"] == 0
+            for key in set(want) - {"sparse_dropped"}:
                 assert want[key] > 0, key
                 np.testing.assert_allclose(got[key], want[key], rtol=1e-5,
                                            err_msg=key)

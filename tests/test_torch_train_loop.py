@@ -15,10 +15,11 @@ prefetchers and the training CLI, on the CPU at small width.
   the 5-step state exactly.
 * ``python -m rec_now_tpu_torch.train`` at tiny width with ``--device
   cpu`` in both loops and both eval modes prints the JAX CLI's JSON keys;
-  every flag whose path is not ported stops it.
+  the routed exchange's flags reach ``TrainerConfig`` and both tables.
 * The prefetchers keep order, close early and hand a worker's exception
   to the loop.
 """
+import dataclasses
 import json
 import threading
 
@@ -35,7 +36,7 @@ from rec_now_tpu.training import Trainer as JaxTrainer
 from rec_now_tpu.training import TrainerConfig as JaxConfig
 from rec_now_tpu_torch import train as cli
 from rec_now_tpu_torch.convert import from_jax_params, table_state_from_jax
-from rec_now_tpu_torch.models import DCNv2Model, FeatureConfig
+from rec_now_tpu_torch.models import CANDCNModel, DCNv2Model, FeatureConfig
 from rec_now_tpu_torch.training import (SyntheticCriteo, Trainer,
                                         TrainerConfig)
 from rec_now_tpu_torch.training.checkpoint import CheckpointManager
@@ -82,7 +83,7 @@ def test_train_many_packed_matches_jax_scan():
             jstate, jtrainer.put_packed_window(window))
         state, m = trainer.train_many_packed(
             state, trainer.put_packed_window(window))
-        assert set(m) == {"loss", "pointwise", "pairwise"}
+        assert set(m) == {"loss", "pointwise", "pairwise", "sparse_dropped"}
         for key in m:
             assert m[key].shape == (3,)
             np.testing.assert_allclose(m[key].numpy(), np.asarray(jm[key]),
@@ -257,14 +258,34 @@ def test_cli_runs_every_model(capsys, model, keys):
     assert set(final["final_eval"]) == EXACT_KEYS | extra
 
 
-@pytest.mark.parametrize("flags,item", [
-    # --multihost runs now; the routed exchange under it still stops
-    (["--multihost", "--sparse-route-mode", "routed"], "A11"),
-    (["--sparse-route-mode", "routed"], "A11"),
-    (["--route-cap-factor", "3.0"], "A11"), (["--route-ov-cap", "64"], "A11")])
-def test_cli_flags_not_ported_stop_it(flags, item):
-    with pytest.raises(SystemExit, match=f"not ported yet.*ROADMAP {item}"):
-        cli.main(TINY + flags)
+@pytest.mark.parametrize("flags,want", [
+    (["--sparse-route-mode", "routed"], dict(sparse_route_mode="routed")),
+    (["--route-cap-factor", "3.0"], dict(route_cap_factor=3.0)),
+    (["--route-ov-cap", "64"], dict(route_ov_cap=64)),
+    (["--route-ov-cap", "0"], dict(route_ov_cap=None)),
+    (["--route-strict", "--sparse-route-mode", "allgather"],
+     dict(route_strict=True, sparse_route_mode="allgather"))],
+    ids=["routed", "cap", "ov_cap", "ov_cap_0", "strict"])
+def test_cli_route_flags_reach_the_trainer_and_both_tables(flags, want):
+    """The routed exchange's flags reach ``TrainerConfig`` and, on one
+    device, both tables, where any mode resolves to allgather (no
+    exchange); ``--route-ov-cap 0`` is None, the b // 16 lane."""
+    args = cli.parse_args(TINY + flags)
+    cfg = cli.trainer_config(args)
+    defaults = dict(sparse_route_mode="auto", route_strict=False,
+                    route_cap_factor=2.0, route_ov_cap=None)
+    for key, value in dict(defaults, **want).items():
+        assert getattr(cfg, key) == value, key
+    trainer = cli.make_trainer(args)
+    assert trainer.cfg == cfg
+    fc = FeatureConfig(rows_per_field=128, embedding_dim=4)
+    can = Trainer(CANDCNModel(fc, deep_dims=(8,), dcn_sub_dim=4,
+                              device="cpu"), fc,
+                  dataclasses.replace(cfg, can_param_field=8), device="cpu")
+    for table in (trainer.table, can.table, can.can_table):
+        assert table.route_mode == "allgather"
+        assert (table.route_cap_factor, table.route_ov_cap) == (
+            cfg.route_cap_factor, cfg.route_ov_cap)
 
 
 def test_cli_defaults_to_cuda(monkeypatch):

@@ -3,18 +3,21 @@ the CPU.
 
 * Two gloo processes (``tests/torch_mp_worker.py``, a ``FileStore`` under
   ``tmp_path``, a hard time limit) run ``python -m rec_now_tpu_torch.train
-  --multihost --device cpu``'s ``main`` three times: the windowed loop
+  --multihost --device cpu``'s ``main`` four times: the windowed loop
   with hot8 ids (which fall back to packed ids with JAX's warning) and
-  device eval, the stepwise loop with exact eval, and a data file that
-  both read from its start.  Both ranks print the same log lines and the
-  same final line (the metrics and evals are global).  Before them,
-  ``--checkpoint-dir`` stops with A11b's message and a batch that two
-  does not divide is refused; after them, checkpoints and the serving
-  export refuse a state on two processes (A11b).
+  device eval, the stepwise loop with exact eval, a data file that both
+  read from its start, and the routed exchange (``--sparse-route-mode
+  routed --route-cap-factor 3 --route-ov-cap 64``) with
+  ``--checkpoint-dir``.  Both ranks print the same log lines and the same
+  final line (the metrics and evals are global); the routed run's
+  checkpoints restore on one process.  Before them, a batch that two does
+  not divide is refused, and ``--route-strict`` on a cap that drops ids
+  fails the run.
 * ``--multihost`` with no launcher variables forms a group of one and
   prints what the run without the flag prints (within 1e-6), in both
   loops; with ``torchrun``'s variables the group is formed from them.
-* The routed exchange's flags stop with A11b's message.
+* The routed exchange's flags reach the tables on a mesh, where
+  ``auto`` routes from 4 processes on.
 * ``put_packed_window_local`` offsets the in-batch group remap by ``rank *
   local_batch`` (not raw corpus slots), refuses a global batch past the
   uint16 field, and is ``put_packed_window`` on one process;
@@ -39,6 +42,7 @@ from rec_now_tpu_torch.models import DCNv2Model, FeatureConfig
 from rec_now_tpu_torch.parallel import Mesh
 from rec_now_tpu_torch.training import (Batch, SyntheticCriteo, Trainer,
                                         TrainerConfig)
+from rec_now_tpu_torch.training.checkpoint import CheckpointManager
 from tests.torch_mp_worker import REPO, spawn
 
 torch.set_num_threads(1)
@@ -50,8 +54,8 @@ TINY = ["--device", "cpu", "--batch-size", "32", "--rows-per-field", "128",
 WINDOWED = ["--steps", "4", "--scan-window", "2", "--eval-mode", "device",
             "--eval-group-slots", "4096", "--eval-group-buckets", "64"]
 STEPWISE = ["--steps", "3", "--scan-window", "0", "--eval-mode", "exact"]
-ROUTED = [["--sparse-route-mode", "routed"], ["--route-cap-factor", "3.0"],
-          ["--route-ov-cap", "64"]]
+ROUTED = ["--sparse-route-mode", "routed", "--route-cap-factor", "3",
+          "--route-ov-cap", "64"]
 
 
 @pytest.fixture
@@ -74,23 +78,25 @@ def _lines(capsys):
 def test_two_process_cli_prints_one_run(tmp_path):
     data = tmp_path / "train.tsv"
     write_synthetic_tsv(str(data), 32 * 6, rows_per_field=128, num_users=8)
+    ck = str(tmp_path / "ck")
+    routed = TINY + ROUTED + WINDOWED + ["--checkpoint-dir", ck,
+                                         "--checkpoint-every", "2"]
     runs = [TINY + ["--multihost"] + WINDOWED + ["--wire-id-mode", "hot8"],
             TINY + ["--multihost"] + STEPWISE,
             TINY + ["--multihost", "--data-file", str(data), "--steps", "4",
-                    "--scan-window", "2"]]
+                    "--scan-window", "2"],
+            routed + ["--multihost"]]
     ranks = spawn("cli", {
-        "stops": [TINY + ["--multihost", "--checkpoint-dir",
-                          str(tmp_path / "ck")],
-                  TINY + ["--multihost", "--batch-size", "33"]],
-        "runs": runs, "checkpoint_dir": str(tmp_path / "refused")},
-        tmp_path / "io")
+        "stops": [TINY + ["--multihost", "--batch-size", "33"],
+                  TINY + ["--multihost", "--sparse-route-mode", "routed",
+                          "--route-cap-factor", "0.05", "--route-ov-cap",
+                          "8", "--route-strict"] + STEPWISE],
+        "runs": runs}, tmp_path / "io")
     for r in ranks:
-        assert "--checkpoint-dir on 2 processes: not ported yet (ROADMAP " \
-               "A11b)" in r["stops"][0]
-        assert "must divide by the process count 2" in r["stops"][1]
-        assert len(r["refusals"]) == 3
-        assert all("on 2 processes: not ported yet (ROADMAP A11b)" in msg
-                   for msg in r["refusals"])
+        assert "must divide by the process count 2" in r["stops"][0]
+        # a cap that drops ids fails the run at its first log line
+        assert r["stops"][1].startswith("routed exchange dropped ")
+        assert "(route_strict=True)" in r["stops"][1]
         assert all(run["rc"] == 0 for run in r["runs"])
         hot8 = [w for w in r["runs"][0]["warnings"]
                 if "falling back to 'packed'" in w]
@@ -102,8 +108,22 @@ def test_two_process_cli_prints_one_run(tmp_path):
         assert [ln["step"] for ln in logs] == ([2] if i == 1 else [2, 4])
         for ln in logs:
             assert np.isfinite(ln["loss"]) and ln["loss"] > 0
+            assert ln["sparse_dropped"] == 0
         (final,) = [ln for ln in a if "final_eval" in ln]
         assert 0.0 < final["final_eval"]["auc"] < 1.0
+    # the routed run's checkpoints, written by both ranks, restore on one
+    mgr = CheckpointManager(ck)
+    assert mgr.steps() == [2, 4]
+    assert sorted(os.listdir(os.path.join(ck, "4"))) == [
+        "shard-0.pt", "shard-1.pt", "state.pt"]
+    args = cli.parse_args(routed)
+    trainer = cli.make_trainer(args)
+    state = mgr.restore(target=cli.init_state(trainer, args))
+    assert int(state.step) == 4
+    saved = mgr.restore()
+    assert torch.equal(state.table.table, saved["table"]["table"][
+        :trainer.table.vocab_size])
+    assert int(saved["step"]) == 4
 
 
 def _strip_rates(lines):
@@ -157,10 +177,21 @@ def test_launcher_variables_form_the_group():
     assert out.stdout.split() == ["cpu", "0", "1", "gloo", "3.0", "cpu"]
 
 
-@pytest.mark.parametrize("flags", ROUTED, ids=["routed", "cap", "ov_cap"])
-def test_routed_flags_stop_with_a11b(flags):
-    with pytest.raises(SystemExit, match=r"not ported yet \(ROADMAP A11b\)"):
-        cli.main(TINY + ["--multihost"] + flags)
+@pytest.mark.parametrize("flags,size,mode,caps", [
+    (["--sparse-route-mode", "routed"], 2, "routed", (416, 32)),
+    ([], 2, "allgather", (416, 32)),
+    ([], 4, "routed", (104, 16)),
+    (ROUTED, 4, "routed", (160, 64))],
+    ids=["routed-2", "auto-2", "auto-4", "caps-4"])
+def test_routed_flags_reach_the_tables_on_a_mesh(flags, size, mode, caps):
+    """``--multihost`` runs with the routed flags: they reach
+    ``TrainerConfig`` and the table on a mesh of ``size``, which resolves
+    ``auto`` and sizes its buckets as JAX's (a process's 16 x 26 ids)."""
+    args = cli.parse_args(TINY + ["--multihost"] + flags)
+    trainer = cli.make_trainer(args, _mesh(0, size))
+    assert trainer.cfg == cli.trainer_config(args)
+    assert trainer.table.route_mode == mode
+    assert trainer.table._route_caps(32 // size * 26) == caps
 
 
 def _trainer(mesh=None, **cfg):

@@ -101,7 +101,10 @@ def test_five_steps_match_jax_trainer(kind):
         np.testing.assert_array_equal(jb.sparse_ids, pb.sparse_ids)
         jstate, jm = jtrainer.train_step(jstate, *jtrainer.put(jb))
         state, m = trainer.train_step(state, *trainer.put(pb))
-        assert set(keys) <= set(jm) and set(m) == set(keys)
+        assert set(keys) <= set(jm) and set(m) == set(keys) | {
+            "sparse_dropped"}
+        # one device: no exchange, so no dropped id
+        assert int(m["sparse_dropped"]) == int(jm["sparse_dropped"]) == 0
         for key in keys:
             assert float(jm[key]) > 0, key
             np.testing.assert_allclose(float(m[key]), float(jm[key]),

@@ -97,6 +97,71 @@ def task_table(inputs: dict, mesh) -> dict:
     return out
 
 
+def task_routed(inputs: dict, mesh) -> dict:
+    """Each table case on both exchanges (``route_mode`` "routed" and
+    "allgather", the case's caps): lookups with their dropped counts, then
+    updates, on this rank's slice of each step's ids; then each trainer
+    case; then ``fit`` under ``route_strict`` on a cap that drops ids."""
+    import torch
+    from rec_now_tpu_torch.convert import table_state_for_rank
+    from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+    out = {"table": [], "trainers": [], "strict": None}
+    for case in inputs["table_cases"]:
+        res = {}
+        for mode in ("routed", "allgather"):
+            table = ShardedEmbeddingTable(
+                case["vocab"], case["dim"], device="cpu", mesh=mesh,
+                optimizer=case["optimizer"], update_mode=case["mode"],
+                route_mode=mode, route_cap_factor=case["cap_factor"],
+                route_ov_cap=case["ov_cap"])
+            state = table_state_for_rank(case["state"], mesh.rank,
+                                         mesh.size, case["vocab"])
+            looked, dropped = [], []
+            for ids, grads in case["steps"]:
+                b = len(ids) // mesh.size
+                mine = slice(mesh.rank * b, (mesh.rank + 1) * b)
+                ids_l = torch.from_numpy(ids[mine]).long()
+                rows, d = table.lookup(state, ids_l, return_dropped=True)
+                looked.append(rows)
+                dropped.append(int(d))
+                state = table.apply_grads(state, ids_l,
+                                          torch.from_numpy(grads[mine]),
+                                          lr=case["lr"])
+            res[mode] = {"lookups": looked, "dropped": dropped,
+                         "state": state, "route_mode": table.route_mode}
+        out["table"].append(res)
+    out["trainers"] = task_trainers(inputs, mesh)
+    if inputs.get("strict"):
+        out["strict"] = run_strict_case(inputs["strict"], mesh)
+    return out
+
+
+def run_strict_case(case: dict, mesh) -> dict:
+    """``fit`` on a route cap that drops ids: without ``route_strict`` its
+    metrics count the drops; with it, ``fit`` raises at the first log."""
+    import dataclasses
+    import torch
+    from rec_now_tpu_torch.models import FeatureConfig
+    from rec_now_tpu_torch.training import Batch, Trainer, TrainerConfig
+    fc = FeatureConfig(rows_per_field=case["rows"],
+                       embedding_dim=case["dim"])
+    cfg = TrainerConfig(**case["config"])
+    batches = [Batch(**local_slice(b, mesh.rank, mesh.size))
+               for b in case["batches"]]
+    out = {}
+    for strict in (False, True):
+        trainer = Trainer(build_model("dcnv2", fc), fc,
+                          dataclasses.replace(cfg, route_strict=strict),
+                          device="cpu", mesh=mesh)
+        state = trainer.init(torch.Generator().manual_seed(0))
+        try:
+            _, last = trainer.fit(state, batches, log_every=1)
+            out[strict] = last
+        except RuntimeError as e:
+            out[strict] = str(e)
+    return out
+
+
 def build_model(kind: str, fc, seed: int = 0):
     """The small models of the trainer cases, on the CPU."""
     from rec_now_tpu_torch.models import (CANDCNModel, DCNv2Model,
@@ -171,18 +236,15 @@ def task_trainers(inputs: dict, mesh) -> list:
 
 def task_cli(inputs: dict, mesh) -> dict:
     """The training CLI's ``main`` with ``--multihost`` on this group:
-    first runs that must stop, then each run's JSON lines and warnings;
-    the A11b refusals of checkpoints and the serving export."""
-    import torch
+    first runs that must stop (their ``SystemExit`` or ``RuntimeError``),
+    then each run's JSON lines and warnings."""
     from rec_now_tpu_torch import train as cli
-    from rec_now_tpu_torch.serving import ServingState, export_serving
-    from rec_now_tpu_torch.training.checkpoint import CheckpointManager
     out = {"stops": [], "runs": []}
     for argv in inputs["stops"]:
         try:
             cli.main(argv)
             out["stops"].append(None)
-        except SystemExit as e:
+        except (SystemExit, RuntimeError) as e:
             out["stops"].append(str(e))
     for argv in inputs["runs"]:
         buf = io.StringIO()
@@ -194,18 +256,6 @@ def task_cli(inputs: dict, mesh) -> dict:
             "rc": rc, "warnings": [str(w.message) for w in caught],
             "lines": [json.loads(ln) for ln in buf.getvalue().splitlines()
                       if ln.startswith("{")]})
-    refusals = []
-    ckpt = CheckpointManager(inputs["checkpoint_dir"] + f"/{mesh.rank}")
-    for call in (lambda: ckpt.save(1, None), lambda: ckpt.restore(1),
-                 lambda: export_serving(
-                     inputs["checkpoint_dir"],
-                     ServingState({}, torch.zeros(2, 2)))):
-        try:
-            call()
-            refusals.append(None)
-        except NotImplementedError as e:
-            refusals.append(str(e))
-    out["refusals"] = refusals
     return out
 
 
@@ -215,7 +265,85 @@ def task_suite(inputs: dict, mesh) -> dict:
             "trainers": task_trainers(inputs, mesh)}
 
 
-TASKS = {"suite": task_suite, "cli": task_cli}
+def task_checkpoint(inputs: dict, mesh) -> dict:
+    """Each case: train, save a checkpoint from every process, train on
+    (the unbroken run); restore the checkpoint into a fresh state and
+    train the same steps from it; export the serving state; restore the
+    case's one-process checkpoint on this group."""
+    import torch
+    from rec_now_tpu_torch.embedding.table import EmbeddingTable
+    from rec_now_tpu_torch.models import CANDCNModel, FeatureConfig
+    from rec_now_tpu_torch.serving import (ServingState, build_scorer,
+                                           export_serving)
+    from rec_now_tpu_torch.training import Batch, Trainer, TrainerConfig
+    from rec_now_tpu_torch.training.checkpoint import CheckpointManager
+    out = []
+    for case in inputs["cases"]:
+        fc = FeatureConfig(rows_per_field=case["rows"],
+                           embedding_dim=case["dim"])
+        cfg = TrainerConfig(**case["config"])
+
+        def fresh(seed):
+            trainer = Trainer(build_model(case["model"], fc), fc, cfg,
+                              device="cpu", mesh=mesh)
+            return trainer, trainer.init(torch.Generator().manual_seed(seed))
+
+        batches = [Batch(**local_slice(b, mesh.rank, mesh.size))
+                   for b in case["batches"]]
+        half = case["save_at"]
+        trainer, whole = fresh(0)
+        for b in batches[:half]:
+            whole, _ = trainer.train_step(whole, *trainer.put_local(b))
+        ckpt = CheckpointManager(case["dir"])
+        ckpt.save(half, whole)
+        saved = snapshot_state(whole)
+        for b in batches[half:]:
+            whole, _ = trainer.train_step(whole, *trainer.put_local(b))
+        other, back = fresh(1)
+        back = ckpt.restore(target=back)
+        restored = snapshot_state(back)
+        for b in batches[half:]:
+            back, _ = other.train_step(back, *other.put_local(b))
+        can = {}
+        if cfg.can_param_field is not None:
+            can = dict(can_table=EmbeddingTable(
+                fc.rows_per_field, CANDCNModel.can_param_size(
+                    fc.embedding_dim, cfg.can_dnn_dims), device="cpu"),
+                can_param_field=cfg.can_param_field)
+        scorer = build_scorer(trainer.model, fc, EmbeddingTable(
+            fc.total_rows, fc.embedding_dim, device="cpu"), device="cpu",
+            **can)
+        export_serving(case["export"], ServingState(
+            dict(whole.params), whole.table.table,
+            None if whole.can_table is None else whole.can_table.table),
+            scorer)
+        _, one = fresh(2)
+        one = CheckpointManager(case["one_dir"]).restore(target=one)
+        out.append({"saved": saved, "restored": restored,
+                    "whole": snapshot_state(whole),
+                    "resumed": snapshot_state(back),
+                    "from_one": snapshot_state(one),
+                    "steps": CheckpointManager(case["dir"]).steps()})
+    return out
+
+
+def snapshot_state(state) -> dict:
+    """A copy of a training state: params, the Adam state, the step and
+    every tensor of each table."""
+    import copy
+    out = {"params": {n: p.detach().clone() for n, p in state.params.items()},
+           "opt": copy.deepcopy(state.opt.state_dict()),
+           "step": int(state.step)}
+    for key in ("table", "can_table"):
+        t = getattr(state, key)
+        if t is not None:
+            out[key] = {k: v.clone() for k, v in t._asdict().items()
+                        if v is not None}
+    return out
+
+
+TASKS = {"suite": task_suite, "cli": task_cli, "routed": task_routed,
+         "checkpoint": task_checkpoint}
 
 
 def main() -> None:
