@@ -16,7 +16,8 @@ Phases, each of which ends the script with a non-zero exit on failure:
    four distinct banks, B = 8192; the listwise loss on the same batch
    on its one-block sort path and forced onto its sweep, at B = 8193 (the
    sweep), on ids at the int32 ends, one group and singletons at 8192, a
-   {+1, -1} group and degenerate batches, each repeated bit for bit, and
+   {+1, -1} group and degenerate batches, graded labels at thresholds 0.3
+   and -0.25 on both paths, each repeated bit for bit, and
    its device time by kernel on each path, the sort path failing unless
    it is one launch), at config 2's (lazy Adam over the 2.6M x 16 table
    with the touched rows of a B = 8192 batch, t = 1 and 1000, ragged
@@ -114,7 +115,9 @@ gradients once (B12).
    as phase 3 measured it (an estimate: ``profile_training`` gives the
    step's own device times);
 7. the public ``pairwise_loss`` as an entry point at B = 8192 on the card
-   against the CPU's (B, B) path (loss, pair count, dlogits): graded
+   against the CPU's blocked form (what B >= 4,096 takes there) and its
+   dense (B, B) form, whose dlogits are autograd's (loss, pair count,
+   dlogits): graded
    labels with two groups, a mask and power -0.5 (``pair_loss_sum``
    once: the general loss in one call, no ``pair_row_counts`` or
    ``same_group_matvec``), the same with the wrong-order filter, binary
@@ -205,7 +208,34 @@ gradients once (B12).
     ``all_to_all_single`` / ``all_gather_into_tensor``; each way's ms by
     events, device operations and busy ms a call, and the routed calls'
     largest kernels; the group is left at the end.  If NCCL cannot form the group, the phase fails;
-11. print one JSON line for the kernels, the card again, and finally
+11. the layer and loss library at B = 8,192: one ``SyntheticCriteo``
+    batch, its 26 x 16 embeddings looked up through the table (B11), each
+    module forward and backward on the card and on the CPU from one set
+    of weights (outputs within 1e-4 of max(1, max|out|), gradients 1e-3
+    of their scale, hashes bit-equal), each with its ms a call (events,
+    forward + backward, median of 20) and its device operations a call:
+    ``pairwise_loss_blocked`` (BPR, power -0.5, a mask) against the kernel
+    path (B3's general entry; loss 1e-5 relative, dlogits 1e-4 of scale,
+    the count exact), ``listwise_loss_blocked`` against B6 (each also
+    against ``torch.utils.checkpoint`` a block in place of its hand-written
+    backward: the same numbers, ms and peak memory), a weight
+    function on graded labels with a custom tile-contract pair loss
+    (the blocked route taken, counted) and ``listwise_loss`` at mask value
+    -1e4, each blocked against the dense form on the card, with the peak
+    device memory of each, forward + backward (fails unless blocked is
+    lower); ``listwise_loss`` at threshold 0.3 (B6 once, with that
+    threshold, against the CPU); the trainer's pairwise call (B3 once,
+    the blocked form never);
+    the focal loss; ``salted_hash`` / ``combine_hash`` on the batch's
+    212,992 ids; ``CartesianProductLayer`` into ``FastMultiHashLayer``
+    (2^21 x 16 rows), ``MultiHashLayer`` pooling the 26 fields; DCN (3
+    layers) on the (B, 429) concat; the sparse GNN over a chain of the 26
+    fields (2 layers, shared and not); STAR and stacked dense (units 32,
+    two 2,080-wide nets by scene id), the parasitic stacked layer on 4
+    domains; SENET's list path (13 fields of 16, 13 of 8); fix-length to
+    64 and 32; dot-product and DNN attention over a (B, 50, 16) history
+    with a mask;
+12. print one JSON line for the kernels, the card again, and finally
     ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -330,6 +360,11 @@ MESH_STEPS, MESH_TIMED = 3, 5
 # B12 adds a hot row's terms in no fixed order, and one sample of step 3
 # is a near-tie that such a change flips; profile_repeat.py)
 MESH_TOL, STATE_TOL = 1e-5, 1e-3
+# phase 11: a blocked loss against the kernel path, the dense form and the
+# CPU (relative; dlogits 1e-4 of their scale); the history length, the
+# scenes the STAR parameters are taken by, and the profiled calls a module
+LIB_LOSS_TOL = 1e-5
+LIB_HISTORY, LIB_SCENES, LIB_PROFILE_REPS = 50, 1000, 3
 
 
 def fail(msg: str) -> None:
@@ -1952,6 +1987,512 @@ def file_cli_phase(torch, counted, card: str, synthetic_ms: dict) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def peak_mib(torch, fn) -> float:
+    """Device memory ``fn()`` takes at its peak above what was allocated
+    before it, MiB (``torch.cuda.max_memory_allocated``, reset first)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def ops_a_call(torch, fn, reps: int = LIB_PROFILE_REPS) -> float:
+    """Device operations (kernels and copies) one ``fn()`` runs."""
+    return len(profiled_sequence(torch, fn, reps)) / reps
+
+
+def library_phase(torch, counted, card: str, dev, fc, data, table,
+                  table_t, cpu_table, cpu_table_t) -> None:
+    """Phase 11: the layer and loss library at B = 8,192 (module
+    docstring), each module forward and backward on the card against the
+    CPU from one set of weights."""
+    import numpy as np
+    from rec_now_tpu_torch import layers as L
+    from rec_now_tpu_torch.losses import focal_crossentropy_loss
+    from rec_now_tpu_torch.losses import listwise as lw
+    from rec_now_tpu_torch.losses import listwise_blocked as lwb
+    from rec_now_tpu_torch.losses import pairwise as pw
+    from rec_now_tpu_torch.losses import pairwise_blocked as pwb
+    from rec_now_tpu_torch.ops import hashing
+    from rec_now_tpu_torch.ops import listwise_kernel as lk
+    from torch.utils.checkpoint import checkpoint
+    from rec_now_tpu_torch.rec_block import (DNNAttention,
+                                             attention_by_dot_product)
+
+    t_phase = time.perf_counter()
+    batch = next(data.batches(8192, 1, seed=11))
+    b = len(batch.labels)
+    rng = np.random.RandomState(11)
+    raw = torch.as_tensor(batch.sparse_ids)
+    ids = {"cpu": fc.global_ids(raw)}
+    ids[dev] = ids["cpu"].to(dev)
+    emb = {dev: counted("phase 11 lookup, B=8192", 1, {"gather_rows": 1},
+                        lambda: table.lookup(table_t, ids[dev])),
+           "cpu": cpu_table.lookup(cpu_table_t, ids["cpu"])}
+    compare("phase 11 lookup: card vs CPU", emb[dev].cpu(), emb["cpu"],
+            rel=0.0)
+    # a 50-long history per sample, looked up through the table (B11)
+    hist_ids = ids["cpu"].repeat(1, 2)[:, :LIB_HISTORY]
+    hist = {dev: counted("phase 11 history lookup, B=8192 x 50", 1,
+                         {"gather_rows": 1},
+                         lambda: table.lookup(table_t, hist_ids.to(dev))),
+            "cpu": cpu_table.lookup(cpu_table_t, hist_ids)}
+
+    def both(t):
+        return {dev: t.to(dev), "cpu": t}
+
+    logits = both(torch.as_tensor(rng.randn(b).astype(np.float32) * 2))
+    labels = both(torch.as_tensor(batch.labels))
+    groups = both(torch.as_tensor(batch.group_ids))
+    mask = both(torch.as_tensor((rng.rand(b) > 0.1).astype(np.float32)))
+    graded = both(torch.as_tensor(rng.randint(0, 4, b).astype(np.float32)))
+    dense = both(torch.as_tensor(batch.dense))
+    domain = both(torch.as_tensor(batch.domain_idx).to(torch.int64))
+    print(f"phase 11: the layer and loss library, B = {b} "
+          f"({len(torch.unique(groups['cpu']))} user groups) [{card}]")
+
+    def grad_of(fn, x):
+        """(value, d value / d x) of a scalar loss ``fn(x)``."""
+        x = x.detach().requires_grad_()
+        out = fn(x)
+        value = out[0] if isinstance(out, tuple) else out
+        g, = torch.autograd.grad(value, x)
+        return out, g
+
+    def timed(name, fn):
+        ms = cuda_ms(torch, fn)
+        ops = ops_a_call(torch, fn)
+        print(f"  {name}: {ms:.4f} ms forward + backward (events, median "
+              f"of 20), {ops:.1f} device operations a call [{card}]")
+        return ms
+
+    # -- losses ---------------------------------------------------------------
+    route = {"pairwise": 0, "listwise": 0}
+    orig_pair, orig_list = pwb.pairwise_loss_blocked, lwb.listwise_loss_blocked
+
+    def pair_spy(*a, **k):
+        route["pairwise"] += 1
+        return orig_pair(*a, **k)
+
+    def list_spy(*a, **k):
+        route["listwise"] += 1
+        return orig_list(*a, **k)
+
+    pwb.pairwise_loss_blocked, lwb.listwise_loss_blocked = pair_spy, list_spy
+    try:
+        # (a) blocked BPR, power -0.5, mask, against the kernel path
+        def blocked_bpr(d):
+            return lambda x: pwb.pairwise_loss_blocked(
+                x, labels[d], groups[d], click_occurance_power=-0.5,
+                mask=mask[d], return_num_pair=True)
+
+        def kernel_bpr(x):
+            return pw.pairwise_loss(x, labels[dev], groups[dev],
+                                    click_occurance_power=-0.5,
+                                    mask=mask[dev], return_num_pair=True)
+
+        (bl, bn), bg = counted("phase 11 pairwise_loss_blocked (card)", 1,
+                               {}, lambda: grad_of(blocked_bpr(dev),
+                                                   logits[dev]))
+        (kl, kn), kg = counted("phase 11 pairwise_loss, kernel path", 1,
+                               {"pair_loss_sum": 1},
+                               lambda: grad_of(kernel_bpr, logits[dev]))
+        (cl, cn), cg = grad_of(blocked_bpr("cpu"), logits["cpu"])
+        if not float(bn) == float(kn) == float(cn) > 0:
+            fail(f"blocked BPR pair count {float(bn)}, kernel {float(kn)}, "
+                 f"CPU {float(cn)}")
+        print(f"  blocked BPR: {int(float(bn))} pairs, loss card "
+              f"{float(bl.detach()):.7f} kernel {float(kl.detach()):.7f} "
+              f"cpu {float(cl.detach()):.7f}")
+        compare("blocked BPR vs B3 (general entry): loss", bl.detach().cpu(),
+                kl.detach().cpu(), 0.0, rel=LIB_LOSS_TOL)
+        compare("blocked BPR vs B3: dlogits", bg.cpu(), kg.cpu(), 0.0)
+        compare("blocked BPR card vs CPU: loss", bl.detach().cpu(),
+                cl.detach(), 0.0, rel=LIB_LOSS_TOL)
+        compare("blocked BPR card vs CPU: dlogits", bg.cpu(), cg, 0.0)
+        blocked_ms = timed("pairwise_loss_blocked (BPR, power -0.5, mask)",
+                           lambda: grad_of(blocked_bpr(dev), logits[dev]))
+        kernel_ms = timed("pairwise_loss kernel path (B3 general entry)",
+                          lambda: grad_of(kernel_bpr, logits[dev]))
+        print(f"  blocked / kernel: {blocked_ms / kernel_ms:.1f}x")
+        # the same loss with torch.utils.checkpoint a block in place of
+        # the hand-written backward (bpr_loss_func as a custom tile-
+        # contract pair loss): the same numbers, its ms and peak memory
+        def ckpt_bpr(x):
+            return pwb.pairwise_loss_blocked(
+                x, labels[dev], groups[dev], click_occurance_power=-0.5,
+                mask=mask[dev], return_num_pair=True,
+                pairloss_func=pw.bpr_loss_func)
+
+        (ql, qn), qg = grad_of(ckpt_bpr, logits[dev])
+        if float(qn) != float(bn):
+            fail(f"checkpointed BPR pair count {float(qn)} != {float(bn)}")
+        compare("blocked BPR, Function vs checkpoint: loss",
+                bl.detach().cpu(), ql.detach().cpu(), 0.0, rel=LIB_LOSS_TOL)
+        compare("blocked BPR, Function vs checkpoint: dlogits", bg.cpu(),
+                qg.cpu(), 0.0)
+        fn_mib = peak_mib(torch, lambda: grad_of(blocked_bpr(dev),
+                                                 logits[dev]))
+        ck_mib = peak_mib(torch, lambda: grad_of(ckpt_bpr, logits[dev]))
+        ck_ms = timed("pairwise_loss_blocked (BPR) through checkpoint",
+                      lambda: grad_of(ckpt_bpr, logits[dev]))
+        print(f"  blocked BPR backward: Function {blocked_ms:.4f} ms "
+              f"{fn_mib:.1f} MiB, checkpoint {ck_ms:.4f} ms {ck_mib:.1f} "
+              f"MiB peak, forward + backward [{card}]")
+
+        # (b) blocked listwise against B6
+        def blocked_lw(d):
+            return lambda x: lwb.listwise_loss_blocked(groups[d], labels[d],
+                                                       x)
+
+        def kernel_lw(x):
+            s, c = lw.listwise_loss_sum(x, labels[dev], groups[dev])
+            return s / c
+
+        bl, bg = counted("phase 11 listwise_loss_blocked (card)", 1, {},
+                         lambda: grad_of(blocked_lw(dev), logits[dev]))
+        kl, kg = counted("phase 11 listwise_loss_sum / count (B6)", 1,
+                         {"listwise_loss_sum": 1},
+                         lambda: grad_of(kernel_lw, logits[dev]))
+        cl, cg = grad_of(blocked_lw("cpu"), logits["cpu"])
+        compare("blocked listwise vs B6: loss", bl.detach().cpu(),
+                kl.detach().cpu(), 0.0, rel=LIB_LOSS_TOL)
+        compare("blocked listwise vs B6: dlogits", bg.cpu(), kg.cpu(), 0.0)
+        compare("blocked listwise card vs CPU: loss", bl.detach().cpu(),
+                cl.detach(), 0.0, rel=LIB_LOSS_TOL)
+        compare("blocked listwise card vs CPU: dlogits", bg.cpu(), cg, 0.0)
+        fn_ms = timed("listwise_loss_blocked", lambda: grad_of(
+            blocked_lw(dev), logits[dev]))
+
+        # the same loss with torch.utils.checkpoint a block in place of
+        # the hand-written backward: the same numbers, its ms and peak
+        def ckpt_lw(x):
+            def tile(x, i0, r):
+                valid, _, y, z = lwb.listwise_block(
+                    groups[dev], labels[dev], x, i0, r, lk.POS_NEG_TH,
+                    lk.MASKED_LOGIT)
+                vf = valid.to(x.dtype)
+                rows = -(y * torch.log_softmax(z, dim=1)).sum(dim=1)
+                return torch.stack(((rows * vf).sum(), vf.sum()))
+            tot = sum(checkpoint(tile, x, i0, r, use_reentrant=False)
+                      for i0, r in pwb.row_blocks(b, 1024))
+            return tot[0] / tot[1].detach().clamp_min(1.0)
+
+        ql, qg = grad_of(ckpt_lw, logits[dev])
+        compare("blocked listwise, Function vs checkpoint: loss",
+                bl.detach().cpu(), ql.detach().cpu(), 0.0, rel=LIB_LOSS_TOL)
+        compare("blocked listwise, Function vs checkpoint: dlogits",
+                bg.cpu(), qg.cpu(), 0.0)
+        fn_mib = peak_mib(torch, lambda: grad_of(blocked_lw(dev),
+                                                 logits[dev]))
+        ck_mib = peak_mib(torch, lambda: grad_of(ckpt_lw, logits[dev]))
+        ck_ms = timed("listwise blocked through checkpoint",
+                      lambda: grad_of(ckpt_lw, logits[dev]))
+        print(f"  blocked listwise backward: Function {fn_ms:.4f} ms "
+              f"{fn_mib:.1f} MiB, checkpoint {ck_ms:.4f} ms {ck_mib:.1f} "
+              f"MiB peak, forward + backward [{card}]")
+        timed("listwise_loss_sum / count (B6)",
+              lambda: grad_of(kernel_lw, logits[dev]))
+
+        # (c) a weight function on graded labels with a custom pair loss:
+        # the blocked route, against the dense form on the card and the CPU
+        def weight(li, lj):
+            return li - lj
+
+        def hinge(pos, neg, weights=None, pair_mask=None, reduce_mean=True):
+            per = torch.clamp_min(1.0 - (pos - neg), 0.0)
+            if weights is not None:
+                per = per * weights
+            m = pair_mask.to(per.dtype)
+            total = (per * m).sum()
+            return total / (m.sum() + 1e-10) if reduce_mean else total
+        hinge.blocked_capable = True
+
+        def weighted(d):
+            return lambda x: pw.pairwise_loss(
+                x, graded[d], groups[d], pairloss_func=hinge,
+                label_pair_to_weight_func=weight, return_num_pair=True)
+
+        route["pairwise"] = 0
+        (wl, wn), wg = counted("phase 11 weighted custom pairwise_loss "
+                               "(card)", 1, {},
+                               lambda: grad_of(weighted(dev), logits[dev]))
+        if route["pairwise"] != 1:
+            fail(f"the weighted custom pair loss took the blocked route "
+                 f"{route['pairwise']} times, expected 1")
+        print("  weighted custom pair loss: the blocked route, 1 call "
+              "(counted)")
+        (cl, cn), cg = grad_of(weighted("cpu"), logits["cpu"])
+        saved = pw.BLOCKED_MIN_BATCH
+        pw.BLOCKED_MIN_BATCH = 1 << 40        # the dense (B, B) form
+        try:
+            (dl, dn), dg = grad_of(weighted(dev), logits[dev])
+            dense_mib = peak_mib(torch, lambda: grad_of(weighted(dev),
+                                                        logits[dev]))
+            dense_ms = timed("weighted custom pair loss, dense (B, B)",
+                             lambda: grad_of(weighted(dev), logits[dev]))
+        finally:
+            pw.BLOCKED_MIN_BATCH = saved
+        if not float(wn) == float(dn) == float(cn) > 0:
+            fail(f"weighted pair count blocked {float(wn)}, dense "
+                 f"{float(dn)}, CPU {float(cn)}")
+        compare("weighted custom pair loss, blocked vs dense: loss",
+                wl.detach().cpu(), dl.detach().cpu(), 0.0, rel=LIB_LOSS_TOL)
+        compare("weighted custom pair loss, blocked vs dense: dlogits",
+                wg.cpu(), dg.cpu(), 0.0)
+        compare("weighted custom pair loss, card vs CPU: loss",
+                wl.detach().cpu(), cl.detach(), 0.0, rel=LIB_LOSS_TOL)
+        compare("weighted custom pair loss, card vs CPU: dlogits", wg.cpu(),
+                cg, 0.0)
+        blocked_mib = peak_mib(torch, lambda: grad_of(weighted(dev),
+                                                      logits[dev]))
+        blocked_ms = timed("weighted custom pair loss, blocked",
+                           lambda: grad_of(weighted(dev), logits[dev]))
+        print(f"  weighted custom pair loss peak memory, forward + backward:"
+              f" blocked {blocked_mib:.1f} MiB, dense {dense_mib:.1f} MiB "
+              f"({blocked_mib / dense_mib:.3f}); ms blocked "
+              f"{blocked_ms:.4f} dense {dense_ms:.4f} [{card}]")
+        if not blocked_mib < dense_mib:
+            fail("the blocked weighted pair loss is not below the dense "
+                 "form's peak memory")
+
+        # (d) listwise_loss at mask value -1e4: blocked against dense
+        def masked_lw(d):
+            return lambda x: lw.listwise_loss(groups[d], labels[d], x,
+                                              value_of_masked_logit=-1e4)
+
+        route["listwise"] = 0
+        bl, bg = counted("phase 11 listwise_loss(-1e4) (card)", 1, {},
+                         lambda: grad_of(masked_lw(dev), logits[dev]))
+        if route["listwise"] != 1:
+            fail("listwise_loss at -1e4 did not take the blocked route")
+        cl, cg = grad_of(masked_lw("cpu"), logits["cpu"])
+        pw.BLOCKED_MIN_BATCH = 1 << 40
+        try:
+            dl, dg = grad_of(masked_lw(dev), logits[dev])
+            dense_mib = peak_mib(torch, lambda: grad_of(masked_lw(dev),
+                                                        logits[dev]))
+            dense_ms = timed("listwise_loss(-1e4), dense (B, B)",
+                             lambda: grad_of(masked_lw(dev), logits[dev]))
+        finally:
+            pw.BLOCKED_MIN_BATCH = saved
+        compare("listwise_loss(-1e4), blocked vs dense: loss",
+                bl.detach().cpu(), dl.detach().cpu(), 0.0, rel=LIB_LOSS_TOL)
+        compare("listwise_loss(-1e4), blocked vs dense: dlogits", bg.cpu(),
+                dg.cpu(), 0.0)
+        compare("listwise_loss(-1e4), card vs CPU: loss", bl.detach().cpu(),
+                cl.detach(), 0.0, rel=LIB_LOSS_TOL)
+        compare("listwise_loss(-1e4), card vs CPU: dlogits", bg.cpu(), cg,
+                0.0)
+        blocked_mib = peak_mib(torch, lambda: grad_of(masked_lw(dev),
+                                                      logits[dev]))
+        blocked_ms = timed("listwise_loss(-1e4), blocked",
+                           lambda: grad_of(masked_lw(dev), logits[dev]))
+        print(f"  listwise_loss(-1e4) peak memory, forward + backward: "
+              f"blocked {blocked_mib:.1f} MiB, dense {dense_mib:.1f} MiB "
+              f"({blocked_mib / dense_mib:.3f}); ms blocked "
+              f"{blocked_ms:.4f} dense {dense_ms:.4f} [{card}]")
+        if not blocked_mib < dense_mib:
+            fail("the blocked listwise loss is not below the dense form's "
+                 "peak memory")
+
+        # (d') listwise_loss at threshold 0.3 on labels of {0, 1/3, 2/3, 1}
+        # (a third is above 0.3, below the default): B6 once, with that
+        # threshold, the blocked form never; against the CPU
+        def th_lw(d):
+            return lambda x: lw.listwise_loss(groups[d], graded[d] / 3.0, x,
+                                              pos_neg_th=0.3)
+
+        route["listwise"] = 0
+        tl, tg = counted("phase 11 listwise_loss(pos_neg_th=0.3) (card)", 1,
+                         {"listwise_loss_sum": 1},
+                         lambda: grad_of(th_lw(dev), logits[dev]))
+        if route["listwise"]:
+            fail("listwise_loss at threshold 0.3 took the blocked form")
+        cl, cg = grad_of(th_lw("cpu"), logits["cpu"])
+        print(f"  listwise_loss(pos_neg_th=0.3): B6, loss card "
+              f"{float(tl.detach()):.7f} cpu {float(cl.detach()):.7f}")
+        compare("listwise_loss(pos_neg_th=0.3), card vs CPU: loss",
+                tl.detach().cpu(), cl.detach(), 0.0, rel=LIB_LOSS_TOL)
+        compare("listwise_loss(pos_neg_th=0.3), card vs CPU: dlogits",
+                tg.cpu(), cg, 0.0)
+
+        # (e) the trainer's default call: B3 once, the blocked form never
+        route["pairwise"] = 0
+        counted("phase 11 the trainer's pairwise call", 1,
+                {"pair_loss_sum": 1},
+                lambda: grad_of(lambda x: pw.pairwise_loss(
+                    x, labels[dev], groups[dev], click_occurance_power=-0.5,
+                    return_num_pair=True, reduce_mean=False,
+                    binary_labels=True), logits[dev]))
+        if route["pairwise"]:
+            fail("the trainer's pairwise call took the blocked form")
+    finally:
+        pwb.pairwise_loss_blocked = orig_pair
+        lwb.listwise_loss_blocked = orig_list
+
+    # (f) the focal loss on the batch's logits
+    def focal(d):
+        return lambda x: focal_crossentropy_loss(labels[d], x)
+
+    fl, fg = counted("phase 11 focal loss (card)", 1, {},
+                     lambda: grad_of(focal(dev), logits[dev]))
+    cl, cg = grad_of(focal("cpu"), logits["cpu"])
+    compare("focal loss card vs CPU", fl.detach().cpu(), cl.detach(), 0.0,
+            rel=LIB_LOSS_TOL)
+    compare("focal loss card vs CPU: dlogits", fg.cpu(), cg, 0.0)
+    timed("focal_crossentropy_loss", lambda: grad_of(focal(dev),
+                                                     logits[dev]))
+
+    # -- hashing --------------------------------------------------------------
+    def hashes(d):
+        return (hashing.salted_hash(ids[d], 7, 2 ** 20),
+                hashing.combine_hash(ids[d], ids[d].flip(1)))
+
+    got = counted("phase 11 salted_hash / combine_hash (card)", 1, {},
+                  lambda: hashes(dev))
+    for name, a, c in zip(("salted_hash", "combine_hash"), got,
+                          hashes("cpu")):
+        if not torch.equal(a.cpu(), c):
+            fail(f"{name} on the card differs from the CPU")
+        print(f"  {name} on {ids['cpu'].numel()} ids: card = CPU bit for "
+              f"bit")
+    ms = cuda_ms(torch, lambda: hashes(dev))
+    print(f"  salted_hash + combine_hash: {ms:.4f} ms (events) [{card}]")
+
+    # -- modules, forward and backward, card vs CPU ---------------------------
+    def check(name, make, args, call):
+        """``make(device)`` -> the module (one seed: the same weights on
+        both), ``args[device]`` its inputs (float ones take a gradient),
+        ``call(module, *args)`` -> one tensor."""
+        res = {}
+        for d in (dev, "cpu"):
+            m = make(d)
+            xs = [a.detach().requires_grad_() if a.is_floating_point()
+                  else a for a in args[d]]
+            diff = list(m.parameters()) + [x for x in xs
+                                           if x.requires_grad]
+
+            cts = []
+
+            def run():
+                out = call(m, *xs)
+                if not out.is_floating_point():
+                    return out, []
+                if not cts:
+                    # random weights, made once: a ramp's sorted signs
+                    # made long cancelling sums, whose f32 rounding on the
+                    # CPU reached 9.7e-4 of scale where a hot scene's rows
+                    # add up
+                    cts.append(torch.randn(
+                        out.shape, generator=torch.Generator().manual_seed(
+                            7)).to(out.device))
+                return out, list(torch.autograd.grad(
+                    (out * cts[0]).sum(), diff))
+
+            res[d] = (counted(f"phase 11 {name} (card)", 1, {}, run)
+                      if d == dev else run())
+            if d == dev:
+                timed(name, run)
+        (out, grads), (want, wgrads) = res[dev], res["cpu"]
+        if not torch.isfinite(want.float()).all() or \
+                out.shape != want.shape:
+            fail(f"{name}: output {tuple(out.shape)} not finite or not "
+                 f"{tuple(want.shape)}")
+        if out.is_floating_point():
+            compare(f"{name}: output", out.detach().cpu(), want.detach())
+        elif not torch.equal(out.cpu(), want):
+            fail(f"{name}: card differs from the CPU")
+        for i, (g, w) in enumerate(zip(grads, wgrads)):
+            compare(f"{name}: gradient {i}", g.cpu(), w, 0.0, rel=1e-3)
+
+    def seeded(ctor):
+        return lambda d: ctor(torch.Generator().manual_seed(5), d)
+
+    # the hash-trick path: a cross of fields 0 and 1 and a (B, 3) slice of
+    # fields 2-4 (the most common id of field 2 invalid) into a 2^21-row
+    # shared table
+    invalid = int(torch.mode(ids["cpu"][:, 2]).values)
+    cross_in = {d: [ids[d][:, 0], ids[d][:, 1], ids[d][:, 2:5]]
+                for d in (dev, "cpu")}
+
+    def crossed(m, x0, x1, x2):
+        c = m[0]([x0, x1, x2], invalid_value_list=[None, None, invalid],
+                 default_result_id=0)
+        return m[1].get_pooling(c)
+
+    check("CartesianProductLayer -> FastMultiHashLayer(2^20, 16, 2)",
+          seeded(lambda g, d: torch.nn.ModuleList([
+              L.CartesianProductLayer(device=d),
+              L.FastMultiHashLayer(2 ** 20, 16, 2, generator=g,
+                                   device=d)])),
+          cross_in, crossed)
+    check("MultiHashLayer(2^20, 16, 2).get_pooling, 26 fields",
+          seeded(lambda g, d: L.MultiHashLayer(2 ** 20, 16, 2, generator=g,
+                                               device=d)),
+          {d: [ids[d]] for d in (dev, "cpu")},
+          lambda m, x: m.get_pooling(x))
+
+    concat = {d: [torch.cat([emb[d].reshape(b, -1), dense[d]], 1)]
+              for d in (dev, "cpu")}
+    check("DCNLayer(3) on (B, 429)",
+          seeded(lambda g, d: L.DCNLayer(429, 3, g, device=d)), concat,
+          lambda m, x: m(x))
+    chain = {i: [j for j in (i - 1, i + 1) if 0 <= j < fc.num_sparse]
+             for i in range(fc.num_sparse)}
+    for share in (True, False):
+        check(f"SparseGNNLayer, chain of 26, 2 layers, shared={share}",
+              lambda d, share=share: L.SparseGNNLayer(
+                  range(fc.num_sparse), chain, num_layers=2,
+                  share_weights_between_layers=share, device=d),
+              {d: [emb[d]] for d in (dev, "cpu")}, lambda m, x: m(x))
+    units, scenes = 32, LIB_SCENES
+    size = L.StarDenseLayer.get_starnet_param_size(64, units)
+    star_in = {}
+    for d in (dev, "cpu"):
+        gen = torch.Generator().manual_seed(6)
+        p1 = 1.0 + 0.1 * torch.randn(scenes, size, generator=gen)
+        p2 = 1.0 + 0.1 * torch.randn(scenes, size, generator=gen)
+        star_in[d] = [emb[d][:, :4].reshape(b, 64), p1.to(d), p2.to(d),
+                      (ids[d][:, 5] % scenes)]
+    check(f"StarDenseLayer({units}), two star nets by scene id",
+          seeded(lambda g, d: L.StarDenseLayer(64, units, g, device=d)),
+          star_in, lambda m, x, p1, p2, s: m(x, [p1[s], p2[s]]))
+    check(f"StackedDenseLayer({units}), two nets by scene id",
+          seeded(lambda g, d: L.StackedDenseLayer(64, units, g, device=d)),
+          {d: [a if i in (0, 3) else a - 1.0
+               for i, a in enumerate(star_in[d])] for d in (dev, "cpu")},
+          lambda m, x, p1, p2, s: m(x, [p1[s], p2[s]], 0.5))
+    check(f"ParasiticStackedDenseLayer({units}), 4 domains per sample",
+          seeded(lambda g, d: L.ParasiticStackedDenseLayer(
+              64, units, 4, g, device=d)),
+          {d: [star_in[d][0], domain[d]] for d in (dev, "cpu")},
+          lambda m, x, dom: m(x, dom))
+    half = fc.num_sparse // 2
+    check("SENETLayer list path, 13 fields of 16 and 13 of 8",
+          seeded(lambda g, d: L.SENETLayer(fc.num_sparse, 0.5, g, device=d)),
+          {d: [emb[d]] for d in (dev, "cpu")},
+          lambda m, e: m([e[:, i] for i in range(half)]
+                         + [e[:, i, :8] for i in range(half, 2 * half)]))
+    for length in (64, 32):
+        check(f"FixLengthLayer({length}) on a (B, 50) history",
+              lambda d, n=length: L.FixLengthLayer(n, device=d),
+              {d: [hist_ids.to(d)] for d in (dev, "cpu")},
+              lambda m, h: m(h))
+    hist_mask = both(torch.as_tensor(rng.rand(b, LIB_HISTORY) > 0.2))
+    att_in = {d: [hist[d], emb[d][:, 8], hist_mask[d]] for d in (dev, "cpu")}
+    check("attention_by_dot_product over (B, 50, 16)",
+          lambda d: torch.nn.Module(), att_in,
+          lambda m, u, doc, msk: torch.cat(attention_by_dot_product(
+              u * msk[..., None], doc), dim=1))
+    check("DNNAttention((64, 32)) over (B, 50, 16), masked",
+          seeded(lambda g, d: DNNAttention(16, (64, 32), g, device=d)),
+          att_in, lambda m, u, doc, msk: torch.cat(m(u, doc, msk), dim=1))
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1961,6 +2502,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rec_now_tpu_torch.embedding.table import EmbeddingTable
     from rec_now_tpu_torch.layers.multi_dense_layer import MultiDenseLayer
+    from rec_now_tpu_torch.losses import pairwise as pw_mod
     from rec_now_tpu_torch.losses.pairwise import pairwise_loss
     from rec_now_tpu_torch.models import (CANDCNModel, DCNv2Model,
                                           FeatureConfig, MultiTaskModel,
@@ -2399,10 +2941,16 @@ def main() -> int:
     lw_x1, lw_lab1 = rand(8193), torch.cat([lab, lab[:1]])
     lw_grp1 = torch.cat([grp, grp[:1]])
     one8k = torch.zeros(8192, dtype=torch.int32, device=dev)
-    # (what, x, labels, groups, path): the click batch on each path, past
-    # the one-block sort (8,193 takes the sweep), the int32 ends, one
-    # group and singletons at 8,192, a {+1, -1} group (label sum 0, valid)
-    # beside an all-positive one
+    # graded labels in [-0.4, 1.2) for a caller's threshold (a generator
+    # of their own: the script's stream stays as it was)
+    glab = (torch.rand(8192, generator=torch.Generator().manual_seed(18))
+            * 1.6 - 0.4).to(dev)
+    # (what, x, labels, groups, path[, threshold]): the click batch on
+    # each path, past the one-block sort (8,193 takes the sweep), the int32
+    # ends, one group and singletons at 8,192, a {+1, -1} group (label sum
+    # 0, valid) beside an all-positive one; graded labels at thresholds
+    # 0.3 and -0.25 (where a non-member's 0 counts as a label above it: on
+    # the click batch's groups and on one group) on each path
     lw_cases = [("click batch B=8192", xl, lab, grp, "auto"),
                 ("click batch B=8192, sort forced", xl, lab, grp, "sort"),
                 ("click batch B=8192, sweep forced", xl, lab, grp, "sweep"),
@@ -2416,15 +2964,21 @@ def main() -> int:
                 ("singletons B=8192", xl, lab,
                  torch.arange(8192, dtype=torch.int32, device=dev), "auto"),
                 ("{+1, -1} group B=600", xl[:600], pm_lab, pm_grp, "auto")]
-    for what, xs, ls, gs, path in lw_cases:
-        got = lk._listwise_fused(xs, ls, gs, path)
-        want = lk.listwise_loss_fused_plain(xs, ls, gs)
+    lw_cases += [(f"graded labels, {g_what}, th={th}, {path}", xl, glab, gs,
+                  path, th)
+                 for th in (0.3, -0.25)
+                 for g_what, gs in (("click groups", grp),
+                                    ("one group", one8k))
+                 for path in ("sort", "sweep")]
+    for what, xs, ls, gs, path, *th in lw_cases:
+        got = lk._listwise_fused(xs, ls, gs, path, *th)
+        want = lk.listwise_loss_fused_plain(xs, ls, gs, *th)
         if float(got[1]) != float(want[1]):
             fail(f"listwise count {float(got[1])} != {float(want[1])} "
                  f"({what})")
         print(f"  {what}: {int(want[1])} valid groups")
         err = max(err, compare_all(what, got, want))
-        again = lk._listwise_fused(xs, ls, gs, path)
+        again = lk._listwise_fused(xs, ls, gs, path, *th)
         if not all(torch.equal(u, r) for u, r in zip(got, again)):
             fail(f"listwise_loss_sum ({what}) is not bit-equal on a repeat")
     b_ms, b_by = bound_ms(listwise_ops(pb.labels),
@@ -3407,9 +3961,12 @@ def main() -> int:
         ("binary labels, 1 group, binary_labels=True", False,
          torch.as_tensor(lb.labels), groups2[:1], True,
          {"pair_loss_sum": 1}))
+    # the CPU's reference: the blocked form (what B >= 4,096 takes there)
+    # and the dense (B, B) form, whose dlogits are autograd's of the loss
+    # itself (the blocked BPR's are derived by hand)
     for what, wrong, labels, groups, binary, per in entry_cases:
         out = {}
-        for d in (dev, "cpu"):
+        for d, form in ((dev, None), ("cpu", "blocked"), ("cpu", "dense")):
             xd = x_cpu.to(d).requires_grad_()
 
             def call():
@@ -3420,18 +3977,29 @@ def main() -> int:
                     binary_labels=binary)
                 return (loss,) + (cnt,) + torch.autograd.grad(loss, xd)
 
-            out[d] = (counted(f"pairwise_loss B=8192, {what}", 1, per, call)
-                      if d == dev else call())
-        got, want = out[dev], out["cpu"]
-        if float(got[1]) != float(want[1]) or float(want[1]) == 0:
-            fail(f"pairwise_loss {what}: count {float(got[1])} vs CPU "
-                 f"{float(want[1])}")
-        print(f"  {int(want[1])} pairs; loss card {float(got[0]):.7f} cpu "
-              f"{float(want[0]):.7f}")
-        compare(f"pairwise_loss {what}: loss", got[0].detach().cpu(),
-                want[0].detach(), 0.0)
-        compare(f"pairwise_loss {what}: dlogits", got[2].cpu(), want[2],
-                0.0)
+            if form is None:
+                out[d] = counted(f"pairwise_loss B=8192, {what}", 1, per,
+                                 call)
+                continue
+            saved = pw_mod.BLOCKED_MIN_BATCH
+            if form == "dense":
+                pw_mod.BLOCKED_MIN_BATCH = 1 << 40
+            try:
+                out[form] = call()
+            finally:
+                pw_mod.BLOCKED_MIN_BATCH = saved
+        got = out[dev]
+        for form in ("blocked", "dense"):
+            want = out[form]
+            if float(got[1]) != float(want[1]) or float(want[1]) == 0:
+                fail(f"pairwise_loss {what}: count {float(got[1])} vs CPU "
+                     f"{form} {float(want[1])}")
+            print(f"  {int(want[1])} pairs; loss card {float(got[0]):.7f} "
+                  f"cpu {form} {float(want[0]):.7f}")
+            compare(f"pairwise_loss {what}: loss vs CPU {form}",
+                    got[0].detach().cpu(), want[0].detach(), 0.0)
+            compare(f"pairwise_loss {what}: dlogits vs CPU {form}",
+                    got[2].cpu(), want[2], 0.0)
     lab_d = torch.as_tensor(lb.labels, device=dev)
     g_d, m_d = groups2[0].to(dev), mask_cpu.to(dev)
     gpc = counted("group_pair_counts_binary B=8192", 1,
@@ -3455,7 +4023,11 @@ def main() -> int:
     # -- 10. the multi-process path in a NCCL group of one --------------------
     mesh_phase(torch, counted, card, fc, runs, batches, synthetic_ms, dev)
 
-    # -- 11. result -----------------------------------------------------------
+    # -- 11. the layer and loss library ---------------------------------------
+    library_phase(torch, counted, card, dev, fc, data, table, table_t,
+                  cpu_table, cpu_table_t)
+
+    # -- 12. result -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"first phase to the result, the build included [{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -15,11 +15,17 @@ Inputs are numpy arrays (a caller holding JAX arrays passes
   - only a 2-D leaf named ``kernel`` (a ``Dense``, (in, out)) becomes
     ``nn.Linear.weight`` (out, in): ``deep/dense_0/kernel`` ->
     ``deep.dense_0.weight``;
+    ``StarDenseLayer``'s and ``StackedDenseLayer``'s trunk ``kernel``
+    (D, U) too: the port holds it as ``weight`` (U, D); so does
+    ``DNNAttention``'s ``layer{i}/kernel``;
   - every other leaf keeps its name and shape: a 3-D ``kernel`` (a
     ``MultiDenseLayer`` bank, (N, D, U)), ``bias``, the CIN's
-    (K, F, H) weights, and the STAR tower's 2-D ``trunk_kernel`` (D, U),
-    which the port holds as a plain parameter in the JAX layout because
-    it multiplies the (G, D, U) ``parasitic_kernel`` elementwise.
+    (K, F, H) weights, DCN's stacked ``kernels`` (L, D, 1) and
+    ``biases`` (L, 1, D), the sparse GNN's ``weights_{i}`` (E,), the
+    multi-hash tables ``embedding_{i}`` / ``embedding``, and the STAR
+    tower's 2-D ``trunk_kernel`` (D, U), which the port holds as a plain
+    parameter in the JAX layout because it multiplies the (G, D, U)
+    ``parasitic_kernel`` elementwise (the parasitic stacked layer's too).
 * :func:`table_from_packed` -- the lane-packed, mod-sharded JAX table
   -> the logical (V, D) table.
 * :func:`acc_from_packed` -- the (V/P, P) packed, mod-sharded Adagrad

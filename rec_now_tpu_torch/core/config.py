@@ -2,11 +2,12 @@
 
 Counterpart of ``rec_now_tpu/core/config.py``, reduced to what the
 ported modules use: the glorot-uniform (also with chosen fan axes, as
-``glorot_uniform_nd``), uniform, ones and zeros initializers, drawn
-from an explicit ``torch.Generator`` on the CPU so that a seed gives the
-same weights on every device; :func:`make_linear`, an ``nn.Linear`` with
-Flax's default ``Dense`` init; :func:`get_activation` for the
-activations the ported models set; and :func:`resolve_device`.
+``glorot_uniform_nd``), uniform, ones, zeros and constant initializers,
+drawn from an explicit ``torch.Generator`` on the CPU so that a seed gives
+the same weights on every device, and :func:`get_initializer` to resolve
+a name; :func:`make_linear`, an ``nn.Linear`` with Flax's default
+``Dense`` init; :func:`get_activation` for the activations the ported
+layers set; and :func:`resolve_device`.
 """
 from __future__ import annotations
 
@@ -65,6 +66,27 @@ def zeros(shape) -> torch.Tensor:
     return torch.zeros(shape, dtype=torch.float32)
 
 
+def constant_initializer(value: float) -> Callable:
+    """An initializer filling ``shape`` with ``value`` (the sparse GNN's
+    edge weights)."""
+    def init(shape, generator=None) -> torch.Tensor:
+        return torch.full(tuple(shape), float(value), dtype=torch.float32)
+    return init
+
+
+def get_initializer(init: str) -> Callable:
+    """A name (``"zeros"``, ``"ones"``, ``"glorot_uniform"`` with Flax's
+    fans for any rank) -> a callable ``(shape, generator) -> tensor``."""
+    key = str(init).lower()
+    if key == "zeros":
+        return lambda shape, generator=None: zeros(shape)
+    if key == "ones":
+        return lambda shape, generator=None: ones(shape)
+    if key in ("glorot_uniform", "xavier_uniform"):
+        return lambda shape, generator: glorot_uniform_nd(shape, generator)
+    raise ValueError(f"unknown initializer {init!r}")
+
+
 def uniform(shape, limit: float, generator: torch.Generator
             ) -> torch.Tensor:
     """U(-limit, limit) float32, on the CPU."""
@@ -98,3 +120,11 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def as_input(x, device: torch.device) -> torch.Tensor:
+    """A tensor as it is; anything else (a list, an array) as a tensor on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=device)

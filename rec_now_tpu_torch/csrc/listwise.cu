@@ -4,6 +4,9 @@
 // pallas_call at :99).  Every sample i anchors the row of its group g_i
 // (members j with g_j == g_i); the row is valid when i is the group's
 // first occurrence and the group holds a label > th and a label < th.
+// As the reference tests "> th" on the row's labels with the non-members'
+// set to 0, a threshold below 0 counts a non-member as a label above it:
+// every group of a batch that holds two groups has one then.
 // With p_j = lab_j / sum_{members} lab and the softmax over the members'
 // logits (non-members are masked at -1e9 in the reference and vanish),
 // one launch gives
@@ -100,6 +103,7 @@ lw_sweep_kernel(const float* __restrict__ x, const float* __restrict__ lab,
   const int c_end = min(B, c_begin + cols_per);
   float m = -CUDART_INF_F, s = 0.f, lsum = 0.f, lx = 0.f;
   int first = B, flags = 0;
+  const int other_above = 0.f > th ? 1 : 0;   // a non-member's 0 > th
   for (int c0 = c_begin; c0 < c_end; c0 += kTile) {
     __syncthreads();
     for (int i = threadIdx.x; i < kTile; i += kThreads) {
@@ -113,7 +117,10 @@ lw_sweep_kernel(const float* __restrict__ x, const float* __restrict__ lab,
     if (!live) continue;
     const int n = min(kTile, c_end - c0);
     for (int i = 0; i < n; ++i) {
-      if (gs[i] != gt) continue;
+      if (gs[i] != gt) {
+        flags |= other_above;
+        continue;
+      }
       const float xu = xs[i], lu = ls[i];
       if (xu > m) {                 // online softmax: rescale to the new max
         s = s * expf(m - xu) + 1.f;
@@ -257,6 +264,10 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
     if (sg.lasts >> j & 1u) seg_m[sg.of(j)] = m[j];
   __syncthreads();
 
+  // a non-member's 0 > th: the batch holds another group (its sorted
+  // ends differ) and th < 0
+  const int other_above =
+      0.f > th && grp[vals[spad(0)]] != grp[vals[spad(B - 1)]] ? 1 : 0;
   Sums v[kSortPer];
 #pragma unroll
   for (int j = 0; j < kSortPer; ++j) {
@@ -265,7 +276,7 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
       const int i = vals[spad(p0 + j)];
       const float xi = x[i], li = lab[i];
       v[j] = {expf(xi - seg_m[sg.of(j)]), li, li * xi,
-              (li > th ? 1 : 0) | (li < th ? 2 : 0)};
+              (li > th ? 1 : 0) | (li < th ? 2 : 0) | other_above};
     }
   }
   block_seg_scan<SumOp>(v, sg.heads, wsums, wf[1]);

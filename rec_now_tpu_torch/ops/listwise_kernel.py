@@ -4,8 +4,11 @@ and plain version.
 Counterpart of ``rec_now_tpu/ops/pallas/listwise_kernel.py``
 ``listwise_loss_sum`` / ``_lw_fused_impl`` (:29-124): each sample anchors
 its group's row; the row is valid when the sample is the group's first
-occurrence and the group has a label above :data:`POS_NEG_TH` and one
-below it (the JAX default, the one value its trainer uses).
+occurrence and the group has a label above ``pos_neg_th`` and one below
+it (:data:`POS_NEG_TH`, JAX's default, unless the caller gives another).
+As in the reference, "above" is tested on the row's labels with the
+non-members' set to 0: with a threshold below 0, every group of a batch
+that holds another group has a label above it.
 
 * :func:`listwise_loss_fused` -- ``(loss_sum, count, dlogits)`` in one
   call, ``dlogits[j] = sum_i valid_i (softmax_ij - p_ij)``: the kernel
@@ -40,7 +43,8 @@ PATHS = {"auto": 0, "sort": 1, "sweep": 2}
 
 
 def listwise_loss_fused_plain(logits: torch.Tensor, labels: torch.Tensor,
-                              groups: torch.Tensor
+                              groups: torch.Tensor,
+                              pos_neg_th: float = POS_NEG_TH
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(loss_sum, count, dlogits) from (B, B) tensors, written out
@@ -53,8 +57,8 @@ def listwise_loss_fused_plain(logits: torch.Tensor, labels: torch.Tensor,
     idx = torch.arange(b, device=x.device)
     earlier = member & (idx[None, :] < idx[:, None])
     lab_row = lab[None, :] * memberf
-    has_pos = (lab_row > POS_NEG_TH).any(dim=1)
-    has_neg = ((lab[None, :] - POS_NEG_TH) * memberf < 0.0).any(dim=1)
+    has_pos = (lab_row > pos_neg_th).any(dim=1)
+    has_neg = ((lab[None, :] - pos_neg_th) * memberf < 0.0).any(dim=1)
     valid = (~earlier.any(dim=1) & has_pos & has_neg).float()      # (B,)
     lsum = lab_row.sum(dim=1, keepdim=True)
     p = lab_row / torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)
@@ -69,7 +73,8 @@ def listwise_loss_fused_plain(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def listwise_by_segments(logits: torch.Tensor, labels: torch.Tensor,
-                         groups: torch.Tensor
+                         groups: torch.Tensor,
+                         pos_neg_th: float = POS_NEG_TH
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """(loss_sum, count, dlogits) in the sort kernel's order: a stable
@@ -96,8 +101,10 @@ def listwise_by_segments(logits: torch.Tensor, labels: torch.Tensor,
         0, seg, xs, "amax")
     e = torch.exp(xs - m[seg])
     s, lsum, lx = seg_sum(e), seg_sum(ls), seg_sum(ls * xs)
-    has_pos = seg_sum((ls > POS_NEG_TH).float()) > 0
-    has_neg = seg_sum((ls < POS_NEG_TH).float()) > 0
+    # a non-member's 0 is above a negative threshold (module docstring)
+    has_pos = (seg_sum((ls > pos_neg_th).float()) > 0) | (
+        nseg > 1 and 0.0 > pos_neg_th)
+    has_neg = seg_sum((ls < pos_neg_th).float()) > 0
     valid = has_pos & has_neg
     den = torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)
     loss = (m + torch.log(s) - lx / den)[valid].double().sum()
@@ -121,20 +128,21 @@ def _lib() -> ctypes.CDLL:
 
 
 def listwise_loss_fused(logits: torch.Tensor, labels: torch.Tensor,
-                        groups: torch.Tensor
+                        groups: torch.Tensor, pos_neg_th: float = POS_NEG_TH
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """logits, labels (B,) float32, groups (B,) int -> (loss_sum, count,
     dlogits); f32 on the logits' device."""
-    return _listwise_fused(logits, labels, groups, "auto")
+    return _listwise_fused(logits, labels, groups, "auto", pos_neg_th)
 
 
 def _listwise_fused(logits: torch.Tensor, labels: torch.Tensor,
-                    groups: torch.Tensor, path: str
+                    groups: torch.Tensor, path: str,
+                    pos_neg_th: float = POS_NEG_TH
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`listwise_loss_fused` on the kernel's ``path`` (a key of
     :data:`PATHS`; a CPU tensor takes the plain version whatever it is)."""
     if is_cpu(logits, "listwise_loss_sum"):
-        return listwise_loss_fused_plain(logits, labels, groups)
+        return listwise_loss_fused_plain(logits, labels, groups, pos_neg_th)
     dev = logits.device
     check_input("logits", logits, 1, dev)
     check_input("labels", labels, 1, dev)
@@ -158,7 +166,7 @@ def _listwise_fused(logits: torch.Tensor, labels: torch.Tensor,
     scratch = (torch.empty(words, dtype=torch.float32, device=dev)
                if words else None)
     rc = lib.listwise_f32(logits.data_ptr(), labels.data_ptr(),
-                          groups.data_ptr(), b, POS_NEG_TH, PATHS[path],
+                          groups.data_ptr(), b, pos_neg_th, PATHS[path],
                           None if scratch is None else scratch.data_ptr(),
                           out.data_ptr(), dx.data_ptr(), dev.index,
                           _build.stream_of(logits))
@@ -169,8 +177,9 @@ def _listwise_fused(logits: torch.Tensor, labels: torch.Tensor,
 
 class _ListwiseLossSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, groups):
-        loss, cnt, dx = listwise_loss_fused(logits, labels, groups)
+    def forward(ctx, logits, labels, groups, pos_neg_th):
+        loss, cnt, dx = listwise_loss_fused(logits, labels, groups,
+                                            pos_neg_th)
         ctx.save_for_backward(dx)
         ctx.mark_non_differentiable(cnt)
         return loss, cnt
@@ -178,15 +187,15 @@ class _ListwiseLossSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_loss, g_cnt):
         (dx,) = ctx.saved_tensors
-        return dx * g_loss, None, None
+        return dx * g_loss, None, None, None
 
 
 def listwise_loss_sum(logits: torch.Tensor, labels: torch.Tensor,
-                      groups: torch.Tensor
+                      groups: torch.Tensor, pos_neg_th: float = POS_NEG_TH
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of valid rows' softmax-CE, valid-row count); gradients flow
     to ``logits`` only, through the dlogits the forward computed."""
-    return _ListwiseLossSum.apply(logits, labels, groups)
+    return _ListwiseLossSum.apply(logits, labels, groups, float(pos_neg_th))
 
 
 listwise_loss_sum.launches = 0

@@ -525,6 +525,37 @@ def test_listwise_matches_plain(dev, b, kind, path):
     torch.testing.assert_close(dxg, 3.0 * dx_auto, rtol=0, atol=0)
 
 
+# a caller's threshold on graded labels in [-0.4, 1.2): below 0 a
+# non-member's 0 counts as a label above it (one group has none)
+@pytest.mark.parametrize("th", [0.3, -0.25])
+@pytest.mark.parametrize("b,kind,path", [
+    (1000, "zipf", "auto"), (8192, "zipf", "sort"), (8192, "zipf", "sweep"),
+    (2100, "one_group", "sort"), (2100, "one_group", "sweep"),
+    (513, "singletons", "auto")])
+def test_listwise_threshold_matches_plain(dev, b, kind, path, th):
+    gen = torch.Generator().manual_seed(b)
+    x, _, grp = (t.to(dev) for t in _lw_batch(gen, b, kind))
+    lab = (torch.rand(b, generator=gen) * 1.6 - 0.4).to(dev)
+    before = lk.listwise_loss_sum.launches
+    got = lk._listwise_fused(x, lab, grp, path, th)
+    assert lk.listwise_loss_sum.launches == before + 1
+    want = lk.listwise_loss_fused_plain(x, lab, grp, th)
+    assert float(got[1]) == float(want[1])
+    if kind == "singletons":
+        # a valid singleton's row is x - lab * x / lab = 0 up to rounding
+        # (the plain version's is 0 exactly): no scale to be relative to
+        assert float(want[0]) == 0.0 and not want[2].any()
+        assert float(got[0].abs()) <= 1e-6 * float(x.abs().sum())
+        assert float(got[2].abs().max()) <= 1e-6
+    elif float(want[1]):
+        _close_rel(got[0], want[0])
+        _close_rel(got[2], want[2])
+    else:
+        assert float(got[0]) == 0.0 and not got[2].any()
+    for a, r in zip(got, lk._listwise_fused(x, lab, grp, path, th)):
+        assert torch.equal(a, r)
+
+
 def test_multitask_grads_through_the_model_match_the_cpu(dev):
     """B8's forward and its plain backward inside the model: on the card
     as on the CPU, for every parameter and the embeddings."""

@@ -90,7 +90,11 @@ def test_senet_matches_flax():
     np.testing.assert_allclose(got, want, **TOL)
     _grads_match(jm.apply, params, [jnp.asarray(emb)], port, [emb],
                  _rand(B, F * D, seed=3))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # the same fields as a list (the path for unequal dims) give the
+    # stacked path's numbers; a list of another length raises
+    fields = [torch.from_numpy(emb[:, f]) for f in range(F)]
+    np.testing.assert_allclose(port(fields).detach().numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="fields"):
         port([torch.from_numpy(emb[:, 0])])
 
 

@@ -15,6 +15,10 @@ zipf-grouped click batch, B = 1, a group with labels {+1, -1} (label sum
 0, valid) beside all-positive and all-negative groups, and negative ids
 and ids at both ends of the int32 range.  f32 on the CPU, summed in other
 orders over at most B = 64 terms: rtol 1e-5, atol 1e-6; counts exact.
+The same functions at a caller's threshold (0.3, 0.7, 0 and -0.25, where
+a non-member's 0 counts as a label above it), on graded labels, and the
+public ``listwise_loss`` through the card's dispatch (B6's function with
+that threshold, run on its plain version).
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from rec_now_tpu.losses.listwise import listwise_loss as jax_listwise_loss
 from rec_now_tpu.losses.listwise import (
     listwise_loss_via_softmax_cross_entropy_with_logits as jax_ce,
     to_listwise_sample as jax_to_listwise)
@@ -74,9 +79,9 @@ def _batch(kind):
             np.asarray(lab, np.float32), np.asarray(g, np.int32))
 
 
-def _jax_xla(x, lab, g):
+def _jax_xla(x, lab, g, pos_neg_th=0.5):
     def f(x):
-        v = jax_to_listwise(g, lab, x)
+        v = jax_to_listwise(g, lab, x, pos_neg_th=pos_neg_th)
         rows = jax_ce(v.labels, v.logits, do_reduce=False,
                       row_valid=v.row_valid)
         return jnp.sum(rows), jnp.sum(v.row_valid.astype(jnp.float32))
@@ -166,6 +171,56 @@ def test_by_segments_matches_jax_and_plain(kind):
             torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("th", [0.3, 0.7, 0.0, -0.25])
+@pytest.mark.parametrize("kind", ["ragged", "clicks", "one_group",
+                                  "singletons"])
+def test_threshold_matches_jax(kind, th, monkeypatch):
+    """B6's function at a caller's threshold, on labels in [-0.4, 1.2):
+    the plain version, the sort kernel's order, the Function and the CPU
+    path against JAX's (B, B) XLA path at that threshold (and the Pallas
+    kernel, interpreted, at th >= 0: it pads the batch with non-members,
+    which a negative threshold counts); then ``listwise_loss`` on the
+    card's route, which hands the threshold to B6's function."""
+    x, lab, g = _batch(kind)
+    lab = (np.random.RandomState(5).rand(len(x)) * 1.6 - 0.4).astype(
+        np.float32)
+    loss, cnt, dx = _jax_xla(x, lab, g, th)
+    wants = [(loss, cnt, dx)]
+    if th >= 0:
+        ploss, pcnt = listwise_loss_pallas(g, lab, x, pos_neg_th=th,
+                                           reduce_mean=False)
+        pdx = jax.grad(lambda x: listwise_loss_pallas(
+            g, lab, x, pos_neg_th=th, reduce_mean=False)[0])(jnp.asarray(x))
+        wants.append((float(ploss), float(pcnt),
+                       np.asarray(pdx)[:len(x)]))
+    args = (torch.from_numpy(lab), torch.from_numpy(g))
+    xt = torch.from_numpy(x)
+    gots = [lk.listwise_loss_fused_plain(xt, *args, th),
+            lk.listwise_by_segments(xt, *args, th)]
+    for fn in (lw.listwise_loss_sum, lk.listwise_loss_sum):
+        xg = xt.clone().requires_grad_()
+        s, c = fn(xg, *args, th)
+        d = (torch.autograd.grad(s, xg)[0] if s.requires_grad
+             else torch.zeros_like(xg))
+        gots.append((s.detach(), c, d))
+    for want_loss, want_cnt, want_dx in wants:
+        for got_loss, got_cnt, got_dx in gots:
+            np.testing.assert_allclose(float(got_loss), want_loss, **TOL)
+            assert float(got_cnt) == want_cnt
+            np.testing.assert_allclose(got_dx.numpy(), want_dx, **TOL)
+    calls = []
+    fused = lk.listwise_loss_sum
+    monkeypatch.setattr(lw, "is_cpu", lambda t, what: False)
+    monkeypatch.setattr(lk, "listwise_loss_sum",
+                        lambda *a: calls.append(a[3:]) or fused(*a))
+    got = lw.listwise_loss(args[1], args[0], xt, pos_neg_th=th)
+    assert calls == [(th,)]
+    want = jax_listwise_loss(jnp.asarray(g), jnp.asarray(lab),
+                             jnp.asarray(x), pos_neg_th=th,
+                             use_pallas=False)
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+
+
 def test_first_occurrence_and_row_helpers():
     g = torch.tensor([3, 1, 3, 2, 1, 9])
     assert lw.first_occurrence_mask(g).tolist() == [True, True, False, True,
@@ -182,7 +237,7 @@ def test_first_occurrence_and_row_helpers():
                                    np.asarray(getattr(want, name)),
                                    err_msg=name, **TOL)
     rows = lw.listwise_loss_via_softmax_cross_entropy_with_logits(
-        got.labels, got.logits, got.row_valid)
+        got.labels, got.logits, do_reduce=False, row_valid=got.row_valid)
     np.testing.assert_allclose(rows.numpy(), np.asarray(jax_ce(
         want.labels, want.logits, do_reduce=False,
         row_valid=want.row_valid)), **TOL)

@@ -340,12 +340,36 @@ def test_edge_batches(b, fn):
 
 
 def test_options_without_a_kernel_path_raise():
-    x, lab, groups, _ = _batch(16, 0)
+    """The options JAX runs off its kernel path -- a label-pair weight
+    function, a custom pair loss, an extra keyword (which JAX hands to the
+    weight function, and ignores without one) -- run on the CPU and give
+    JAX's ``pairwise_loss`` numbers; none raises."""
+    x, lab, groups, mask = _batch(16, 0)
     args = (_t(x), _t(lab), [_t(g) for g in groups])
-    for kw in (dict(label_pair_to_weight_func=lambda a, b: a - b),
-               dict(pairloss_func=lambda *a, **k: 0.0), dict(margin=1.0)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            pairwise_loss(*args, **kw)
+    jargs = (jnp.asarray(x), jnp.asarray(lab),
+             [jnp.asarray(g) for g in groups])
+
+    def hinge(pos, neg, weights, pair_mask=None):
+        per = (1.0 - (pos - neg)).clamp_min(0.0) * pair_mask
+        return per.sum() / (pair_mask.sum() + 1e-10)
+
+    def jhinge(pos, neg, weights, pair_mask=None):
+        m = pair_mask.astype(jnp.float32)
+        return jnp.sum(jnp.maximum(1.0 - (pos - neg), 0.0) * m) / (
+            jnp.sum(m) + 1e-10)
+
+    cases = ((dict(label_pair_to_weight_func=lambda a, b: a - b),
+              dict(label_pair_to_weight_func=lambda a, b: a - b)),
+             (dict(pairloss_func=hinge), dict(pairloss_func=jhinge)),
+             (dict(margin=1.0), dict(margin=1.0)))
+    for kw, jkw in cases:
+        got, cnt = pairwise_loss(*args, mask=_t(mask), return_num_pair=True,
+                                 **kw)
+        want, jcnt = jax_pairwise_loss(*jargs, mask=jnp.asarray(mask),
+                                       return_num_pair=True,
+                                       use_pallas=False, **jkw)
+        assert float(cnt) == float(jcnt) > 0
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
 
 
 def _general_jax(x, lab, groups, mask, wrong, power):

@@ -54,6 +54,24 @@ def test_port_imports_no_jax():
     assert int(out.stdout.strip()) >= 25
 
 
+def _library_modules(**kw):
+    """A constructor of each module of the layer and loss library, with
+    ``kw`` (e.g. ``device="cpu"``) passed on."""
+    from rec_now_tpu_torch import layers as L
+    from rec_now_tpu_torch.rec_block import DNNAttention
+    gen = torch.Generator()
+    return (lambda: L.MultiHashLayer(16, 4, generator=gen, **kw),
+            lambda: L.FastMultiHashLayer(16, 4, generator=gen, **kw),
+            lambda: L.CartesianProductLayer(**kw),
+            lambda: L.StarDenseLayer(4, 3, gen, **kw),
+            lambda: L.StackedDenseLayer(4, 3, gen, **kw),
+            lambda: L.ParasiticStackedDenseLayer(4, 3, 2, gen, **kw),
+            lambda: L.DCNLayer(4, 2, gen, **kw),
+            lambda: L.SparseGNNLayer(["a", "b"], [("a", "b")], **kw),
+            lambda: L.FixLengthLayer(4, **kw),
+            lambda: DNNAttention(4, (8,), gen, **kw))
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     """With no device= on a host without CUDA, entry points raise
     instead of quietly running on the CPU."""
@@ -78,7 +96,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: WireScorer(cpu_model, fc, cpu_table),
                  lambda: ShardedEmbeddingTable(fc.total_rows, 4),
                  lambda: Trainer(cpu_model, fc, TrainerConfig()),
-                 lambda: Trainer(cpu_mt, fc, cfg4)):
+                 lambda: Trainer(cpu_mt, fc, cfg4)) + _library_modules():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # asked for the CPU, they run there
@@ -89,6 +107,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert Trainer(cpu_mt, fc, cfg4, device="cpu").device == \
         torch.device("cpu")
     assert Trainer(cpu_dcn, fc, cfg2, device="cpu").table.optimizer == "adam"
+    for make in _library_modules(device="cpu"):
+        for t in make().state_dict().values():
+            assert t.device == torch.device("cpu")
+
+
+def test_no_module_refuses_a_ported_option():
+    """No source of the package raises ``NotImplementedError`` or says
+    that something is "not ported": the custom pair losses, the label-pair
+    weights, extra keywords and SENET's list path all run."""
+    offenders = [str(p.relative_to(REPO))
+                 for p in sorted((REPO / "rec_now_tpu_torch").rglob("*.py"))
+                 if "NotImplementedError" in p.read_text()
+                 or "not ported" in p.read_text().lower()]
+    assert not offenders, offenders
 
 
 def test_wrappers_take_plain_version_on_cpu_only():
