@@ -235,7 +235,30 @@ gradients once (B12).
     domains; SENET's list path (13 fields of 16, 13 of 8); fix-length to
     64 and 32; dot-product and DNN attention over a (B, 50, 16) history
     with a mask;
-12. print one JSON line for the kernels, the card again, and finally
+12. slot features and the table's leftovers at B = 8,192 on the 2.6M x
+    16 table: one ``SyntheticCriteo`` batch as (slot, id, weight)
+    triples (the 26 fields as slots 0-25 of one global id each, a
+    50-long history as slot 26, place j an id of field j % 26 drawn as
+    the batch draws that field's, 0-20 multi-valued ids as slot 27
+    padded with slot -1: 96 columns, 786,432 ids, weights U(0, 1));
+    through ``EmbeddingTable.embedding_func`` (one B11 launch a call,
+    counted), ``embedding_using_batch_segment_ids`` over the 27 field
+    and history slots by sum and by mean, ``embedding_single_slot`` on
+    the history (ncols 50) and the multi-valued slot (ncols 16, the
+    longer rows cut off), ``pool_slots`` (mean, ``drop_duplicate_slot``)
+    and ``fetch_single_slot``, each on the card against the CPU (outputs
+    1e-4 of max(1, max|out|), integers exact); a loss's gradient with
+    respect to the four lookups' rows (1e-3 of scale; nonnegative, so no
+    sum cancels); then updates from that gradient with the padding
+    masked: ``EmbeddingTable.apply_grads`` (B12 twice, no B9), the
+    sharded table under Adagrad per occurrence (``dedup=False``, one B12)
+    and deduped in both update modes, and under lazy Adam in both, each
+    state's touched rows within ``SUM_TOL`` of each element's summed
+    scale of the CPU's (B12's atomics), untouched rows unmoved, every
+    launch count exact; ``export_table_rows`` (one B11); each call timed
+    (events, median of 20) with its device operations and B11's share of
+    its device time;
+13. print one JSON line for the kernels, the card again, and finally
     ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside a checkout, it exits non-zero and prints no
@@ -365,6 +388,11 @@ MESH_TOL, STATE_TOL = 1e-5, 1e-3
 # scenes the STAR parameters are taken by, and the profiled calls a module
 LIB_LOSS_TOL = 1e-5
 LIB_HISTORY, LIB_SCENES, LIB_PROFILE_REPS = 50, 1000, 3
+# phase 12: the history slot's length, the multi-valued slot's most ids a
+# row and the columns it is padded to (rows past them are cut off), and
+# the table updates' learning rate
+SLOT_HISTORY, SLOT_MULTI, SLOT_MULTI_COLS = 50, 20, 16
+UPDATE_LR = 0.05
 
 
 def fail(msg: str) -> None:
@@ -696,10 +724,11 @@ def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
     batch's ids (the dense buffer, the sparse path's dedup and its
     sentinel-heavy write-backs), ragged, empty and out-of-range ids; then
     kernel, plain version and the library call timed."""
+    from rec_now_tpu_torch.embedding.table import dedup_rows
     n = ids8k.numel()
     tfull = rand(vfull, 16, scale=1e-3)
     sparse = table_cls(vfull, 16, device=dev, update_mode="sparse")
-    rep, _, valid = sparse._dedup_rows(ids8k, grads8k)
+    rep, _, valid = dedup_rows(ids8k, grads8k, sparse.local_rows)
     order = torch.argsort(ids8k, stable=True)
     sid = ids8k[order]
     seg = torch.cumsum(torch.cat([torch.ones(1, dtype=torch.bool,
@@ -2493,6 +2522,308 @@ def library_phase(torch, counted, card: str, dev, fc, data, table,
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+def slot_phase(torch, counted, card: str, dev, fc, data, table, table_t,
+               cpu_table, cpu_table_t, batch_size: int = 8192) -> None:
+    """Phase 12: the slot and segment embedding utilities on the table's
+    ``embedding_func`` and the table's leftovers (module docstring), card
+    against CPU, each call timed with its device operations."""
+    import numpy as np
+    from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+    from rec_now_tpu_torch.rec_block import embedding_util as eu
+    from rec_now_tpu_torch.serving import export_table_rows
+
+    t_phase = time.perf_counter()
+    batch = next(data.batches(batch_size, 1, seed=12))
+    b, f = batch.sparse_ids.shape
+    v = table_t.shape[0]
+    rng = np.random.RandomState(12)
+    # the (slot, id, weight) triples: fields 0-25 one global id each, the
+    # history slot, the multi-valued slot (0-20 ids, then slot -1 pads)
+    fields = fc.global_ids(torch.as_tensor(batch.sparse_ids)).numpy()
+    # history place j: a global id of field j % 26, drawn as the batch
+    # draws that field's ids (SyntheticCriteo's zipf): a hot row takes
+    # ~6,000 adds of the batch's gradient
+    hist = (rng.zipf(data.zipf_a, (b, SLOT_HISTORY)) % fc.rows_per_field
+            + np.arange(SLOT_HISTORY) % f * fc.rows_per_field)
+    count = rng.randint(0, SLOT_MULTI + 1, b)
+    multi_ids = rng.randint(0, v, (b, SLOT_MULTI))
+    pad = np.arange(SLOT_MULTI)[None, :] >= count[:, None]
+    multi_slots = np.where(pad, -1, f + 1)
+    slots = np.concatenate([np.broadcast_to(np.arange(f), (b, f)),
+                            np.full((b, SLOT_HISTORY), f), multi_slots], 1)
+    ids = np.concatenate([fields, hist, np.where(pad, 0, multi_ids)], 1)
+    weights = rng.rand(*ids.shape).astype(np.float32)
+    c = ids.shape[1]
+    trip = {"cpu": [torch.as_tensor(a) for a in (slots, ids, weights)]}
+    trip[dev] = [a.to(dev) for a in trip["cpu"]]
+    targets = list(range(f + 1))               # the fields and the history
+    print(f"phase 12: slot features, B = {b}, C = {c} columns ({b * c} ids:"
+          f" {f} fields, a {SLOT_HISTORY}-long zipf history, 0-"
+          f"{SLOT_MULTI} multi-valued ids a row, {int(pad.sum())} pads), "
+          f"{len(targets)} pooled target slots, on the {v} x "
+          f"{table_t.shape[1]} table [{card}]")
+    tables = {dev: (table, table_t), "cpu": (cpu_table, cpu_table_t)}
+
+    def timed(name, fn, reps=20):
+        """ms by events; device operations and ms a call, B11's share and
+        the three largest kernels by ``torch.profiler`` over ``reps``."""
+        ms = cuda_ms(torch, fn)
+        seq = profiled_sequence(torch, fn, reps)
+        by_name = {}
+        for n, t in seq:
+            by_name[n] = by_name.get(n, 0.0) + t / reps
+        total = sum(by_name.values())
+        b11 = [t for n, t in seq if "gather4_kernel" in n
+               or "gather1_kernel" in n]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        # the tracer can lose some of a window's launches (a one-launch
+        # call has read 0.6 a call): B11's time is also given a launch
+        b11_each = (f", {sum(b11) / len(b11):.4f} ms a launch" if b11
+                    else "")
+        print(f"  {name}: {ms:.4f} ms (events, median of 20), "
+              f"{len(seq) / reps:.1f} device operations a call, device "
+              f"{total:.4f} ms, B11 {sum(b11) / reps / max(total, 1e-12):.1%}"
+              f" of it{b11_each}; largest: " + ", ".join(
+                  f"{kernel_name(n)} {t:.4f}" for n, t in top) + f" [{card}]")
+        return ms
+
+    def slot_calls(d, leaves):
+        """Every utility on device ``d``'s triples through its table's
+        embedding_func, the looked-up rows made leaves (the trainer's
+        ``requires_grad_()``); returns the outputs by name."""
+        tbl, rows = tables[d]
+        inner = tbl.embedding_func(rows)
+
+        def func(i):
+            e = inner(i)
+            if leaves is not None:
+                e.requires_grad_()
+                leaves.append(e)
+            return e
+        s, i, w = trip[d]
+        out = {}
+        for method in ("sum", "mean"):
+            out[f"pooled {method}"] = eu.embedding_using_batch_segment_ids(
+                func, s, targets, i, w, method=method)
+        out["history padded"] = eu.embedding_single_slot(
+            func, s, f, i, w, ncols=SLOT_HISTORY)
+        out["multi padded"] = eu.embedding_single_slot(
+            func, s, f + 1, i, w, default_weight=1.0, ncols=SLOT_MULTI_COLS)
+        out["pool_slots"] = eu.pool_slots(s, targets + [f + 1], i, w,
+                                          method="mean",
+                                          drop_duplicate_slot=True)
+        out["fetch_single_slot"] = eu.fetch_single_slot(
+            s, f + 1, i, w, default_id=-1, ncols=SLOT_MULTI_COLS)
+        return out
+
+    # one embedding_func call each: pooled x 2, padded x 2
+    res = {d: counted(f"phase 12 slot utilities ({d})", 4,
+                      {"gather_rows": 1}, lambda d=d: slot_calls(d, None))
+           if d == dev else slot_calls(d, None) for d in (dev, "cpu")}
+    for name, want in res["cpu"].items():
+        got = res[dev][name]
+        got, want = ((got, want) if isinstance(want, tuple)
+                     else ((got,), (want,)))
+        for k, (a, w) in enumerate(zip(got, want)):
+            if w is None:
+                continue
+            if not torch.isfinite(w.float()).all():
+                fail(f"phase 12 {name} [{k}] is not finite on the CPU")
+            if w.is_floating_point():
+                compare(f"phase 12 {name} [{k}], card vs CPU", a.cpu(), w)
+            elif not torch.equal(a.cpu(), w):
+                fail(f"phase 12 {name} [{k}]: card differs from the CPU")
+            else:
+                print(f"  phase 12 {name} [{k}]: shape {tuple(a.shape)} "
+                      f"{a.dtype}, card = CPU exactly")
+    pooled = res["cpu"]["pooled sum"]
+    if tuple(pooled.shape) != (b, len(targets), table_t.shape[1]):
+        fail(f"phase 12 pooled shape {tuple(pooled.shape)}")
+    multi_hits = res["cpu"]["multi padded"][2]
+    if not (multi_hits.sum(1).squeeze(-1)
+            == torch.as_tensor(count).clamp_max(SLOT_MULTI_COLS)).all():
+        fail("phase 12: the multi-valued slot's padded hits are not "
+             "min(count, ncols)")
+    print(f"  multi-valued slot: {int((count > SLOT_MULTI_COLS).sum())} "
+          f"rows cut off at ncols = {SLOT_MULTI_COLS}")
+
+    # -- the loss's gradient with respect to the looked-up rows -------------
+    # normal weights on the outputs, as phase 3's B12 cases: a sum of
+    # terms of both signs rounds within SUM_TOL of its summed |terms| in
+    # any order (a same-signed sum of thousands, as a hot row's, by up to
+    # ~2e-6 of it: seen on the card)
+    cts = {}                          # device -> the weights on it
+
+    def loss_grads(d):
+        leaves = []
+        out = slot_calls(d, leaves)
+        if not cts:
+            g = torch.Generator().manual_seed(12)
+            cts["cpu"] = {}
+            for name in ("pooled sum", "pooled mean", "history padded",
+                         "multi padded"):
+                first = out[name] if name.startswith("pooled") \
+                    else out[name][0]
+                cts["cpu"][name] = torch.randn(first.shape, generator=g)
+        if d not in cts:
+            cts[d] = {n: t.to(d) for n, t in cts["cpu"].items()}
+        loss = sum((out[n] if n.startswith("pooled") else out[n][0]
+                    * out[n][1]).mul(ct).sum() for n, ct in cts[d].items())
+        return torch.autograd.grad(loss, leaves)
+
+    grads = {dev: counted("phase 12 loss and its row gradients (card)", 4,
+                          {"gather_rows": 1}, lambda: loss_grads(dev)),
+             "cpu": loss_grads("cpu")}
+    for k, (a, w) in enumerate(zip(grads[dev], grads["cpu"])):
+        compare(f"phase 12 d loss / d rows, lookup {k}", a.cpu(), w, 0.0,
+                rel=1e-3)
+    # the four lookups share the (B, C) layout (an id outside a call's
+    # slots reads row 0 with a zero gradient): their gradients summed are
+    # the gradient of each place's id; the mask drops the padding
+    flat_ids = {d: trip[d][1].reshape(-1) for d in (dev, "cpu")}
+    valid = {d: (trip[d][0] != -1).reshape(-1) for d in (dev, "cpu")}
+    row_g = {d: sum(grads[d]).detach() for d in (dev, "cpu")}
+    print(f"  row gradients: {int(valid['cpu'].sum())} valid of "
+          f"{flat_ids['cpu'].numel()}, max |g| "
+          f"{float(row_g['cpu'].abs().max()):.3e}")
+
+    # -- updates: card vs CPU ------------------------------------------------
+    start = cpu_table_t
+    ids_c, g_c, ok_c = flat_ids["cpu"], row_g["cpu"], valid["cpu"]
+    # each element's summed gradient G and summed |g|: B12's limit on G is
+    # SUM_TOL of the latter
+    gsig = torch.zeros_like(start).index_add_(0, ids_c[ok_c], g_c[ok_c])
+    gsum = torch.zeros_like(start).index_add_(0, ids_c[ok_c],
+                                              g_c[ok_c].abs())
+    touched = torch.unique(ids_c)
+    print(f"  {touched.numel()} distinct rows looked up")
+
+    def check_update(name, got, want, optimizer):
+        """Touched rows against the CPU within SUM_TOL of each element's
+        summed scale: its start and the most its terms add (each
+        occurrence's Adagrad move at the initial accumulator 0.1; the
+        moments' and accumulators' terms from the summed |gradient|, a
+        square's twice, as a square's error is twice its root's); Adam's
+        move at t = 1, lr * G / (|G| + eps), is monotone in the summed
+        gradient G, so its scale also takes what G within B12's limit can
+        move it by (a near-tie may flip).  Untouched rows as they were."""
+        rows = touched.to(dev)
+        g_abs, g_sig = gsum[touched], gsig[touched]
+        scales = {"table": start[touched].abs()}
+        if optimizer == "adagrad":        # both tables start at 0.1
+            scales["table"] += UPDATE_LR / math.sqrt(0.1) * g_abs
+            scales["accumulator"] = 0.1 + 2 * g_abs.square().mean(1)
+        else:
+            def move(g):
+                return UPDATE_LR * g / (g.abs() + 1e-7)
+            near = SUM_TOL * g_abs
+            reach = torch.maximum((move(g_sig + near) - move(g_sig)).abs(),
+                                  (move(g_sig - near) - move(g_sig)).abs())
+            scales["table"] += UPDATE_LR + reach / SUM_TOL
+            scales["m"] = 0.1 * g_abs
+            scales["v"] = 2e-3 * g_abs.square()
+        for k, sc in scales.items():
+            sc = sc.clamp_min(1e-30)
+            compare_sum(f"{name}: {k} (touched rows, over each element's "
+                        f"summed scale)", getattr(got, k)[rows].cpu() / sc,
+                        getattr(want, k)[touched] / sc, 1.0)
+        moves = want.table[touched] - start[touched]
+        visible(f"{name}: the touched rows' moves", moves / scales["table"],
+                1.0, rel=SUM_TOL)
+        untouched = torch.ones(v, dtype=torch.bool)
+        untouched[touched] = False
+        sample = torch.nonzero(untouched).reshape(-1)[::97]
+        if not torch.equal(got.table[sample.to(dev)].cpu(), start[sample]):
+            fail(f"{name}: an untouched row moved")
+        print(f"    {name}: {int((moves != 0).any(1).sum())} of "
+              f"{touched.numel()} touched rows moved")
+        if optimizer == "adam":
+            print(f"    {name}: {int((reach > UPDATE_LR).sum())} elements "
+                  f"whose summed gradient B12's limit lets cross 0")
+
+    upd = {}
+    for d in (dev, "cpu"):
+        tbl = tables[d][0]
+        state = tbl.state_from(start.to(d).clone())
+        run = functools.partial(tbl.apply_grads, state, flat_ids[d],
+                                row_g[d], UPDATE_LR, valid_mask=valid[d])
+        upd[d] = (counted("phase 12 EmbeddingTable.apply_grads (card)", 1,
+                          {"scatter_add_rows": 2}, run)
+                  if d == dev else run())
+    check_update("EmbeddingTable.apply_grads, padding masked", upd[dev],
+                 upd["cpu"], "adagrad")
+    # the multi-valued slot's rows, by global id, from the updated state
+    export = {d: functools.partial(export_table_rows, upd[d], tables[d][0],
+                                   trip[d][1][:, f + 1:].reshape(-1))
+              for d in (dev, "cpu")}
+    got = counted("phase 12 export_table_rows (card)", 1,
+                  {"gather_rows": 1}, export[dev])
+    compare("phase 12 export_table_rows, card vs CPU", got.cpu(),
+            export["cpu"](), rel=SUM_TOL)
+    timing = {"export_table_rows": export[dev],
+              "EmbeddingTable.apply_grads, padding masked":
+                  functools.partial(tables[dev][0].apply_grads, upd[dev],
+                                    flat_ids[dev], row_g[dev], UPDATE_LR,
+                                    valid_mask=valid[dev])}
+    del upd, export
+
+    # the sharded table: Adagrad per occurrence and deduped with the mask,
+    # in both update modes; lazy Adam with the mask, both modes
+    sharded_runs = (
+        ("adagrad", "dense", False, {"scatter_add_rows": 1}),
+        ("adagrad", "sparse", False, {"scatter_add_rows": 1}),
+        ("adagrad", "dense", True, {"scatter_add_rows": 1,
+                                    "adagrad_dense_pass": 1}),
+        ("adagrad", "sparse", True, {"scatter_add_rows": 2}),
+        ("adam", "dense", True, {"scatter_add_rows": 1,
+                                 "adam_dense_pass": 1}),
+        ("adam", "sparse", True, {"gather_rows": 2, "scatter_add_rows": 4}))
+    for opt, mode, dedup, launches in sharded_runs:
+        name = (f"ShardedEmbeddingTable {opt} {mode}, valid_mask"
+                + ("" if dedup else ", dedup=False"))
+        got = {}
+        for d in (dev, "cpu"):
+            tbl = ShardedEmbeddingTable(v, table_t.shape[1], device=d,
+                                        optimizer=opt, update_mode=mode)
+            state = tbl.state_from(start.to(d).clone())
+            run = functools.partial(tbl.apply_grads, state, flat_ids[d],
+                                    row_g[d], UPDATE_LR, valid_mask=valid[d],
+                                    dedup=dedup)
+            got[d] = (counted(f"phase 12 {name} (card)", 1, launches, run)
+                      if d == dev else run())
+            if d == dev:
+                timing[name] = run
+        check_update(name, got[dev], got["cpu"], opt)
+        del got
+        torch.cuda.empty_cache()
+
+    # -- times ---------------------------------------------------------------
+    s, i, w = trip[dev]
+    func = table.embedding_func(table_t)
+    calls = {
+        "embedding_func (B11), all ids": lambda: func(i.reshape(-1)),
+        "embedding_using_batch_segment_ids, sum": lambda:
+            eu.embedding_using_batch_segment_ids(func, s, targets, i, w),
+        "embedding_using_batch_segment_ids, mean": lambda:
+            eu.embedding_using_batch_segment_ids(func, s, targets, i, w,
+                                                 method="mean"),
+        f"embedding_single_slot, history (ncols={SLOT_HISTORY})": lambda:
+            eu.embedding_single_slot(func, s, f, i, w, ncols=SLOT_HISTORY),
+        f"embedding_single_slot, multi-valued (ncols={SLOT_MULTI_COLS})":
+            lambda: eu.embedding_single_slot(func, s, f + 1, i, w,
+                                             ncols=SLOT_MULTI_COLS),
+        "pool_slots, mean, drop_duplicate_slot": lambda: eu.pool_slots(
+            s, targets + [f + 1], i, w, method="mean",
+            drop_duplicate_slot=True),
+        "fetch_single_slot": lambda: eu.fetch_single_slot(
+            s, f + 1, i, w, default_id=-1, ncols=SLOT_MULTI_COLS),
+        "the loss's forward + backward (4 lookups)": lambda: loss_grads(dev)}
+    calls.update(timing)
+    for name, fn in calls.items():
+        timed(name, fn)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4027,7 +4358,11 @@ def main() -> int:
     library_phase(torch, counted, card, dev, fc, data, table, table_t,
                   cpu_table, cpu_table_t)
 
-    # -- 12. result -----------------------------------------------------------
+    # -- 12. slot features and the table's leftovers --------------------------
+    slot_phase(torch, counted, card, dev, fc, data, table, table_t,
+               cpu_table, cpu_table_t)
+
+    # -- 13. result -----------------------------------------------------------
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"first phase to the result, the build included [{card}]")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -75,17 +75,28 @@ Two update paths, chosen by ``update_mode`` as in JAX (:598-608):
   sentinel rows as JAX's scatter drops them (:234-236).  The (V,)
   Adagrad accumulator's scatter and gather stay plain, as JAX's
   ``_expand_scalar`` / ``_fetch_scalars`` are not Pallas.  Nothing waits
-  for the card (no ``torch.unique``).
+  for the card (no ``torch.unique``).  The dedup and the Adagrad step are
+  the one-table update's (``embedding/table.py``, ``dedup_rows`` and
+  ``adagrad_rows``).
+
+``apply_grads(..., dedup=False)`` is JAX's per-occurrence Adagrad
+(:631-639): no dedup, each occurrence's squared gradient added to its
+accumulator and each occurrence scaled by the accumulator after the
+batch, on the sparse body in either mode and over the allgather exchange
+in either route mode, as JAX dispatches it (:598-629); Adam ignores it.
+``valid_mask`` zeroes the masked gradients first (:536-541).
 
 Kernel launches per step: lookup 1 x B11 (``table.lookup``; routed, 2:
 the buckets and the lane); dense, 1 x B12; sparse Adagrad, 2 x B12
-(dedup, table); sparse Adam, 2 more x B11 (m, v) and 4 x B12 (dedup,
-table, m, v); a routed update 1 x B12 more (the pre-sum).
+(dedup, table); per-occurrence Adagrad, 1 x B12 (table); sparse Adam, 2
+more x B11 (m, v) and 4 x B12 (dedup, table, m, v); a routed update 1 x
+B12 more (the pre-sum).
 
 A row that was looked up is touched whatever its summed gradient: under
 Adam its moments decay and it moves by ``lr * m_hat / (sqrt(v_hat) +
-eps)`` even when that gradient is exactly zero (JAX counts every owned
-occurrence, :753-757).  Untouched rows keep table, m and v bit-identical.
+eps)`` even when that gradient is exactly zero, or masked by
+``valid_mask`` (JAX counts every owned occurrence, :753-757).  Untouched
+rows keep table, m and v bit-identical.
 
 ``update_mode="auto"`` picks dense while the local shard's bytes
 (``local_rows`` * D * 4, as JAX judges the local shard, :150-160) stay
@@ -122,13 +133,13 @@ import torch
 
 from rec_now_tpu_torch.core.config import uniform
 from rec_now_tpu_torch.embedding import exchange
-from rec_now_tpu_torch.embedding.table import INIT_SCALE, EmbeddingTable
+from rec_now_tpu_torch.embedding.table import (INIT_SCALE,
+                                               INITIAL_ACCUMULATOR,
+                                               EmbeddingTable, adagrad_rows,
+                                               dedup_rows)
 from rec_now_tpu_torch.ops import table_update_kernel
 from rec_now_tpu_torch.ops.expand_kernel import scatter_add_rows
 from rec_now_tpu_torch.ops.gather_kernel import gather_rows
-
-# Adagrad's initial accumulator (sharded.py:122, the JAX default)
-INITIAL_ACCUMULATOR = 0.1
 
 
 def shard_rows(x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
@@ -388,17 +399,38 @@ class ShardedEmbeddingTable:
         return rows, all_grads * mine.to(all_grads.dtype)[:, None]
 
     def apply_grads(self, state: ShardedTableState, ids: torch.Tensor,
-                    grads: torch.Tensor, lr: float) -> ShardedTableState:
+                    grads: torch.Tensor, lr: float,
+                    valid_mask: Optional[torch.Tensor] = None,
+                    dedup: bool = True) -> ShardedTableState:
         """One optimizer step on the rows from gradients w.r.t. the
         looked-up rows (``ids.shape + (D,)``, global ids), duplicates
         summed first.  Updates ``state`` in place (Adam's count too) and
-        returns it."""
+        returns it.
+
+        ``valid_mask`` (ids' shape) zeroes the gradients where it is False
+        before any exchange (``sharded.py:536-541``); under Adam such an
+        occurrence still touches its row (its moments decay and it moves),
+        as JAX counts every owned occurrence.  ``dedup=False`` is
+        per-occurrence Adagrad (``sharded.py:631-639``): each occurrence
+        adds its own squared gradient to the accumulator and is scaled by
+        the accumulator after the whole batch.  It takes the sparse body
+        in either ``update_mode`` and the allgather exchange in either
+        ``route_mode`` (routing pre-sums duplicates, :627-629); Adam
+        ignores it (:598-602)."""
         ids = ids.reshape(-1).to(torch.int64)
         grads = grads.reshape(-1, self.dim).to(torch.float32)
+        if valid_mask is not None:
+            grads = grads * valid_mask.reshape(-1, 1).to(grads.dtype)
+        per_occurrence = not dedup and self.optimizer == "adagrad"
         if self.mesh is not None:
-            owned = (self._routed_candidates if self.route_mode == "routed"
-                     else self._owned)
+            routed = self.route_mode == "routed" and not per_occurrence
+            owned = self._routed_candidates if routed else self._owned
             ids, grads = owned(ids, grads)
+        if per_occurrence:
+            valid = (ids < self.local_rows).to(grads.dtype)[:, None]
+            adagrad_rows(state.table, state.accumulator, ids, grads, valid,
+                         lr)
+            return state
         return self._apply_owned(state, ids, grads, lr)
 
     def _apply_owned(self, state: ShardedTableState, ids: torch.Tensor,
@@ -423,32 +455,13 @@ class ShardedEmbeddingTable:
                 table_update_kernel.adagrad_dense_pass(
                     state.table, state.accumulator, dense_g, lr)
             return state
-        rows, row_grad, valid = self._dedup_rows(ids, grads)
+        rows, row_grad, valid = dedup_rows(ids, grads, self.local_rows)
         if self.optimizer == "adam":
             self._adam_sparse(state, rows, row_grad, valid, lr)
         else:
-            self._adagrad_sparse(state, rows, row_grad, valid, lr)
+            adagrad_rows(state.table, state.accumulator, rows, row_grad,
+                         valid, lr)
         return state
-
-    def _dedup_rows(self, ids: torch.Tensor, grads: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Static-shape dedup (``sharded.py:553-573``): (rows (N,), the
-        distinct ids first and then the out-of-range sentinel
-        ``local_rows`` for each unused segment and for the foreign ids,
-        row_grad (N, D) their summed gradients (zeros for the unused),
-        valid (N, 1) float 1 for a distinct id, 0 otherwise)."""
-        n = ids.shape[0]
-        order = torch.argsort(ids, stable=True)
-        sid = ids[order]
-        first = torch.ones(n, dtype=torch.bool, device=ids.device)
-        first[1:] = sid[1:] != sid[:-1]
-        seg = torch.cumsum(first, 0) - 1
-        row_grad = scatter_add_rows(torch.zeros_like(grads), seg,
-                                    grads[order])
-        rep = torch.full((n,), self.local_rows, dtype=sid.dtype,
-                         device=ids.device).scatter_(0, seg, sid)
-        valid = (rep < self.local_rows).to(grads.dtype)[:, None]
-        return rep, row_grad, valid
 
     def _adam_sparse(self, state: ShardedTableState, rows: torch.Tensor,
                      row_grad: torch.Tensor, valid: torch.Tensor,
@@ -466,16 +479,3 @@ class ShardedEmbeddingTable:
         scatter_add_rows(state.table, rows, -update * valid)
         scatter_add_rows(state.m, rows, (m_new - m_rows) * valid)
         scatter_add_rows(state.v, rows, (v_new - v_rows) * valid)
-
-    def _adagrad_sparse(self, state: ShardedTableState, rows: torch.Tensor,
-                        row_grad: torch.Tensor, valid: torch.Tensor,
-                        lr: float) -> None:
-        """``sharded.py:624-650`` with exact dedup on the deduped rows; the
-        accumulator's scatter and gather are plain: the sentinel lands on
-        the last row with valid 0, so it adds exactly 0 there."""
-        sq = row_grad.square().mean(dim=1) * valid[:, 0]
-        in_range = rows.clamp_max(self.local_rows - 1)
-        state.accumulator.index_add_(0, in_range, sq)
-        acc_rows = state.accumulator[in_range]
-        scale = lr / acc_rows.clamp_min(1e-12).sqrt()[:, None] * valid
-        scatter_add_rows(state.table, rows, -scale * row_grad)

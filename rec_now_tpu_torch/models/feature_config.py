@@ -8,6 +8,7 @@ into a disjoint range of rows.
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
@@ -24,9 +25,15 @@ class FeatureConfig:
     def total_rows(self) -> int:
         return self.num_sparse * self.rows_per_field
 
+    def field_offsets(self, device: Union[str, torch.device] = "cpu"
+                      ) -> torch.Tensor:
+        """(num_sparse,) int64 id offset of each field in the shared table,
+        made on ``device``."""
+        return torch.arange(self.num_sparse, device=device
+                            ) * self.rows_per_field
+
     def global_ids(self, raw_ids: torch.Tensor) -> torch.Tensor:
         """Offset per-field raw ids (B, F) into the shared id space (int64)."""
         # made on the ids' device: no host-to-device copy per request
-        offs = torch.arange(self.num_sparse, device=raw_ids.device
-                            ) * self.rows_per_field
+        offs = self.field_offsets(raw_ids.device)
         return (raw_ids.to(torch.int64) % self.rows_per_field) + offs[None, :]

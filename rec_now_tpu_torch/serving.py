@@ -50,6 +50,8 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from rec_now_tpu_torch.core.config import resolve_device
+from rec_now_tpu_torch.embedding.sharded import (ShardedEmbeddingTable,
+                                                 ShardedTableState)
 from rec_now_tpu_torch.parallel.multihost import process_count
 from rec_now_tpu_torch.training.wire import WireFormat, unpack_ids
 
@@ -240,3 +242,23 @@ def load_serving(directory: str,
                          "checkpoint payload")
     return ServingState(params=payload["params"], table=payload["table"],
                         can_table=payload.get("can_table"))
+
+
+def export_table_rows(state, table, ids) -> torch.Tensor:
+    """Rows by global id, ids.shape + (D,) on the table's device, e.g. the
+    hot embeddings for an ANN retrieval index (``serving.py:207-211``).
+    ``state`` is a training or serving state, a table's state or the bare
+    table tensor (each ``table`` attribute is followed down to the rows);
+    ``table`` the :class:`~rec_now_tpu_torch.embedding.table.
+    EmbeddingTable` or ``ShardedEmbeddingTable`` the rows belong to.  On
+    a mesh every process calls it with its own rows and as many ids: the
+    lookup is collective, and each process gets its own ids' rows.  (JAX's
+    takes only a state whose ``table`` is the table's state: on the
+    table's state itself it raises.)"""
+    rows = state
+    while not isinstance(rows, torch.Tensor):
+        rows = rows.table
+    ids = torch.as_tensor(ids, device=table.device).to(torch.int64)
+    if isinstance(table, ShardedEmbeddingTable):
+        return table.lookup(ShardedTableState(rows, None), ids)
+    return table.lookup(rows, ids)

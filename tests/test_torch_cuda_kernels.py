@@ -1166,3 +1166,147 @@ def test_sharded_table_in_a_group_of_one_matches_one_device(
         else:
             tol = 1e-5 * float(a.abs().max())
             assert float((b - a).abs().max()) <= tol, name
+
+
+# -- the one table's update, per-occurrence Adagrad and the slot utilities --
+
+def _zipf_ids(gen, v, n):
+    ids = (torch.rand(n, generator=gen) ** 4 * v).long()
+    ids[::7] = v // 3                          # a hot row
+    return ids
+
+
+@pytest.mark.parametrize("v,d,n", [(1000, 16, 1500), (100_003, 16, 4096),
+                                   (777, 5, 333), (5000, 272, 700)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("acc0", [0.1, 0.0])
+def test_one_table_update_matches_cpu(dev, v, d, n, masked, acc0):
+    """``EmbeddingTable.apply_grads`` on the card (B12 twice: the segment
+    sums and the write-back; no B9) against the CPU from the same state:
+    one-signed gradients, so no sum cancels and B12's order of adds moves
+    each row by at most 1e-5 of the largest move; accumulators rtol 1e-5;
+    the masked-only rows at accumulator 0 stay as they were."""
+    from rec_now_tpu_torch.embedding.table import EmbeddingTable
+    from rec_now_tpu_torch.ops import expand_kernel as ek
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    gen = torch.Generator().manual_seed(v + d + n)
+    ids = _zipf_ids(gen, v, n)
+    grads = torch.randn(n, d, generator=gen).abs() * 1e-2
+    mask = torch.rand(n, generator=gen) > 0.2 if masked else None
+    tables = {x: EmbeddingTable(v, d, device=x, initial_accumulator=acc0)
+              for x in ("cpu", dev)}
+    start = tables["cpu"].init(torch.Generator().manual_seed(1))
+    states = {x: t.state_from(start.to(x).clone())
+              for x, t in tables.items()}
+    before = (gk.gather_rows.launches, ek.scatter_add_rows.launches,
+              tk.adagrad_dense_pass.launches)
+    rows = tables[dev].embedding_func(states[dev])(ids.to(dev))
+    assert torch.equal(rows.cpu(), start[ids])
+    for x, t in tables.items():
+        t.apply_grads(states[x], ids.to(x), grads.to(x), 0.05,
+                      None if mask is None else mask.to(x))
+    assert (gk.gather_rows.launches, ek.scatter_add_rows.launches,
+            tk.adagrad_dense_pass.launches) == (before[0] + 1,
+                                                before[1] + 2, before[2])
+    got, want = states[dev], states["cpu"]
+    assert torch.isfinite(got.table).all()
+    moved = want.table - start
+    assert float(moved.abs().max()) > 0
+    tol = 1e-5 * float(moved.abs().max())
+    assert float((got.table.cpu() - want.table).abs().max()) <= tol
+    torch.testing.assert_close(got.accumulator.cpu(), want.accumulator,
+                               rtol=1e-5, atol=1e-12)
+    if masked:
+        only_masked = torch.zeros(v, dtype=torch.bool)
+        only_masked[ids[~mask]] = True
+        only_masked[ids[mask]] = False
+        if acc0 == 0.0 and only_masked.any():
+            assert torch.equal(got.table.cpu()[only_masked],
+                               start[only_masked])
+
+
+@pytest.mark.parametrize("optimizer", ["adagrad", "adam"])
+@pytest.mark.parametrize("mode", ["dense", "sparse"])
+@pytest.mark.parametrize("dedup", [True, False])
+def test_sharded_mask_and_dedup_match_cpu(dev, optimizer, mode, dedup):
+    """``ShardedEmbeddingTable.apply_grads(..., valid_mask, dedup)`` on the
+    card against the CPU: per-occurrence Adagrad is one B12 launch and no
+    B9 in either mode; Adam ignores ``dedup``."""
+    from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+    from rec_now_tpu_torch.ops import expand_kernel as ek
+    v, d, n = 50_001, 16, 4096
+    gen = torch.Generator().manual_seed(n + d)
+    ids = _zipf_ids(gen, v, n)
+    grads = torch.randn(n, d, generator=gen).abs() * 1e-2
+    mask = torch.rand(n, generator=gen) > 0.2
+    tables = {x: ShardedEmbeddingTable(v, d, device=x, optimizer=optimizer,
+                                       update_mode=mode)
+              for x in ("cpu", dev)}
+    states = {x: t.init(torch.Generator().manual_seed(2))
+              for x, t in tables.items()}
+    start = states["cpu"].table.clone()
+    before = (ek.scatter_add_rows.launches, tk.adagrad_dense_pass.launches)
+    tables[dev].apply_grads(states[dev], ids.to(dev), grads.to(dev), 0.05,
+                            valid_mask=mask.to(dev), dedup=dedup)
+    if optimizer == "adagrad" and not dedup:
+        assert (ek.scatter_add_rows.launches,
+                tk.adagrad_dense_pass.launches) == (before[0] + 1,
+                                                    before[1])
+    tables["cpu"].apply_grads(states["cpu"], ids, grads, 0.05,
+                              valid_mask=mask, dedup=dedup)
+    got, want = states[dev], states["cpu"]
+    moved = want.table - start
+    tol = 1e-5 * float(moved.abs().max())
+    assert float((got.table.cpu() - want.table).abs().max()) <= tol
+    names = ("accumulator",) if optimizer == "adagrad" else ("m", "v")
+    for name in names:
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("method", ["sum", "mean"])
+def test_slot_utilities_on_the_card_match_the_cpu(dev, method):
+    """Pooling and padding of (slot, id, weight) triples through the
+    table's ``embedding_func`` (one B11 launch a call) on the card against
+    the CPU, with gradients to the rows and the weights; integer outputs
+    exact."""
+    from rec_now_tpu_torch.embedding.table import EmbeddingTable
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    from rec_now_tpu_torch.rec_block import embedding_util as eu
+    gen = torch.Generator().manual_seed(9)
+    b, c, v = 512, 40, 10_000
+    slots = torch.randint(-1, 12, (b, c), generator=gen)
+    ids = torch.randint(0, v, (b, c), generator=gen)
+    weights = torch.rand(b, c, generator=gen)
+    table = EmbeddingTable(v, 16, device="cpu")
+    rows = table.init(torch.Generator().manual_seed(3))
+    res = {}
+    for x in ("cpu", dev):
+        t = EmbeddingTable(v, 16, device=x)
+        leaves, inner = [], t.embedding_func(rows.to(x))
+
+        def f(i):
+            e = inner(i).requires_grad_()
+            leaves.append(e)
+            return e
+        w = weights.to(x).requires_grad_()
+        before = gk.gather_rows.launches
+        pooled = eu.embedding_using_batch_segment_ids(
+            f, slots.to(x), [0, 3, 5, 3, 11], ids.to(x), w, method=method)
+        if x != "cpu":
+            assert gk.gather_rows.launches == before + 1
+        padded, pw, hits = eu.embedding_single_slot(
+            f, slots.to(x), 4, ids.to(x), w, default_weight=0.5, ncols=6)
+        grads = torch.autograd.grad(pooled.sum() + (padded * pw).sum(),
+                                    [*leaves, w])
+        pids, pwt = eu.pool_slots(slots.to(x), [1, 2, 7], ids.to(x), w,
+                                  method=method, drop_duplicate_slot=True)
+        fids, _ = eu.fetch_single_slot(slots.to(x), 2, ids.to(x),
+                                       default_id=-1, ncols=5)
+        res[x] = (pooled, padded, pw, hits, pids, pwt, fids, *grads)
+    for got, want in zip(res[dev], res["cpu"]):
+        got = got.detach().cpu()
+        if want.is_floating_point():
+            _close(got, want.detach())
+        else:
+            assert torch.equal(got, want)

@@ -139,8 +139,9 @@ def _counting(monkeypatch):
                         wrap("gather_rows", gather_rows_plain))
     monkeypatch.setattr(sharded, "gather_rows",
                         wrap("gather_rows", gather_rows_plain))
-    monkeypatch.setattr(sharded, "scatter_add_rows",
-                        wrap("scatter_add_rows", scatter_add_rows_plain))
+    for module in (table, sharded):
+        monkeypatch.setattr(module, "scatter_add_rows",
+                            wrap("scatter_add_rows", scatter_add_rows_plain))
     return calls
 
 

@@ -72,28 +72,41 @@ def local_slice(batch: dict, rank: int, world: int) -> dict:
 
 def task_table(inputs: dict, mesh) -> dict:
     """Each case: lookups and updates of a mod-sharded table from the
-    logical state given, on this rank's slice of each step's ids."""
+    logical state given, on this rank's slice of each step's ids (with a
+    case's ``route_mode``, ``dedup`` and per-step ``masks`` where given);
+    then, where the case asks, ``export_table_rows`` of its ids."""
     import torch
     from rec_now_tpu_torch.convert import table_state_for_rank
     from rec_now_tpu_torch.embedding.sharded import ShardedEmbeddingTable
+    from rec_now_tpu_torch.serving import export_table_rows
     out = []
     for case in inputs["table_cases"]:
         table = ShardedEmbeddingTable(
             case["vocab"], case["dim"], device="cpu", mesh=mesh,
-            optimizer=case["optimizer"], update_mode=case["mode"])
+            optimizer=case["optimizer"], update_mode=case["mode"],
+            route_mode=case.get("route_mode", "auto"))
         state = table_state_for_rank(case["state"], mesh.rank, mesh.size,
                                      case["vocab"])
+        masks = case.get("masks") or [None] * len(case["steps"])
         looked = []
-        for ids, grads in case["steps"]:
+        for (ids, grads), mask in zip(case["steps"], masks):
             b = len(ids) // mesh.size
             mine = slice(mesh.rank * b, (mesh.rank + 1) * b)
             ids_l = torch.from_numpy(ids[mine]).long()
             looked.append(table.lookup(state, ids_l))
-            state = table.apply_grads(state, ids_l,
-                                      torch.from_numpy(grads[mine]),
-                                      lr=case["lr"])
-        out.append({"lookups": looked, "state": state,
-                    "update_mode": table.update_mode})
+            state = table.apply_grads(
+                state, ids_l, torch.from_numpy(grads[mine]), lr=case["lr"],
+                valid_mask=None if mask is None else torch.from_numpy(
+                    mask[mine]), dedup=case.get("dedup", True))
+        res = {"lookups": looked, "state": state,
+               "update_mode": table.update_mode,
+               "route_mode": table.route_mode}
+        if case.get("export") is not None:
+            b = len(case["export"]) // mesh.size
+            res["export"] = export_table_rows(
+                state, table, case["export"][mesh.rank * b:
+                                             (mesh.rank + 1) * b])
+        out.append(res)
     return out
 
 
@@ -342,8 +355,8 @@ def snapshot_state(state) -> dict:
     return out
 
 
-TASKS = {"suite": task_suite, "cli": task_cli, "routed": task_routed,
-         "checkpoint": task_checkpoint}
+TASKS = {"suite": task_suite, "table": task_table, "cli": task_cli,
+         "routed": task_routed, "checkpoint": task_checkpoint}
 
 
 def main() -> None:
