@@ -17,6 +17,7 @@ from typing import Sequence, Union
 import torch
 from torch import nn
 
+from rec_now_tpu_torch.core import profiling
 from rec_now_tpu_torch.core.config import glorot_uniform, resolve_device
 from rec_now_tpu_torch.ops.cin_kernel import cin_stack_sum
 from rec_now_tpu_torch.ops.cin_op import cin_contract
@@ -48,20 +49,23 @@ class CINLayer(nn.Module):
         """emb (B, F, D) ->
         sum_channel=True: (B, D);
         sum_channel=False: (B, sum(Hs) * D), plus F * D with
-        ``output_input``."""
-        b, f, d = emb.shape
-        x0 = emb.transpose(1, 2).contiguous()               # (B, D, F)
-        weights = self.weights()
-        if sum_channel and weights:
-            out = cin_stack_sum(x0.reshape(b * d, f), weights,
-                                output_input=output_input)
-            return out.reshape(b, d)
-        layers = [x0]
-        for w in weights:
-            layers.append(cin_contract(x0, layers[-1], w))  # (B, D, H_k)
-        if not output_input:
-            layers = layers[1:]
-        output = torch.cat(layers, dim=-1)                  # (B, D, sum(Hs))
-        if sum_channel:
-            return output.sum(dim=-1)
-        return output.transpose(1, 2).reshape(b, -1)        # (B, sum(Hs)*D)
+        ``output_input``.  The call is the span ``cin`` while tracing is
+        on, with the stream's time across it on CUDA
+        (``core/profiling.py``)."""
+        with profiling.span("cin", device=emb.is_cuda):
+            b, f, d = emb.shape
+            x0 = emb.transpose(1, 2).contiguous()           # (B, D, F)
+            weights = self.weights()
+            if sum_channel and weights:
+                out = cin_stack_sum(x0.reshape(b * d, f), weights,
+                                    output_input=output_input)
+                return out.reshape(b, d)
+            layers = [x0]
+            for w in weights:
+                layers.append(cin_contract(x0, layers[-1], w))  # (B, D, Hk)
+            if not output_input:
+                layers = layers[1:]
+            output = torch.cat(layers, dim=-1)              # (B, D, sum(Hs))
+            if sum_channel:
+                return output.sum(dim=-1)
+            return output.transpose(1, 2).reshape(b, -1)    # (B, sum(Hs)*D)

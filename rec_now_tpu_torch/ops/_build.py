@@ -6,7 +6,10 @@ git-ignored) for ``sm_90a``.  The build runs at first use, so nothing is
 compiled when a module is imported, and again whenever the content hash
 of the source and the headers in ``csrc/`` changes.  A failed build
 raises with nvcc's stderr.  ptxas's report (registers, shared memory,
-spills) is kept beside the library as ``<name>-<hash>.log``.
+spills) is kept beside the library as ``<name>-<hash>.log``.  A load is
+the one-time span ``kernels.load``, an nvcc run ``kernels.build``
+(``build_all``'s runs one span together), counted in ``kernels.builds``
+(``core/profiling.py``).
 
 Also here: the checks every kernel wrapper makes before it hands
 pointers to a library (:func:`is_cpu`, :func:`check_input`,
@@ -32,6 +35,8 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+
+from rec_now_tpu_torch.core import profiling
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -67,10 +72,13 @@ def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if stale and return the loaded library."""
     lib = _loaded.get(name)
     if lib is None:
-        out = library_path(name)
-        if not out.exists():
-            _finish(name, *_start(name, out))
-        lib = ctypes.CDLL(str(out))
+        with profiling.span("kernels.load", always=True):
+            out = library_path(name)
+            if not out.exists():
+                with profiling.span("kernels.build", always=True):
+                    profiling.count("kernels.builds")
+                    _finish(name, *_start(name, out))
+            lib = ctypes.CDLL(str(out))
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
@@ -89,12 +97,17 @@ def build_all() -> Dict[str, float]:
         out = library_path(name)
         if not out.exists():
             running[name] = _start(name, out) + (time.perf_counter(),)
-    while running:
-        for name in [n for n, r in running.items() if r[0].poll() is not None]:
-            proc, out, log, t0 = running.pop(name)
-            secs[name] = time.perf_counter() - t0
-            _finish(name, proc, out, log)
-        time.sleep(0.05)
+    if not running:
+        return secs
+    profiling.count("kernels.builds", len(running))
+    with profiling.span("kernels.build", always=True):
+        while running:
+            for name in [n for n, r in running.items()
+                         if r[0].poll() is not None]:
+                proc, out, log, t0 = running.pop(name)
+                secs[name] = time.perf_counter() - t0
+                _finish(name, proc, out, log)
+            time.sleep(0.05)
     return secs
 
 

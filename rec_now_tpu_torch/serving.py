@@ -49,6 +49,7 @@ import torch
 import torch.distributed as dist
 from torch.func import functional_call
 
+from rec_now_tpu_torch.core import profiling
 from rec_now_tpu_torch.core.config import resolve_device
 from rec_now_tpu_torch.embedding.sharded import (ShardedEmbeddingTable,
                                                  ShardedTableState)
@@ -87,13 +88,15 @@ def _forward(model, fc, table, can, state: ServingState,
     None."""
     _check_can_match(None if can is None else can[1],
                      state.can_table is not None, "the serving state")
-    emb = table.lookup(state.table, fc.global_ids(sparse_ids))
-    if can is None:
-        return functional_call(model, state.params, (dense, emb))
-    can_table, field = can
-    can_emb = can_table.lookup(state.can_table,
-                               sparse_ids[:, field] % fc.rows_per_field)
-    return functional_call(model, state.params, (dense, emb, can_emb))
+    with profiling.span("serve.lookup"):
+        inputs = (dense, table.lookup(state.table,
+                                      fc.global_ids(sparse_ids)))
+        if can is not None:
+            can_table, field = can
+            inputs += (can_table.lookup(
+                state.can_table, sparse_ids[:, field] % fc.rows_per_field),)
+    with profiling.span("serve.model"):
+        return functional_call(model, state.params, inputs)
 
 
 def _can_of(can_table, can_param_field: Optional[int]):
@@ -114,16 +117,31 @@ def build_scorer(model, feature_config, table,
     (B,) for a single-task model and (T, B) for a multi-task one; dense
     (B, num_dense) and sparse_ids (B, F) may be numpy arrays or tensors.
     The scorer's ``can_param_field`` attribute names its CAN field.
+    A call is the span ``serve.request`` (a request id of its own) while
+    tracing is on, and the first call is ``serve.first_request`` always
+    (``core/profiling.py``).
     """
     dev = resolve_device(device)
     can = _can_of(can_table, can_param_field)
+    first = True
 
-    def scorer(state: ServingState, dense, sparse_ids) -> torch.Tensor:
-        with torch.inference_mode():
-            dense = torch.as_tensor(dense, dtype=torch.float32, device=dev)
-            ids = torch.as_tensor(sparse_ids, device=dev)
+    def score(state: ServingState, dense, sparse_ids) -> torch.Tensor:
+        with profiling.span("serve.request", request=True), \
+                torch.inference_mode():
+            with profiling.span("serve.to_device"):
+                dense = torch.as_tensor(dense, dtype=torch.float32,
+                                        device=dev)
+                ids = torch.as_tensor(sparse_ids, device=dev)
             return _forward(model, feature_config, table, can, state, dense,
                             ids)
+
+    def scorer(state: ServingState, dense, sparse_ids) -> torch.Tensor:
+        nonlocal first
+        if first:
+            first = False
+            with profiling.span("serve.first_request", always=True):
+                return score(state, dense, sparse_ids)
+        return score(state, dense, sparse_ids)
 
     scorer.can_param_field = can_param_field
     scorer.tables = (table, can_table)
