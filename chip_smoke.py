@@ -579,14 +579,14 @@ def kernel_split(seq, calls: int, parts: dict, what: str) -> dict:
 def b4_split(seq, n_mid: int, calls: int) -> dict:
     """Device ms of cin_stack_sum_bwd's parts from the kernels of
     ``calls`` calls in the order they ran (profiled_sequence).  A call
-    launches, by name: collapse_kernel once; cin_layer_tc_kernel n_mid
+    launches, by name: collapse_kernel once; cin_layer_mma_kernel n_mid
     times for the recompute, then twice for the collapsed layer (the
     shapes here fit one launch a layer); cin_wgrad_kernel n_mid + 1
     times, dWc first, each followed by the reduce_kernel of its partial
     sums; cin_bwd_rows_kernel n_mid times.  Any other kernel, or another
     count, fails."""
     out = dict(recompute=0.0, rows=0.0, dw=0.0, collapsed=0.0)
-    per_call = {"collapse_kernel": 1, "cin_layer_tc_kernel": n_mid + 2,
+    per_call = {"collapse_kernel": 1, "cin_layer_mma_kernel": n_mid + 2,
                 "cin_wgrad_kernel": n_mid + 1, "reduce_kernel": n_mid + 1,
                 "cin_bwd_rows_kernel": n_mid}
     seen = dict.fromkeys(per_call, 0)
@@ -601,7 +601,7 @@ def b4_split(seq, n_mid: int, calls: int) -> dict:
         if kind == "collapse_kernel":
             layers = grads = 0
             part = "collapsed"
-        elif kind == "cin_layer_tc_kernel":
+        elif kind == "cin_layer_mma_kernel":
             part = "recompute" if layers < n_mid else "collapsed"
             layers += 1
         elif kind == "cin_wgrad_kernel":
@@ -2980,6 +2980,34 @@ def main() -> int:
         replaces=f"{CIN_TPU}:153", max_abs_err=err, ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
         library_ms=t["library_ms"])
+    # xDeepFM's CIN (F = 39, three layers of 200, prev x0 at layer 1) at
+    # B = 1,024 and 8,192 with D = 10: each layer against the float64
+    # plain version, the three by events beside their split-TF32 bound
+    for bx in (1024, 8192):
+        mx, fx = bx * 10, 39
+        xx = rand(mx, fx)
+        prevs, wx, flops_x = [xx], [], 0
+        for h in (fx, 200, 200):
+            w = glorot(200, fx, h)
+            got = ck.cin_flat(xx, prevs[-1], w)
+            want = ck.cin_flat_plain(xx.double(), prevs[-1].double(),
+                                     w.double())
+            err = max(err, compare(f"xDeepFM M={mx} H={h} K=200 vs f64",
+                                   got.double(), want))
+            flops_x += cin_flops(mx, fx, h, 200, h == fx)
+            wx.append(w)
+            prevs.append(got)
+
+        def three():
+            for i, w in enumerate(wx):
+                ck.cin_flat(xx, prevs[i], w)
+
+        ms_x = cuda_ms(torch, three)
+        tc = bound_ms(3 * flops_x, 0, PEAK_TF32_FLOPS)[0]
+        print(f"  B2 xDeepFM B={bx} three layers: {ms_x:.4f} ms by events, "
+              f"bound {tc:.4f} split TF32 ({100 * tc / ms_x:.1f}%), "
+              f"{flops_x / 495e12 * 1e3:.4f} at one TF32 product "
+              f"({100 * flops_x / 495e12 * 1e3 / ms_x:.1f}%) [{card}]")
     def einsum_grads(fn, inputs, g):
         """autograd through the einsum forward: the backward alone, the
         graph built once and kept."""

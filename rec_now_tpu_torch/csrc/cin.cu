@@ -3,7 +3,12 @@
 // Replaces four Pallas TPU kernels of rec_now_tpu/ops/pallas/cin_kernel.py:
 //   * cin_flat_f32      <- _cin_flat_fwd_impl / _cin_tile_kernel
 //       one CIN layer  out[m, k] = sum_{f,h} W[k,f,h] * x0[m,f] * prev[m,h]
-//       on the tensor cores in split TF32 (cin_layer_tc_kernel).
+//       on the tensor cores in split TF32: layer() routes by shape, to
+//       cin_layer_tc_kernel (wgmma fed by TMA, W folded and split once a
+//       call, layer 1 on its symmetric pairs; see "The forward layer on
+//       Hopper's warpgroup MMA") or to cin_layer_mma_kernel (mma.sync:
+//       fewer than 8 h or 32 channels, one field, accumulate or add_row,
+//       and the callers without scratch: the stack's and the backward's).
 //   * cin_stack_sum_f32 <- _cin_stack_fwd_impl / _stack_fwd_kernel
 //       the whole stack plus channel sum
 //       out[m] = [sum_f x0[m,f]] + sum_{i<n} sum_k h_i[m,k]
@@ -17,7 +22,7 @@
 //       (cin_bwd_rows_kernel), dW in one weight-gradient kernel over the
 //       flattened (f, h) axis (cin_wgrad_kernel); see "Backward" below.
 //   * cin_stack_sum_bwd_f32 <- _cin_stack_bwd / _stack_bwd_kernel
-//       the hidden layers recomputed once by cin_layer_tc_kernel, each
+//       the hidden layers recomputed once by cin_layer_mma_kernel, each
 //       layer's input gradients through the row kernel and its weight
 //       gradient through cin_wgrad_kernel.
 //
@@ -35,17 +40,19 @@
 //     in split TF32: three TF32 products per multiply-add at 495 TFLOP/s
 //     have 2.5x the 67 TFLOP/s of f32 FMA.  Config 3's two layers are
 //     33.8 GFLOP of least work: 0.205 ms at the split-TF32 rate, 0.509 at
-//     the f32 rate.  Against the plain f32 version it lands 4.0e-7 (layer
-//     1) and 6.0e-7 (layer 2) of max|plain| away at config 3's shapes
-//     (chip_smoke.py phase 3, H100), as close as another f32 summation
-//     order.
-//   * The stack forward runs the same core (tc_core), a block keeping all
+//     the f32 rate; xDeepFM's three at B = 8,192 1.61e12 flops, 3.3 ms.
+//     Only wgmma reaches the tensor cores' full rate on Hopper, so B2's
+//     shapes run on cin_layer_tc_kernel; mma.sync (tc_core) stays for the
+//     stack kernel and the shapes layer() does not route to wgmma.
+//   * The stack forward runs the mma.sync core (tc_core), a block keeping all
 //     layers of its rows on chip, layer 1 over the F(F+1)/2 pairs f <= h
 //     with W folded once a call: 44 k-steps at F = 26 where the (f, h)
 //     path takes 104.
 //   * The row kernel and the weight-gradient kernel of the backwards are
 //     f32 FMA-bound: register tiles fed from shared memory, as an SGEMM
 //     micro-kernel does.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -67,6 +74,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 64;
+
+size_t align4(size_t n) { return (n + 3) & ~(size_t)3; }
 
 // Copy rows [m0, m0 + bm) of a row-major (M, C) matrix into a transposed
 // shared tile dst[c * ld + m]; rows past M read as zero.  Each thread
@@ -213,10 +222,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// The forward layer on the tensor cores (cin_layer_tc_kernel; cin_flat_f32,
-// every layer() call of the backward and of the stack forward's
-// layer-by-layer path; replaces _cin_flat_fwd_impl, cin_kernel.py:138-181;
-// its loop, tc_core, also runs the stack forward's layers).  Bound by operations: three TF32 products per
+// The forward layer on mma.sync (cin_layer_mma_kernel: what layer() runs
+// for the shapes and callers it does not route to cin_layer_tc_kernel,
+// below: every layer() call of the backward and of the stack forward's
+// layer-by-layer path; its loop, tc_core, also runs the stack forward's
+// layers).  Bound by operations: three TF32 products per
 // multiply-add on the tensor cores.  The layer is a skinny GEMM,
 //     out[m, k] = sum_n a[m, n] W[k, n],  a[m, f*H + h] = x0[m,f] prev[m,h],
 // M rows x K channels over the flattened (f, h) axis (676 or 1,664 deep at
@@ -531,12 +541,12 @@ __device__ __forceinline__ void tc_core(const A& a, int K, float* wring,
 // of x0, prev, W (copy_floats).
 template <int MT>
 __global__ void __launch_bounds__(kThreads, 2)
-cin_layer_tc_kernel(const float* __restrict__ x0, int ldx,
-                    const float* __restrict__ prev, int ldp,
-                    const float* __restrict__ W, size_t ldwk,
-                    float* __restrict__ out, int M, int F, int H, int K,
-                    int accumulate, const float* __restrict__ add_row,
-                    int vx, int vp, int vw) {
+cin_layer_mma_kernel(const float* __restrict__ x0, int ldx,
+                     const float* __restrict__ prev, int ldp,
+                     const float* __restrict__ W, size_t ldwk,
+                     float* __restrict__ out, int M, int F, int H, int K,
+                     int accumulate, const float* __restrict__ add_row,
+                     int vx, int vp, int vw) {
   constexpr int BM = 64 * MT;
   extern __shared__ float4 smem4[];
   const int LDX = tc_ld(F), LDP = tc_ld(H);
@@ -574,55 +584,785 @@ cin_layer_tc_kernel(const float* __restrict__ x0, int ldx,
   });
 }
 
-// Launches cin_layer_tc_kernel on x0 (M, F) rows ldx apart, prev (M, H)
+// Launches cin_layer_mma_kernel on x0 (M, F) rows ldx apart, prev (M, H)
 // rows ldp apart and a (K, F, H) block of a weight whose fields are ldp
 // apart and channels ldwk apart.
 template <int MT>
-int launch_tc(const float* x0, int ldx, const float* prev, int ldp,
-              const float* W, size_t ldwk, float* out, int M, int F, int H,
-              int K, int accumulate, const float* add_row, int device,
-              cudaStream_t s) {
+int launch_mma(const float* x0, int ldx, const float* prev, int ldp,
+               const float* W, size_t ldwk, float* out, int M, int F, int H,
+               int K, int accumulate, const float* add_row, int device,
+               cudaStream_t s) {
   static std::atomic<bool> done[kMaxDevices];
-  CIN_TRY(allow_optin_smem((const void*)cin_layer_tc_kernel<MT>, device,
+  CIN_TRY(allow_optin_smem((const void*)cin_layer_mma_kernel<MT>, device,
                            done));
   const int grid = (M + 64 * MT - 1) / (64 * MT);
-  cin_layer_tc_kernel<MT><<<grid, kThreads, tc_smem(64 * MT, F, H), s>>>(
+  cin_layer_mma_kernel<MT><<<grid, kThreads, tc_smem(64 * MT, F, H), s>>>(
       x0, ldx, prev, ldp, W, ldwk, out, M, F, H, K, accumulate, add_row,
       copy_floats(x0, ldx), copy_floats(prev, ldp), copy_floats(W, ldp));
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The forward layer on Hopper's warpgroup MMA (cin_layer_tc_kernel: B2's
+// kernel, what cin_flat_f32 launches wherever layer() routes a shape here).
+// Bound by operations: split TF32's three products a multiply-add at
+// 495 TFLOP/s.  The layer is the GEMM
+//     out[m, k] = sum_n a[m, n] B[k, n]
+// over a reduction axis whose A operand is formed on chip:
+//   * fields (prev is not x0): n = (hb, f, hh), a = x0[m,f] prev[m,8hb+hh],
+//     B = W[k, f, 8hb+hh], zero past H; the h of one 8-wide block are a
+//     k-step, the fields run inside each block, so a thread keeps its four
+//     prev values of a block in registers for F k-steps and reads one x0
+//     pair from shared memory a k-step, and no prev tile is staged;
+//   * pairs (prev is x0, H = F): n = p over the F(F+1)/2 pairs f <= h
+//     (pair_of, the stack kernel's order), a = x0[m,f_p] x0[m,h_p],
+//     B = W[k,f,h] + W[k,h,f] (the diagonal once): about half the k-steps.
+// One cooperative launch, three phases:
+//   1. Every block writes a share of B, split into TF32 hi and lo planes,
+//      into the caller's scratch as planes[plane][j / 4][k][j % 4][8] (j
+//      the k-step), zero past J and K: W is folded and split once a
+//      call, inside the launch.  A grid barrier follows.
+//   2. Persistent blocks of 384 threads walk units (128-row tile, channel
+//      tile of N, reduction split q of S).  Warpgroup 2's first thread
+//      streams the units' stages (4 k-steps of both planes, 2 * N * 128
+//      bytes) with one TMA each into a ring of up to 8 stages, on full /
+//      empty mbarriers: rows of 128 bytes in SWIZZLE_128B, the K-major B
+//      that wgmma takes for .tf32 (32-byte rows in SWIZZLE_32B fed the
+//      same products 30% slower).  Warpgroups 0 and 1 (64 rows each, 240
+//      registers after setmaxnreg) form a stage's four A fragments in
+//      registers, split them into hi and lo, and issue wgmma m64nNk8 three
+//      times a k-step, lo*hi + hi*lo + hi*hi, from registers against the
+//      landed planes: a chain of 12 on a zeroed accumulator.  The tensor
+//      cores truncate as they accumulate, so each chain is then added to
+//      a total in f32 registers: at xDeepFM's layer 2 (M = 81,920)
+//      against a float64 plain, chains of 1, 4, 16 and 64 k-steps and one
+//      chain of the whole reduction land 1.6e-6, 8.1e-7, 9.9e-7, 3.4e-6
+//      and 6.2e-5 of max|plain| away (H100; one k-step a chain adds 975
+//      roundings to the total), the mma.sync kernel 1.2e-6.  The two
+//      warpgroups issue their chains in turns.  No wgmma sits on a path
+//      the compiler cannot prove uniform (it serializes them then): the
+//      waits loop inside asm, lane 0 arrives by predicate, the role comes
+//      through a shuffle.
+//   3. S == 1: the totals go to out.  S > 1: each split writes its
+//      partial tile to scratch; the split that finishes a tile last (an
+//      integer counter, zeroed in phase 1) adds the S partials in split
+//      order and writes out, so repeats are bit-equal.
+// S and the grid come from M, N and the SM count: the S (1-4) with the
+// fewest rounds of units per split, the smaller on a tie.  At M = 10,240
+// (80 tiles) S = 3 gives 240 units for 132 SMs in two rounds, where one
+// split leaves 52 SMs idle; at M = 81,920, S = 1.  N is the smallest of
+// 64, 128 and 200 that holds K, or its share of K in passes of at most
+// 200 (the chain and the total take N registers a thread).
+constexpr int WG_THREADS = 384;   // consumer warpgroups 0, 1; producer 2
+constexpr int WG_ROWS = 128;      // a tile's rows, 64 a consumer warpgroup
+constexpr int WG_KS = 4;          // k-steps (8 columns each) a stage
+constexpr int WG_MAX_STAGES = 8;
+constexpr int WG_MAX_N = 200;     // channels a pass
+constexpr int WG_MAX_SPLIT = 4;
+
+// Pairs f <= h of F fields, padded to a multiple of 8.
+__host__ __device__ constexpr long long pairs8(long long F) {
+  return (F * (F + 1) / 2 + 7) / 8 * 8;
+}
+
+// Pair p < F(F+1)/2 in f-major order as f | h << 16, f <= h: f's pairs
+// start at f F - f (f - 1) / 2, found by a root and its rounding.
+__device__ __forceinline__ int pair_of(int p, int F) {
+  const float b = 2.f * F + 1.f;
+  int f = (int)((b - sqrtf(b * b - 8.f * p)) * 0.5f);
+  f = max(0, min(F - 1, f));
+  while (f > 0 && f * F - f * (f - 1) / 2 > p) --f;
+  while (f + 1 < F && (f + 1) * F - (f + 1) * f / 2 <= p) ++f;
+  return f | (f + p - (f * F - f * (f - 1) / 2)) << 16;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(b)), "r"(count));
+}
+
+// Waits for the phase of parity `parity` to complete; a phase that never
+// does (a lost copy) traps after 2^24 tries instead of hanging the card.
+// The loop lives inside the asm, so the compiler sees no divergent path
+// before the wgmma that follow (it would serialize them).
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\nadd.u32 n, n, 1;\nsetp.lt.u32 p, n, 16777216;\n"
+      "@p bra LAB_WAIT;\ntrap;\nDONE:\n}\n"
+      :: "r"(smem_u32(b)), "r"(parity) : "memory");
+}
+
+// One arrival on the mbarrier from the lane whose `lane` is 0 (a
+// predicate, not a branch).
+__device__ __forceinline__ void mbar_arrive_lane0(uint64_t* b, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(smem_u32(b)), "r"(lane) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(b)), "r"(bytes) : "memory");
+}
+
+// A box of the 4-D tensor map at (c0, c1, c2, c3) into dst, completing
+// on the mbarrier.
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile in SWIZZLE_128B:
+// rows of 128 bytes (4 k-steps of 8 TF32), 8-row groups 1,024 bytes
+// apart; k-step i of a row starts i * 32 bytes in.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// Keeps the compiler from moving reads or writes of registers that an
+// asynchronous wgmma uses across this point.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (+)= A (64 x 8, registers: rows g and g + 8 of the warp's 16, columns
+// t and t + 4) * B (8 x N, the descriptor's K-major tile); scale_d 0
+// starts a chain.  One overload for each N the kernel is built for.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[100],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %105, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n200k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99}, "
+      "{%100, %101, %102, %103}, %104, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// v floats (4 or 1) at p, past L1 (other SMs wrote them), as a float4
+// whose rest is zero.
+__device__ __forceinline__ float4 ld_cg(const float* p, int v) {
+  return v == 4 ? __ldcg(reinterpret_cast<const float4*>(p))
+                : make_float4(__ldcg(p), 0.f, 0.f, 0.f);
+}
+
+// Arguments of cin_layer_tc_kernel (see wg_plan).
+struct WgArgs {
+  const float* x0;
+  const float* prev;
+  const float* W;
+  float* out;
+  float* planes;       // 2 * JB * Kp * 32 floats
+  float* part;         // S * M * K floats where S > 1
+  unsigned* counters;  // tiles * NT where S > 1
+  int M, F, H, K;
+  int pairs, P;        // the pairs path; its F(F+1)/2
+  int J, JB;           // k-steps of the whole reduction; blocks of 4
+  int Kp;              // the planes' rows: NT * N, zero past K
+  int NT, S, tiles, units, stages;
+};
+
+template <int N>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+cin_layer_tc_kernel(const WgArgs a, const __grid_constant__ CUtensorMap map) {
+  constexpr int R = N / 2;                     // accumulators a thread
+  constexpr int STAGE = 2 * WG_KS * N * 32;    // bytes: hi, then lo
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* x0s = reinterpret_cast<float*>(base + a.stages * STAGE);
+  int* tab = reinterpret_cast<int*>(x0s + 2 * 64 * a.F);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      tab + ((a.pairs ? a.J * 8 : 0) + 1) / 2 * 2);
+  uint64_t* empty = full + a.stages;
+  int* last = reinterpret_cast<int*>(empty + a.stages);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);       // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (a.pairs)
+    for (int p = tid; p < a.J * 8; p += WG_THREADS)
+      tab[p] = p < a.P ? pair_of(p, a.F) : 0;
+  __syncthreads();
+
+  // phase 1: B in TF32 hi and lo, planes[plane][j / 4][k][j % 4][8]
+  {
+    const int n = a.JB * a.Kp * 32;
+    const int F = a.F, H = a.H, K = a.K;
+    for (int e = blockIdx.x * WG_THREADS + tid; e < n;
+         e += gridDim.x * WG_THREADS) {
+      const int hh = e & 7, r = e >> 5;
+      const int jb = r / a.Kp, k = r - jb * a.Kp, j = 4 * jb + (e >> 3 & 3);
+      float v = 0.f;
+      if (k < K && j < a.J) {
+        if (a.pairs) {
+          const int p = 8 * j + hh;
+          if (p < a.P) {
+            const int fh = tab[p], f = fh & 0xffff, h = fh >> 16;
+            const float* w = a.W + (size_t)k * F * F;
+            v = f == h ? __ldg(w + f * F + f)
+                       : __ldg(w + f * F + h) + __ldg(w + h * F + f);
+          }
+        } else {
+          const int hb = j / F, f = j - hb * F, h = 8 * hb + hh;
+          if (h < H) v = __ldg(a.W + ((size_t)k * F + f) * H + h);
+        }
+      }
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      a.planes[e] = __uint_as_float(hi);
+      a.planes[n + e] = __uint_as_float(lo);
+    }
+    if (a.S > 1)
+      for (int i = blockIdx.x * WG_THREADS + tid; i < a.tiles * a.NT;
+           i += gridDim.x * WG_THREADS)
+        a.counters[i] = 0;
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+  }
+  cooperative_groups::this_grid().sync();
+
+  // the warpgroup, read through a shuffle so that the compiler knows it
+  // is the same across a warp: a wgmma on a path it cannot prove uniform
+  // is serialized
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {                   // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 256) {
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      int slot = 0;
+      uint32_t ph = 0;
+      for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+        const int q = u % a.S, nt = (u / a.S) % a.NT;
+        const int jb1 = a.JB * (q + 1) / a.S;
+        for (int jb = a.JB * q / a.S; jb < jb1; ++jb) {
+          mbar_wait(empty + slot, ph ^ 1);
+          mbar_expect(full + slot, STAGE);
+          tma_load4(base + slot * STAGE, &map, full + slot, 0, nt * N, jb, 0);
+          if (++slot == a.stages) {
+            slot = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = role, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = ((tid >> 5) & 3) * 16 + g, r1 = r0 + 8;  // rows in the 64
+  const int F = a.F, H = a.H, K = a.K, M = a.M;
+  float* xs = x0s + wg * 64 * F;                           // [f][64]
+  float acc[R], tot[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  int slot = 0;
+  uint32_t ph = 0;
+  // The warpgroups issue their chains in turns (barriers 5 and 6), so
+  // that one's wait, sums and next A overlap the other's products; else
+  // both wait on the same stages and leave the tensor cores idle together.
+  if (wg == 1) named_arrive(5, 256);
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const int q = u % a.S, nt = (u / a.S) % a.NT, tile = u / a.S / a.NT;
+    const int j0 = WG_KS * (a.JB * q / a.S);             // a stage's start
+    const int j1 = min(a.J, WG_KS * (a.JB * (q + 1) / a.S));
+    const int m0 = tile * WG_ROWS + wg * 64, n0 = nt * N;
+
+    named_sync(1 + wg, 128);         // the warpgroup is done with xs
+    for (int i0 = 0; i0 < 64 * F; i0 += 8 * 128) {  // the same trips for all
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {  // 8 loads in flight, then the stores
+        const int i = min(i0 + e * 128 + (tid & 127), 64 * F - 1);
+        const int r = i / F;
+        v[e] = __ldg(a.x0 + (size_t)min(m0 + r, M - 1) * F + (i - r * F));
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = i0 + e * 128 + (tid & 127), r = i / F;
+        if (i < 64 * F) xs[(i - r * F) * 64 + r] = m0 + r < M ? v[e] : 0.f;
+      }
+    }
+    named_sync(1 + wg, 128);
+#pragma unroll
+    for (int i = 0; i < R; ++i) tot[i] = 0.f;
+
+    // the next k-step to form; fields: its block hb, field f, and the
+    // thread's prev at (rows r0, r1) x (h t, t + 4) of block hb
+    int hb = a.pairs ? 0 : j0 / F, f = a.pairs ? 0 : j0 - hb * F;
+    float pv[4] = {0.f, 0.f, 0.f, 0.f};
+    auto load_prev = [&]() {
+      const int h0 = 8 * hb + t;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {     // a clamped read, then a select
+        const int m = m0 + (i & 1 ? r1 : r0), h = h0 + (i & 2 ? 4 : 0);
+        const float v = __ldg(a.prev + (size_t)min(m, M - 1) * H +
+                              min(h, H - 1));
+        pv[i] = m < M && h < H ? v : 0.f;
+      }
+    };
+    if (!a.pairs) load_prev();
+    // A of k-step j: hi and lo of a at (r0, t) (r1, t) (r0, t+4) (r1, t+4)
+    auto form = [&](int j, bool live, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+      float v[4];
+      if (a.pairs) {
+        const int e0 = tab[8 * j + t], e1 = tab[8 * j + t + 4];
+        const float* p0 = xs + (e0 & 0xffff) * 64;
+        const float* q0 = xs + (e0 >> 16) * 64;
+        const float* p1 = xs + (e1 & 0xffff) * 64;
+        const float* q1 = xs + (e1 >> 16) * 64;
+        v[0] = p0[r0] * q0[r0];
+        v[1] = p0[r1] * q0[r1];
+        v[2] = p1[r0] * q1[r0];
+        v[3] = p1[r1] * q1[r1];
+      } else {
+        const float x_0 = xs[f * 64 + r0], x_1 = xs[f * 64 + r1];
+        v[0] = x_0 * pv[0];
+        v[1] = x_1 * pv[1];
+        v[2] = x_0 * pv[2];
+        v[3] = x_1 * pv[3];
+        if (++f == F) {
+          f = 0;
+          ++hb;
+          if (j + 1 < j1) load_prev();
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(live ? v[i] : 0.f, ah[i], al[i]);
+    };
+
+    // A stage is a chain: its k-steps' A fragments are formed, its 3 * 4
+    // products issued back to back on a zeroed accumulator, and once they
+    // are done the chain joins tot in f32 and the stage is released.
+    // The last stage may hold fewer than 4 k-steps: the rest take a zero
+    // A (no branch around a wgmma: the compiler would serialize them),
+    // against the planes' zeros past J.
+    uint32_t ah[WG_KS][4], al[WG_KS][4];
+    for (int c0 = j0; c0 < j1; c0 += WG_KS) {
+#pragma unroll
+      for (int i = 0; i < WG_KS; ++i) {
+        const bool live = c0 + i < j1;
+        form(live ? c0 + i : c0, live, ah[i], al[i]);
+      }
+      mbar_wait(full + slot, ph);
+      __syncwarp();
+      const uint32_t hi = smem_u32(base + slot * STAGE);
+      named_sync(5 + wg, 256);       // the other warpgroup's chain is issued
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < WG_KS; ++i) {
+        const uint64_t dh = desc_sw128(hi + i * 32);
+        const uint64_t dl = desc_sw128(hi + N * 128 + i * 32);
+        wgmma_tf32(acc, al[i], dh, i);
+        wgmma_tf32(acc, ah[i], dl, 1);
+        wgmma_tf32(acc, ah[i], dh, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      named_arrive(5 + (wg ^ 1), 256);  // its turn
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_regs(acc);
+      mbar_arrive_lane0(empty + slot, lane);
+      if (++slot == a.stages) {
+        slot = 0;
+        ph ^= 1;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) tot[i] += acc[i];
+    }
+
+    // the totals: d[4c + 2 half + e] at row (half ? r1 : r0), column
+    // n0 + 8c + 2t + e
+    float* dst = a.S > 1 ? a.part + (size_t)q * M * K : a.out;
+    const bool pair_store = (K & 1) == 0;
+#pragma unroll
+    for (int c = 0; c < R / 4; ++c) {
+      const int col = n0 + 8 * c + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + (half ? r1 : r0);
+        const bool in = col < K && m < M;
+        float* o = dst + (size_t)min(m, M - 1) * K + min(col, K - 1);
+        const float x = tot[4 * c + 2 * half], y = tot[4 * c + 2 * half + 1];
+        if (pair_store) {
+          if (in) *reinterpret_cast<float2*>(o) = make_float2(x, y);
+        } else {
+          if (in) o[0] = x;
+          if (in && col + 1 < K) o[1] = y;
+        }
+      }
+    }
+    if (a.S > 1) {                   // the last split of the tile adds up
+      __threadfence();
+      named_sync(3, 256);
+      if (tid == 0)
+        *last = atomicAdd(a.counters + tile * a.NT + nt, 1u) ==
+                (unsigned)(a.S - 1);
+      named_sync(3, 256);
+      if (__shfl_sync(0xffffffffu, *last, 0)) {
+        __threadfence();
+        // 8 sums in flight a thread; float4 where the rows allow it
+        const int mt = tile * WG_ROWS, v = K % 4 ? 1 : 4;
+        const int rows = min(WG_ROWS, M - mt), cols = min(N, K - n0) / v;
+        const size_t split = (size_t)M * K;
+        for (int i0 = 0; i0 < rows * cols; i0 += 8 * 256) {
+          float4 sum[8];
+          size_t o[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int i = min(i0 + e * 256 + tid, rows * cols - 1);
+            const int r = i / cols;
+            o[e] = (size_t)(mt + r) * K + n0 + (i - r * cols) * v;
+            sum[e] = ld_cg(a.part + o[e], v);
+          }
+          for (int s2 = 1; s2 < a.S; ++s2)
+#pragma unroll
+            for (int e = 0; e < 8; ++e) {
+              const float4 t4 = ld_cg(a.part + s2 * split + o[e], v);
+              sum[e].x += t4.x;
+              sum[e].y += t4.y;
+              sum[e].z += t4.z;
+              sum[e].w += t4.w;
+            }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (i0 + e * 256 + tid >= rows * cols) continue;
+            if (v == 4)
+              *reinterpret_cast<float4*>(a.out + o[e]) = sum[e];
+            else
+              a.out[o[e]] = sum[e].x;
+          }
+        }
+      }
+    }
+  }
+  if (wg == 0) named_sync(5, 256);   // warpgroup 1's last turn
+}
+
+// cuTensorMapEncodeTiled, looked up in libcuda through the runtime (no
+// link against libcuda); nullptr where libcuda lacks it.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  EncodeTiled f = fn.load(std::memory_order_acquire);
+  if (f) return f;
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  const cudaError_t e = cudaGetDriverEntryPointByVersion(
+      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+  const cudaError_t e = cudaGetDriverEntryPoint(
+      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+  if (e != cudaSuccess || q != cudaDriverEntryPointSuccess || !p) {
+    cudaGetLastError();
+    return nullptr;
+  }
+  f = reinterpret_cast<EncodeTiled>(p);
+  fn.store(f, std::memory_order_release);
+  return f;
+}
+
+// Blocks of cin_layer_tc_kernel<N> that can be resident at once (the
+// cooperative launch's largest grid), 0 where the device cannot launch
+// it cooperatively.
+template <int N>
+int wg_resident(int device) {
+  static std::atomic<int> slots[kMaxDevices];
+  static std::atomic<bool> done[kMaxDevices];
+  return per_device(device, slots, [&](int* v) -> int {
+    int coop = 0;
+    CIN_TRY(cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                   device));
+    CIN_TRY(allow_optin_smem((const void*)cin_layer_tc_kernel<N>, device,
+                             done));
+    int per_sm = 0;
+    CIN_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cin_layer_tc_kernel<N>, WG_THREADS, optin_smem(device)));
+    *v = coop ? per_sm * sm_count(device) : 0;
+    return cudaSuccess;
+  });
+}
+
+int wg_resident_n(int n, int device) {
+  return n == 64    ? wg_resident<64>(device)
+         : n == 128 ? wg_resident<128>(device)
+                    : wg_resident<200>(device);
+}
+
+// How cin_layer_tc_kernel runs a layer of these shapes; N == 0 where the
+// layer goes to cin_layer_mma_kernel instead: fewer than 8 h (8 fields on
+// the pairs path), one field, fewer than 32 channels or 4 k-steps, tiles
+// past the shared memory, no cooperative launch.
+struct WgPlan {
+  int N = 0;           // channels a pass: 64, 128 or 200
+  int NT = 0, S = 0;   // channel passes; splits of the reduction
+  int J = 0, JB = 0, Kp = 0, P = 0;  // k-steps, their blocks, the planes'
+                                     // rows; pairs (the pairs path)
+  int tiles = 0, units = 0, grid = 0, stages = 0;
+  size_t smem = 0;
+  long long planes = 0, part = 0, counters = 0;   // floats of scratch
+};
+
+WgPlan wg_plan(int M, int F, int H, int K, bool pairs, int device) {
+  WgPlan p;
+  if (M <= 0 || F < 2 || F > 0xffff || (pairs ? F : H) < 8 || K < 32)
+    return p;
+  const int nt = (K + WG_MAX_N - 1) / WG_MAX_N, per = (K + nt - 1) / nt;
+  const int N = per <= 64 ? 64 : per <= 128 ? 128 : 200;
+  const long long J = pairs ? pairs8(F) / 8 : (long long)(H + 7) / 8 * F;
+  const long long JB = (J + WG_KS - 1) / WG_KS, Kp = (long long)nt * N;
+  if (J < WG_KS || JB * Kp * 64 >= (1LL << 31)) return p;
+  const size_t cap = optin_smem(device);
+  const size_t stage = (size_t)2 * WG_KS * N * 32;
+  // alignment, x0 tiles, the pair table, the mbarriers, the flag
+  const size_t fixed = 1024 + (size_t)512 * F +
+                       (pairs ? (size_t)(J * 8 + 1) / 2 * 8 : 0) +
+                       16 * WG_MAX_STAGES + 8;
+  if (cap == 0 || fixed + 2 * stage > cap) return p;
+  const int resident = wg_resident_n(N, device);
+  if (resident == 0) return p;
+  const int tiles = (M + WG_ROWS - 1) / WG_ROWS;
+  const long long T = (long long)tiles * nt;
+  // the split with the fewest rounds of units per split, the smaller on
+  // a tie: rounds(S) / S < rounds(best) / best
+  int S = 1;
+  long long rounds = (T + resident - 1) / resident;
+  for (int s = 2; s <= WG_MAX_SPLIT && JB >= s; ++s) {
+    const long long r = (T * s + resident - 1) / resident;
+    if (r * S < rounds * s) {
+      S = s;
+      rounds = r;
+    }
+  }
+  p.N = N;
+  p.NT = nt;
+  p.S = S;
+  p.J = (int)J;
+  p.JB = (int)JB;
+  p.Kp = (int)Kp;
+  p.P = pairs ? F * (F + 1) / 2 : 0;
+  p.tiles = tiles;
+  p.units = (int)(T * S);
+  p.grid = p.units < resident ? p.units : resident;
+  p.stages = (int)((cap - fixed) / stage);
+  if (p.stages > WG_MAX_STAGES) p.stages = WG_MAX_STAGES;
+  p.smem = fixed + p.stages * stage;
+  p.planes = 2 * JB * Kp * 32;
+  p.part = S > 1 ? (long long)S * M * K : 0;
+  p.counters = S > 1 ? T : 0;
+  return p;
+}
+
+long long wg_scratch(const WgPlan& p) {
+  return p.N ? (long long)(align4(p.planes) + align4(p.part) +
+                           align4(p.counters))
+             : 0;
+}
+
+// One layer on cin_layer_tc_kernel by plan p; scratch holds
+// wg_scratch(p) floats.
+template <int N>
+int launch_wg(const WgPlan& p, const float* x0, const float* prev,
+              const float* W, float* out, int M, int F, int H, int K,
+              float* scratch, cudaStream_t s) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  // planes[plane][jb][k][32] as (32, Kp, JB, 2); a box is a stage: 4
+  // k-steps of N channels, both planes, 128-byte rows
+  CUtensorMap map;
+  const cuuint64_t dims[4] = {32, (cuuint64_t)p.Kp, (cuuint64_t)p.JB, 2};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)p.Kp * 128,
+                                 (cuuint64_t)p.JB * p.Kp * 128};
+  const cuuint32_t box[4] = {32, (cuuint32_t)N, 1, 2};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scratch, dims,
+             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  float* part = scratch + align4(p.planes);
+  WgArgs a{x0, prev, W, out, scratch, part,
+           reinterpret_cast<unsigned*>(part + align4(p.part)),
+           M, F, H, K, p.P > 0, p.P, p.J, p.JB, p.Kp, p.NT, p.S, p.tiles,
+           p.units, p.stages};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  CIN_TRY(cudaLaunchKernelEx(&cfg, cin_layer_tc_kernel<N>, a, map));
+  return cudaGetLastError();
+}
+
 constexpr int TC_SLICE = 256;   // fields or h per launch of a wide layer
 
-// One layer, W (K, F, H) as stored; see cin_layer_tc_kernel.  128-row
-// blocks where their tiles fit the opt-in shared memory, else 64.  A
-// layer whose x0 and prev tiles do not fit 64 rows (F + H past ~690 on an
-// H100) runs as launches over TC_SLICE x TC_SLICE blocks of (f, h), in a
-// fixed order, each adding into out: the block's pointers are offsets
-// into the tensors as stored (slices of 256 keep them on the copies'
-// grid).
+// Kernel paths of layer(), as cin_flat_f32 reports them.
+enum LayerPath { kPathMma = 1, kPathWgmma = 2 };
+
+// One layer, W (K, F, H) as stored.  With the caller's scratch (and
+// neither accumulate nor add_row), a shape that wg_plan takes runs on
+// cin_layer_tc_kernel, its layer 1 (prev is x0) on the pairs; every
+// other call on cin_layer_mma_kernel: 128-row blocks where their tiles
+// fit the opt-in shared memory, else 64, and a layer whose x0 and prev
+// tiles do not fit 64 rows (F + H past ~690 on an H100) as launches over
+// TC_SLICE x TC_SLICE blocks of (f, h), in a fixed order, each adding
+// into out: the block's pointers are offsets into the tensors as stored
+// (slices of 256 keep them on the copies' grid).  *path, where given,
+// says which kernel ran.
 int layer(const float* x0, int F, const float* prev, int H, const float* W,
           int K, float* out, int M, int accumulate, const float* add_row,
-          int device, cudaStream_t s) {
+          int device, cudaStream_t s, float* scratch = nullptr,
+          int* path = nullptr) {
   if (M == 0 || K == 0) return cudaSuccess;
   if (F < 1 || H < 1) return cudaErrorInvalidValue;
+  if (scratch && !accumulate && !add_row) {
+    const WgPlan p = wg_plan(M, F, H, K, prev == x0 && H == F, device);
+    if (p.N) {
+      if (path) *path = kPathWgmma;
+      if (p.N == 64)
+        return launch_wg<64>(p, x0, prev, W, out, M, F, H, K, scratch, s);
+      if (p.N == 128)
+        return launch_wg<128>(p, x0, prev, W, out, M, F, H, K, scratch, s);
+      return launch_wg<200>(p, x0, prev, W, out, M, F, H, K, scratch, s);
+    }
+  }
+  if (path) *path = kPathMma;
   const size_t cap = optin_smem(device);
   const size_t fh = (size_t)F * H;
   if (tc_smem(128, F, H) <= cap)
-    return launch_tc<2>(x0, F, prev, H, W, fh, out, M, F, H, K, accumulate,
-                        add_row, device, s);
+    return launch_mma<2>(x0, F, prev, H, W, fh, out, M, F, H, K, accumulate,
+                         add_row, device, s);
   if (tc_smem(64, F, H) <= cap)
-    return launch_tc<1>(x0, F, prev, H, W, fh, out, M, F, H, K, accumulate,
-                        add_row, device, s);
+    return launch_mma<1>(x0, F, prev, H, W, fh, out, M, F, H, K, accumulate,
+                         add_row, device, s);
   if (tc_smem(64, TC_SLICE, TC_SLICE) > cap) return cudaErrorInvalidValue;
   for (int f0 = 0; f0 < F; f0 += TC_SLICE)
     for (int h0 = 0; h0 < H; h0 += TC_SLICE) {
       const bool first = f0 == 0 && h0 == 0;
-      CIN_TRY(launch_tc<1>(x0 + f0, F, prev + h0, H, W + (size_t)f0 * H + h0,
-                           fh, out, M, F - f0 < TC_SLICE ? F - f0 : TC_SLICE,
-                           H - h0 < TC_SLICE ? H - h0 : TC_SLICE, K,
-                           first ? accumulate : 1, first ? add_row : nullptr,
-                           device, s));
+      CIN_TRY(launch_mma<1>(x0 + f0, F, prev + h0, H,
+                            W + (size_t)f0 * H + h0, fh, out, M,
+                            F - f0 < TC_SLICE ? F - f0 : TC_SLICE,
+                            H - h0 < TC_SLICE ? H - h0 : TC_SLICE, K,
+                            first ? accumulate : 1,
+                            first ? add_row : nullptr, device, s));
     }
   return cudaSuccess;
 }
@@ -654,11 +1394,6 @@ int layer(const float* x0, int F, const float* prev, int H, const float* W,
 // row_sums_kernel) and the collapsed layer as one more layer of one
 // channel, adding the sums.  Each path sums in a fixed order.
 
-// Pairs f <= h of F fields, padded to a multiple of 8.
-__host__ __device__ constexpr long long pairs8(long long F) {
-  return (F * (F + 1) / 2 + 7) / 8 * 8;
-}
-
 // One launch a call: the folded layer-1 weight ws (K1, P8), ws[k, p] =
 // W1[k,f,h] + W1[k,h,f] (f < h) or W1[k,f,f], 0 past the F(F+1)/2 pairs,
 // and its pair table tab[p] = f | h << 16 in f-major order, where the stack
@@ -676,16 +1411,10 @@ __global__ void stack_prep_kernel(const float* __restrict__ W1, int K1,
     float v = 0.f;
     int e = 0;
     if (p < F * (F + 1) / 2) {
-      // f's pairs start at f F - f (f - 1) / 2: a root, then its rounding
-      const float b = 2.f * F + 1.f;
-      int f = (int)((b - sqrtf(b * b - 8.f * p)) * 0.5f);
-      f = max(0, min(F - 1, f));
-      while (f > 0 && f * F - f * (f - 1) / 2 > p) --f;
-      while (f + 1 < F && (f + 1) * F - (f + 1) * f / 2 <= p) ++f;
-      const int h = f + p - (f * F - f * (f - 1) / 2);
+      e = pair_of(p, F);
+      const int f = e & 0xffff, h = e >> 16;
       const float* w = W1 + (size_t)k * F * F;
       v = f == h ? w[f * F + f] : w[f * F + h] + w[h * F + f];
-      e = f | h << 16;
     }
     ws[idx] = v;
     if (k == 0) tab[p] = e;
@@ -872,8 +1601,6 @@ struct StackFwdScratch {
   float* hid[2];
   float* rs;
 };
-
-size_t align4(size_t n) { return (n + 3) & ~(size_t)3; }
 
 // Carves `base` into sc (with base nullptr, counts alone) for rows-per-
 // block bm (stack_rows) and returns the floats it takes.
@@ -1484,14 +2211,23 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x0 (M, F), prev (M, H), W (K, F, H) -> out (M, K); all f32, contiguous.
-// Returns a cudaError_t (0 on success).
+// Floats of scratch cin_flat_f32 takes for these shapes (same: prev is
+// x0), 0 where the layer runs on cin_layer_mma_kernel, which needs none.
+long long cin_flat_scratch(int M, int F, int H, int K, int same,
+                           int device) {
+  return wg_scratch(wg_plan(M, F, H, K, same && H == F, device));
+}
+
+// x0 (M, F), prev (M, H), W (K, F, H) -> out (M, K); all f32, contiguous;
+// scratch holds cin_flat_scratch(M, F, H, K, prev == x0, device) floats
+// (nullptr where that is 0).  *path: 1 where cin_layer_mma_kernel ran, 2
+// where cin_layer_tc_kernel did.  Returns a cudaError_t (0 on success).
 int cin_flat_f32(const float* x0, const float* prev, const float* W,
-                 float* out, int M, int F, int H, int K, int device,
-                 void* stream) {
+                 float* out, int M, int F, int H, int K, float* scratch,
+                 int* path, int device, void* stream) {
   CIN_TRY(use_device(device));
   return layer(x0, F, prev, H, W, K, out, M, 0, nullptr, device,
-               static_cast<cudaStream_t>(stream));
+               static_cast<cudaStream_t>(stream), scratch, path);
 }
 
 // Floats of scratch cin_stack_sum_f32 needs for these layers and rows

@@ -27,10 +27,11 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from rec_now_tpu_torch.core import profiling
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops._build import check_input, check_rc, is_cpu
 
@@ -137,7 +138,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("cin")
     if not getattr(lib, "_typed", False):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.cin_flat_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.cin_flat_scratch.argtypes = [i32] * 6
+        lib.cin_flat_scratch.restype = i64
+        lib.cin_flat_f32.argtypes = [ptr] * 4 + [i32] * 4 + [ptr] * 2 + [
+            i32, ptr]
         lib.cin_flat_f32.restype = i32
         lib.cin_stack_fwd_scratch.argtypes = [ptr] + [i32] * 5
         lib.cin_stack_fwd_scratch.restype = i64
@@ -194,17 +198,40 @@ def _check_stack(x0, weights) -> None:
         h = w.shape[0]
 
 
+# floats of scratch B2 takes, by (m, f, h, k, prev is x0, device): 0 where
+# the layer runs on the mma.sync kernel (csrc/cin.cu, wg_plan)
+_flat_scratch: Dict[Tuple[int, ...], int] = {}
+# the kernel layer() ran, as cin_flat_f32 reports it -> its counter
+_FLAT_PATHS = {1: "cin.layer_mma", 2: "cin.layer_wgmma"}
+_path = ctypes.c_int(0)
+_path_ref = ctypes.byref(_path)
+
+
 def _flat_fwd_cuda(x0, prev, weight) -> torch.Tensor:
+    """B2 on CUDA tensors; each launch counts in ``cin.layer_wgmma`` or
+    ``cin.layer_mma`` (``core/profiling.count``) by the kernel that ran."""
     m, f, h, k = _check_flat(x0, prev, weight)
     out = _empty(x0, m, k)
     if m == 0:
         return out
     lib = _lib()
+    dev = x0.device.index
+    same = int(prev.data_ptr() == x0.data_ptr() and h == f)
+    key = (m, f, h, k, same, dev)
+    words = _flat_scratch.get(key)
+    if words is None:
+        words = lib.cin_flat_scratch(m, f, h, k, same, dev)
+        if words < 0:
+            raise RuntimeError("cin_flat could not read the device")
+        _flat_scratch[key] = words
+    scratch = _empty(x0, words) if words else None
     rc = lib.cin_flat_f32(x0.data_ptr(), prev.data_ptr(), weight.data_ptr(),
-                          out.data_ptr(), m, f, h, k, x0.device.index,
-                          _build.stream_of(x0))
+                          out.data_ptr(), m, f, h, k,
+                          scratch.data_ptr() if words else None, _path_ref,
+                          dev, _build.stream_of(x0))
     check_rc(lib, rc, "cin_flat")
     cin_flat.launches += 1
+    profiling.count(_FLAT_PATHS[_path.value])
     return out
 
 

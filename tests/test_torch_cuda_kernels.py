@@ -9,7 +9,10 @@ V, more rows than one weight-gradient slice; for the CIN layer's
 backward also prev = x0, F * H % 4 != 0, H past one 64-wide pass, M = 0
 and two calls equal bit for bit; for the CIN layer in split TF32 H = 26,
 37 and 64, K = 1 to 130, W or prev off the 16-byte grid, F or H past
-one block's tiles and a bit-equal repeat; for the
+one block's tiles, xDeepFM's widths at M = 10,240 and 10,237, its layer
+1 on the pairs (prev is x0) against the fields (a copy), K = 256 and
+300 (two channel passes), a bit-equal repeat, and the kernel each call
+ran, counted; for the
 stack's forward config 3's stack on each of its paths (128- and 64-row
 blocks, layer by layer), an odd F, one and three layers, a hidden layer
 past one 64-channel pass, the widest F + 2 h_max the f32 stack kernel
@@ -58,6 +61,7 @@ import numpy as np
 import pytest
 import torch
 
+from rec_now_tpu_torch.core import profiling
 from rec_now_tpu_torch.losses.pairwise import pairwise_loss
 from rec_now_tpu_torch.ops import cin_kernel as ck
 from rec_now_tpu_torch.ops import listwise_kernel as lk
@@ -96,30 +100,66 @@ def _off_grid(t):
     return out
 
 
-# (m, f, h, k, W on the 16-byte grid): small odd shapes; the tensor-core
-# layer at config 3's H (26 zero-filled to 32, 64) and a ragged one (37),
-# K from one channel to past two 64-channel passes, M off the 128-row
-# tile, W also off the grid (4-byte copies); layers whose x0 and prev
-# tiles do not fit one block (H, F or both past 256: launches over
-# (f, h) slices)
-@pytest.mark.parametrize("m,f,h,k,aligned", [
-    (32, 5, 6, 7, True), (15, 4, 4, 4, True), (1, 1, 1, 1, True),
-    (300, 26, 26, 64, True), (129, 3, 70, 130, True)] + [
-    (1000, 26, h, k, aligned) for h in (26, 37, 64) for k in (1, 64, 100, 130)
-    for aligned in (True, False)] + [
-    (300, 26, 700, 5, True), (200, 700, 3, 4, True), (150, 400, 400, 70, True),
-    (150, 400, 402, 9, False)])
-def test_cin_flat_matches_plain(dev, m, f, h, k, aligned):
+# (m, f, h, k, W on the 16-byte grid, prev): small odd shapes; the
+# tensor-core layer at config 3's H (26 zero-filled to 32, 64) and a
+# ragged one (37), K from one channel to past two 64-channel passes, M off
+# the 128-row tile, W also off the grid (4-byte copies); layers whose x0
+# and prev tiles do not fit one block (H, F or both past 256: launches
+# over (f, h) slices); xDeepFM's layers (F = 39, H = K = 200) at
+# M = 10,240 and off every tile, its layer 1 with prev x0 itself (the
+# pairs) and a copy of it (the fields), K of 1, 8, 200, 256 (two channel
+# passes) and 300 on both
+@pytest.mark.parametrize("m,f,h,k,aligned,prev", [
+    (32, 5, 6, 7, True, "rand"), (15, 4, 4, 4, True, "rand"),
+    (1, 1, 1, 1, True, "rand"), (300, 26, 26, 64, True, "rand"),
+    (129, 3, 70, 130, True, "rand")] + [
+    (1000, 26, h, k, aligned, "rand") for h in (26, 37, 64)
+    for k in (1, 64, 100, 130) for aligned in (True, False)] + [
+    (300, 26, 700, 5, True, "rand"), (200, 700, 3, 4, True, "rand"),
+    (150, 400, 400, 70, True, "rand"), (150, 400, 402, 9, False, "rand")] + [
+    (m, 39, 200, 200, True, "rand") for m in (10240, 10237)] + [
+    (m, 39, 39, k, True, prev) for m in (10240, 10237)
+    for k in (1, 8, 200, 256, 300) for prev in ("x0", "copy")] + [
+    (1000, 39, 200, k, True, "rand") for k in (1, 8, 256, 300)])
+def test_cin_flat_matches_plain(dev, m, f, h, k, aligned, prev):
     gen = torch.Generator().manual_seed(m + k)
-    x0, prev = _rand(gen, dev, m, f), _rand(gen, dev, m, h)
+    x0 = _rand(gen, dev, m, f)
+    p = {"rand": lambda: _rand(gen, dev, m, h), "x0": lambda: x0,
+         "copy": lambda: x0.clone()}[prev]()
     w = _rand(gen, dev, k, f, h)
     if not aligned:
         w = _off_grid(w)
     before = ck.cin_flat.launches
-    got = ck.cin_flat(x0, prev, w)
+    got = ck.cin_flat(x0, p, w)
     assert ck.cin_flat.launches == before + 1
+    _close(got, ck.cin_flat_plain(x0, p, w))
+    assert torch.equal(got, ck.cin_flat(x0, p, w))
+    if prev == "x0":                 # the pairs agree with the fields
+        _close(got, ck.cin_flat(x0, x0.clone(), w))
+
+
+def _layer_counts():
+    c = profiling.span_report()["counters"]
+    return c.get("cin.layer_wgmma", 0), c.get("cin.layer_mma", 0)
+
+
+def test_cin_layer_counts_its_kernel_paths(dev):
+    """xDeepFM's CIN without the channel sum runs each of its three
+    layers on the wgmma kernel; a collapsed layer (one field) runs on the
+    mma.sync kernel."""
+    from rec_now_tpu_torch.layers.cin_layer import CINLayer
+    cin = CINLayer(39, [200] * 3, torch.Generator().manual_seed(0),
+                   device=dev)
+    emb = torch.randn(64, 39, 10, device=dev)
+    wg, mma = _layer_counts()
+    cin(emb, output_input=False, sum_channel=False)
+    assert _layer_counts() == (wg + 3, mma)
+    gen = torch.Generator().manual_seed(1)
+    x0, prev = _rand(gen, dev, 300, 1), _rand(gen, dev, 300, 64)
+    w = _rand(gen, dev, 39, 1, 64)
+    got = ck.cin_flat(x0, prev, w)
+    assert _layer_counts() == (wg + 3, mma + 1)
     _close(got, ck.cin_flat_plain(x0, prev, w))
-    assert torch.equal(got, ck.cin_flat(x0, prev, w))
 
 
 def test_cin_flat_empty_and_off_grid_prev(dev):
