@@ -46,7 +46,13 @@ Phases, each of which ends the script with a non-zero exit on failure:
    touched, t = 1 and 1000; B11 and B12 with those 8,192 ids), and at
    ragged tables of widths 45 and 72 (a warp a row, on floats and on
    float4s), each repeated bit for bit and timed by events and on the
-   device beside its bound, and at ragged shapes and the multi-expert
+   device beside its bound; the pooled multi-hot lookup
+   (``gather_pool_rows``, bit-exact) on MLPerf DLRM-DCNv2's 26 fields
+   capped at 2^22 rows (25.2M rows of 128, rows past 2^31 floats) at B =
+   8192 with 214 ids an example, int64 and int32 ids, ragged, out of
+   range, a table off the 16-byte grid and D = 5 (the scalar loop), no
+   example launching nothing, timed beside its bound and
+   ``F.embedding_bag``; and at ragged shapes and the multi-expert
    dense's dispatch
    edges (N * U = 16 and 17, a small per-expert bank, W too deep for the
    gate kernel, x off the 16-byte grid), and time kernel, plain version
@@ -81,10 +87,11 @@ its first step once more under lazy Adam (two Adam passes; not served or
 trained further).  Each run names its model,
 trainer config, loss keys, the launches it expects per request and per
 step, and its own kernel checks.  Every serving or training loop sets all
-fourteen launch counts to 0 just before it and reads them just after, and
+fifteen launch counts to 0 just before it and reads them just after, and
 fails unless each is exact (0 for a kernel the run does not name): every
 request and step looks its rows up once (B11), every step scatters their
-gradients once (B12).
+gradients once (B12); the pooled lookup (``gather_pool_rows``) launches
+only for the DLRM-DCNv2 requests of phase 4.
 
 4. serve each run at full width through ``build_scorer`` and
    ``WireScorer`` (u8, f16): logits of the expected shape ((B,), or
@@ -95,7 +102,11 @@ gradients once (B12).
    too small to show in the logits; config 5: the CAN layer against a
    float64 evaluation, failing unless its products and its share of the
    logits are each visible), and the card against the same model and
-   tables on the CPU through the plain versions;
+   tables on the CPU through the plain versions; then DLRM-DCNv2 at
+   MLPerf's widths on phase 3's pooled layout through ``build_scorer``
+   at B = 8192: one ``gather_pool_rows`` launch a request and no other
+   counted kernel, the logits against its forward on the plain pooled
+   lookup;
 5. each run's first training step (B = 2048, full-width model and
    tables, its launches exact) on the card against the same step on the
    CPU: the losses, every gradient and every param after Adam, each
@@ -308,6 +319,18 @@ EXPAND_TPU = "rec_now_tpu/ops/pallas/expand_kernel.py"
 # order, so a sum differs by up to ~n eps of the terms' absolute sum (a
 # hot row of a B = 8192 zipf batch takes ~2,000 adds)
 SUM_TOL = 1e-6
+# MLPerf's DLRM-DCNv2 on Criteo 1TB (TorchRec's examples/dlrm flags): each
+# field's rows and multi-hot ids an example.  The pooled lookup is held
+# to its plain version on these fields capped at POOL_ROW_CAP rows of
+# POOL_DIM: 25.2M rows (12.9 GB), past 2^24 rows, so that row offsets
+# pass 2^31 floats
+DLRM_ROWS = (40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
+             40000000, 3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14,
+             40000000, 40000000, 40000000, 590152, 12973, 108, 36)
+DLRM_HOTNESS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
+                12, 100, 27, 10, 3, 1, 1)
+POOL_ROW_CAP = 1 << 22
+POOL_DIM = 128
 # phase 8: the flagship training setting (bench.py:38-57) through the CLI
 CLI_FLAGSHIP = ["--model", "dcnv2", "--batch-size", "8192",
                 "--pairwise-weight", "0.5", "--occurance-power", "-0.5",
@@ -850,6 +873,170 @@ def check_gather_scatter(torch, kern, rand, ids8k, grads8k, vfull, gk, ek,
           "of 2,000 (rec_now_tpu_torch.profile_launch): " + ", ".join(
               f"{k} {v:.3f}" for k, v in wrapper_host_us().items())
           + f" [{card}]")
+
+
+def pooled_layout(torch, dev):
+    """The multi-hot layout the pooled lookup is checked and served on
+    (DLRM_ROWS capped at POOL_ROW_CAP, DLRM_HOTNESS, POOL_DIM wide) and
+    its table on the card, U(-0.5, 0.5) from a seed."""
+    from rec_now_tpu_torch.models import FeatureConfig
+    fc = FeatureConfig(num_dense=13, num_sparse=len(DLRM_ROWS),
+                       embedding_dim=POOL_DIM,
+                       field_rows=tuple(min(r, POOL_ROW_CAP)
+                                        for r in DLRM_ROWS),
+                       hotness=DLRM_HOTNESS)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    table = torch.rand(fc.total_rows, POOL_DIM, generator=gen, device=dev)
+    return fc, table.sub_(0.5)
+
+
+def pooled_requests(np, fc, b: int, n: int, seed: int) -> list:
+    """``n`` requests of ``b`` examples: dense floats log(1 + Exp(8)) and
+    raw ids uniform over [0, 2^31), (B, sum(hotness)) int32, as numpy
+    arrays."""
+    rng = np.random.default_rng(seed)
+    return [(np.log1p(rng.exponential(8.0, (b, fc.num_dense))
+                      ).astype(np.float32),
+             rng.integers(0, 2 ** 31 - 1, (b, sum(fc.hotness)),
+                          dtype=np.int32)) for _ in range(n)]
+
+
+def check_gather_pool(torch, np, kern, gk, dev, card) -> None:
+    """The pooled lookup bit-exact against its plain version (the same
+    adds in the same order) on the DLRM layout at B = 8192, int64 and
+    int32 ids, ragged, out-of-range ids, a table 4 bytes off the 16-byte
+    grid and D = 5 (the scalar loop); no example launches nothing; then
+    kernel, plain version and ``F.embedding_bag`` timed beside the bound
+    of this batch's bytes."""
+    fc, table = pooled_layout(torch, dev)
+    hot, v = fc.hotness, table.shape[0]
+    _, raw = pooled_requests(np, fc, 8192, 1, 7)[0]
+    ids = fc.global_ids(torch.from_numpy(raw).to(dev))
+    b, cols = ids.shape
+    n = ids.numel()
+    distinct = int(torch.unique(ids).numel())
+    far = int(ids.max()) * POOL_DIM
+    print(f"gather_pool_rows vs plain (bit-exact): table {tuple(table.shape)}"
+          f" ({table.numel() * 4 / 1e9:.1f} GB), B={b}, {cols} ids an "
+          f"example, {distinct} distinct rows of {n}, the farthest starting "
+          f"at float {far}")
+    if far < 2 ** 31:
+        fail("the pooled lookup's check reads no row past 2^31 floats")
+    wild = ids[:4].clone()
+    wild[0, :4] = torch.tensor([-5, -1, v, 2 ** 40], device=dev)
+    # the table's floats from the second on, as (V - 1, D) rows: off grid
+    off = table.view(-1)[1:1 + (v - 1) * POOL_DIM].view(v - 1, POOL_DIM)
+    small = torch.randn(777, 5, device=dev)
+    cases = (("B=8192, int64 ids", table, ids),
+             ("B=8192, int32 ids", table, ids.int()),
+             ("ragged B=1500", table, ids[:1500]),
+             ("ids out of range (clamped)", table, wild),
+             ("table off the 16-byte grid (scalar loop), B=8192", off, ids),
+             ("D=5 (scalar loop)", small, ids[:333] % 800))
+    for what, t, i in cases:
+        before = gk.gather_pool_rows.launches
+        got = gk.gather_pool_rows(t, i, hot)
+        launched = gk.gather_pool_rows.launches - before
+        want = gk.gather_pool_rows_plain(t, i, hot)
+        ok = got.shape == want.shape and torch.equal(got, want)
+        seen = float(got.abs().max())
+        print(f"  {what}: shape {tuple(got.shape)} "
+              f"{'equal' if ok else 'MISMATCH'}, max|pooled| {seen:.3e}, "
+              f"{launched} launch")
+        if not ok:
+            fail(f"gather_pool_rows {what} differs from its plain version")
+        if not seen > 0 or launched != 1:
+            fail(f"gather_pool_rows {what}: nothing seen or not one launch")
+        del got, want
+    before = gk.gather_pool_rows.launches
+    if gk.gather_pool_rows(table, ids[:0], hot).shape != (0, len(hot),
+                                                          POOL_DIM) or \
+            gk.gather_pool_rows.launches != before:
+        fail("gather_pool_rows of no example launched or gave a wrong shape")
+    # bytes this batch needs: its distinct rows read once, the (B, F, D)
+    # pooled rows written, the int64 ids read; its adds are never the bound
+    b_ms, b_by = bound_ms(0, distinct * POOL_DIM * 4
+                          + b * len(hot) * POOL_DIM * 4 + n * 8)
+    starts = [sum(hot[:f]) for f in range(len(hot))]
+    offsets = (torch.arange(b, device=dev)[:, None] * cols
+               + torch.tensor(starts, device=dev)).reshape(-1)
+    flat = ids.reshape(-1)
+
+    def library():
+        return torch.nn.functional.embedding_bag(flat, table, offsets,
+                                                 mode="sum")
+
+    same = torch.equal(library().view(b, len(hot), POOL_DIM),
+                       gk.gather_pool_rows(table, ids, hot))
+    kern["gather_pool_rows"] = dict(
+        name="gather_pool_rows", route="cuda",
+        source="rec_now_tpu_torch/csrc/gather.cu",
+        replaces="none: the JAX package has one id a field",
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: gk.gather_pool_rows(table, ids, hot)),
+        plain_ms=cuda_ms(torch, lambda: gk.gather_pool_rows_plain(
+            table, ids, hot)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(torch, library))
+    profiled_ms(torch, library, reps=2)
+    dev_ms = profiled_ms(torch, lambda: gk.gather_pool_rows(table, ids, hot))
+    lib_dev = profiled_ms(torch, library)
+    k = kern["gather_pool_rows"]
+    print(f"  B=8192: kernel {k['ms']:.4f} ms ({b_ms / k['ms']:.1%} of its "
+          f"bound {b_ms:.4f} ms, {b_by}), device {dev_ms:.4f} "
+          f"({b_ms / dev_ms:.1%}); plain {k['plain_ms']:.4f}; "
+          f"F.embedding_bag (sum) {k['library_ms']:.4f}, device "
+          f"{lib_dev:.4f}, {'bit-equal to' if same else 'other bits than'}"
+          f" the kernel [{card}]")
+    del table, off
+    torch.cuda.empty_cache()
+
+
+def serve_pooled(torch, np, counted, dev, card) -> None:
+    """DLRM-DCNv2 at MLPerf's widths on the DLRM layout through
+    ``build_scorer``: every request one ``gather_pool_rows`` launch and
+    no other counted kernel, logits (B,) finite and equal to the model's
+    forward on the plain pooled lookup."""
+    from rec_now_tpu_torch.embedding.table import EmbeddingTable
+    from rec_now_tpu_torch.models import DLRMDCNv2Model
+    from rec_now_tpu_torch.ops import gather_kernel as gk
+    from rec_now_tpu_torch.serving import ServingState, build_scorer
+    fc, table_t = pooled_layout(torch, dev)
+    model = DLRMDCNv2Model(fc, device=dev)
+    state = ServingState(dict(model.named_parameters()), table_t)
+    score = build_scorer(model, fc, EmbeddingTable(fc.total_rows, POOL_DIM,
+                                                   device=dev), device=dev)
+    reqs = pooled_requests(np, fc, 8192, 4, 8)
+    score(state, *reqs[0])                          # warm-up, not counted
+    torch.cuda.synchronize()
+
+    def requests():
+        times, outs = [], []
+        for dense, raw in reqs:
+            t0 = time.perf_counter()
+            outs.append(score(state, dense, raw))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times, outs
+
+    times, outs = counted(f"serve DLRM-DCNv2 (B=8192, {sum(fc.hotness)} "
+                          f"ids an example), {len(reqs)} requests",
+                          len(reqs), {"gather_pool_rows": 1}, requests)
+    with torch.inference_mode():
+        for (dense, raw), out in zip(reqs[:2], outs[:2]):
+            if tuple(out.shape) != (8192,) or not torch.isfinite(out).all():
+                fail(f"DLRM-DCNv2: bad logits {tuple(out.shape)}")
+            pooled = gk.gather_pool_rows_plain(
+                table_t, fc.global_ids(torch.from_numpy(raw).to(dev)),
+                fc.hotness)
+            compare("DLRM-DCNv2 served vs its forward on the plain pooled "
+                    "lookup", out, model(torch.from_numpy(dense).to(dev),
+                                         pooled), floor=0.0)
+    ms = statistics.median(times)
+    print(f"  {ms:.3f} ms/request (median of {len(times)}), "
+          f"{8192 / ms * 1e3:.0f} examples/s at B=8192, requests in "
+          f"pageable memory [{card}]")
+    del state, table_t, model
+    torch.cuda.empty_cache()
 
 
 def check_wide_tables(torch, rand, gen, batch, tk, gk, ek, dev,
@@ -3677,6 +3864,8 @@ def main() -> int:
                          expand_k, ShardedEmbeddingTable, dev, card)
     # -- B9-B12 at config 5's CAN table and other widths of a warp a row --
     check_wide_tables(torch, rand, gen, pb, tk, gather_k, expand_k, dev, card)
+    # -- the pooled multi-hot lookup at the DLRM layout ----------------------
+    check_gather_pool(torch, np, kern, gather_k, dev, card)
     torch.cuda.empty_cache()
 
     print(f"update paths of the table (auto), median of {UPDATE_ROUNDS} "
@@ -3757,7 +3946,8 @@ def main() -> int:
                "same_group_matvec": pk.same_group_matvec,
                "group_pair_counts_binary": pk.group_pair_counts_binary,
                "gather_rows": gather_k.gather_rows,
-               "scatter_add_rows": expand_k.scatter_add_rows}
+               "scatter_add_rows": expand_k.scatter_add_rows,
+               "gather_pool_rows": gather_k.gather_pool_rows}
     for v in kern.values():
         v["launches"] = v["launches_per_step"] = 0
 
@@ -4055,6 +4245,7 @@ def main() -> int:
     for run in runs:
         if run["serve"] is not None:
             serve(run)
+    serve_pooled(torch, np, counted, dev, card)
 
     # -- 5. one training step: card vs CPU, kernels on its own tensors -------
     step_batch = next(data.batches(2048, 1, seed=3))

@@ -44,11 +44,15 @@ serve.request         ``serving.build_scorer``'s scorer, the whole  tracing on
                       call; it starts a new request id
 serve.to_device       the scorer's copies of the request's arrays   tracing on
 serve.lookup          ``serving._forward``: global ids and the      tracing on
-                      table's lookup (B11), and a CAN lookup
+                      table's lookup (B11, or ``gather_pool_rows``
+                      for multi-hot ids), and a CAN lookup
 serve.model           ``serving._forward``: the model's forward     tracing on
 cin                   ``layers/cin_layer.py`` ``CINLayer.forward``  tracing on
                       (layout copies, concatenation, B2's
                       launches); stream time on CUDA
+cross                 ``models/dlrm_dcnv2_model.py``                tracing on
+                      ``DLRMDCNv2Model.forward``: the low-rank
+                      cross stack; stream time on CUDA
 serve.first_request   the first call of each ``build_scorer``       always
                       scorer: lazy library loads, CUDA's lazy
                       module loading, the first allocations

@@ -18,7 +18,8 @@ masked by ``valid_mask``, duplicate ids summed after a sort
 sparse Adagrad runs the same two functions.
 
 Kernel launches: a lookup, and each call of an ``embedding_func``
-closure, 1 x B11 (``gather_rows``); ``apply_grads`` 2 x B12
+closure, 1 x B11 (``gather_rows``); a pooled lookup of multi-hot ids
+(``lookup_pooled``) 1 x ``gather_pool_rows``; ``apply_grads`` 2 x B12
 (``scatter_add_rows``: the segment sums and the write-back).
 
 One difference from JAX: ``adagrad_rows`` clamps the accumulator at
@@ -30,13 +31,15 @@ default 0.1 the clamp changes no bit.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import (Callable, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
 from rec_now_tpu_torch.core.config import resolve_device, uniform
 from rec_now_tpu_torch.ops.expand_kernel import scatter_add_rows
-from rec_now_tpu_torch.ops.gather_kernel import gather_rows
+from rec_now_tpu_torch.ops.gather_kernel import (gather_pool_rows,
+                                                 gather_rows)
 
 # rows start in U(-1e-3, 1e-3) (rec_now_tpu/embedding/sharded.py:291-293)
 INIT_SCALE = 1e-3
@@ -141,6 +144,12 @@ class EmbeddingTable:
     def lookup(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """Gather rows: int ids of any shape -> ids.shape + (D,)."""
         return gather_rows(table, ids)
+
+    def lookup_pooled(self, table: torch.Tensor, ids: torch.Tensor,
+                      hotness: Sequence[int]) -> torch.Tensor:
+        """Sum-pool each field's rows: ids (B, sum(hotness)), field f's
+        ``hotness[f]`` ids side by side -> (B, F, D)."""
+        return gather_pool_rows(table, ids, hotness)
 
     def embedding_func(self, state: Union[EmbeddingTableState, torch.Tensor]
                        ) -> Callable[[torch.Tensor], torch.Tensor]:

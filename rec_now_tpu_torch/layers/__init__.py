@@ -1,6 +1,6 @@
 """Layers, exported as ``rec_now_tpu/layers/__init__.py`` exports them:
-interactions (FM, inner-PNN, CIN, SENET, DCN, DCN-mix, CAN, the sparse
-field GNN), pooling and fixed length, the multitask banks (multi-expert
+interactions (FM, inner-PNN, CIN, SENET, DCN, DCN-mix, DCN-V2's low-rank
+cross, CAN, the sparse field GNN), pooling and fixed length, the multitask banks (multi-expert
 dense, MMoE, PLE), the personalized dense layers (STAR, stacked and their
 parasitic forms) and the hash-trick layers (multi-hash, cartesian
 crossing)."""
@@ -12,6 +12,8 @@ from rec_now_tpu_torch.layers.fix_length_layer import FixLengthLayer  # noqa: F4
 from rec_now_tpu_torch.layers.multi_dense_layer import MultiDenseLayer  # noqa: F401
 from rec_now_tpu_torch.layers.dcn_layer import DCNLayer  # noqa: F401
 from rec_now_tpu_torch.layers.dcn_mix_layer import DCNMixLayer  # noqa: F401
+from rec_now_tpu_torch.layers.low_rank_cross_layer import (  # noqa: F401
+    LowRankCrossLayer)
 from rec_now_tpu_torch.layers.cin_layer import CINLayer  # noqa: F401
 from rec_now_tpu_torch.layers.mmoe_layer import MMOELayer  # noqa: F401
 from rec_now_tpu_torch.layers.ple_layer import PLELayer  # noqa: F401

@@ -32,7 +32,10 @@ file one process would write, so :func:`load_serving` serves it on one
 card.
 
 Any ported model serves this way: ``XDeepFMModel`` (config 3),
-``DCNv2Model`` (config 2) and ``CANDCNModel`` (config 5, with
+``DCNv2Model`` (config 2), ``DLRMDCNv2Model`` (MLPerf's DLRM-DCNv2, on a
+per-field multi-hot ``FeatureConfig``, its lookup sum-pooled by
+``gather_pool_rows``; the CAN lookup and :class:`WireScorer` refuse that
+layout) and ``CANDCNModel`` (config 5, with
 ``can_table=EmbeddingTable(fc.rows_per_field, can_dim)`` and
 ``can_param_field=8`` to the scorer) score (B,).  A multi-task model
 (``MultiTaskModel``) scores (T, B): one row of logits
@@ -89,8 +92,12 @@ def _forward(model, fc, table, can, state: ServingState,
     _check_can_match(None if can is None else can[1],
                      state.can_table is not None, "the serving state")
     with profiling.span("serve.lookup"):
-        inputs = (dense, table.lookup(state.table,
-                                      fc.global_ids(sparse_ids)))
+        if fc.per_field and max(fc.hotness) > 1:
+            emb = table.lookup_pooled(state.table, fc.global_ids(sparse_ids),
+                                      fc.hotness)
+        else:
+            emb = table.lookup(state.table, fc.global_ids(sparse_ids))
+        inputs = (dense, emb)
         if can is not None:
             can_table, field = can
             inputs += (can_table.lookup(
@@ -116,6 +123,9 @@ def build_scorer(model, feature_config, table,
     Returns ``scorer(state, dense, sparse_ids) -> logits`` on ``device``,
     (B,) for a single-task model and (T, B) for a multi-task one; dense
     (B, num_dense) and sparse_ids (B, F) may be numpy arrays or tensors.
+    With a per-field layout (``FeatureConfig.hotness``) sparse_ids is (B,
+    sum(hotness)), and a multi-hot one is looked up sum-pooled
+    (``EmbeddingTable.lookup_pooled``) into the model's (B, F, D).
     The scorer's ``can_param_field`` attribute names its CAN field.
     A call is the span ``serve.request`` (a request id of its own) while
     tracing is on, and the first call is ``serve.first_request`` always
@@ -123,6 +133,8 @@ def build_scorer(model, feature_config, table,
     """
     dev = resolve_device(device)
     can = _can_of(can_table, can_param_field)
+    if can is not None:
+        feature_config.refuse_per_field("the CAN lookup")
     first = True
 
     def score(state: ServingState, dense, sparse_ids) -> torch.Tensor:
@@ -166,6 +178,7 @@ class WireScorer:
                  dense_mode: str = "f16",
                  device: Union[str, torch.device] = "cuda", can_table=None,
                  can_param_field: Optional[int] = None):
+        feature_config.refuse_per_field("WireScorer's wire")
         self.device = resolve_device(device)
         self.wire = WireFormat(feature_config.num_sparse,
                                feature_config.rows_per_field,

@@ -204,6 +204,7 @@ class Trainer:
     def __init__(self, model: nn.Module, feature_config: FeatureConfig,
                  config: TrainerConfig,
                  device: Union[str, torch.device] = "cuda", mesh=None):
+        feature_config.refuse_per_field("Trainer")
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.device)
         self.model = model

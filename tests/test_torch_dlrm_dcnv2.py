@@ -1,0 +1,342 @@
+"""DLRM-DCNv2 on the port: the per-field, multi-hot ``FeatureConfig``, the
+pooled lookup ``gather_pool_rows`` (plain version; the kernel on the
+card), DCN-V2's low-rank cross layer, and ``DLRMDCNv2Model`` served
+through ``build_scorer`` against the benchmark's plain reference
+(``port_bench/reference/dlrm-dcnv2-criteo1tb.py``, loaded by path) on
+seeded random weights; and the paths that refuse the new layout.
+
+No JAX here: the JAX package has neither the layout nor the model.  The
+``cuda`` tests run on the card with ``python -m pytest --noconftest
+tests/test_torch_dlrm_dcnv2.py -q -m cuda``.
+
+Tolerances: id arithmetic exact; the plain lookup against a Python loop
+of float32 adds in the same column order exact; the cross layer against
+its formula in float64 1e-6 of the largest output (float32 products of
+width 12); the model against the reference 1e-5 of the largest logit
+(both float32, sums in other orders: the pooled rows, ``addmm``'s bias);
+the kernel against the plain version exact (the same adds in the same
+order, no fused multiply-add), the served logits on the card against the
+CPU's 1e-5 of the largest (float32 products in other orders).
+"""
+import importlib.util
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rec_now_tpu_torch.core import profiling
+from rec_now_tpu_torch.embedding.table import EmbeddingTable
+from rec_now_tpu_torch.layers import LowRankCrossLayer
+from rec_now_tpu_torch.models import (CANDCNModel, DLRMDCNv2Model,
+                                      FeatureConfig)
+from rec_now_tpu_torch.ops import gather_kernel as gk
+from rec_now_tpu_torch.serving import ServingState, WireScorer, build_scorer
+from rec_now_tpu_torch.training import Trainer, TrainerConfig
+
+torch.set_num_threads(1)
+
+REF = Path(__file__).resolve().parents[1] / "port_bench" / "reference"
+# the small model of the comparisons: 4 fields of 8, hotness (1, 3, 2, 5)
+ROWS, HOT = (5, 7, 3, 11), (1, 3, 2, 5)
+SMALL = {"num_dense_features": 3, "num_sparse_features": 4,
+         "embedding_dim": 8, "num_embeddings_per_feature": list(ROWS),
+         "multi_hot_sizes": list(HOT), "dense_arch_layer_sizes": [16, 8],
+         "dcn_num_layers": 2, "dcn_low_rank_dim": 4,
+         "over_arch_layer_sizes": [16, 8, 1]}
+
+
+def _fc(**kw):
+    args = dict(num_dense=3, num_sparse=4, embedding_dim=8, field_rows=ROWS,
+                hotness=HOT)
+    args.update(kw)
+    return FeatureConfig(**args)
+
+
+def _reference():
+    if str(REF) not in sys.path:
+        sys.path.insert(0, str(REF))
+    spec = importlib.util.spec_from_file_location(
+        "dlrm_dcnv2_reference", REF / "dlrm-dcnv2-criteo1tb.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# -- FeatureConfig -----------------------------------------------------------
+def test_per_field_layout_by_hand():
+    fc = _fc()
+    assert fc.per_field
+    assert fc.total_rows == 26
+    assert fc.field_offsets().tolist() == [0, 5, 12, 15]
+    raw = torch.tensor([[4, 0, 6, 13, 2, 5, 0, 10, 11, 22, -1],
+                        [5, 1, 2, 3, 4, 3, 9, 0, 1, 2, 3]], dtype=torch.int32)
+    # columns: field 0 | field 1 x 3 | field 2 x 2 | field 3 x 5; each id
+    # modulo its field's rows, plus the rows before the field
+    want = [[4, 5, 11, 5 + 6, 12 + 2, 12 + 2, 15, 15 + 10, 15 + 0,
+             15 + 0, 15 + 10],
+            [0, 6, 7, 8, 12 + 1, 12 + 0, 15 + 9, 15, 16, 17, 18]]
+    got = fc.global_ids(raw)
+    assert got.dtype == torch.int64 and got.tolist() == want
+    with pytest.raises(ValueError, match="11 columns"):
+        fc.global_ids(raw[:, :4])
+
+
+@pytest.mark.parametrize("kw", [dict(hotness=None),
+                                dict(field_rows=None)])
+def test_per_field_layout_needs_rows_and_hotness_together(kw):
+    with pytest.raises(ValueError, match="given together"):
+        _fc(**kw)
+
+
+@pytest.mark.parametrize("hotness,cols,lookup", [
+    (HOT, 11, "lookup_pooled"),        # a multi-hot layout pools
+    ((1, 1, 1, 1), 4, "lookup")])      # one id a field: B11, as by default
+def test_scorer_takes_the_lookup_of_its_layout(hotness, cols, lookup):
+    fc = _fc(hotness=hotness)
+    if cols == 4:
+        assert fc.global_ids(torch.tensor([[6, 7, 3, 12]])).tolist() == [
+            [1, 5, 12, 16]]
+    model = DLRMDCNv2Model(fc, dense_arch=(8,), cross_layers=1,
+                           cross_rank=2, over_arch=(4,), device="cpu")
+    table = EmbeddingTable(fc.total_rows, 8, "cpu")
+    calls = []
+    for name in ("lookup", "lookup_pooled"):
+        real = getattr(table, name)
+        setattr(table, name, lambda *a, _n=name, _f=real: (calls.append(_n),
+                                                            _f(*a))[1])
+    scorer = build_scorer(model, fc, table, device="cpu")
+    state = ServingState({n: p.detach() for n, p in model.named_parameters()},
+                         torch.randn(fc.total_rows, 8))
+    ids = np.arange(2 * cols, dtype=np.int32).reshape(2, cols)
+    out = scorer(state, np.ones((2, 3), np.float32), ids)
+    assert out.shape == (2,) and bool(torch.isfinite(out).all())
+    assert calls == [lookup]
+
+
+def test_default_layout_gives_todays_ids():
+    fc = FeatureConfig(num_sparse=5, rows_per_field=1000)
+    assert not fc.per_field
+    assert fc.field_rows is None and fc.hotness is None
+    assert fc == FeatureConfig(num_sparse=5, rows_per_field=1000)
+    raw = torch.from_numpy(np.random.RandomState(0).randint(
+        -10 ** 6, 10 ** 6, size=(7, 5)).astype(np.int32))
+    want = raw.to(torch.int64) % 1000 + torch.arange(5) * 1000
+    assert torch.equal(fc.global_ids(raw), want)
+    assert fc.total_rows == 5000
+
+
+@pytest.mark.parametrize("kw", [dict(field_rows=(5, 7, 3)),
+                                dict(hotness=(1, 0, 2, 1)),
+                                dict(field_rows=(5, 7, 3, -1))])
+def test_per_field_layout_refuses_bad_counts(kw):
+    with pytest.raises(ValueError, match="num_sparse = 4"):
+        _fc(**kw)
+
+
+# -- the pooled lookup, plain -------------------------------------------------
+def _loop_pool(table, ids, hotness):
+    out = torch.zeros(ids.shape[0], len(hotness), table.shape[1])
+    for b in range(ids.shape[0]):
+        at = 0
+        for f, h in enumerate(hotness):
+            for j in range(at, at + h):
+                out[b, f] += table[int(ids[b, j].clamp(0,
+                                                       table.shape[0] - 1))]
+            at += h
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_gather_pool_rows_plain_is_index_and_sum(dtype):
+    gen = torch.Generator().manual_seed(3)
+    table = torch.randn(40, 6, generator=gen)
+    hotness = (1, 3, 0, 5, 2)
+    ids = torch.randint(-4, 44, (7, 11), generator=gen).to(dtype)
+    want = _loop_pool(table, ids, hotness)
+    assert torch.equal(gk.gather_pool_rows_plain(table, ids, hotness), want)
+    before = gk.gather_pool_rows.launches
+    assert torch.equal(gk.gather_pool_rows(table, ids, hotness), want)
+    assert torch.equal(EmbeddingTable(40, 6, "cpu").lookup_pooled(
+        table, ids, hotness), want)
+    assert gk.gather_pool_rows.launches == before   # the CPU launches none
+    with pytest.raises(ValueError, match="sum\\(hotness\\) = 11"):
+        gk.gather_pool_rows(table, ids[:, :10], hotness)
+    with pytest.raises(ValueError, match="forward only"):
+        gk.gather_pool_rows(table.requires_grad_(), ids, hotness)
+
+
+# -- the low-rank cross layer -------------------------------------------------
+def test_low_rank_cross_layer_is_its_formula():
+    gen = torch.Generator().manual_seed(5)
+    layer = LowRankCrossLayer(12, 4, 3, gen, device="cpu")
+    assert layer.v_kernels.shape == (3, 12, 4)
+    assert layer.w_kernels.shape == (3, 4, 12)
+    assert torch.equal(layer.biases, torch.zeros(3, 12))
+    lim = (6 / 16) ** 0.5                             # glorot, fans 12 and 4
+    assert 0.5 * lim < float(layer.v_kernels.detach().abs().max()) <= lim
+    with torch.no_grad():
+        layer.biases.uniform_(-1, 1, generator=gen)
+    x0 = torch.randn(9, 12, generator=gen)
+    v, w, bias = (t.detach().double() for t in
+                  (layer.v_kernels, layer.w_kernels, layer.biases))
+    x = x0.double()
+    for i in range(3):
+        x = x0.double() * (x @ v[i] @ w[i] + bias[i]) + x
+    got = layer(x0).detach()
+    assert float((got.double() - x).abs().max()) <= 1e-6 * float(
+        x.abs().max())
+
+
+# -- the model through build_scorer against the benchmark's reference -------
+def _weights(ref, cfg, seed):
+    """Random weights by the reference's names: every tensor, biases too,
+    U(-limit, limit) (biases U(-0.5, 0.5))."""
+    rng = np.random.RandomState(seed)
+    return {name: torch.from_numpy(rng.uniform(
+        -(limit or 0.5), limit or 0.5, size=shape).astype(np.float32))
+        for name, shape, limit in ref.param_specs(cfg)}
+
+
+def test_model_serves_as_the_reference():
+    ref = _reference()
+    fc = _fc()
+    model = DLRMDCNv2Model(fc, dense_arch=(16, 8), cross_layers=2,
+                           cross_rank=4, over_arch=(16, 8), device="cpu")
+    params = _weights(ref, SMALL, 0)
+    assert {n: tuple(p.shape) for n, p in model.named_parameters()} == {
+        n: tuple(p.shape) for n, p in params.items()}
+    rng = np.random.RandomState(1)
+    table = torch.from_numpy(rng.uniform(-0.5, 0.5, (fc.total_rows, 8))
+                             .astype(np.float32))
+    dense = np.log1p(rng.exponential(8.0, (64, 3))).astype(np.float32)
+    ids = rng.randint(0, 1000, size=(64, 11)).astype(np.int32)
+    scorer = build_scorer(model, fc, EmbeddingTable(fc.total_rows, 8, "cpu"),
+                          device="cpu")
+    before = gk.gather_rows.launches
+    profiling.enable()
+    try:
+        got = scorer(ServingState(params, table), dense, ids)
+        spans = profiling.span_report()["spans"]
+    finally:
+        profiling.disable()
+    assert spans["cross"]["count"] >= 1 and "stream_ms" not in spans["cross"]
+    assert gk.gather_rows.launches == before
+    with torch.no_grad():
+        want = ref.forward(params, torch.from_numpy(dense),
+                           ref.global_rows(ids, SMALL, "cpu"), table, SMALL)
+    assert got.shape == (64,)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_model_refuses_a_dense_arch_of_another_width():
+    with pytest.raises(ValueError, match="dense arch ends at 16"):
+        DLRMDCNv2Model(_fc(), dense_arch=(16,), device="cpu")
+
+
+# -- paths that refuse the new layout ----------------------------------------
+def test_paths_without_the_layout_refuse_it():
+    fc = _fc()
+    model = DLRMDCNv2Model(fc, dense_arch=(8,), device="cpu")
+    table = EmbeddingTable(fc.total_rows, 8, "cpu")
+    with pytest.raises(ValueError, match="Trainer takes one rows_per_field"):
+        Trainer(model, fc, TrainerConfig(), device="cpu")
+    with pytest.raises(ValueError, match="WireScorer's wire takes one"):
+        WireScorer(model, fc, table, device="cpu")
+    with pytest.raises(ValueError, match="the CAN lookup takes one"):
+        build_scorer(CANDCNModel(FeatureConfig(rows_per_field=16,
+                                               embedding_dim=8),
+                                 device="cpu"),
+                     fc, table, device="cpu",
+                     can_table=EmbeddingTable(16, 8, "cpu"),
+                     can_param_field=0)
+    # per-field rows with one id a field are refused as well
+    with pytest.raises(ValueError, match="Trainer takes one"):
+        Trainer(model, _fc(hotness=(1, 1, 1, 1)), TrainerConfig(),
+                device="cpu")
+
+
+# -- the kernel on the card ---------------------------------------------------
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v,d,b,hotness", [
+    (40, 8, 7, (1, 3, 0, 5, 2)),                  # float4, a field of none
+    (777, 5, 33, (2, 1, 7)),                      # D % 4: the scalar loop
+    (3000, 128, 257, (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1,
+                      1, 1, 12, 100, 27, 10, 3, 1, 1)),   # the published
+    (50, 16, 0, (2, 3))])                         # no example
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_gather_pool_rows_matches_plain_exactly(dev, v, d, b, hotness, dtype):
+    gen = torch.Generator().manual_seed(v + d + b)
+    table = torch.randn(v, d, generator=gen).to(dev)
+    ids = torch.randint(-3, v + 3, (b, sum(hotness)), generator=gen
+                        ).to(dtype).to(dev)
+    before = gk.gather_pool_rows.launches
+    got = gk.gather_pool_rows(table, ids, hotness)
+    assert got.shape == (b, len(hotness), d)
+    assert torch.equal(got, gk.gather_pool_rows_plain(table, ids, hotness))
+    assert gk.gather_pool_rows.launches == before + (1 if b else 0)
+    # a table view off the 16-byte grid takes the scalar loop
+    off = torch.randn(v * d + 1, generator=gen).to(dev)[1:].view(v, d)
+    assert torch.equal(gk.gather_pool_rows(off, ids, hotness),
+                       gk.gather_pool_rows_plain(off, ids, hotness))
+
+
+@pytest.mark.cuda
+def test_gather_pool_rows_reads_rows_past_32_bit_offsets(dev):
+    """Rows past 2^31 / D: a (2^24 + 300, 128) table, 8.6 GB, whose far
+    rows start past 2^31 floats."""
+    v, d = (1 << 24) + 300, 128
+    table = torch.empty(v, d, device=dev)
+    far = torch.arange(v - 260, v, device=dev)
+    table[far] = torch.randn(far.numel(), d, device=dev)
+    table[:64] = torch.randn(64, d, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    hotness = (100, 27, 1)
+    cols = sum(hotness)
+    ids = torch.where(torch.rand(64, cols, generator=gen) < 0.5,
+                      torch.randint(v - 260, v + 5, (64, cols),
+                                    generator=gen),
+                      torch.randint(0, 64, (64, cols), generator=gen)).to(dev)
+    assert int(ids.max()) * d > 2 ** 31
+    got = gk.gather_pool_rows(table, ids, hotness)
+    want = gk.gather_pool_rows_plain(table, ids, hotness)
+    assert torch.equal(got, want)
+    del table
+
+
+@pytest.mark.cuda
+def test_scorer_on_the_card_pools_with_one_launch(dev):
+    ref = _reference()
+    fc = _fc()
+    params = _weights(ref, SMALL, 2)
+    rng = np.random.RandomState(3)
+    table = torch.from_numpy(rng.uniform(-0.5, 0.5, (fc.total_rows, 8))
+                             .astype(np.float32))
+    dense = np.log1p(rng.exponential(8.0, (300, 3))).astype(np.float32)
+    ids = rng.randint(0, 1000, size=(300, 11)).astype(np.int32)
+    out = {}
+    for device in ("cpu", dev):
+        model = DLRMDCNv2Model(fc, dense_arch=(16, 8), cross_layers=2,
+                               cross_rank=4, over_arch=(16, 8),
+                               device=device)
+        scorer = build_scorer(model, fc, EmbeddingTable(fc.total_rows, 8,
+                                                        device),
+                              device=device)
+        state = ServingState({k: p.to(device) for k, p in params.items()},
+                             table.to(device))
+        before = (gk.gather_pool_rows.launches, gk.gather_rows.launches)
+        out[str(device)] = scorer(state, dense, ids).cpu()
+        launched = (gk.gather_pool_rows.launches - before[0],
+                    gk.gather_rows.launches - before[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 0))
+    want = out["cpu"]
+    assert float((out[str(dev)] - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
