@@ -60,7 +60,16 @@ Phases, each of which ends the script with a non-zero exit on failure:
    function (CUDA events, median of 20; each multi-expert dense bank
    and each CIN layer beside its bound on the unit that runs it: split
    TF32 on the tensor cores (the CIN layer also at the f32 rate), or f32
-   for the gate kernel); the CIN backwards' device time by part
+   for the gate kernel); B8's wgmma kernel (``linear_wg``) at the main
+   paths' tower layers at B = 8192 (DLRM-DCNv2's over arch 3,456 ->
+   1,024 -> 1,024 -> 512 -> 256 and dense arch 512 -> 256 -> 128, the
+   benchmark's xDeepFM 400 -> 400; nn.Linear's weights, bias and ReLU
+   fused), each one launch, against float64 (2e-6 of the largest
+   output), beside its bound, the plain version and F.linear + ReLU in
+   float32, and wgmma_plan's crossover (400 -> 400 and 512 -> 256 at B =
+   1,024-8,192, both ways); ptxas's C7520 (a serialized wgmma) fails
+   the build phase;
+   the CIN backwards' device time by part
    (``torch.profiler``: B5's row and weight-gradient kernels per layer;
    B4's recompute, row kernel, weight gradients and collapsed layer),
    each beside its least work; the wrappers' host microseconds
@@ -87,11 +96,14 @@ its first step once more under lazy Adam (two Adam passes; not served or
 trained further).  Each run names its model,
 trainer config, loss keys, the launches it expects per request and per
 step, and its own kernel checks.  Every serving or training loop sets all
-fifteen launch counts to 0 just before it and reads them just after, and
+sixteen launch counts to 0 just before it and reads them just after, and
 fails unless each is exact (0 for a kernel the run does not name): every
 request and step looks its rows up once (B11), every step scatters their
 gradients once (B12); the pooled lookup (``gather_pool_rows``) launches
-only for the DLRM-DCNv2 requests of phase 4.
+only for the DLRM-DCNv2 requests of phase 4; a forward with no gradient
+recorded (serving, eval) launches B8's wgmma kernel once for each
+``DNNTower`` layer that ``wgmma_plan`` takes at its batch
+(``tower_launches``), training steps never.
 
 4. serve each run at full width through ``build_scorer`` and
    ``WireScorer`` (u8, f16): logits of the expected shape ((B,), or
@@ -104,9 +116,10 @@ only for the DLRM-DCNv2 requests of phase 4.
    logits are each visible), and the card against the same model and
    tables on the CPU through the plain versions; then DLRM-DCNv2 at
    MLPerf's widths on phase 3's pooled layout through ``build_scorer``
-   at B = 8192: one ``gather_pool_rows`` launch a request and no other
-   counted kernel, the logits against its forward on the plain pooled
-   lookup;
+   at B = 8192: one ``gather_pool_rows`` launch and six B8 wgmma
+   launches a request (the dense arch's last two layers, the over
+   arch's four) and no other counted kernel, the logits against its
+   forward on the plain pooled lookup with its towers on nn.Linear;
 5. each run's first training step (B = 2048, full-width model and
    tables, its launches exact) on the card against the same step on the
    CPU: the losses, every gradient and every param after Adam, each
@@ -359,6 +372,22 @@ MD_BANKS = (("MMoE experts layer 0", 1, 4, 429, 128, True, 1),
             ("edge: shared, N*U = 16", 1, 4, 429, 4, False, 0),
             ("edge: shared, N*U = 17", 1, 1, 429, 17, False, 0),
             ("edge: per-expert, N*U = 8", 2, 2, 429, 4, False, 0))
+# the main paths' DNNTower layers (what, in, out) at B = 8192, each one
+# launch of B8's wgmma kernel (linear_wg) on nn.Linear's weights, bias and
+# ReLU in its epilogue: DLRM-DCNv2's over arch (passes of 128 units), its
+# dense arch's last two layers, the benchmark's xDeepFM 400 -> 400
+# (passes of 200)
+TOWER_LAYERS = (("DLRM-DCNv2 over arch", 3456, 1024),
+                ("DLRM-DCNv2 over arch", 1024, 1024),
+                ("DLRM-DCNv2 over arch", 1024, 512),
+                ("DLRM-DCNv2 over arch", 512, 256),
+                ("DLRM-DCNv2 dense arch", 512, 256),
+                ("DLRM-DCNv2 dense arch", 256, 128),
+                ("xDeepFM DNN", 400, 400))
+# wgmma_plan's crossover: layers (in, out) timed on the wgmma kernel
+# (forced) and on F.linear + ReLU at each batch
+CROSSOVER = ((400, 400), (512, 256))
+CROSSOVER_B = (1024, 2048, 4096, 8192)
 # the stack forward's paths (csrc/cin.cu, stack_rows), each forced: rows a
 # block, or layer-by-layer launches (config 3's stack takes the first)
 STACK_PATHS = {128: "128-row blocks", 64: "64-row blocks",
@@ -991,11 +1020,126 @@ def check_gather_pool(torch, np, kern, gk, dev, card) -> None:
     torch.cuda.empty_cache()
 
 
+def tower_rows(torch, mk, rand, b: int, card: str) -> dict:
+    """B8's wgmma kernel (``linear_wg``) at the main paths' tower layers
+    (TOWER_LAYERS) at batch ``b``: each taken by wgmma_plan, one launch
+    counted in ``multi_dense.wgmma``, within 2e-6 of the largest output
+    from float64, timed by events and on the device beside its bound
+    (three TF32 products a multiply-add at 495 TFLOP/s), the plain version
+    and F.linear + ReLU in float32 (TF32 off); then wgmma_plan's crossover
+    (CROSSOVER at CROSSOVER_B), device ms both ways beside the plan's
+    choice.  -> the kernel's row of the ``kernels`` line, summed over the
+    layers."""
+    from rec_now_tpu_torch.core import profiling
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the library's time would not be float32's")
+
+    def wgmma_count():
+        return profiling.span_report()["counters"].get("multi_dense.wgmma",
+                                                       0)
+
+    print(f"linear_wg (B8's wgmma kernel) at the tower layers, B={b}:")
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, err=0.0, rel=0.0, bound_by=set())
+    over = dict(ms=0.0, device_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for what, d, u in TOWER_LAYERS:
+        x, w, bias = rand(b, d), rand(u, d, scale=d ** -0.5), rand(u)
+        if not mk.wgmma_plan(b, d, u, x.data_ptr() % 16 == 0):
+            fail(f"{what} {d} -> {u}: wgmma_plan refuses it at B={b}")
+        before, launches = wgmma_count(), mk.linear_wg.launches
+        got = mk.linear_wg(x, w, bias, True)
+        if (got is None or wgmma_count() != before + 1
+                or mk.linear_wg.launches != launches + 1):
+            fail(f"{what} {d} -> {u}: not one wgmma launch")
+        want = torch.relu(x.double() @ w.double().t() + bias.double())
+        err = float((got.double() - want).abs().max())
+        rel = err / float(want.abs().max())
+        ms = cuda_ms(torch, lambda: mk.linear_wg(x, w, bias, True))
+        dms = profiled_ms(torch, lambda: mk.linear_wg(x, w, bias, True))
+        pms = cuda_ms(torch, lambda: mk.multi_dense_xla(
+            x[None], w.t()[None], bias[None, None], "relu"))
+        lms = cuda_ms(torch, lambda: torch.relu(
+            torch.nn.functional.linear(x, w, bias)))
+        ldms = profiled_ms(torch, lambda: torch.relu(
+            torch.nn.functional.linear(x, w, bias)))
+        fl, nb = multi_dense_work(1, 1, b, d, u)
+        b_ms, b_by = bound_ms(3 * fl, nb, PEAK_TF32_FLOPS)
+        print(f"  {what} {d} -> {u}: kernel {ms:.4f} ms (device "
+              f"{dms:.4f}), plain {pms:.4f} ms, F.linear + ReLU {lms:.4f} "
+              f"ms (device {ldms:.4f}); bound {b_ms:.4f} ms "
+              f"({'ops, split TF32' if b_by == 'operations' else b_by}) "
+              f"= {b_ms / dms:.1%} of the kernel's device time; "
+              f"max|kernel - f64| / max|f64| {rel:.2e} [{card}]")
+        if rel > 2e-6:
+            fail(f"{what} {d} -> {u}: {rel:.2e} of max|f64| off")
+        if b_ms > dms:
+            fail(f"{what} {d} -> {u} ran under its bound")
+        for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", pms),
+                       ("library_ms", lms), ("bound_ms", b_ms)):
+            tot[key] += v
+        if what.endswith("over arch"):
+            for key, v in (("ms", ms), ("device_ms", dms),
+                           ("library_ms", ldms), ("bound_ms", b_ms)):
+                over[key] += v
+        tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
+        tot["bound_by"].add(b_by)
+    print(f"  the over arch's four layers: kernel {over['ms']:.4f} ms by "
+          f"events, device {over['device_ms']:.4f}, F.linear + ReLU device "
+          f"{over['library_ms']:.4f}; bound {over['bound_ms']:.4f} ms = "
+          f"{over['bound_ms'] / over['device_ms']:.1%} of the device time "
+          f"[{card}]")
+    print(f"  all {len(TOWER_LAYERS)} layers: kernel {tot['ms']:.4f} ms, "
+          f"device {tot['device_ms']:.4f}, F.linear + ReLU "
+          f"{tot['library_ms']:.4f}; bound {tot['bound_ms']:.4f} ms = "
+          f"{tot['bound_ms'] / tot['device_ms']:.1%} of the device time; "
+          f"max rel err {tot['rel']:.2e} [{card}]")
+    print("wgmma_plan's crossover, device ms (torch.profiler) and by "
+          "events, wgmma kernel / F.linear + ReLU:")
+    for d, u in CROSSOVER:
+        w, bias = rand(u, d, scale=d ** -0.5), rand(u)
+        for bb in CROSSOVER_B:
+            x = rand(bb, d)
+            kern_ = (lambda: mk._linear_wg(x, w, bias, True))
+            lib_ = (lambda: torch.relu(
+                torch.nn.functional.linear(x, w, bias)))
+            kd, ld = profiled_ms(torch, kern_), profiled_ms(torch, lib_)
+            ke, le = cuda_ms(torch, kern_), cuda_ms(torch, lib_)
+            taken = mk.wgmma_plan(bb, d, u, True)
+            print(f"  {d} -> {u}, B={bb}: device {kd:.4f} / {ld:.4f}, "
+                  f"events {ke:.4f} / {le:.4f}; the plan takes "
+                  f"{'the wgmma kernel' if taken else 'F.linear + ReLU'}"
+                  f"{'' if (kd <= ld) == taken else ', the slower'} "
+                  f"[{card}]")
+    return tot
+
+
+def tower_launches(model, b: int) -> int:
+    """B8 launches of ``model``'s forward at batch ``b`` with no gradient
+    recorded: one for each DNNTower layer that wgmma_plan takes (each
+    layer's input is a fresh tensor, on the 16-byte grid)."""
+    from rec_now_tpu_torch.models.tower import DNNTower
+    from rec_now_tpu_torch.ops import multi_dense_kernel as mk
+    return sum(mk.wgmma_plan(b, layer.in_features, layer.out_features,
+                             True)
+               for tower in model.modules() if isinstance(tower, DNNTower)
+               for layer in tower.children())
+
+
+def dcn_eval_launches(b: int = 8192) -> dict:
+    """Launches of one eval batch of the CLI's config 2 (DCNv2Model at the
+    CLI's default widths): its row gather, its tower's wgmma layers."""
+    from rec_now_tpu_torch.models import DCNv2Model, FeatureConfig
+    return {"gather_rows": 1, "linear_wg": tower_launches(
+        DCNv2Model(FeatureConfig(), device="cpu"), b)}
+
+
 def serve_pooled(torch, np, counted, dev, card) -> None:
     """DLRM-DCNv2 at MLPerf's widths on the DLRM layout through
-    ``build_scorer``: every request one ``gather_pool_rows`` launch and
-    no other counted kernel, logits (B,) finite and equal to the model's
-    forward on the plain pooled lookup."""
+    ``build_scorer``: every request one ``gather_pool_rows`` launch, one
+    B8 wgmma launch for each tower layer the plan takes, and no other
+    counted kernel; logits (B,) finite and equal to the model's forward
+    on the plain pooled lookup with a gradient recorded (its towers on
+    nn.Linear)."""
     from rec_now_tpu_torch.embedding.table import EmbeddingTable
     from rec_now_tpu_torch.models import DLRMDCNv2Model
     from rec_now_tpu_torch.ops import gather_kernel as gk
@@ -1018,19 +1162,26 @@ def serve_pooled(torch, np, counted, dev, card) -> None:
             times.append((time.perf_counter() - t0) * 1e3)
         return times, outs
 
+    towers = tower_launches(model, 8192)
     times, outs = counted(f"serve DLRM-DCNv2 (B=8192, {sum(fc.hotness)} "
                           f"ids an example), {len(reqs)} requests",
-                          len(reqs), {"gather_pool_rows": 1}, requests)
-    with torch.inference_mode():
-        for (dense, raw), out in zip(reqs[:2], outs[:2]):
-            if tuple(out.shape) != (8192,) or not torch.isfinite(out).all():
-                fail(f"DLRM-DCNv2: bad logits {tuple(out.shape)}")
+                          len(reqs), {"gather_pool_rows": 1,
+                                      "linear_wg": towers}, requests)
+    print(f"  {towers} B8 wgmma launches a request (the towers' layers "
+          f"that wgmma_plan takes)")
+    for (dense, raw), out in zip(reqs[:2], outs[:2]):
+        if tuple(out.shape) != (8192,) or not torch.isfinite(out).all():
+            fail(f"DLRM-DCNv2: bad logits {tuple(out.shape)}")
+        with torch.no_grad():
             pooled = gk.gather_pool_rows_plain(
                 table_t, fc.global_ids(torch.from_numpy(raw).to(dev)),
                 fc.hotness)
-            compare("DLRM-DCNv2 served vs its forward on the plain pooled "
-                    "lookup", out, model(torch.from_numpy(dense).to(dev),
-                                         pooled), floor=0.0)
+        want = model(torch.from_numpy(dense).to(dev), pooled)
+        if not want.requires_grad:
+            fail("DLRM-DCNv2's reference forward recorded no gradient")
+        compare("DLRM-DCNv2 served vs its forward on the plain pooled "
+                "lookup and nn.Linear towers", out, want.detach(),
+                floor=0.0)
     ms = statistics.median(times)
     print(f"  {ms:.3f} ms/request (median of {len(times)}), "
           f"{8192 / ms * 1e3:.0f} examples/s at B=8192, requests in "
@@ -1165,11 +1316,14 @@ def check_wide_tables(torch, rand, gen, batch, tk, gk, ek, dev,
           ("index_add_", lambda: buf.index_add_(0, ids, vals)))
 
 
-def cli_launches(per_step: dict, steps: int, eval_batches: int) -> dict:
-    """Launches of a CLI run: ``per_step`` for each step, and one row
-    gather for each batch of its one (final) eval."""
+def cli_launches(per_step: dict, steps: int, eval_batches: int,
+                 per_eval: dict = None) -> dict:
+    """Launches of a CLI run: ``per_step`` for each step, and ``per_eval``
+    (one row gather unless given) for each batch of its one (final)
+    eval."""
     want = {k: v * steps for k, v in per_step.items()}
-    want["gather_rows"] = want.get("gather_rows", 0) + eval_batches
+    for k, v in (per_eval or {"gather_rows": 1}).items():
+        want[k] = want.get(k, 0) + v * eval_batches
     return want
 
 
@@ -1378,7 +1532,8 @@ def train_cli_phase(torch, counted, card: str) -> dict:
         # the entry point as users start it, each run counted whole
         fm_step = {"gather_rows": 1, "scatter_add_rows": 1,
                    "adagrad_dense_pass": 1}
-        flagship = cli_launches(per_step, args.steps, args.eval_batches)
+        flagship = cli_launches(per_step, args.steps, args.eval_batches,
+                                dcn_eval_launches())
         cli_ck = os.path.join(ckdir, "cli")
         a_logs, a_res = run_cli(cli, counted, CLI_FLAGSHIP + CLI_COMMON + [
             "--eval-mode", "device", "--checkpoint-dir", cli_ck,
@@ -1419,7 +1574,7 @@ def train_cli_phase(torch, counted, card: str) -> dict:
         evals = list(make_eval())
         res = counted(
             f"device eval of the CLI's last checkpoint ({len(evals)} "
-            f"batches)", len(evals), {"gather_rows": 1},
+            f"batches)", len(evals), dcn_eval_launches(),
             lambda: trainer.evaluate_device(
                 state, evals, num_group_slots=cli.eval_slots(args),
                 group_buckets=args.eval_group_buckets))
@@ -1871,7 +2026,7 @@ def mesh_phase(torch, counted, card: str, fc, runs, batches, phase8: dict,
         try:
             logs, res = collectives(what, want, lambda: run_cli(
                 cli, counted, e_flags, what,
-                cli_launches(flagship, steps, evals)))
+                cli_launches(flagship, steps, evals, dcn_eval_launches())))
             mgr = CheckpointManager(ckdir)
             e_args = cli.parse_args(e_flags)
             back = mgr.restore(target=cli.init_state(
@@ -2076,7 +2231,8 @@ def file_cli_phase(torch, counted, card: str, synthetic_ms: dict) -> None:
                 cli, counted, args,
                 f"file CLI {key}: {setting.model} from the file, windowed, u8, "
                 f"device eval, {what}",
-                cli_launches(per_step, steps, FILE_EVAL), lines)
+                cli_launches(per_step, steps, FILE_EVAL,
+                             dcn_eval_launches()), lines)
             check_windows(f"file CLI {key}")
             runs[key] = (logs, res, lines)
 
@@ -3059,6 +3215,8 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "properties" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+            if "C7520" in line:       # a wgmma serialized: ~3x its time
+                fail(f"csrc/{name}.cu: ptxas serialized a wgmma: {line}")
 
     # -- 3. kernels vs plain --------------------------------------------------
     gen = torch.Generator().manual_seed(1234)
@@ -3473,6 +3631,15 @@ def main() -> int:
         replaces=f"{MD_TPU}:75", max_abs_err=err, ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
         library_ms=t["library_ms"])
+    wg = tower_rows(torch, mk, rand, B, card)
+    kern["linear_wg"] = dict(
+        name="linear_wg", route="cuda",
+        source="rec_now_tpu_torch/csrc/multi_dense.cu",
+        replaces="nn.Linear + torch.relu (DNNTower, no TPU kernel)",
+        max_abs_err=wg["err"], ms=wg["ms"], plain_ms=wg["plain_ms"],
+        bound_ms=wg["bound_ms"], bound_by=" and ".join(sorted(
+            wg["bound_by"])),
+        library_ms=wg["library_ms"])
 
     print("listwise_loss_sum vs plain:")
     print(f"  B=8192: {listwise_ops(pb.labels):,} operations")
@@ -3940,6 +4107,7 @@ def main() -> int:
                "pair_loss_sum": pk.pair_loss_sum,
                "adagrad_dense_pass": tk.adagrad_dense_pass,
                "multi_dense": mk.multi_dense_fused,
+               "linear_wg": mk.linear_wg,
                "listwise_loss_sum": lk.listwise_loss_sum,
                "adam_dense_pass": tk.adam_dense_pass,
                "pair_row_counts": pk.pair_row_counts,
@@ -3951,20 +4119,23 @@ def main() -> int:
     for v in kern.values():
         v["launches"] = v["launches_per_step"] = 0
 
-    def counted(what: str, units: int, per_unit: dict, run):
+    def counted(what: str, units: int, per_unit: dict, run, extra=None):
         """``run()`` with every launch count set to 0 just before it and
         read just after: each kernel must have launched ``per_unit`` times
-        (0 where not named) for each of ``units``; the counts go to the
-        kernels' JSON line."""
+        (0 where not named) for each of ``units``, and ``extra`` times
+        more in all where named there; the counts go to the kernels' JSON
+        line."""
+        extra = extra or {}
         for fn in counter.values():
             fn.launches = 0
         result = run()
         counts = {n: fn.launches for n, fn in counter.items()}
         print(f"{what}: launches {counts}")
         for n, c in counts.items():
-            if c != per_unit.get(n, 0) * units:
+            if c != per_unit.get(n, 0) * units + extra.get(n, 0):
                 fail(f"{what}: {n} launched {c} times, expected "
-                     f"{per_unit.get(n, 0)} for each of {units}")
+                     f"{per_unit.get(n, 0)} for each of {units} and "
+                     f"{extra.get(n, 0)} more")
             kern[n]["launches"] += c
         return result
 
@@ -4207,8 +4378,12 @@ def main() -> int:
             return times, outs
 
         calls = len(reqs) * len(fronts)
+        # each front's requests run the towers' wgmma layers, by batch
+        towers = len(fronts) * sum(tower_launches(model, len(b.dense))
+                                   for b in reqs)
         times, outs = counted(f"serve {what}, {calls} requests", calls,
-                              run["serve"], requests)
+                              run["serve"], requests,
+                              {"linear_wg": towers})
         for batch, out in zip(reqs, outs):
             raw, b = out["raw"], len(batch.dense)
             shape = (run["heads"], b) if run["heads"] else (b,)

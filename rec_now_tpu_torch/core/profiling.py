@@ -53,6 +53,10 @@ cin                   ``layers/cin_layer.py`` ``CINLayer.forward``  tracing on
 cross                 ``models/dlrm_dcnv2_model.py``                tracing on
                       ``DLRMDCNv2Model.forward``: the low-rank
                       cross stack; stream time on CUDA
+over                  ``models/dlrm_dcnv2_model.py``                tracing on
+                      ``DLRMDCNv2Model.forward``: the over arch's
+                      MLP (B8's wgmma launches when served);
+                      stream time on CUDA
 serve.first_request   the first call of each ``build_scorer``       always
                       scorer: lazy library loads, CUDA's lazy
                       module loading, the first allocations
@@ -61,6 +65,8 @@ kernels.load          ``ops/_build.load``: a library's hash, its    always
 kernels.build         ``ops/_build``: an nvcc run (in               always
                       ``build_all``, all of its runs at once)
 kernels.builds        counter: nvcc runs                            always
+multi_dense.wgmma     counters: B8's launches by kernel             always
+multi_dense.mma       (``ops/multi_dense_kernel.py``)
 ====================  ============================================  ===========
 
 Example (an operator's look at a serving process)::

@@ -8,7 +8,10 @@
 // the math, not from the TPU blocks: the TPU broadcasts a shared input to
 // (N, B, D) and pads B to its row tile (:62-73); here any B, D, U and N is
 // masked at its edge, with no padding or broadcast copy.  One launch per
-// call, one of two kernels chosen by shape:
+// call, one of three kernels: multi_dense_f32 runs (a) or (b) by shape,
+// multi_dense_wg_f32 runs (c), one weight as nn.Linear stores it, where
+// ops/multi_dense_kernel.py's linear_wg takes the call (DNNTower's layers
+// when no gradient is recorded):
 //
 // (a) multi_dense_tc, the expert banks (every call that (b) does not take).
 //     A shared input is one (B, D) x (D, N*U) product: virtual column c is
@@ -57,8 +60,16 @@
 //     staged in shared memory once per block.  A warp-shuffle fold leaves
 //     lane l with the full sum of output l (row l / NUP, column l % NUP).
 //     Plain f32 FMAs: the pass is bound by bytes, not arithmetic.
+//
+// (c) linear_wg_kernel, (B, D) x (U, D)^T: wgmma fed by TMA, the weight
+//     split once a call inside the launch, bias and ReLU in the epilogue;
+//     see "one weight as nn.Linear stores it" below.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -68,7 +79,6 @@ constexpr int kBM = 128;               // rows of a block tile
 constexpr int kBK = 32;                // depth of a staged chunk of D
 constexpr int kStages = 3;             // cp.async ring depth
 constexpr int kXS = kBK + 4;           // x row stride in shared memory
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ uint32_t tf32_rna(float v) {
   uint32_t r;
@@ -76,8 +86,8 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }
 
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
+__device__ __forceinline__ void split_tf32_rna(float v, uint32_t& hi,
+                                               uint32_t& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - __uint_as_float(hi));
 }
@@ -234,17 +244,17 @@ multi_dense_tc(const float* __restrict__ x, long long x_stride_n,
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        split_tf32(wb[kk * WS + j * 8], bh[j][0], bl[j][0]);         // k = t
-        split_tf32(wb[(kk + 4) * WS + j * 8], bh[j][1], bl[j][1]);   // t + 4
+        split_tf32_rna(wb[kk * WS + j * 8], bh[j][0], bl[j][0]);       // k = t
+        split_tf32_rna(wb[(kk + 4) * WS + j * 8], bh[j][1], bl[j][1]); // t + 4
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         const float* p = xa + i * 16 * kXS + kk;
         uint32_t ah[4], al[4];
-        split_tf32(p[0], ah[0], al[0]);                 // row g, col t
-        split_tf32(p[8 * kXS], ah[1], al[1]);           // row g + 8
-        split_tf32(p[4], ah[2], al[2]);                 // col t + 4
-        split_tf32(p[8 * kXS + 4], ah[3], al[3]);
+        split_tf32_rna(p[0], ah[0], al[0]);             // row g, col t
+        split_tf32_rna(p[8 * kXS], ah[1], al[1]);       // row g + 8
+        split_tf32_rna(p[4], ah[2], al[2]);             // col t + 4
+        split_tf32_rna(p[8 * kXS + 4], ah[3], al[3]);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           float part[4];               // this k-step's 8 terms, 3 products
@@ -384,6 +394,213 @@ multi_dense_gate(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---- (c) one weight as nn.Linear stores it, on wgmma ----
+// out (B, U) = act(x (B, D) W^T + bias), W (U, D) row-major: nn.Linear's
+// (out, in) storage, which is K-major, as TF32 wgmma takes its B operand.
+// The structure of csrc/cin.cu's cin_layer_tc_kernel, one cooperative
+// launch in two phases:
+//   1. Every block writes a share of W, split into TF32 hi and lo planes,
+//      into the caller's scratch as planes[plane][d / 32][u][d % 32], zero
+//      past D and past the padded units Kp: the split is made once a call,
+//      inside the launch, so it never goes stale.  A grid barrier follows.
+//   2. Persistent blocks of 384 threads walk units (128-row tile, column
+//      pass of N units); the grid is every block that can be resident, so
+//      all SMs share phase 1, and blocks past the units stop after it.
+//      Warpgroup 2's first thread streams a unit's stages with two TMA
+//      copies each into a ring of up to 8 stages on full / empty mbarriers: the x box (128 rows x 32 floats, zero past
+//      B and D) and the planes' box (N rows of 32 floats, hi then lo),
+//      128-byte rows in SWIZZLE_128B.  Warpgroups 0 and 1 (64 rows each)
+//      read their A fragments of the stage's 4 k-steps from the x box,
+//      split them into hi and lo in registers and run wgmma m64nNk8 three
+//      times a k-step, lo*hi + hi*lo + hi*hi, against the landed planes: a
+//      chain of 12 on a zeroed accumulator, added to an f32 total once it
+//      is done (the tensor cores truncate as they accumulate; chains of 4
+//      k-steps are B2's choice, csrc/cin.cu).  The two warpgroups run
+//      their chains in turns.  The epilogue adds the bias, applies the
+//      ReLU (NaN stays NaN, as torch.relu) and writes (B, U) once.
+// TMA needs x's rows on the 16-byte grid: D % 4 == 0 and x 16-byte
+// aligned (ops/multi_dense_kernel.py's wgmma_plan decides; DNNTower runs
+// xDeepFM's 390-wide rows on nn.Linear).  Bound: operations, three TF32
+// products a multiply-add at 495 TFLOP/s; DLRM-DCNv2's over arch at
+// B = 8,192 is 85.9 GFLOP, 0.52 ms.  N, the units a pass, is 64, 128 or 200, the one
+// with the least nt * (N + 32) for nt = ceil(U / N) passes (a pass costs
+// about 32 units of work besides its width): 128 at U = 1,024, 512 and
+// 256, 200 at 400.  The chain and the total take N registers a thread.
+constexpr int LW_THREADS = 384;      // consumer warpgroups 0, 1; producer 2
+constexpr int LW_ROWS = 128;         // a tile's rows, 64 a consumer warpgroup
+constexpr int LW_KS = 4;             // k-steps of 8 a stage: 128-byte rows
+constexpr int LW_XSTAGE = LW_ROWS * 128;    // bytes of x a stage
+constexpr int LW_MAX_STAGES = 8;
+
+struct LwArgs {
+  const float* w;
+  const float* bias;   // (U) or null
+  float* out;
+  float* planes;       // 2 * JB * Kp * 32 floats
+  int M, D, U, relu;
+  int JB, Kp;          // k-blocks of 32 floats; the planes' rows
+  int NT, units, stages;
+};
+
+template <int N>
+__global__ void __launch_bounds__(LW_THREADS, 1)
+linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap) {
+  constexpr int R = N / 2;                        // accumulators a thread
+  constexpr int STAGE = LW_XSTAGE + 2 * N * 128;  // bytes: x, W hi, W lo
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + a.stages * STAGE);
+  uint64_t* empty = full + a.stages;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);       // a consumer warp each
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // phase 1: W in TF32 hi and lo, planes[plane][jb][u][32]
+  {
+    const int n = a.JB * a.Kp * 32;
+    for (int e = blockIdx.x * LW_THREADS + tid; e < n;
+         e += gridDim.x * LW_THREADS) {
+      const int r = e >> 5, jb = r / a.Kp, u = r - jb * a.Kp;
+      const int d = 32 * jb + (e & 31);
+      const float v =
+          u < a.U && d < a.D ? __ldg(a.w + (size_t)u * a.D + d) : 0.f;
+      uint32_t hi, lo;
+      split_tf32(v, hi, lo);
+      a.planes[e] = __uint_as_float(hi);
+      a.planes[n + e] = __uint_as_float(lo);
+    }
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+  }
+  cooperative_groups::this_grid().sync();
+
+  // the warpgroup, through a shuffle so that the compiler knows it is the
+  // same across a warp (a wgmma on a path it cannot prove uniform is
+  // serialized)
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (role == 2) {                   // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 256) {
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      int slot = 0;
+      uint32_t ph = 0;
+      for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+        const int nt = u % a.NT, tile = u / a.NT;
+        for (int jb = 0; jb < a.JB; ++jb) {
+          unsigned char* st = base + slot * STAGE;
+          mbar_wait(empty + slot, ph ^ 1);
+          mbar_expect(full + slot, STAGE);
+          tma_load2(st, &xmap, full + slot, 32 * jb, LW_ROWS * tile);
+          tma_load4(st + LW_XSTAGE, &wmap, full + slot, 0, nt * N, jb, 0);
+          if (++slot == a.stages) {
+            slot = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // consumer warpgroups
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  const int wg = role, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = wg * 64 + ((tid >> 5) & 3) * 16 + g;   // its rows: r0, r0 + 8
+  // A at (r0, t) (r0 + 8, t) (r0, t + 4) (r0 + 8, t + 4) of k-step i: in
+  // SWIZZLE_128B the 16-byte chunk c of row r lies at chunk c ^ (r & 7),
+  // and r0 & 7 == g; a warp's reads hit 32 distinct banks
+  const int xa = r0 * 32 + t;
+  float acc[R], tot[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  int slot = 0;
+  uint32_t ph = 0;
+  // The warpgroups run their chains in turns (barriers 5 and 6), so
+  // that one's wait, A fragments and sums overlap the other's products.
+  if (wg == 1) named_arrive(5, 256);
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    const int nt = u % a.NT, tile = u / a.NT;
+#pragma unroll
+    for (int i = 0; i < R; ++i) tot[i] = 0.f;
+    for (int jb = 0; jb < a.JB; ++jb) {
+      mbar_wait(full + slot, ph);
+      const float* xs = reinterpret_cast<const float*>(base + slot * STAGE);
+      uint32_t ah[LW_KS][4], al[LW_KS][4];
+#pragma unroll
+      for (int i = 0; i < LW_KS; ++i) {
+        const int c0 = ((2 * i) ^ g) * 4, c1 = ((2 * i + 1) ^ g) * 4;
+        split_tf32(xs[xa + c0], ah[i][0], al[i][0]);
+        split_tf32(xs[xa + 256 + c0], ah[i][1], al[i][1]);
+        split_tf32(xs[xa + c1], ah[i][2], al[i][2]);
+        split_tf32(xs[xa + 256 + c1], ah[i][3], al[i][3]);
+      }
+      const uint32_t hi = smem_u32(base + slot * STAGE + LW_XSTAGE);
+      named_sync(5 + wg, 256);       // the other warpgroup's chain is queued
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int i = 0; i < LW_KS; ++i) {
+        const uint64_t dh = desc_sw128(hi + i * 32);
+        const uint64_t dl = desc_sw128(hi + N * 128 + i * 32);
+        wgmma_tf32(acc, al[i], dh, i);
+        wgmma_tf32(acc, ah[i], dl, 1);
+        wgmma_tf32(acc, ah[i], dh, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      named_arrive(5 + (wg ^ 1), 256);  // its turn
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_regs(acc);
+      mbar_arrive_lane0(empty + slot, lane);
+      if (++slot == a.stages) {
+        slot = 0;
+        ph ^= 1;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) tot[i] += acc[i];
+    }
+
+    // epilogue: d[4c + 2 half + e] at row r0 + 8 half, column
+    // n0 + 8c + 2t + e
+    const int m0 = tile * LW_ROWS + r0, n0 = nt * N;
+    const bool pair_store = (a.U & 1) == 0;
+#pragma unroll
+    for (int c = 0; c < R / 4; ++c) {
+      const int col = n0 + 8 * c + 2 * t;
+      const float b0 = a.bias && col < a.U ? __ldg(a.bias + col) : 0.f;
+      const float b1 =
+          a.bias && col + 1 < a.U ? __ldg(a.bias + col + 1) : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + 8 * half;
+        float x = tot[4 * c + 2 * half] + b0;
+        float y = tot[4 * c + 2 * half + 1] + b1;
+        if (a.relu) {
+          x = x < 0.f ? 0.f : x;
+          y = y < 0.f ? 0.f : y;
+        }
+        if (m < a.M && col < a.U) {
+          float* o = a.out + (size_t)m * a.U + col;
+          if (pair_store) {
+            *reinterpret_cast<float2*>(o) = make_float2(x, y);
+          } else {
+            o[0] = x;
+            if (col + 1 < a.U) o[1] = y;
+          }
+        }
+      }
+    }
+  }
+  if (wg == 0) named_sync(5, 256);   // warpgroup 1's last turn
+}
+
 bool aligned(const void* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
@@ -413,15 +630,6 @@ cudaError_t launch_tc(const float* x, long long x_stride_n, int nz,
   return cudaGetLastError();
 }
 
-int sm_count(int device) {
-  static int count[kMaxDevices] = {};
-  if (!count[device] &&
-      cudaDeviceGetAttribute(&count[device], cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess)
-    count[device] = 0;
-  return count[device] > 0 ? count[device] : 1;
-}
-
 template <int NUP>
 cudaError_t launch_gate(const float* x, const float* w, const float* bias,
                         float* out, int N, int B, int D, int U, int relu,
@@ -429,7 +637,8 @@ cudaError_t launch_gate(const float* x, const float* w, const float* bias,
   constexpr int R = 32 / NUP;
   const long long tasks = (B + R - 1) / R;
   const long long want = (tasks + kThreads / 32 - 1) / (kThreads / 32);
-  const long long cap = 2LL * sm_count(device);    // W staged once a block
+  const int sms = sm_count(device);
+  const long long cap = 2LL * (sms > 0 ? sms : 1);  // W staged once a block
   const int blocks = (int)(want < cap ? want : cap);
   multi_dense_gate<NUP><<<blocks, kThreads, D * NUP * 4, s>>>(
       x, w, bias, out, B, D, U, N * U, relu);
@@ -446,6 +655,111 @@ cudaError_t use_device(int device) {
   const cudaError_t e = cudaGetDevice(&current);
   if (e != cudaSuccess || current == device) return e;
   return cudaSetDevice(device);
+}
+
+// Blocks of linear_wg_kernel<N> that can be resident at once (the
+// cooperative launch's largest grid), 0 where the device cannot launch
+// it cooperatively.
+template <int N>
+int lw_resident(int device) {
+  static std::atomic<int> slots[kMaxDevices];
+  static std::atomic<bool> done[kMaxDevices];
+  return coop_resident((const void*)linear_wg_kernel<N>, LW_THREADS, device,
+                       slots, done);
+}
+
+// How linear_wg_kernel runs a (M, D) x (U, D)^T call; N == 0 where it
+// cannot: D % 4 != 0, planes past 2^31 floats, or a device without the
+// shared memory or the cooperative launch.
+struct LwPlan {
+  int N = 0;                          // units a pass: 64, 128 or 200
+  int NT = 0, JB = 0, Kp = 0;         // passes; k-blocks; planes' rows
+  int units = 0, grid = 0, stages = 0;
+  size_t smem = 0;
+  long long planes = 0;               // floats of scratch
+};
+
+LwPlan lw_plan(int M, int D, int U, int device) {
+  LwPlan p;
+  if (M < 1 || D < 1 || U < 1 || D % 4) return p;
+  int N = 0;
+  long long nt = 0, cost = 0;
+  constexpr int kWidths[3] = {64, 128, 200};
+  for (const int n : kWidths) {
+    const long long k = (U + n - 1) / n;
+    if (!N || k * (n + 32) < cost) {
+      N = n;
+      nt = k;
+      cost = k * (n + 32);
+    }
+  }
+  const long long JB = (D + 31) / 32, Kp = nt * N;
+  const long long units = (M + LW_ROWS - 1LL) / LW_ROWS * nt;
+  if (2 * JB * Kp * 32 >= (1LL << 31) || units >= (1LL << 31)) return p;
+  const size_t cap = optin_smem(device);
+  const size_t stage = LW_XSTAGE + (size_t)2 * N * 128;
+  const size_t fixed = 1024 + 16 * LW_MAX_STAGES;   // alignment, mbarriers
+  if (fixed + 2 * stage > cap) return p;
+  const int resident = N == 64    ? lw_resident<64>(device)
+                       : N == 128 ? lw_resident<128>(device)
+                                  : lw_resident<200>(device);
+  if (!resident) return p;
+  p.N = N;
+  p.NT = (int)nt;
+  p.JB = (int)JB;
+  p.Kp = (int)Kp;
+  p.units = (int)units;
+  p.grid = resident;    // every SM splits a share of W; units below it idle
+  p.stages = (int)((cap - fixed) / stage);
+  if (p.stages > LW_MAX_STAGES) p.stages = LW_MAX_STAGES;
+  p.smem = fixed + p.stages * stage;
+  p.planes = 2 * JB * Kp * 32;
+  return p;
+}
+
+template <int N>
+int launch_lw(const LwPlan& p, const float* x, const float* w,
+              const float* bias, float* out, int M, int D, int U, int relu,
+              float* scratch, cudaStream_t s) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  // x (M, D): a box is 128 rows of 32 floats
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)M};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)D * 4};
+  const cuuint32_t xbox[2] = {32, LW_ROWS};
+  // planes[plane][jb][u][32] as (32, Kp, JB, 2): a box is N units of one
+  // k-block, both planes
+  const cuuint64_t wdims[4] = {32, (cuuint64_t)p.Kp, (cuuint64_t)p.JB, 2};
+  const cuuint64_t wstrides[3] = {128, (cuuint64_t)p.Kp * 128,
+                                  (cuuint64_t)p.JB * p.Kp * 128};
+  const cuuint32_t wbox[4] = {32, (cuuint32_t)N, 1, 2};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+             const_cast<float*>(x), xdims, xstrides, xbox, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
+      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scratch, wdims,
+             wstrides, wbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  const LwArgs a{w, bias, out, scratch, M, D, U, relu,
+                 p.JB, p.Kp, p.NT, p.units, p.stages};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(LW_THREADS);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, linear_wg_kernel<N>, a, xmap, wmap);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -499,6 +813,38 @@ int multi_dense_f32(const float* x, int nx, const float* w, const float* bias,
                              relu, device, s);
   return launch_tc<64, 4>(x, stride, nz, w, bias, out, B, D, U, ncols, relu,
                           device, s);
+}
+
+// Floats of scratch that multi_dense_wg_f32 takes for a (B, D) x (U, D)^T
+// call, 0 where linear_wg_kernel cannot run it on `device`.
+long long multi_dense_wg_scratch(int B, int D, int U, int device) {
+  if (device < 0 || device >= kMaxDevices || use_device(device) != cudaSuccess)
+    return 0;
+  return lw_plan(B, D, U, device).planes;
+}
+
+// out (B, U) = act(x (B, D) W^T + bias) on linear_wg_kernel: W (U, D) as
+// nn.Linear stores it, bias (U) or null, relu = 1 fuses ReLU; x's rows on
+// the 16-byte grid (D % 4 == 0, x 16-byte aligned); scratch holds
+// multi_dense_wg_scratch(B, D, U) floats.  All f32, contiguous.  Returns a
+// cudaError_t, cudaErrorNotSupported where the device cannot run it.
+int multi_dense_wg_f32(const float* x, const float* w, const float* bias,
+                       float* out, int B, int D, int U, int relu,
+                       float* scratch, int device, void* stream) {
+  if (B < 1 || D < 1 || U < 1 || D % 4 || !aligned(x, 16) || !scratch ||
+      device < 0 || device >= kMaxDevices)
+    return cudaErrorInvalidValue;
+  const cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return e;
+  const LwPlan p = lw_plan(B, D, U, device);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.N == 64)
+    return launch_lw<64>(p, x, w, bias, out, B, D, U, relu, scratch, s);
+  if (p.N == 128)
+    return launch_lw<128>(p, x, w, bias, out, B, D, U, relu, scratch, s);
+  if (p.N == 200)
+    return launch_lw<200>(p, x, w, bias, out, B, D, U, relu, scratch, s);
+  return cudaErrorNotSupported;
 }
 
 }  // extern "C"

@@ -11,9 +11,12 @@ stack (:class:`~rec_now_tpu_torch.layers.LowRankCrossLayer`); the over
 arch, an MLP with ReLU after every layer, and one linear unit give the
 logit.  The sparse input is each field's embedding, sum-pooled over its
 multi-hot ids by the scorer (``serving._forward``, ``gather_pool_rows``).
-The cross stack is the span ``cross``, with the stream's time across it
-on CUDA (``core/profiling.py``).  Float32 throughout; nothing here turns
-TF32 on.
+The cross stack is the span ``cross`` and the over arch's MLP the span
+``over``, each with the stream's time across it on CUDA
+(``core/profiling.py``).  Both MLPs ask their towers for the ReLU after
+the last layer, so where no gradient is recorded it runs in B8's
+epilogue with each layer the tower routes to it (``models/tower.py``).
+Float32 throughout; nothing here turns TF32 on.
 
 At MLPerf's widths (13 dense, 26 fields of 128, dense arch 512-256-128,
 3 cross layers of rank 512, over arch 1024-1024-512-256-1) an example is
@@ -70,8 +73,10 @@ class DLRMDCNv2Model(nn.Module):
         """dense (B, num_dense), sparse_emb (B, F, D) pooled -> (B,)
         logits."""
         b = sparse_emb.shape[0]
-        x = torch.relu(self.dense_arch(dense))
+        x = self.dense_arch(dense, relu_last=True)
         x0 = torch.cat([x[:, None, :], sparse_emb], dim=1).reshape(b, -1)
         with profiling.span("cross", device=x0.is_cuda):
             x = self.cross(x0)
-        return self.head(torch.relu(self.over_arch(x))).squeeze(-1)
+        with profiling.span("over", device=x.is_cuda):
+            x = self.over_arch(x, relu_last=True)
+        return self.head(x).squeeze(-1)

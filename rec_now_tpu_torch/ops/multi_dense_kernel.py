@@ -14,7 +14,15 @@ or no activation fused, f32.
   cancels over the batch shows any change of order at lr scale.
 * :func:`multi_dense_fused` -- the forward alone: the kernel for a CUDA
   tensor, :func:`multi_dense_xla` for a CPU tensor.
-  ``multi_dense_fused.launches`` counts the kernel's launches.
+  ``multi_dense_fused.launches`` counts the kernel's launches, each also
+  counted in ``multi_dense.mma`` (``core/profiling.count``).
+* :func:`linear_wg` -- one ``nn.Linear`` layer, ``x (B, D) W^T + b``
+  with ReLU or none, on B8's ``wgmma`` kernel (``csrc/multi_dense.cu``
+  (c)), the weight read in ``nn.Linear``'s own (U, D) storage; None where
+  :func:`wgmma_plan` refuses the call, which the caller then runs its
+  own way.  ``linear_wg.launches`` counts its launches, each also counted
+  in ``multi_dense.wgmma``.  ``models/tower.py``'s ``DNNTower`` asks it
+  for each layer when no gradient is recorded.
 * :func:`multi_dense` -- the same as a ``torch.autograd.Function`` (the
   CUDA path of ``ops/multi_dense_op.py``).  Its backward is
   :func:`multi_dense_bwd_plain`, plain PyTorch matmuls, as the JAX
@@ -31,10 +39,11 @@ Symbols: B batch, D in-dim, N experts, U out-dim.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from rec_now_tpu_torch.core import profiling
 from rec_now_tpu_torch.core.config import get_activation
 from rec_now_tpu_torch.ops import _build
 from rec_now_tpu_torch.ops._build import check_input, check_rc, is_cpu
@@ -84,8 +93,33 @@ def _lib() -> ctypes.CDLL:
         lib.multi_dense_f32.restype = i32
         lib.multi_dense_gate_columns.argtypes = [i32] * 4
         lib.multi_dense_gate_columns.restype = i32
+        lib.multi_dense_wg_f32.argtypes = ([ptr] * 4 + [i32] * 4
+                                           + [ptr, i32, ptr])
+        lib.multi_dense_wg_f32.restype = i32
+        lib.multi_dense_wg_scratch.argtypes = [i32] * 4
+        lib.multi_dense_wg_scratch.restype = ctypes.c_longlong
         lib._typed = True
     return lib
+
+
+# the least output (B * U) that wgmma_plan gives the wgmma kernel: a unit
+# of its work is a 128 x 128-to-200 tile walking all of D, and each call
+# splits the whole weight first, so with few tiles it loses to the
+# library's smaller ones.  Device ms on an H100 (torch.profiler), the
+# kernel against F.linear + ReLU: 400 -> 400 at B = 1,024, 2,048, 4,096,
+# 8,192: 0.0282 / 0.0174, 0.0287 / 0.0246, 0.0294 / 0.0428, 0.0301 /
+# 0.0771; 512 -> 256: 0.0215 / 0.0157, 0.0218 / 0.0207, 0.0222 / 0.0327,
+# 0.0226 / 0.0541 (``chip_smoke.py`` phase 3 prints these)
+WGMMA_MIN_OUTPUTS = 2 ** 20
+
+
+def wgmma_plan(b: int, d: int, u: int, aligned: bool) -> bool:
+    """True where the card runs a (b, d) x (u, d)^T layer on B8's
+    ``wgmma`` kernel: x's rows on the 16-byte grid that TMA reads
+    (d % 4 == 0 and x ``aligned`` to 16 bytes) and at least
+    :data:`WGMMA_MIN_OUTPUTS` outputs.  Shapes and alignment alone
+    decide."""
+    return aligned and d % 4 == 0 and b * u >= WGMMA_MIN_OUTPUTS
 
 
 def takes_gate_kernel(nx: int, n: int, d: int, u: int) -> bool:
@@ -129,10 +163,74 @@ def multi_dense_fused(inputs: torch.Tensor, kernel: torch.Tensor,
                              dev.index, _build.stream_of(inputs))
     check_rc(lib, rc, "multi_dense")
     multi_dense_fused.launches += 1
+    profiling.count("multi_dense.mma")
     return out
 
 
 multi_dense_fused.launches = 0
+
+
+def linear_wg(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor],
+              relu: bool) -> Optional[torch.Tensor]:
+    """x (B, D) @ weight (U, D)^T + bias (U,) or None, ReLU fused when
+    ``relu``, on B8's ``wgmma`` kernel -> (B, U); None unless x is a
+    contiguous float32 CUDA matrix, the weight contiguous and
+    :func:`wgmma_plan` takes the call.  ``weight`` and ``bias`` are
+    ``nn.Linear``'s, float32 on x's device."""
+    if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2
+            and x.is_contiguous() and weight.is_contiguous()
+            and wgmma_plan(x.shape[0], x.shape[1], weight.shape[0],
+                           x.data_ptr() % 16 == 0)):
+        return None
+    return _linear_wg(x, weight, bias, relu)
+
+
+# floats of scratch the wgmma kernel takes (its weight's split planes), by
+# (d, u, device); 0 where the device cannot run it (the launch then raises)
+_wg_scratch: Dict[Tuple[int, int, int], int] = {}
+
+
+def _linear_wg(x: torch.Tensor, weight: torch.Tensor,
+               bias: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """:func:`linear_wg`'s launch at any size the kernel takes (x's rows
+    on the 16-byte grid); raises on anything else."""
+    dev = x.device
+    check_input("x", x, 2, dev)
+    check_input("weight", weight, 2, dev)
+    (b, d), u = x.shape, weight.shape[0]
+    if weight.shape[1] != d:
+        raise ValueError(f"x {tuple(x.shape)} does not fit weight "
+                         f"{tuple(weight.shape)}: expected (U, {d})")
+    if bias is not None:
+        check_input("bias", bias, 1, dev)
+        if bias.shape[0] != u:
+            raise ValueError(f"bias {tuple(bias.shape)} is not ({u},)")
+    if d % 4 or x.data_ptr() % 16:
+        raise ValueError("the wgmma kernel reads x's rows by TMA: D % 4 "
+                         "== 0 and x 16-byte aligned")
+    out = x.new_empty((b, u))
+    if b == 0:
+        return out
+    lib = _lib()
+    key = (d, u, dev.index)
+    floats = _wg_scratch.get(key)
+    if floats is None:
+        floats = _wg_scratch[key] = lib.multi_dense_wg_scratch(
+            b, d, u, dev.index)
+    scratch = x.new_empty(floats)
+    rc = lib.multi_dense_wg_f32(x.data_ptr(), weight.data_ptr(),
+                                None if bias is None else bias.data_ptr(),
+                                out.data_ptr(), b, d, u, int(relu),
+                                scratch.data_ptr(), dev.index,
+                                _build.stream_of(x))
+    check_rc(lib, rc, "multi_dense")
+    linear_wg.launches += 1
+    profiling.count("multi_dense.wgmma")
+    return out
+
+
+linear_wg.launches = 0
 
 
 class _MultiDense(torch.autograd.Function):

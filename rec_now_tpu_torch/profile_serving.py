@@ -49,7 +49,7 @@ CAN_FIELD = 8
 WRAPPERS = (ck.cin_stack_sum, ck.cin_flat, ck.cin_stack_sum_bwd,
             ck.cin_flat_bwd, pk.pair_loss_sum, pk.pair_row_counts,
             pk.same_group_matvec, pk.group_pair_counts_binary,
-            lk.listwise_loss_sum, mk.multi_dense_fused,
+            lk.listwise_loss_sum, mk.multi_dense_fused, mk.linear_wg,
             tk.adagrad_dense_pass, tk.adam_dense_pass, gk.gather_rows,
             ek.scatter_add_rows)
 

@@ -23,7 +23,13 @@ and, for the multi-expert
 dense and the listwise loss, config 4's shapes (the four banks at
 B = 1,000 and 8,192) and degenerate batches, and each dispatch edge of
 the multi-expert dense (N * U = 16 and 17 on a shared input, a small
-per-expert bank, W too deep for the gate kernel, x off the 16-byte grid);
+per-expert bank, W too deep for the gate kernel, x off the 16-byte grid),
+and its wgmma path for one nn.Linear weight (``linear_wg``) against
+float64 (2e-6 of the largest output) at DLRM-DCNv2's over-arch widths at
+B = 1, 300 and 512 (forced) and 8,191, what its plan refuses (390-wide
+rows, rows off the grid) left to the caller, expert banks and stored
+(1, D, U) weights on the tile as before, and a DNNTower's launches by
+grad mode and B;
 for the listwise loss also B on both sides of its one-block sort (8,192)
 on SyntheticCriteo's zipf groups, ids at the int32 ends, one group and
 singletons at 8,192, a {+1, -1} group, each path forced and a bit-equal
@@ -487,6 +493,104 @@ def test_multi_dense_matches_plain(dev, nx, n, b, d, u, relu):
     off.copy_(x)
     _close_rel(mk.multi_dense_fused(off, w, bias, relu),
                mk.multi_dense_xla(x, w, bias, act))
+
+
+def _md_counts():
+    c = profiling.span_report()["counters"]
+    return c.get("multi_dense.wgmma", 0), c.get("multi_dense.mma", 0)
+
+
+def _linear_f64(x, w, bias, relu):
+    y = x.double() @ w.double().t()
+    if bias is not None:
+        y = y + bias.double()
+    return torch.relu(y) if relu else y
+
+
+# (B, D, U): DLRM-DCNv2's over arch (3,456 -> 1,024 -> 1,024 -> 512 ->
+# 256) at B = 1, 300 (off the 128-row tile) and 512, the kernel forced
+# (below wgmma_plan's least output); xDeepFM's 400 -> 400 (passes of 200);
+# D off the 32-float k-block with U below one pass; then the first layer
+# at B = 8,191, which the plan takes
+MD_WG_SHAPES = [(b, d, u) for b in (1, 300, 512)
+                for d, u in ((3456, 1024), (1024, 1024), (1024, 512),
+                             (512, 256))] + [(300, 400, 400), (77, 36, 17),
+                                             (8191, 3456, 1024)]
+
+
+@pytest.mark.parametrize("b,d,u", MD_WG_SHAPES)
+def test_multi_dense_wgmma_matches_float64(dev, b, d, u):
+    """B8's wgmma kernel on nn.Linear's (U, D) weight: 2e-6 of the
+    largest output from float64, bias and ReLU each on and off, every
+    call counted in ``multi_dense.wgmma``; a repeat bit-equal."""
+    gen = torch.Generator().manual_seed(b + d + u)
+    x = _rand(gen, dev, b, d)
+    w = _rand(gen, dev, u, d) / d ** 0.5
+    bias = _rand(gen, dev, u)
+    taken = mk.wgmma_plan(b, d, u, True)
+    assert taken == (b == 8191)
+    run = mk.linear_wg if taken else mk._linear_wg
+    for bb in (bias, None):
+        for relu in (True, False):
+            wg, mma = _md_counts()
+            got = run(x, w, bb, relu)
+            assert _md_counts() == (wg + 1, mma)
+            want = _linear_f64(x, w, bb, relu)
+            err = float((got.double() - want).abs().max())
+            assert err <= 2e-6 * float(want.abs().max())
+    assert torch.equal(got, run(x, w, None, False))
+
+
+@pytest.mark.parametrize("case", ["d390", "off_grid", "experts", "stored"])
+def test_multi_dense_plan_refusals_run_todays_kernel(dev, case):
+    """What wgmma_plan refuses is no wgmma launch: linear_wg gives None
+    for xDeepFM's 390-wide rows and for rows off the 16-byte grid (the
+    tower then runs nn.Linear); an expert bank (N > 1) and a weight stored
+    (1, D, U) run the mma.sync tile as before through multi_dense_fused,
+    counted in ``multi_dense.mma``, within the tile's tolerance of the
+    plain version."""
+    gen = torch.Generator().manual_seed(7)
+    d, u, n = (390, 400, 1) if case == "d390" else (
+        (512, 256, 3) if case == "experts" else (512, 256, 1))
+    x = _rand(gen, dev, 1, 4096, d)
+    if case == "off_grid":
+        x = _off_grid(x)
+    w = _rand(gen, dev, n, u, d) / d ** 0.5
+    bias = _rand(gen, dev, n, 1, u)
+    wg, mma = _md_counts()
+    if case in ("d390", "off_grid"):
+        assert not mk.wgmma_plan(4096, d, u, x.data_ptr() % 16 == 0)
+        assert mk.linear_wg(x[0], w[0], bias[0, 0], True) is None
+        assert _md_counts() == (wg, mma)
+        return
+    stored = w.transpose(1, 2).contiguous()                 # (N, D, U)
+    got = mk.multi_dense_fused(x, stored, bias, True)
+    assert _md_counts() == (wg, mma + 1)
+    assert torch.equal(got, mk.multi_dense_fused(x, stored, bias, True))
+    _close_rel(got, mk.multi_dense_xla(x, stored, bias, "relu"))
+
+
+def test_tower_routes_by_grad_mode_and_plan(dev):
+    """A DNNTower of xDeepFM's (390 -> 400 -> 400) and the over arch's
+    first widths at B = 4,096: with no gradient recorded each layer the
+    plan takes is one wgmma launch, the 390-wide one nn.Linear; with a
+    gradient, none; the outputs agree within 1e-5 of the largest.  At
+    B = 1,024 the plan leaves 400 -> 400 to nn.Linear too."""
+    from rec_now_tpu_torch.models.tower import DNNTower
+    gen = torch.Generator().manual_seed(3)
+    for b, d, dims, taken in ((4096, 390, (400, 400), 1),
+                              (4096, 3456, (1024, 512), 2),
+                              (1024, 390, (400, 400), 0)):
+        tower = DNNTower(d, dims, gen, device=dev)
+        x = torch.randn(b, d, device=dev)
+        with torch.no_grad():
+            wg, mma = _md_counts()
+            fast = tower(x, relu_last=True)
+            assert _md_counts() == (wg + taken, mma)
+        wg, mma = _md_counts()
+        slow = tower(x, relu_last=True)
+        assert _md_counts() == (wg, mma) and slow.requires_grad
+        _close_rel(fast, slow.detach())
 
 
 def test_multi_dense_grads_match_the_cpu(dev):

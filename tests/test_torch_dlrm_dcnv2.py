@@ -221,13 +221,63 @@ def test_model_serves_as_the_reference():
         spans = profiling.span_report()["spans"]
     finally:
         profiling.disable()
-    assert spans["cross"]["count"] >= 1 and "stream_ms" not in spans["cross"]
+    for name in ("cross", "over"):
+        assert spans[name]["count"] >= 1 and "stream_ms" not in spans[name]
     assert gk.gather_rows.launches == before
     with torch.no_grad():
         want = ref.forward(params, torch.from_numpy(dense),
                            ref.global_rows(ids, SMALL, "cpu"), table, SMALL)
     assert got.shape == (64,)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("relu_last", [False, True])
+def test_tower_is_the_same_in_every_grad_mode(relu_last):
+    """On the CPU a DNNTower runs nn.Linear in every grad mode: the same
+    numbers with a gradient, under no_grad and under inference_mode;
+    ``relu_last`` is ReLU after the last layer."""
+    from rec_now_tpu_torch.models.tower import DNNTower
+    gen = torch.Generator().manual_seed(4)
+    tower = DNNTower(12, (16, 8), gen, device="cpu")
+    x = torch.randn(37, 12, generator=gen)
+    with_grad = tower(x, relu_last=relu_last)
+    assert with_grad.requires_grad
+    with torch.no_grad():
+        no_grad = tower(x, relu_last=relu_last)
+    with torch.inference_mode():
+        inference = tower(x, relu_last=relu_last)
+    assert torch.equal(with_grad.detach(), no_grad)
+    assert torch.equal(no_grad, inference)
+    plain = tower(x).detach()
+    assert torch.equal(no_grad, torch.relu(plain) if relu_last else plain)
+
+
+def test_model_is_the_same_in_every_grad_mode():
+    """DLRMDCNv2Model's logits with a gradient recorded, under no_grad
+    and under inference_mode (the ReLU after each tower folded into the
+    tower's call) are the same on the CPU, and match its MLPs by hand."""
+    fc = _fc()
+    model = DLRMDCNv2Model(fc, dense_arch=(16, 8), cross_layers=2,
+                           cross_rank=4, over_arch=(16, 8), device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    dense = torch.randn(23, 3, generator=gen)
+    emb = torch.randn(23, 4, 8, generator=gen)
+    with_grad = model(dense, emb)
+    with torch.no_grad():
+        no_grad = model(dense, emb)
+    with torch.inference_mode():
+        inference = model(dense, emb)
+    assert torch.equal(with_grad.detach(), no_grad)
+    assert torch.equal(no_grad, inference)
+    with torch.no_grad():
+        x = dense
+        for i in range(2):
+            x = torch.relu(getattr(model.dense_arch, f"dense_{i}")(x))
+        x0 = torch.cat([x[:, None, :], emb], dim=1).reshape(23, -1)
+        x = model.cross(x0)
+        for i in range(2):
+            x = torch.relu(getattr(model.over_arch, f"dense_{i}")(x))
+        assert torch.equal(model.head(x).squeeze(-1), no_grad)
 
 
 def test_model_refuses_a_dense_arch_of_another_width():
@@ -340,3 +390,70 @@ def test_scorer_on_the_card_pools_with_one_launch(dev):
     want = out["cpu"]
     assert float((out[str(dev)] - want).abs().max()) <= 1e-5 * float(
         want.abs().max())
+
+
+def _wgmma_launches():
+    return profiling.span_report()["counters"].get("multi_dense.wgmma", 0)
+
+
+@pytest.mark.cuda
+def test_served_model_counts_the_towers_wgmma_layers(dev):
+    """Served at B = 8,192, each tower layer that wgmma_plan takes is one
+    B8 wgmma launch a request (the over arch's 40 -> 256 -> 128; not the
+    dense arch's 3-wide rows nor its 8,192 x 8 output), and the logits
+    agree with the CPU's (nn.Linear) within 1e-5 of the largest."""
+    from rec_now_tpu_torch.ops import multi_dense_kernel as mk
+    ref = _reference()
+    fc = _fc()
+    small = dict(SMALL, over_arch_layer_sizes=[256, 128, 1])
+    params = _weights(ref, small, 4)
+    rng = np.random.RandomState(5)
+    table = torch.from_numpy(rng.uniform(-0.5, 0.5, (fc.total_rows, 8))
+                             .astype(np.float32))
+    b = 8192
+    dense = np.log1p(rng.exponential(8.0, (b, 3))).astype(np.float32)
+    ids = rng.randint(0, 1000, size=(b, 11)).astype(np.int32)
+    out, taken = {}, None
+    for device in ("cpu", dev):
+        model = DLRMDCNv2Model(fc, dense_arch=(16, 8), cross_layers=2,
+                               cross_rank=4, over_arch=(256, 128),
+                               device=device)
+        taken = [mk.wgmma_plan(b, layer.in_features, layer.out_features,
+                               True)
+                 for tower in (model.dense_arch, model.over_arch)
+                 for layer in tower.children()]
+        scorer = build_scorer(model, fc, EmbeddingTable(fc.total_rows, 8,
+                                                        device),
+                              device=device)
+        state = ServingState({k: p.to(device) for k, p in params.items()},
+                             table.to(device))
+        before = _wgmma_launches()
+        out[str(device)] = scorer(state, dense, ids).cpu()
+        assert _wgmma_launches() - before == (
+            0 if device == "cpu" else sum(taken))
+    assert taken == [False, False, True, True]
+    want = out["cpu"]
+    assert float((out[str(dev)] - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_xdeepfm_tower_takes_what_the_plan_decides(dev):
+    """The port's xDeepFM at its default widths: the tower's 429-wide
+    rows stay on nn.Linear, its 256 -> 128 layer is one wgmma launch at
+    B = 8,192 and none at B = 1,000; training (a gradient recorded)
+    launches none."""
+    from rec_now_tpu_torch.models import XDeepFMModel
+    model = XDeepFMModel(FeatureConfig(), device=dev)
+    gen = torch.Generator().manual_seed(8)
+    for b, want in ((8192, 1), (1000, 0)):
+        dense = torch.randn(b, 13, generator=gen).to(dev)
+        emb = (torch.randn(b, 26, 16, generator=gen) * 0.1).to(dev)
+        before = _wgmma_launches()
+        with torch.inference_mode():
+            fast = model(dense, emb)
+        assert _wgmma_launches() - before == want
+        slow = model(dense, emb)
+        assert _wgmma_launches() - before == want and slow.requires_grad
+        assert float((fast - slow.detach()).abs().max()) <= 1e-5 * float(
+            slow.detach().abs().max())

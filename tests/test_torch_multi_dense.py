@@ -194,3 +194,79 @@ def test_layer_from_converted_weights(shared, act):
     assert k.shape == (n, d, u)
     assert limit >= float(k.abs().max()) > 0.8 * limit
     assert not fresh.bias.any()
+
+
+# -- the wgmma path's plan (csrc/multi_dense.cu (c)) -------------------------
+# (b, d, u, aligned, taken): DLRM-DCNv2's over arch and its dense arch's
+# last two layers at B = 8,192 (256 -> 128 at exactly WGMMA_MIN_OUTPUTS);
+# its dense arch's 13-wide rows (TMA reads rows of 16-byte multiples);
+# xDeepFM's 390-wide rows and 400 -> 400 at B = 8,192 and 1,024 (too
+# small); rows off the 16-byte grid; one row; a one-unit head; an empty
+# batch; the 256 -> 128 layer of configs 2, 3 and 5 at B = 1,000; each
+# side of the measured crossover (400 -> 400 and 512 -> 256 by B)
+PLAN_CASES = [
+    (8192, 3456, 1024, True, True),
+    (8192, 1024, 1024, True, True),
+    (8192, 1024, 512, True, True),
+    (8192, 512, 256, True, True),
+    (8192, 256, 128, True, True),
+    (8192, 13, 512, True, False),
+    (8192, 390, 400, True, False),
+    (8192, 400, 400, True, True),
+    (1024, 400, 400, True, False),
+    (8192, 3456, 1024, False, False),
+    (1, 3456, 1024, True, False),
+    (8192, 400, 1, True, False),
+    (0, 512, 256, True, False),
+    (1000, 256, 128, True, False),
+    (2048, 400, 400, True, False),
+    (4096, 400, 400, True, True),
+    (4096, 512, 256, True, True)]
+
+
+@pytest.mark.parametrize("b,d,u,aligned,taken", PLAN_CASES)
+def test_wgmma_plan_decides_by_shape_and_alignment(b, d, u, aligned, taken):
+    assert mk.wgmma_plan(b, d, u, aligned) is taken
+    assert b * u >= mk.WGMMA_MIN_OUTPUTS or not taken
+
+
+def test_linear_wg_leaves_cpu_tensors_to_the_caller():
+    """linear_wg runs only on the card: a CPU input of a shape the plan
+    takes gives None and launches nothing."""
+    x = torch.zeros(8192, 512)
+    w, b = torch.zeros(256, 512), torch.zeros(256)
+    assert mk.wgmma_plan(8192, 512, 256, x.data_ptr() % 16 == 0)
+    before = mk.linear_wg.launches
+    assert mk.linear_wg(x, w, b, True) is None
+    assert mk.linear_wg.launches == before
+
+
+@pytest.mark.parametrize("relu_last", [True, False])
+def test_tower_asks_linear_wg_only_without_grad(monkeypatch, relu_last):
+    """DNNTower asks linear_wg for every layer (with the layer's own
+    weight and bias and its ReLU flag) where no gradient is recorded,
+    never where one is, and runs nn.Linear (+ ReLU) where it gives
+    None."""
+    from rec_now_tpu_torch.models.tower import DNNTower
+    asked = []
+
+    def refuse(x, weight, bias, relu):
+        asked.append((tuple(x.shape), weight, bias, relu))
+        return None
+
+    monkeypatch.setattr(mk, "linear_wg", refuse)
+    gen = torch.Generator().manual_seed(5)
+    tower = DNNTower(12, (16, 8, 4), gen, device="cpu")
+    x = torch.randn(9, 12, generator=gen)
+    with_grad = tower(x, relu_last=relu_last)
+    assert asked == []
+    layers = [tower.dense_0, tower.dense_1, tower.dense_2]
+    for mode in (torch.no_grad, torch.inference_mode):
+        asked.clear()
+        with mode():
+            got = tower(x, relu_last=relu_last)
+        assert [(s, w, b, r) for s, w, b, r in asked] == [
+            ((9, 12), layers[0].weight, layers[0].bias, True),
+            ((9, 16), layers[1].weight, layers[1].bias, True),
+            ((9, 8), layers[2].weight, layers[2].bias, relu_last)]
+        assert torch.equal(got, with_grad.detach())
