@@ -205,8 +205,8 @@ recorded (serving, eval) launches B8's wgmma kernel once for each
     parameters bit-equal and its tables within ``SUM_TOL`` of their
     largest value (B12's atomics); after 3 steps its parameters and
     tables within 1e-3 of their largest value, printed beside the
-    one-device run's own repeat (``profile_repeat.py`` shows why that
-    spreads); (d)
+    one-device run's own repeat (which spreads: B12 adds a hot row's
+    terms in no fixed order); (d)
     the step of config 2 (the CLI's flagship trainer), 4 and 5 with a
     mesh and without, in turns, wall ms by the host clock (each step
     synchronized, and steps back to back) and busy ms by
@@ -433,7 +433,7 @@ MESH_STEPS, MESH_TIMED = 3, 5
 # tables after MESH_STEPS steps, over each one's largest value (the
 # one-device run repeated moves config 5's by up to 2.28e-4 on the card:
 # B12 adds a hot row's terms in no fixed order, and one sample of step 3
-# is a near-tie that such a change flips; profile_repeat.py)
+# is a near-tie that such a change flips)
 MESH_TOL, STATE_TOL = 1e-5, 1e-3
 # phase 11: a blocked loss against the kernel path, the dense form and the
 # CPU (relative; dlogits 1e-4 of their scale); the history length, the

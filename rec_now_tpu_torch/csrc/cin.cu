@@ -58,13 +58,9 @@
 #include <atomic>
 #include <cstdint>
 
+#include "mma_sync.cuh"
+#include "runtime.cuh"
 #include "wgmma.cuh"
-
-#define CIN_TRY(expr)                     \
-  do {                                    \
-    const int rc_ = (expr);               \
-    if (rc_ != cudaSuccess) return rc_;   \
-  } while (0)
 
 // Floats of partial sums that one weight gradient of K x N values over M
 // rows needs (cin_flat_bwd_f32's scratch, with N = F * H), or -1 when
@@ -152,30 +148,6 @@ int pick_rt(int device, SmemFn smem) {
   return 0;
 }
 
-// copy 4 (16) bytes to shared memory, or zeros when !full
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(s), "l"(src), "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N));
-}
-
 // ---------------------------------------------------------------------------
 // The forward layer on mma.sync (cin_layer_mma_kernel: what layer() runs
 // for the shapes and callers it does not route to cin_layer_tc_kernel,
@@ -228,13 +200,6 @@ int copy_floats(const float* p, int ld) {
   return 1;
 }
 
-__device__ __forceinline__ void cp_async8(float* dst, const float* src,
-                                          bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;"
-               :: "r"(s), "l"(src), "r"(full ? 8 : 0));
-}
-
 // Copies a rows x cols block of a row-major source (row r at
 // src + r * src_ld) to dst + r * dst_ld, v floats (4, 2 or 1, dividing
 // cols, cols_ok and src_ld) a copy; rows from rows_ok and columns from
@@ -263,26 +228,6 @@ __device__ __forceinline__ void stage_block(float* dst, int dst_ld,
       ++r;
     }
   }
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a * b, the same with a zero accumulator
-__device__ __forceinline__ void mma_tf32_new(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
 }
 
 // The core's A operands.  Each tells tc_core how many W stages one
@@ -537,8 +482,8 @@ int launch_mma(const float* x0, int ldx, const float* prev, int ldp,
                int K, int accumulate, const float* add_row, int device,
                cudaStream_t s) {
   static std::atomic<bool> done[kMaxDevices];
-  CIN_TRY(allow_optin_smem((const void*)cin_layer_mma_kernel<MT>, device,
-                           done));
+  CUDA_TRY(allow_smem((const void*)cin_layer_mma_kernel<MT>,
+                      optin_smem(device), device, done));
   const int grid = (M + 64 * MT - 1) / (64 * MT);
   cin_layer_mma_kernel<MT><<<grid, kThreads, tc_smem(64 * MT, F, H), s>>>(
       x0, ldx, prev, ldp, W, ldwk, out, M, F, H, K, accumulate, add_row,
@@ -1022,36 +967,17 @@ int launch_wg(const WgPlan& p, const float* x0, const float* prev,
               float* scratch, cudaStream_t s) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
-  // planes[plane][jb][k][32] as (32, Kp, JB, 2); a box is a stage: 4
-  // k-steps of N channels, both planes, 128-byte rows
+  // a box is a stage: 4 k-steps of N channels, both planes
   CUtensorMap map;
-  const cuuint64_t dims[4] = {32, (cuuint64_t)p.Kp, (cuuint64_t)p.JB, 2};
-  const cuuint64_t strides[3] = {128, (cuuint64_t)p.Kp * 128,
-                                 (cuuint64_t)p.JB * p.Kp * 128};
-  const cuuint32_t box[4] = {32, (cuuint32_t)N, 1, 2};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scratch, dims,
-             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (encode_planes(encode, &map, scratch, p.Kp, p.JB, N) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   float* part = scratch + align4(p.planes);
   WgArgs a{x0, prev, W, out, scratch, part,
            reinterpret_cast<unsigned*>(part + align4(p.part)),
            M, F, H, K, p.P > 0, p.P, p.J, p.JB, p.Kp, p.NT, p.S, p.tiles,
            p.units, p.stages};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.grid);
-  cfg.blockDim = dim3(WG_THREADS);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  CIN_TRY(cudaLaunchKernelEx(&cfg, cin_layer_tc_kernel<N>, a, map));
-  return cudaGetLastError();
+  return launch_cooperative(cin_layer_tc_kernel<N>, p.grid, WG_THREADS,
+                            p.smem, s, a, map);
 }
 
 constexpr int TC_SLICE = 256;   // fields or h per launch of a wide layer
@@ -1099,12 +1025,12 @@ int layer(const float* x0, int F, const float* prev, int H, const float* W,
   for (int f0 = 0; f0 < F; f0 += TC_SLICE)
     for (int h0 = 0; h0 < H; h0 += TC_SLICE) {
       const bool first = f0 == 0 && h0 == 0;
-      CIN_TRY(launch_mma<1>(x0 + f0, F, prev + h0, H,
-                            W + (size_t)f0 * H + h0, fh, out, M,
-                            F - f0 < TC_SLICE ? F - f0 : TC_SLICE,
-                            H - h0 < TC_SLICE ? H - h0 : TC_SLICE, K,
-                            first ? accumulate : 1,
-                            first ? add_row : nullptr, device, s));
+      CUDA_TRY(launch_mma<1>(x0 + f0, F, prev + h0, H,
+                             W + (size_t)f0 * H + h0, fh, out, M,
+                             F - f0 < TC_SLICE ? F - f0 : TC_SLICE,
+                             H - h0 < TC_SLICE ? H - h0 : TC_SLICE, K,
+                             first ? accumulate : 1,
+                             first ? add_row : nullptr, device, s));
     }
   return cudaSuccess;
 }
@@ -1376,8 +1302,8 @@ int launch_stack_tc(const float* x0, int M, int F, int n_mid,
                     int h_max, int output_input, float* out, int device,
                     cudaStream_t s) {
   static std::atomic<bool> done[kMaxDevices];
-  CIN_TRY(allow_optin_smem((const void*)cin_stack_tc_kernel<MT>, device,
-                           done));
+  CUDA_TRY(allow_smem((const void*)cin_stack_tc_kernel<MT>,
+                      optin_smem(device), device, done));
   const int p8 = (int)pairs8(F);
   const int grid = (M + 64 * MT - 1) / (64 * MT);
   cin_stack_tc_kernel<MT><<<grid, kThreads,
@@ -1399,17 +1325,17 @@ int stack_by_layers(const float* x0, const float* const* weights,
   if (n_mid == 0) {
     row_sums_kernel<<<rows, 256, 0, s>>>(nullptr, 0, x0, F, 1, output_input,
                                          sc.rs, M);
-    CIN_TRY(cudaGetLastError());
+    CUDA_TRY(cudaGetLastError());
   }
   const float* prev = x0;
   int H = F;
   for (int l = 0; l < n_mid; ++l) {
     float* next = sc.hid[l & 1];
-    CIN_TRY(layer(x0, F, prev, H, weights[l], ks[l], next, M, 0, nullptr,
-                  device, s));
+    CUDA_TRY(layer(x0, F, prev, H, weights[l], ks[l], next, M, 0, nullptr,
+                   device, s));
     row_sums_kernel<<<rows, 256, 0, s>>>(next, ks[l], x0, F, l == 0,
                                          output_input, sc.rs, M);
-    CIN_TRY(cudaGetLastError());
+    CUDA_TRY(cudaGetLastError());
     prev = next;
     H = ks[l];
   }
@@ -1694,8 +1620,8 @@ int launch_rows(const float* x0, const float* prev, const float* W,
                 int H, int K, int vec, const RowsEpilogue& ep, int device,
                 cudaStream_t s) {
   static std::atomic<bool> done[kMaxDevices];
-  CIN_TRY(allow_optin_smem((const void*)cin_bwd_rows_kernel<RT>, device,
-                           done));
+  CUDA_TRY(allow_smem((const void*)cin_bwd_rows_kernel<RT>,
+                      optin_smem(device), device, done));
   const int grid = (M + 16 * RT - 1) / (16 * RT);
   cin_bwd_rows_kernel<RT><<<grid, kThreads, rows_smem(RT, F, H, K), s>>>(
       x0, prev, W, g, dx0, dprev, M, F, H, K, vec, ep.accumulate,
@@ -1881,7 +1807,7 @@ int weight_grad(const float* A, int K, const float* X, int F, const float* P,
   const int tiles = ((N + WG_NT - 1) / WG_NT) * ((K + WG_KT - 1) / WG_KT);
   cin_wgrad_kernel<<<dim3(tiles, splits), kThreads, 0, s>>>(A, K, X, F, P, H,
                                                             M, rows, part);
-  CIN_TRY(cudaGetLastError());
+  CUDA_TRY(cudaGetLastError());
   const size_t want = (n + 255) / 256;
   const int blocks = (int)(want < 4096 ? want : 4096);
   reduce_kernel<<<blocks, 256, 0, s>>>(part, splits, n, out);
@@ -1933,25 +1859,9 @@ long long carve_stack_bwd(float* base, const int* ks, int n_layers, int M,
   return (long long)off;
 }
 
-// Makes `device` current, setting it only when it is not (cudaSetDevice
-// costs host time even then), and first clears an unread error of an
-// earlier runtime call, so that the check after the launch reports the
-// launch alone.
-cudaError_t use_device(int device) {
-  cudaGetLastError();
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess || current == device) return e;
-  return cudaSetDevice(device);
-}
-
 }  // namespace
 
 extern "C" {
-
-const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // Floats of scratch cin_flat_f32 takes for these shapes (same: prev is
 // x0), 0 where the layer runs on cin_layer_mma_kernel, which needs none.
@@ -1967,7 +1877,7 @@ long long cin_flat_scratch(int M, int F, int H, int K, int same,
 int cin_flat_f32(const float* x0, const float* prev, const float* W,
                  float* out, int M, int F, int H, int K, float* scratch,
                  int* path, int device, void* stream) {
-  CIN_TRY(use_device(device));
+  CUDA_TRY(use_device(device));
   return layer(x0, F, prev, H, W, K, out, M, 0, nullptr, device,
                static_cast<cudaStream_t>(stream), scratch, path);
 }
@@ -1994,7 +1904,7 @@ int cin_stack_sum_f32(const float* x0, const float* const* weights,
                       int M, int F, int output_input, int bm, int device,
                       void* stream) {
   if (n_layers < 1 || n_layers - 1 > kMaxLayers) return cudaErrorInvalidValue;
-  CIN_TRY(use_device(device));
+  CUDA_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_mid = n_layers - 1;
   StackLayers sl = {};
@@ -2017,7 +1927,7 @@ int cin_stack_sum_f32(const float* x0, const float* const* weights,
   stack_prep_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
       weights[0], k1, F, (int)pairs8(F), sc.ws, sc.tab, weights[n_mid],
       ks[n_mid], h, sc.wc);
-  CIN_TRY(cudaGetLastError());
+  CUDA_TRY(cudaGetLastError());
   if (rows == 128)
     return launch_stack_tc<2>(x0, M, F, n_mid, sc, sl, h_max, output_input,
                               out, device, s);
@@ -2040,10 +1950,10 @@ int cin_flat_bwd_f32(const float* x0, const float* prev, const float* W,
                      const float* g, float* scratch, float* dx0,
                      float* dprev, float* dW, int M, int F, int H, int K,
                      int device, void* stream) {
-  CIN_TRY(use_device(device));
+  CUDA_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  CIN_TRY(bwd_rows(x0, prev, W, g, dx0, dprev, M, F, H, K, RowsEpilogue(),
-                   device, s));
+  CUDA_TRY(bwd_rows(x0, prev, W, g, dx0, dprev, M, F, H, K, RowsEpilogue(),
+                    device, s));
   return weight_grad(g, K, x0, F, prev, H, M, scratch, dW, device, s);
 }
 
@@ -2073,7 +1983,7 @@ int cin_stack_sum_bwd_f32(const float* x0, const float* g,
                           float* const* dws, float* dwc, int M, int F,
                           int output_input, int device, void* stream) {
   if (n_layers < 1 || n_layers - 1 > kMaxLayers) return cudaErrorInvalidValue;
-  CIN_TRY(use_device(device));
+  CUDA_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_mid = n_layers - 1;
   int hin[kMaxLayers + 1];
@@ -2086,37 +1996,37 @@ int cin_stack_sum_bwd_f32(const float* x0, const float* g,
 
   collapse_kernel<<<(F * hl + 255) / 256, 256, 0, s>>>(
       weights[n_mid], ks[n_mid], F, hl, sc.wc, sc.wct);
-  CIN_TRY(cudaGetLastError());
+  CUDA_TRY(cudaGetLastError());
   for (int l = 0; l < n_mid; ++l)            // the hidden layers, once
-    CIN_TRY(layer(x0, F, l ? sc.hid[l - 1] : x0, hin[l], weights[l], ks[l],
-                  sc.hid[l], M, 0, nullptr, device, s));
+    CUDA_TRY(layer(x0, F, l ? sc.hid[l - 1] : x0, hin[l], weights[l], ks[l],
+                   sc.hid[l], M, 0, nullptr, device, s));
   const float* h_last = n_mid ? sc.hid[n_mid - 1] : x0;
 
   // the collapsed last layer, out += sum_f x0[f] sum_h Wc[f,h] h_last[h],
   // as layers of one field g: dx0 = g (h_last Wc^T) (+ g) with Wc as
   // (F, 1, H_{n-1}); dWc = (g x0)^T h_last
-  CIN_TRY(layer(g, 1, h_last, hl, sc.wc, F, dx0, M, 0,
-                output_input ? g : nullptr, device, s));
-  CIN_TRY(weight_grad(x0, F, g, 1, h_last, hl, M, sc.part, dwc, device, s));
+  CUDA_TRY(layer(g, 1, h_last, hl, sc.wc, F, dx0, M, 0,
+                 output_input ? g : nullptr, device, s));
+  CUDA_TRY(weight_grad(x0, F, g, 1, h_last, hl, M, sc.part, dwc, device, s));
   if (n_mid == 0)                            // h_last is x0 itself
     return layer(g, 1, x0, F, sc.wct, F, dx0, M, 1, nullptr, device, s);
   int cur = 0;                               // dh_{n-1} = g (x0 Wc) + g
-  CIN_TRY(layer(g, 1, x0, F, sc.wct, hl, sc.dh[cur], M, 0, g, device, s));
+  CUDA_TRY(layer(g, 1, x0, F, sc.wct, hl, sc.dh[cur], M, 0, g, device, s));
   for (int l = n_mid - 1; l >= 0; --l) {
     const float* dh = sc.dh[cur];
     const float* prev = l ? sc.hid[l - 1] : x0;
-    CIN_TRY(weight_grad(dh, ks[l], x0, F, prev, hin[l], M, sc.part, dws[l],
-                        device, s));
+    CUDA_TRY(weight_grad(dh, ks[l], x0, F, prev, hin[l], M, sc.part, dws[l],
+                         device, s));
     RowsEpilogue ep;
     ep.accumulate = 1;
     if (l == 0) {
       ep.prev_is_x0 = 1;
-      CIN_TRY(bwd_rows(x0, x0, weights[0], dh, dx0, nullptr, M, F, F, ks[0],
-                       ep, device, s));
+      CUDA_TRY(bwd_rows(x0, x0, weights[0], dh, dx0, nullptr, M, F, F, ks[0],
+                        ep, device, s));
     } else {                                 // + g: h_l's channel sum
       ep.add_row = g;
-      CIN_TRY(bwd_rows(x0, prev, weights[l], dh, dx0, sc.dh[1 - cur], M, F,
-                       hin[l], ks[l], ep, device, s));
+      CUDA_TRY(bwd_rows(x0, prev, weights[l], dh, dx0, sc.dh[1 - cur], M, F,
+                        hin[l], ks[l], ep, device, s));
       cur = 1 - cur;
     }
   }

@@ -78,10 +78,12 @@
 // hotness 1.75M rows of 512 bytes, ~1 GB a request, ~0.3 ms at 3.35 TB/s.
 //
 // The C entry points, like every entry point of the package's sources,
-// make the device current through `use_device` (below) and check the launch
-// after it.
+// make the device current through runtime.cuh's `use_device` and check the
+// launch after it.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "runtime.cuh"
 
 namespace {
 
@@ -274,25 +276,9 @@ void launch_scatter(float* out, long long rows, int D, const Idx* ids,
   }
 }
 
-// Makes `device` current, setting it only when it is not (cudaSetDevice
-// costs host time even then), and first clears an unread error of an
-// earlier runtime call, so that the check after the launch reports the
-// launch alone.
-cudaError_t use_device(int device) {
-  cudaGetLastError();
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess || current == device) return e;
-  return cudaSetDevice(device);
-}
-
 }  // namespace
 
 extern "C" {
-
-const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // table (rows, D) f32 contiguous; ids (n,) int32 (ids64 = 0) or int64
 // (ids64 = 1) contiguous; out (n, D) f32 contiguous.  rows >= 1.  Returns a
@@ -301,8 +287,7 @@ int gather_rows_f32(const float* table, long long rows, int D,
                     const void* ids, int ids64, long long n, float* out,
                     int device, void* stream) {
   if (rows < 1 || D < 0 || n < 0) return cudaErrorInvalidValue;
-  const cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   if (n == 0 || D == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ids64)
@@ -324,8 +309,7 @@ int gather_pool_rows_f32(const float* table, long long rows, int D,
                          int device, void* stream) {
   if (rows < 1 || D < 0 || batch < 0 || nids < 0 || F < 1)
     return cudaErrorInvalidValue;
-  const cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   if (batch == 0 || D == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ids64)
@@ -344,8 +328,7 @@ int scatter_add_rows_f32(float* out, long long rows, int D, const void* ids,
                          int ids64, long long n, const float* vals,
                          int device, void* stream) {
   if (rows < 0 || D < 0 || n < 0) return cudaErrorInvalidValue;
-  const cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   if (n == 0 || D == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ids64)

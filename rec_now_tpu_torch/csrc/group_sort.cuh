@@ -6,11 +6,11 @@
 //
 // One block of kSortThreads threads holds the batch's keys and values in
 // shared memory (sort_smem() bytes of dynamic shared memory, past the 48 KB
-// default: allow_sort_smem once per device and kernel).  The caller writes
-// keys[spad(i)] = group_i ^ 0x80000000 (the sign bit flipped, so that
-// negative ids order first) and vals[spad(i)] = a value holding i, each
-// thread for i = t, t + kSortThreads, ...; block_min_max gives the keys'
-// range, and sort_by_group sorts (group, extra bits, i):
+// default: runtime.cuh's allow_smem once per device and kernel).  The
+// caller writes keys[spad(i)] = group_i ^ 0x80000000 (the sign bit
+// flipped, so that negative ids order first) and vals[spad(i)] = a value
+// holding i, each thread for i = t, t + kSortThreads, ...; block_min_max
+// gives the keys' range, and sort_by_group sorts (group, extra bits, i):
 //   - keys less their minimum, so that the passes cover the batch's range
 //     only: 4 bits a pass, 1 pass for 16 ids, 8 for ids at both ends of the
 //     int32 range (the span is computed in unsigned 32 bits);
@@ -36,8 +36,6 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
-
 namespace {
 
 constexpr int kSortThreads = 1024;
@@ -45,7 +43,6 @@ constexpr int kSortPer = 8;                             // keys a thread
 constexpr int kSortMax = kSortThreads * kSortPer;       // 8,192 (13 bits)
 constexpr int kDigits = 16;                             // 4 bits a pass
 constexpr int kCounters = kDigits * kSortThreads;
-constexpr int kMaxDevices = 64;
 
 // Counter e of the sort, one word of padding every 32: the scan's reads
 // (16 consecutive counters a thread) hit 32 distinct banks.
@@ -60,20 +57,6 @@ __host__ __device__ constexpr int spad(int p) { return p + (p >> 3); }
 // counters' space.
 size_t sort_smem() {
   return (2 * (size_t)spad(kSortMax) + pad(kCounters)) * sizeof(int);
-}
-
-// Lets `kernel` take sort_smem() bytes of shared memory, once per device;
-// `done`: the kernel's own kMaxDevices flags.
-cudaError_t allow_sort_smem(const void* kernel, int device,
-                            std::atomic<bool>* done) {
-  const bool cached = device >= 0 && device < kMaxDevices;
-  if (cached && done[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sort_smem());
-  if (e == cudaSuccess && cached)
-    done[device].store(true, std::memory_order_release);
-  return e;
 }
 
 // The exclusive prefix sum of v over a block of kSortThreads threads, and

@@ -64,6 +64,7 @@
 #include <math_constants.h>
 
 #include "group_sort.cuh"
+#include "runtime.cuh"
 
 namespace {
 
@@ -329,18 +330,6 @@ lw_sort_kernel(const float* __restrict__ x, const float* __restrict__ lab,
   }
 }
 
-// Makes `device` current, setting it only when it is not (cudaSetDevice
-// costs host time even then), and first clears an unread error of an
-// earlier runtime call, so that the check after the launch reports the
-// launch alone.
-cudaError_t use_device(int device) {
-  cudaGetLastError();
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess || current == device) return e;
-  return cudaSetDevice(device);
-}
-
 // The paths of listwise_f32: 0 the sort where B <= kSortMax, else the
 // sweep; 1 the sort (B <= kSortMax only); 2 the sweep.
 enum { kAuto = 0, kSort = 1, kSweep = 2 };
@@ -359,10 +348,6 @@ bool takes_sort(int B, int path) {
 
 extern "C" {
 
-const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // 4-byte words of scratch listwise_f32 needs for a batch of B (>= 1) on
 // `path`: none on the sort.
 long long listwise_scratch_words(int B, int path) {
@@ -378,13 +363,12 @@ int listwise_f32(const float* logits, const float* labels, const int* groups,
   if (B < 1 || path < kAuto || path > kSweep ||
       (path == kSort && B > kSortMax))
     return cudaErrorInvalidValue;
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (takes_sort(B, path)) {
     static std::atomic<bool> smem_set[kMaxDevices];
-    e = allow_sort_smem((const void*)lw_sort_kernel, device, smem_set);
-    if (e != cudaSuccess) return e;
+    CUDA_TRY(allow_smem((const void*)lw_sort_kernel, (int)sort_smem(), device,
+                        smem_set));
     lw_sort_kernel<<<1, kSortThreads, sort_smem(), s>>>(
         logits, labels, groups, B, th, dx, out);
     return cudaGetLastError();
@@ -394,8 +378,7 @@ int listwise_f32(const float* logits, const float* labels, const int* groups,
   const int cols_per = (B + splits - 1) / splits;
   lw_sweep_kernel<<<dim3(row_blocks, splits), kThreads, 0, s>>>(
       logits, labels, groups, B, th, cols_per, scratch, splits);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(cudaGetLastError());
   lw_finalize_kernel<<<1, 1024, 0, s>>>(logits, labels, B, scratch, splits,
                                         dx, out);
   return cudaGetLastError();

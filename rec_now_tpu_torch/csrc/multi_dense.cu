@@ -69,6 +69,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+#include "runtime.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -90,50 +92,6 @@ __device__ __forceinline__ void split_tf32_rna(float v, uint32_t& hi,
                                                uint32_t& lo) {
   hi = tf32_rna(v);
   lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a * b, the same with a zero accumulator
-__device__ __forceinline__ void mma_tf32_new(float (&d)[4],
-                                             const uint32_t (&a)[4],
-                                             const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
-// copy 4 (16) bytes to shared memory, or zeros when !full
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-               :: "r"(s), "l"(src), "r"(full ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N));
 }
 
 template <int BN>
@@ -611,16 +569,9 @@ cudaError_t launch_tc(const float* x, long long x_stride_n, int nz,
                       int D, int U, int ncols, int relu, int device,
                       cudaStream_t s) {
   constexpr int smem = tc_smem_bytes<BN>();
-  // above 48 KB: the kernel's dynamic shared memory limit, raised once
-  // per device and process
-  static bool raised[kMaxDevices] = {};
-  if (!raised[device]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        multi_dense_tc<BN, WARPS_M, MIN_BLOCKS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    raised[device] = true;
-  }
+  static std::atomic<bool> done[kMaxDevices];
+  CUDA_TRY(allow_smem((const void*)multi_dense_tc<BN, WARPS_M, MIN_BLOCKS>,
+                      smem, device, done));
   const dim3 grid((ncols + BN - 1) / BN, (B + kBM - 1) / kBM, nz);
   const int vx = D % 4 == 0 && aligned(x, 16);
   const int vw = U % 4 == 0 && aligned(w, 16);
@@ -643,18 +594,6 @@ cudaError_t launch_gate(const float* x, const float* w, const float* bias,
   multi_dense_gate<NUP><<<blocks, kThreads, D * NUP * 4, s>>>(
       x, w, bias, out, B, D, U, N * U, relu);
   return cudaGetLastError();
-}
-
-// Makes `device` current, setting it only when it is not (cudaSetDevice
-// costs host time even then), and first clears an unread error of an
-// earlier runtime call, so that the check after the launch reports the
-// launch alone.
-cudaError_t use_device(int device) {
-  cudaGetLastError();
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess || current == device) return e;
-  return cudaSetDevice(device);
 }
 
 // Blocks of linear_wg_kernel<N> that can be resident at once (the
@@ -723,52 +662,29 @@ int launch_lw(const LwPlan& p, const float* x, const float* w,
               float* scratch, cudaStream_t s) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  // x (M, D): a box is 128 rows of 32 floats
+  const cuuint32_t unit[2] = {1, 1};
+  // x (M, D): a box is 128 rows of 32 floats; of the planes, N units of
+  // one k-block
   CUtensorMap xmap, wmap;
   const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)M};
   const cuuint64_t xstrides[1] = {(cuuint64_t)D * 4};
   const cuuint32_t xbox[2] = {32, LW_ROWS};
-  // planes[plane][jb][u][32] as (32, Kp, JB, 2): a box is N units of one
-  // k-block, both planes
-  const cuuint64_t wdims[4] = {32, (cuuint64_t)p.Kp, (cuuint64_t)p.JB, 2};
-  const cuuint64_t wstrides[3] = {128, (cuuint64_t)p.Kp * 128,
-                                  (cuuint64_t)p.JB * p.Kp * 128};
-  const cuuint32_t wbox[4] = {32, (cuuint32_t)N, 1, 2};
   if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
              const_cast<float*>(x), xdims, xstrides, xbox, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
-      encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scratch, wdims,
-             wstrides, wbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      encode_planes(encode, &wmap, scratch, p.Kp, p.JB, N) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const LwArgs a{w, bias, out, scratch, M, D, U, relu,
                  p.JB, p.Kp, p.NT, p.units, p.stages};
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.grid);
-  cfg.blockDim = dim3(LW_THREADS);
-  cfg.dynamicSmemBytes = p.smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, linear_wg_kernel<N>, a, xmap, wmap);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  return launch_cooperative(linear_wg_kernel<N>, p.grid, LW_THREADS, p.smem,
+                            s, a, xmap, wmap);
 }
 
 }  // namespace
 
 extern "C" {
-
-const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // The gate kernel's padded column count (4, 8 or 16) where it takes the
 // call -- a shared input with N * U <= 16 whose W fits its 48 KB of shared
@@ -789,8 +705,7 @@ int multi_dense_f32(const float* x, int nx, const float* w, const float* bias,
   if (N < 1 || B < 1 || D < 1 || U < 1 || (nx != 1 && nx != N) ||
       device < 0 || device >= kMaxDevices || (B + kBM - 1) / kBM > 65535)
     return cudaErrorInvalidValue;
-  const cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nup = multi_dense_gate_columns(nx, N, D, U);
   if (nup == 4)
@@ -834,8 +749,7 @@ int multi_dense_wg_f32(const float* x, const float* w, const float* bias,
   if (B < 1 || D < 1 || U < 1 || D % 4 || !aligned(x, 16) || !scratch ||
       device < 0 || device >= kMaxDevices)
     return cudaErrorInvalidValue;
-  const cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   const LwPlan p = lw_plan(B, D, U, device);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.N == 64)

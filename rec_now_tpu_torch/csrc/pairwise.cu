@@ -65,6 +65,7 @@
 #include <atomic>
 
 #include "group_sort.cuh"
+#include "runtime.cuh"
 
 namespace {
 
@@ -990,18 +991,6 @@ int splits_for(int B) {
   return s < kMaxSplits ? s : kMaxSplits;
 }
 
-// Makes `device` current, setting it only when it is not (cudaSetDevice
-// costs host time even then), and first clears an unread error of an
-// earlier runtime call, so that the check after the launch reports the
-// launch alone.
-cudaError_t use_device(int device) {
-  cudaGetLastError();
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess || current == device) return e;
-  return cudaSetDevice(device);
-}
-
 struct Launch {
   dim3 sweep;
   int rows, splits, cols_per;
@@ -1010,27 +999,13 @@ struct Launch {
 
 cudaError_t begin(int B, int ng, int device, void* stream, Launch* l) {
   if (B < 1 || ng < 1 || ng > kMaxGroups) return cudaErrorInvalidValue;
-  const cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   l->rows = (B + kThreads - 1) / kThreads;
   l->splits = splits_for(B);
   l->cols_per = (B + l->splits - 1) / l->splits;
   l->sweep = dim3(l->rows, l->splits);
   l->stream = static_cast<cudaStream_t>(stream);
   return cudaSuccess;
-}
-
-// The device's SM count, read once per device (0 when it cannot be read).
-int sm_count(int device) {
-  static std::atomic<int> slots[kMaxDevices];
-  const bool cached = device >= 0 && device < kMaxDevices;
-  int v = cached ? slots[device].load(std::memory_order_relaxed) : 0;
-  if (v > 0) return v;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device) !=
-      cudaSuccess)
-    return 0;
-  if (cached) slots[device].store(v, std::memory_order_relaxed);
-  return v;
 }
 
 // Step 1 for B3 and B7a; *grid: the sweep's, a fixed grid of a few blocks
@@ -1040,9 +1015,8 @@ cudaError_t sort_segments(const Inputs& in, float power, const Sorted& so,
   const int sms = sm_count(device);
   if (sms == 0) return cudaErrorInvalidValue;
   static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t e =
-      allow_sort_smem((const void*)sort_segments_kernel, device, smem_set);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(allow_smem((const void*)sort_segments_kernel, (int)sort_smem(),
+                      device, smem_set));
   sort_segments_kernel<<<1, kSortThreads, sort_smem(), s>>>(in, power, so);
   const long long most = max_items(in.B);
   *grid = (int)(most < 8LL * sms ? most : 8LL * sms);
@@ -1127,10 +1101,6 @@ bool bad_path(int B, int path) {
 }  // namespace
 
 extern "C" {
-
-const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // Most group conditions a call may AND.
 int pair_max_groups() { return kMaxGroups; }
@@ -1287,8 +1257,8 @@ int binary_counts_f32(const int* groups, const float* labels,
   if (e != cudaSuccess) return e;
   if (takes_sort(B, path)) {
     static std::atomic<bool> smem_set[kMaxDevices];
-    e = allow_sort_smem((const void*)binary_sort_kernel, device, smem_set);
-    if (e != cudaSuccess) return e;
+    CUDA_TRY(allow_smem((const void*)binary_sort_kernel, (int)sort_smem(),
+                        device, smem_set));
     binary_sort_kernel<<<1, kSortThreads, sort_smem(), l.stream>>>(
         groups, labels, mask, B, out);
     return cudaGetLastError();

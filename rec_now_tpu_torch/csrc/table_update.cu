@@ -91,6 +91,8 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "runtime.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -315,33 +317,16 @@ Layout layout_of(int D, std::initializer_list<const void*> ptrs) {
   return 32 % (D / 4) == 0 ? Layout::kLanes : Layout::kRowVec4;
 }
 
-// Makes `device` current, setting it only when it is not (cudaSetDevice
-// costs host time even then), and first clears an unread error of an
-// earlier runtime call, so that the check after the launch reports the
-// launch alone.
-cudaError_t use_device(int device) {
-  cudaGetLastError();
-  int current = -1;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess || current == device) return e;
-  return cudaSetDevice(device);
-}
-
 }  // namespace
 
 extern "C" {
-
-const char* error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // table (V, D), g (V, D), acc (V,): f32, contiguous; any D >= 1 (the
 // layout from D and the pointers' alignment).  Returns a cudaError_t.
 int adagrad_dense_f32(float* table, float* acc, const float* g, long long V,
                       int D, float lr, float eps, int device, void* stream) {
   if (D < 1) return cudaErrorInvalidValue;
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   if (V == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long row_blocks = (V + kWarps - 1) / kWarps;
@@ -376,8 +361,7 @@ int adam_dense_f32(float* table, float* m, float* v, const float* g,
                    float b2, float omb2, float eps, int device,
                    void* stream) {
   if (D < 1) return cudaErrorInvalidValue;
-  cudaError_t e = use_device(device);
-  if (e != cudaSuccess) return e;
+  CUDA_TRY(use_device(device));
   if (V == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool flags2 = reinterpret_cast<uintptr_t>(touched) % 2 == 0;

@@ -1,11 +1,11 @@
 // Hopper building blocks shared by the kernels that run wgmma fed by TMA
 // (csrc/cin.cu's cin_layer_tc_kernel, csrc/multi_dense.cu's
 // linear_wg_kernel): split TF32, mbarriers, TMA copies, named barriers,
-// wgmma's shared-memory descriptor and its m64nNk8 TF32 products, and
-// cuTensorMapEncodeTiled looked up at run time, and the per-device
-// queries a cooperative launch needs (the opt-in shared memory, the SM
-// count, the blocks that can be resident).  Each source that includes it
-// gets its own copy (an anonymous namespace).
+// wgmma's shared-memory descriptor and its m64nNk8 TF32 products,
+// cuTensorMapEncodeTiled looked up at run time, the tensor map of the
+// split weight planes, and the cooperative launch (its largest grid is
+// runtime.cuh's coop_resident).  Each source that includes it gets its
+// own copy (an anonymous namespace).
 #pragma once
 
 #include <cuda.h>
@@ -231,71 +231,42 @@ EncodeTiled tensor_map_encoder() {
   return f;
 }
 
-// Device attributes and kernel attributes are read and set once per
-// device (they cost host time on every launch otherwise); devices past
-// kMaxDevices are queried every time.
-constexpr int kMaxDevices = 64;
-
-// What query(&v) gives for `device`, cached in slots[device]; 0 when the
-// query fails.
-template <typename Query>
-int per_device(int device, std::atomic<int>* slots, Query query) {
-  const bool cached = device >= 0 && device < kMaxDevices;
-  int v = cached ? slots[device].load(std::memory_order_relaxed) : 0;
-  if (v > 0) return v;
-  if (query(&v) != cudaSuccess) return 0;
-  if (cached) slots[device].store(v, std::memory_order_relaxed);
-  return v;
+// The tensor map of split weight planes stored as
+// planes[plane][block][row][32] and seen as (32, rows, blocks, 2), 128-byte
+// swizzle: a box is `box_rows` rows of one block of 4 k-steps, both
+// planes (wgmma's B tiles, hi then lo).
+CUresult encode_planes(EncodeTiled encode, CUtensorMap* map, float* planes,
+                       int rows, int blocks, int box_rows) {
+  const cuuint64_t dims[4] = {32, (cuuint64_t)rows, (cuuint64_t)blocks, 2};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)rows * 128,
+                                 (cuuint64_t)blocks * rows * 128};
+  const cuuint32_t box[4] = {32, (cuuint32_t)box_rows, 1, 2};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, planes, dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-int optin_smem(int device) {
-  static std::atomic<int> slots[kMaxDevices];
-  return per_device(device, slots, [&](int* v) {
-    return cudaDeviceGetAttribute(
-        v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device); });
-}
-
-int sm_count(int device) {
-  static std::atomic<int> slots[kMaxDevices];
-  return per_device(device, slots, [&](int* v) {
-    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount,
-                                  device); });
-}
-
-// Lets `kernel` take up to the device's opt-in shared memory; done[] is
-// the caller's flag per device, one array per kernel.
-cudaError_t allow_optin_smem(const void* kernel, int device,
-                             std::atomic<bool>* done) {
-  const bool cached = device >= 0 && device < kMaxDevices;
-  if (cached && done[device].load(std::memory_order_acquire))
-    return cudaSuccess;
-  const int cap = optin_smem(device);
-  if (cap == 0) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
-  if (e == cudaSuccess && cached)
-    done[device].store(true, std::memory_order_release);
-  return e;
-}
-
-// Blocks of `kernel` (`threads` a block, the device's opt-in shared
-// memory) that can be resident at once: the cooperative launch's largest
-// grid; 0 where the device cannot launch it cooperatively or a query
-// fails.  slots[] and done[] are the caller's, one array each per kernel.
-int coop_resident(const void* kernel, int threads, int device,
-                  std::atomic<int>* slots, std::atomic<bool>* done) {
-  return per_device(device, slots, [&](int* v) -> cudaError_t {
-    int coop = 0, per_sm = 0;
-    cudaError_t e = cudaDeviceGetAttribute(
-        &coop, cudaDevAttrCooperativeLaunch, device);
-    if (e == cudaSuccess) e = allow_optin_smem(kernel, device, done);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kernel, threads, optin_smem(device));
-    if (e != cudaSuccess) return e;
-    *v = coop ? per_sm * sm_count(device) : 0;
-    return cudaSuccess;
-  });
+// Launches `kernel` cooperatively (all of its blocks resident at once):
+// `grid` blocks of `threads`, `smem` bytes of dynamic shared memory, on
+// stream s.  Returns the launch's error, else cudaGetLastError().
+template <typename... Params, typename... Args>
+cudaError_t launch_cooperative(void (*kernel)(Params...), int grid,
+                               int threads, size_t smem, cudaStream_t s,
+                               const Args&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace

@@ -15,13 +15,18 @@ CLI's defaults: pointwise loss, Adagrad rows), or config 5
 the main one, Adagrad on both): two warm-up steps and one
 profiled and dropped, then 5 steps under ``torch.profiler``.
 Prints, per run, the wall ms per step, the device's busy share of
-that window (sum of kernel and copy times over wall time), the port's
+that window (the union of the kernels', copies' and memsets' intervals
+over wall time, so that overlapping streams count once), the port's
 kernel launches per step by the wrappers' counts (the row gather B11 and
 the row scatter-add B12 among them), the device work by total time, and
 the multi-expert dense's kernels summed (config 4), and the host's ops by
 their own CPU time a step.  With ``--mesh`` the trainer runs on a mesh
 of this process alone (``make_mesh()``: a NCCL group of one, the
 multi-process path with its collectives).  Needs a CUDA device.
+
+A serving request's time on the card is the benchmark's traced run
+(``python3 port_bench/run.py --trace 1``); any other window, the port's
+spans (``core/profiling.trace`` and ``span_report``).
 """
 from __future__ import annotations
 
@@ -36,8 +41,13 @@ from torch.profiler import ProfilerActivity, profile
 from rec_now_tpu_torch.models import (CANDCNModel, DCNv2Model,
                                       FeatureConfig, FMModel, MultiTaskModel,
                                       XDeepFMModel)
-from rec_now_tpu_torch.profile_serving import (_device_us, launches_per,
-                                               reset_launches)
+from rec_now_tpu_torch.ops import cin_kernel as ck
+from rec_now_tpu_torch.ops import expand_kernel as ek
+from rec_now_tpu_torch.ops import gather_kernel as gk
+from rec_now_tpu_torch.ops import listwise_kernel as lk
+from rec_now_tpu_torch.ops import multi_dense_kernel as mk
+from rec_now_tpu_torch.ops import pairwise_kernel as pk
+from rec_now_tpu_torch.ops import table_update_kernel as tk
 from rec_now_tpu_torch.training import SyntheticCriteo, Trainer, TrainerConfig
 
 STEPS, WARMUP, BATCH = 5, 2, 8192
@@ -48,6 +58,52 @@ CONFIG2 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
 # config 5's trainer (bench_all.py:132-135)
 CONFIG5 = TrainerConfig(pointwise_weight=1.0, pairwise_weight=0.5,
                         can_param_field=8, can_dnn_dims=(16,))
+# the port's kernel wrappers, each counting its launches
+WRAPPERS = (ck.cin_stack_sum, ck.cin_flat, ck.cin_stack_sum_bwd,
+            ck.cin_flat_bwd, pk.pair_loss_sum, pk.pair_row_counts,
+            pk.same_group_matvec, pk.group_pair_counts_binary,
+            lk.listwise_loss_sum, mk.multi_dense_fused, mk.linear_wg,
+            tk.adagrad_dense_pass, tk.adam_dense_pass, gk.gather_rows,
+            gk.gather_pool_rows, ek.scatter_add_rows)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches_per(units: int) -> str:
+    """The wrappers' launch counts since :func:`reset_launches`, per
+    unit, of the kernels that launched."""
+    return ", ".join(f"{fn.__name__} {fn.launches / units:g}"
+                     for fn in WRAPPERS if fn.launches)
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _on_card(evt) -> bool:
+    """A kernel, copy or memset on the card.  The CPU ops that launched
+    them carry the same time again; a user annotation's span on the card,
+    such as Optimizer.step's, covers kernels counted already and the gaps
+    between them."""
+    return (evt.device_type == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False))
+
+
+def union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: time in which
+    at least one of them ran."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
 
 
 def _runs(model: str, fc: FeatureConfig):
@@ -118,14 +174,9 @@ def main() -> None:
                 state, _ = trainer.train_step(state, *trainer.put(b))
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        # kernels and copies on the card (the CPU ops that launched them
-        # carry the same time again; a user annotation's span on the card,
-        # such as Optimizer.step's, covers kernels counted already and the
-        # gaps between them)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        busy = sum(_device_us(e) for e in events)
+        events = [e for e in prof.key_averages() if _on_card(e)]
+        busy = union_us((e.time_range.start, e.time_range.end)
+                        for e in prof.events() if _on_card(e))
         print(f"{label}: {wall_us / STEPS / 1e3:.3f} "
               f"ms/step (profiled, B={BATCH}), device busy "
               f"{busy / STEPS / 1e3:.3f} ms/step = {busy / wall_us:.1%} of "

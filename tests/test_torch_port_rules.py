@@ -1,5 +1,6 @@
 """Rules the port keeps: no JAX at run time, CUDA unless asked otherwise,
 plain versions only for CPU tensors."""
+import re
 import subprocess
 import sys
 import textwrap
@@ -177,6 +178,34 @@ def test_library_path_hashes_the_headers(monkeypatch, tmp_path):
     (src / "shared.cuh").write_text("// one\n")
     assert _build.library_path("k") == one
     assert one.parent == tmp_path / "_build" and one.name.startswith("k-")
+
+
+def test_cuda_sources_share_one_runtime():
+    """Each piece of launch plumbing that the CUDA sources share is
+    defined once under ``csrc/``, and every source of kernels includes
+    the host runtime (``wire.cu`` is host C++, built without CUDA's
+    headers, with error codes of its own)."""
+    csrc = REPO / "rec_now_tpu_torch" / "csrc"
+    texts = {p.name: p.read_text() for p in sorted(csrc.glob("*.cu*"))}
+    definitions = {
+        "use_device": r"\bcudaError_t\s+use_device\s*\(",
+        "sm_count": r"\bint\s+sm_count\s*\(",
+        "optin_smem": r"\bint\s+optin_smem\s*\(",
+        "kMaxDevices": r"\bconstexpr\s+int\s+kMaxDevices\b",
+        "mma_tf32": r"\bvoid\s+mma_tf32\s*\(",
+        "cp_async16": r"\bvoid\s+cp_async16\s*\(",
+        "error_string": r"\berror_string\s*\(\s*int\s+\w+\s*\)\s*\{\s*"
+                        r"return\s+cudaGetErrorString\b",
+    }
+    for name, pattern in definitions.items():
+        homes = {f: len(re.findall(pattern, t)) for f, t in texts.items()}
+        homes = {f: n for f, n in homes.items() if n}
+        assert sum(homes.values()) == 1, (name, homes)
+    sources = sorted(f for f in texts if f.endswith(".cu") and f != "wire.cu")
+    assert len(sources) == len(_build.SOURCES) - 1
+    for f in sources:
+        assert '#include "runtime.cuh"' in texts[f], f
+    assert "runtime.cuh" not in texts["wire.cu"]
 
 
 def _counts():

@@ -8,7 +8,9 @@
 * ``profiling``: ``annotate`` shows in a trace, ``trace`` writes a Chrome
   trace, ``guard_finite`` passes through, is silent when disabled and
   prints JAX's message on a NaN, ``device_memory_stats`` gives JAX's
-  keys (-1 on the CPU).
+  keys (-1 on the CPU);
+* ``profile_training.union_us``: the device's busy time counts
+  overlapping intervals once.
 """
 import json
 
@@ -19,7 +21,7 @@ import torch
 
 from rec_now_tpu.core import shapes as jshapes
 from rec_now_tpu.util import numpy_tools as jtools
-from rec_now_tpu_torch import util
+from rec_now_tpu_torch import profile_training, util
 from rec_now_tpu_torch.core import debug, profiling, shapes
 from rec_now_tpu_torch.util import numpy_tools, param_normalizer
 
@@ -111,3 +113,13 @@ def test_device_memory_stats_keys_on_the_cpu():
         assert set(stats) == want and set(stats.values()) == {-1}
     if not torch.cuda.is_available():
         assert profiling.device_memory_stats() == stats
+
+
+@pytest.mark.parametrize("intervals, busy", [
+    ([], 0.0),
+    ([(0.0, 2.0), (1.0, 3.0)], 3.0),               # two streams overlap
+    ([(5.0, 6.0), (0.0, 1.0), (5.5, 5.7)], 2.0),   # nested, out of order
+    ([(0.0, 1.0), (1.0, 2.0), (4.0, 4.0)], 2.0),   # touching; empty
+])
+def test_busy_time_is_the_union_of_intervals(intervals, busy):
+    assert profile_training.union_us(intervals) == busy
