@@ -67,8 +67,14 @@ Phases, each of which ends the script with a non-zero exit on failure:
    fused), each one launch, against float64 (2e-6 of the largest
    output), beside its bound, the plain version and F.linear + ReLU in
    float32, and wgmma_plan's crossover (400 -> 400 and 512 -> 256 at B =
-   1,024-8,192, both ways); ptxas's C7520 (a serialized wgmma) fails
-   the build phase;
+   1,024-8,192, both ways); the same kernel on DLRM-DCNv2's three
+   low-rank cross layers at B = 8192 (``cross_wg``: two launches a layer,
+   V and W read in their (in, out) storage, x0 * (. + b) + x in the
+   epilogue) against float64 (2e-6), beside its bound and today's x @ V,
+   addmm and addcmul, by events and on the device, each launch's device
+   time and phase 1's estimated share (one wave against two), and
+   cross_plan's crossover (B = 1,024-8,192); ptxas's C7520 (a serialized
+   wgmma) fails the build phase;
    the CIN backwards' device time by part
    (``torch.profiler``: B5's row and weight-gradient kernels per layer;
    B4's recompute, row kernel, weight gradients and collapsed layer),
@@ -96,14 +102,15 @@ its first step once more under lazy Adam (two Adam passes; not served or
 trained further).  Each run names its model,
 trainer config, loss keys, the launches it expects per request and per
 step, and its own kernel checks.  Every serving or training loop sets all
-sixteen launch counts to 0 just before it and reads them just after, and
+seventeen launch counts to 0 just before it and reads them just after, and
 fails unless each is exact (0 for a kernel the run does not name): every
 request and step looks its rows up once (B11), every step scatters their
 gradients once (B12); the pooled lookup (``gather_pool_rows``) launches
 only for the DLRM-DCNv2 requests of phase 4; a forward with no gradient
 recorded (serving, eval) launches B8's wgmma kernel once for each
 ``DNNTower`` layer that ``wgmma_plan`` takes at its batch
-(``tower_launches``), training steps never.
+(``tower_launches``) and twice for each low-rank cross layer that
+``cross_plan`` takes (``cross_launches``), training steps never.
 
 4. serve each run at full width through ``build_scorer`` and
    ``WireScorer`` (u8, f16): logits of the expected shape ((B,), or
@@ -116,10 +123,12 @@ recorded (serving, eval) launches B8's wgmma kernel once for each
    logits are each visible), and the card against the same model and
    tables on the CPU through the plain versions; then DLRM-DCNv2 at
    MLPerf's widths on phase 3's pooled layout through ``build_scorer``
-   at B = 8192: one ``gather_pool_rows`` launch and six B8 wgmma
-   launches a request (the dense arch's last two layers, the over
-   arch's four) and no other counted kernel, the logits against its
-   forward on the plain pooled lookup with its towers on nn.Linear;
+   at B = 8192: one ``gather_pool_rows`` launch, six B8 wgmma
+   launches a request for the towers (the dense arch's last two layers,
+   the over arch's four) and six for the cross (two a layer) and no
+   other counted kernel, the logits against its forward on the plain
+   pooled lookup with its towers on nn.Linear and its cross on torch's
+   ops;
 5. each run's first training step (B = 2048, full-width model and
    tables, its launches exact) on the card against the same step on the
    CPU: the losses, every gradient and every param after Adam, each
@@ -388,6 +397,14 @@ TOWER_LAYERS = (("DLRM-DCNv2 over arch", 3456, 1024),
 # (forced) and on F.linear + ReLU at each batch
 CROSSOVER = ((400, 400), (512, 256))
 CROSSOVER_B = (1024, 2048, 4096, 8192)
+# DLRM-DCNv2's low-rank cross at MLPerf's widths: three layers of x (B,
+# 3,456) at rank 512, each two launches of B8's wgmma kernel (cross_wg);
+# cross_plan's crossover timed at CROSSOVER_B; phase 1's estimate from
+# the batches at which each product's units fill one and two waves of an
+# H100's 132 blocks: product 1 (passes of 128 units, 4 a row tile) at 33
+# and 66 row tiles, product 2 (passes of 200, 18 a row tile) at 7 and 14
+CROSS_D, CROSS_R, CROSS_LAYERS = 3456, 512, 3
+CROSS_WAVES, CROSS_SMS = ((4224, 8448), (896, 1792)), 132
 # the stack forward's paths (csrc/cin.cu, stack_rows), each forced: rows a
 # block, or layer-by-layer launches (config 3's stack takes the first)
 STACK_PATHS = {128: "128-row blocks", 64: "64-row blocks",
@@ -1113,6 +1130,132 @@ def tower_rows(torch, mk, rand, b: int, card: str) -> dict:
     return tot
 
 
+def cross_rows(torch, mk, rand, b: int, card: str) -> dict:
+    """B8's wgmma kernel on DLRM-DCNv2's low-rank cross (``cross_wg``,
+    CROSS_LAYERS layers of (b, CROSS_D) at rank CROSS_R, each layer's x the
+    last one's output, layer 0's x0): each taken by cross_plan, two
+    launches and one ``cross.wgmma``, within 2e-6 of the largest output
+    from float64 on the same float32 inputs, timed by events and on the
+    device (each launch's share) beside its bound (three TF32 products a
+    multiply-add at 495 TFLOP/s) and today's x @ V, addmm and addcmul in
+    float32 (TF32 off); phase 1's share of each launch, estimated as twice
+    a one-wave launch less a two-wave one (CROSS_WAVES); then cross_plan's
+    crossover (CROSSOVER_B), device ms both ways beside the plan's choice.
+    -> the kernel's row of the ``kernels`` line, summed over the layers."""
+    from rec_now_tpu_torch.core import profiling
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the library's time would not be float32's")
+    d, r = CROSS_D, CROSS_R
+
+    def layer_count():
+        return profiling.span_report()["counters"].get("cross.wgmma", 0)
+
+    def torch_ops(x, x0, v, w, bias):
+        return torch.addcmul(x, x0, torch.addmm(bias, x @ v, w))
+
+    def launches(fn):
+        """Device ms a call of each of fn's two launches."""
+        seq = profiled_sequence(torch, fn)
+        if len(seq) % 2 or not all("linear_wg_kernel" in n for n, _ in seq):
+            fail(f"cross_wg: not two linear_wg_kernel launches a call: "
+                 f"{sorted({n for n, _ in seq})}")
+        return [2 * sum(t for _, t in seq[k::2]) / len(seq) for k in (0, 1)]
+
+    print(f"cross_wg (B8's wgmma kernel, two launches a layer) at "
+          f"DLRM-DCNv2's low-rank cross, B={b}, {d} wide, rank {r}:")
+    x0 = rand(b, d)
+    vs = [rand(d, r, scale=d ** -0.5) for _ in range(CROSS_LAYERS)]
+    ws = [rand(r, d, scale=r ** -0.5) for _ in range(CROSS_LAYERS)]
+    bs = [rand(d, scale=0.5) for _ in range(CROSS_LAYERS)]
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               library_dms=0.0, bound_ms=0.0, err=0.0, rel=0.0)
+    x, split = x0, None
+    for i, (v, w, bias) in enumerate(zip(vs, ws, bs)):
+        if not mk.cross_plan(b, d, r, x.data_ptr() % 16 == 0):
+            fail(f"cross layer {i}: cross_plan refuses it at B={b}")
+        before, launched = layer_count(), mk.cross_wg.launches
+        got = mk.cross_wg(x, x0, v, w, bias)
+        if (got is None or layer_count() != before + 1
+                or mk.cross_wg.launches != launched + 2):
+            fail(f"cross layer {i}: not one cross_wg call of two launches")
+        want = x0.double() * (x.double() @ v.double() @ w.double()
+                              + bias.double()) + x.double()
+        err = float((got.double() - want).abs().max())
+        rel = err / float(want.abs().max())
+        kern_ = (lambda: mk.cross_wg(x, x0, v, w, bias))
+        lib_ = (lambda: torch_ops(x, x0, v, w, bias))
+        ms, parts = cuda_ms(torch, kern_), launches(kern_)
+        lms, ldms = cuda_ms(torch, lib_), profiled_ms(torch, lib_)
+        fl = 2 * (2 * b * d * r) + 3 * b * d
+        nb = (4 * b * d + 2 * d * r + d + b * r) * 4
+        b_ms, b_by = bound_ms(3 * fl, nb, PEAK_TF32_FLOPS)
+        dms = sum(parts)
+        split = split or parts
+        print(f"  layer {i}{' (x is x0)' if i == 0 else ''}: kernel "
+              f"{ms:.4f} ms (device {dms:.4f}: x V {parts[0]:.4f}, "
+              f"u W + epilogue {parts[1]:.4f}), x @ V + addmm + addcmul "
+              f"{lms:.4f} ms (device {ldms:.4f}); bound {b_ms:.4f} ms "
+              f"({'ops, split TF32' if b_by == 'operations' else b_by}) "
+              f"= {b_ms / dms:.1%} of the kernel's device time; "
+              f"max|kernel - f64| / max|f64| {rel:.2e} [{card}]")
+        if rel > 2e-6:
+            fail(f"cross layer {i}: {rel:.2e} of max|f64| off")
+        if b_ms > dms:
+            fail(f"cross layer {i} ran under its bound")
+        for key, val in (("ms", ms), ("device_ms", dms), ("plain_ms", lms),
+                         ("library_ms", lms), ("library_dms", ldms),
+                         ("bound_ms", b_ms)):
+            tot[key] += val
+        tot["err"], tot["rel"] = max(tot["err"], err), max(tot["rel"], rel)
+        x = got
+    print(f"  the {CROSS_LAYERS} layers: kernel {tot['ms']:.4f} ms by "
+          f"events, device {tot['device_ms']:.4f}; x @ V + addmm + addcmul "
+          f"{tot['library_ms']:.4f} ms, device {tot['library_dms']:.4f}; "
+          f"bound {tot['bound_ms']:.4f} ms = "
+          f"{tot['bound_ms'] / tot['device_ms']:.1%} of the device time; "
+          f"max rel err {tot['rel']:.2e} [{card}]")
+    sms = torch.cuda.get_device_properties(x0.device).multi_processor_count
+    if sms != CROSS_SMS:
+        print(f"  phase 1's share not estimated: {sms} SMs, the waves of "
+              f"CROSS_WAVES assume {CROSS_SMS}")
+    for k, (b1, b2) in enumerate(CROSS_WAVES):
+        t = []
+        for bb in (b1, b2):
+            xx = rand(bb, d)
+            t.append(launches(lambda: mk._cross_wg(
+                xx, xx, vs[0], ws[0], bs[0]))[k])
+        est = 2 * t[0] - t[1]
+        print(f"  phase 1 + grid barrier of {('x V', 'u W')[k]}, estimated "
+              f"2 x {t[0]:.4f} (B={b1}, one wave) - {t[1]:.4f} (B={b2}, "
+              f"two) = {est:.4f} ms, {est / split[k]:.1%} of the launch at "
+              f"B={b} [{card}]")
+    print("cross_plan's crossover, one layer, device ms (torch.profiler) "
+          "and by events, wgmma kernel / x @ V + addmm + addcmul:")
+    for bb in CROSSOVER_B:
+        xx, xx0 = rand(bb, d), rand(bb, d)
+        kern_ = (lambda: mk._cross_wg(xx, xx0, vs[0], ws[0], bs[0]))
+        lib_ = (lambda: torch_ops(xx, xx0, vs[0], ws[0], bs[0]))
+        kd, ld = profiled_ms(torch, kern_), profiled_ms(torch, lib_)
+        ke, le = cuda_ms(torch, kern_), cuda_ms(torch, lib_)
+        taken = mk.cross_plan(bb, d, r, True)
+        print(f"  {d} wide, rank {r}, B={bb}: device {kd:.4f} / {ld:.4f}, "
+              f"events {ke:.4f} / {le:.4f}; the plan takes "
+              f"{'the wgmma kernel' if taken else 'the torch ops'}"
+              f"{'' if (kd <= ld) == taken else ', the slower'} [{card}]")
+    return tot
+
+
+def cross_launches(model, b: int) -> int:
+    """B8 launches of ``model``'s low-rank cross layers at batch ``b`` with
+    no gradient recorded: two for each layer that cross_plan takes (x and
+    x0 fresh tensors, on the 16-byte grid)."""
+    from rec_now_tpu_torch.layers import LowRankCrossLayer
+    from rec_now_tpu_torch.ops import multi_dense_kernel as mk
+    return sum(2 * m.num_layers * mk.cross_plan(
+        b, m.v_kernels.shape[1], m.v_kernels.shape[2], True)
+               for m in model.modules() if isinstance(m, LowRankCrossLayer))
+
+
 def tower_launches(model, b: int) -> int:
     """B8 launches of ``model``'s forward at batch ``b`` with no gradient
     recorded: one for each DNNTower layer that wgmma_plan takes (each
@@ -1136,10 +1279,11 @@ def dcn_eval_launches(b: int = 8192) -> dict:
 def serve_pooled(torch, np, counted, dev, card) -> None:
     """DLRM-DCNv2 at MLPerf's widths on the DLRM layout through
     ``build_scorer``: every request one ``gather_pool_rows`` launch, one
-    B8 wgmma launch for each tower layer the plan takes, and no other
-    counted kernel; logits (B,) finite and equal to the model's forward
-    on the plain pooled lookup with a gradient recorded (its towers on
-    nn.Linear)."""
+    B8 wgmma launch for each tower layer the plan takes, two for each
+    cross layer cross_plan takes, and no other counted kernel; logits (B,)
+    finite and equal to the model's forward on the plain pooled lookup
+    with a gradient recorded (its towers on nn.Linear, its cross on
+    torch's ops)."""
     from rec_now_tpu_torch.embedding.table import EmbeddingTable
     from rec_now_tpu_torch.models import DLRMDCNv2Model
     from rec_now_tpu_torch.ops import gather_kernel as gk
@@ -1162,13 +1306,15 @@ def serve_pooled(torch, np, counted, dev, card) -> None:
             times.append((time.perf_counter() - t0) * 1e3)
         return times, outs
 
-    towers = tower_launches(model, 8192)
+    towers, cross = tower_launches(model, 8192), cross_launches(model, 8192)
     times, outs = counted(f"serve DLRM-DCNv2 (B=8192, {sum(fc.hotness)} "
                           f"ids an example), {len(reqs)} requests",
                           len(reqs), {"gather_pool_rows": 1,
-                                      "linear_wg": towers}, requests)
-    print(f"  {towers} B8 wgmma launches a request (the towers' layers "
-          f"that wgmma_plan takes)")
+                                      "linear_wg": towers,
+                                      "cross_wg": cross}, requests)
+    print(f"  {towers} B8 wgmma launches a request for the towers' layers "
+          f"that wgmma_plan takes, {cross} for the cross layers that "
+          f"cross_plan takes")
     for (dense, raw), out in zip(reqs[:2], outs[:2]):
         if tuple(out.shape) != (8192,) or not torch.isfinite(out).all():
             fail(f"DLRM-DCNv2: bad logits {tuple(out.shape)}")
@@ -3640,6 +3786,15 @@ def main() -> int:
         bound_ms=wg["bound_ms"], bound_by=" and ".join(sorted(
             wg["bound_by"])),
         library_ms=wg["library_ms"])
+    cx = cross_rows(torch, mk, rand, B, card)
+    kern["cross_wg"] = dict(
+        name="cross_wg", route="cuda",
+        source="rec_now_tpu_torch/csrc/multi_dense.cu",
+        replaces="x @ V + torch.addmm + torch.addcmul (LowRankCrossLayer, "
+                 "no TPU kernel)",
+        max_abs_err=cx["err"], ms=cx["ms"], plain_ms=cx["plain_ms"],
+        bound_ms=cx["bound_ms"], bound_by="operations",
+        library_ms=cx["library_ms"])
 
     print("listwise_loss_sum vs plain:")
     print(f"  B=8192: {listwise_ops(pb.labels):,} operations")
@@ -4108,6 +4263,7 @@ def main() -> int:
                "adagrad_dense_pass": tk.adagrad_dense_pass,
                "multi_dense": mk.multi_dense_fused,
                "linear_wg": mk.linear_wg,
+               "cross_wg": mk.cross_wg,
                "listwise_loss_sum": lk.listwise_loss_sum,
                "adam_dense_pass": tk.adam_dense_pass,
                "pair_row_counts": pk.pair_row_counts,

@@ -11,7 +11,9 @@
 // call, one of three kernels: multi_dense_f32 runs (a) or (b) by shape,
 // multi_dense_wg_f32 runs (c), one weight as nn.Linear stores it, where
 // ops/multi_dense_kernel.py's linear_wg takes the call (DNNTower's layers
-// when no gradient is recorded):
+// when no gradient is recorded), and cross_wg_f32 runs (c) twice for one
+// layer of DCN-V2's low-rank cross (its cross_wg, LowRankCrossLayer's
+// layers when no gradient is recorded):
 //
 // (a) multi_dense_tc, the expert banks (every call that (b) does not take).
 //     A shared input is one (B, D) x (D, N*U) product: virtual column c is
@@ -63,7 +65,9 @@
 //
 // (c) linear_wg_kernel, (B, D) x (U, D)^T: wgmma fed by TMA, the weight
 //     split once a call inside the launch, bias and ReLU in the epilogue;
-//     see "one weight as nn.Linear stores it" below.
+//     see "one weight as nn.Linear stores it" below.  Two compile-time
+//     variants serve the low-rank cross: a weight stored (D, U), and the
+//     epilogue x0 * (acc + bias) + x_l; see "the low-rank cross" below.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -390,6 +394,33 @@ constexpr int LW_KS = 4;             // k-steps of 8 a stage: 128-byte rows
 constexpr int LW_XSTAGE = LW_ROWS * 128;    // bytes of x a stage
 constexpr int LW_MAX_STAGES = 8;
 
+// ---- the low-rank cross: (c) in two compile-time variants ----
+// DCN-V2's x_{l+1} = x0 * ((x_l V) W + b) + x_l (layers/
+// low_rank_cross_layer.py) is two launches of linear_wg_kernel: u = x_l V
+// (B, D) x (D, r), then (B, r) x (r, D) with the epilogue.  V (D, r) and W
+// (r, D) are stored (in, out), N-major, and TF32 wgmma takes only a K-major
+// B operand, so phase 1 transposes as it splits: each warp moves 32 x 32
+// tiles (32 k of 32 units) through a padded tile of its own in the stage
+// memory, which TMA fills only after the grid barrier, reading 128-byte
+// rows of W and writing 128-byte rows of the planes, whose layout, box and
+// everything after the barrier stay as they are.  The cross epilogue reads
+// x0 and x_l at the output's positions (float2 where U is even, as the
+// stores), four column pairs' loads ahead of their stores, and writes
+// x0 * (acc + b) + x_l once, fused into one rounding; NaN propagates as
+// through torch.addcmul.  Layer 0 passes x0 as x_l.
+// Bound: operations, 2 * B * D * r multiply-adds a layer in three TF32
+// products at 495 TFLOP/s: DLRM-DCNv2's 3,456 x 512 at B = 8,192 is 174
+// GFLOP in three layers, 1.05 ms.
+enum LwMode {
+  kOutIn,     // W (U, D), nn.Linear's storage; bias and ReLU
+  kInOut,     // W (D, U); bias and ReLU
+  kCross,     // W (D, U); out = x0 * (acc + bias) + xl
+};
+constexpr int LW_WARPS = LW_THREADS / 32;
+constexpr int LW_TILE = 32 * 33;     // a warp's transposing tile, padded
+static_assert(LW_WARPS * LW_TILE * 4 <= 2 * (LW_XSTAGE + 2 * 64 * 128),
+              "the transposing tiles fit two stages of the narrowest pass");
+
 struct LwArgs {
   const float* w;
   const float* bias;   // (U) or null
@@ -398,9 +429,72 @@ struct LwArgs {
   int M, D, U, relu;
   int JB, Kp;          // k-blocks of 32 floats; the planes' rows
   int NT, units, stages;
+  const float* x0;     // kCross: (M, U), read at the output's positions
+  const float* xl;
 };
 
-template <int N>
+// x0 and x_l at row m, columns col and col + 1 (0 past M and U): a float2
+// where U is even
+__device__ __forceinline__ float2 cross_load(const float* p, int m, int col,
+                                             int M, int U, bool pairs) {
+  if (m >= M || col >= U) return make_float2(0.f, 0.f);
+  p += (size_t)m * U + col;
+  if (pairs) return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(__ldg(p), col + 1 < U ? __ldg(p + 1) : 0.f);
+}
+
+// kCross's epilogue, out = x0 * (tot + bias) + xl at a consumer thread's
+// positions (rows m0, m0 + 8; columns n0 + 8c + 2t, + 1): each group of
+// kCrossGroup column pairs loads all of its x0, x_l and bias before its
+// first store, so that the loads overlap (one load after another's store
+// would wait for it: out is not known to differ from x0 or x_l).
+constexpr int kCrossGroup = 4;
+
+template <int R>
+__device__ __forceinline__ void cross_epilogue(const LwArgs& a,
+                                               const float (&tot)[R], int m0,
+                                               int n0, int t, bool pairs) {
+  constexpr int C = R / 4, G = kCrossGroup;
+#pragma unroll
+  for (int c0 = 0; c0 < C; c0 += G) {
+    float2 p[G][2], q[G][2], b[G];
+#pragma unroll
+    for (int j = 0; j < G && c0 + j < C; ++j) {
+      const int col = n0 + 8 * (c0 + j) + 2 * t;
+      b[j] = make_float2(a.bias && col < a.U ? __ldg(a.bias + col) : 0.f,
+                         a.bias && col + 1 < a.U ? __ldg(a.bias + col + 1)
+                                                 : 0.f);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        p[j][half] = cross_load(a.x0, m0 + 8 * half, col, a.M, a.U, pairs);
+        q[j][half] = cross_load(a.xl, m0 + 8 * half, col, a.M, a.U, pairs);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G && c0 + j < C; ++j) {
+      const int c = c0 + j, col = n0 + 8 * c + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = m0 + 8 * half;
+        if (m >= a.M || col >= a.U) continue;
+        const float x = fmaf(p[j][half].x, tot[4 * c + 2 * half] + b[j].x,
+                             q[j][half].x);
+        const float y = fmaf(p[j][half].y,
+                             tot[4 * c + 2 * half + 1] + b[j].y,
+                             q[j][half].y);
+        float* o = a.out + (size_t)m * a.U + col;
+        if (pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(x, y);
+        } else {
+          o[0] = x;
+          if (col + 1 < a.U) o[1] = y;
+        }
+      }
+    }
+  }
+}
+
+template <int N, int MODE = kOutIn>
 __global__ void __launch_bounds__(LW_THREADS, 1)
 linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap wmap) {
@@ -421,7 +515,7 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
   }
 
   // phase 1: W in TF32 hi and lo, planes[plane][jb][u][32]
-  {
+  if constexpr (MODE == kOutIn) {
     const int n = a.JB * a.Kp * 32;
     for (int e = blockIdx.x * LW_THREADS + tid; e < n;
          e += gridDim.x * LW_THREADS) {
@@ -435,6 +529,33 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
       a.planes[n + e] = __uint_as_float(lo);
     }
     asm volatile("fence.proxy.async.global;" ::: "memory");
+  } else {                           // W (D, U): 32 x 32 tiles, a warp each
+    const int n = a.JB * a.Kp * 32, lane = tid & 31;
+    const int ut = (a.Kp + 31) >> 5;                  // unit tiles a k-block
+    float* tile = reinterpret_cast<float*>(base) + (tid >> 5) * LW_TILE;
+    for (int t = blockIdx.x * LW_WARPS + (tid >> 5); t < a.JB * ut;
+         t += gridDim.x * LW_WARPS) {
+      const int jb = t / ut, u0 = (t - jb * ut) * 32, u = u0 + lane;
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {  // row d of W, units u0 .. u0 + 31
+        const int d = 32 * jb + k;
+        tile[k * 33 + lane] =
+            u < a.U && d < a.D ? __ldg(a.w + (size_t)d * a.U + u) : 0.f;
+      }
+      __syncwarp();
+      const int rows = a.Kp - u0 < 32 ? a.Kp - u0 : 32;
+      float* p = a.planes + (jb * a.Kp + u0) * 32 + lane;
+      for (int i = 0; i < rows; ++i) {   // unit u0 + i, k = lane
+        uint32_t hi, lo;
+        split_tf32(tile[lane * 33 + i], hi, lo);
+        p[32 * i] = __uint_as_float(hi);
+        p[n + 32 * i] = __uint_as_float(lo);
+      }
+      __syncwarp();
+    }
+    // the planes are read by TMA, the tiles' memory written by it next
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   }
   cooperative_groups::this_grid().sync();
 
@@ -529,28 +650,36 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
     // n0 + 8c + 2t + e
     const int m0 = tile * LW_ROWS + r0, n0 = nt * N;
     const bool pair_store = (a.U & 1) == 0;
+    if constexpr (MODE == kCross) {
+      // the chain's registers are free until the next unit's first
+      // k-step, which overwrites them (scale_d 0)
 #pragma unroll
-    for (int c = 0; c < R / 4; ++c) {
-      const int col = n0 + 8 * c + 2 * t;
-      const float b0 = a.bias && col < a.U ? __ldg(a.bias + col) : 0.f;
-      const float b1 =
-          a.bias && col + 1 < a.U ? __ldg(a.bias + col + 1) : 0.f;
+      for (int i = 0; i < R; ++i) acc[i] = 0.f;
+      cross_epilogue<R>(a, tot, m0, n0, t, pair_store);
+    } else {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = m0 + 8 * half;
-        float x = tot[4 * c + 2 * half] + b0;
-        float y = tot[4 * c + 2 * half + 1] + b1;
-        if (a.relu) {
-          x = x < 0.f ? 0.f : x;
-          y = y < 0.f ? 0.f : y;
-        }
-        if (m < a.M && col < a.U) {
-          float* o = a.out + (size_t)m * a.U + col;
-          if (pair_store) {
-            *reinterpret_cast<float2*>(o) = make_float2(x, y);
-          } else {
-            o[0] = x;
-            if (col + 1 < a.U) o[1] = y;
+      for (int c = 0; c < R / 4; ++c) {
+        const int col = n0 + 8 * c + 2 * t;
+        const float b0 = a.bias && col < a.U ? __ldg(a.bias + col) : 0.f;
+        const float b1 =
+            a.bias && col + 1 < a.U ? __ldg(a.bias + col + 1) : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = m0 + 8 * half;
+          float x = tot[4 * c + 2 * half] + b0;
+          float y = tot[4 * c + 2 * half + 1] + b1;
+          if (a.relu) {
+            x = x < 0.f ? 0.f : x;
+            y = y < 0.f ? 0.f : y;
+          }
+          if (m < a.M && col < a.U) {
+            float* o = a.out + (size_t)m * a.U + col;
+            if (pair_store) {
+              *reinterpret_cast<float2*>(o) = make_float2(x, y);
+            } else {
+              o[0] = x;
+              if (col + 1 < a.U) o[1] = y;
+            }
           }
         }
       }
@@ -596,15 +725,15 @@ cudaError_t launch_gate(const float* x, const float* w, const float* bias,
   return cudaGetLastError();
 }
 
-// Blocks of linear_wg_kernel<N> that can be resident at once (the
+// Blocks of linear_wg_kernel<N, MODE> that can be resident at once (the
 // cooperative launch's largest grid), 0 where the device cannot launch
 // it cooperatively.
-template <int N>
+template <int N, int MODE>
 int lw_resident(int device) {
   static std::atomic<int> slots[kMaxDevices];
   static std::atomic<bool> done[kMaxDevices];
-  return coop_resident((const void*)linear_wg_kernel<N>, LW_THREADS, device,
-                       slots, done);
+  return coop_resident((const void*)linear_wg_kernel<N, MODE>, LW_THREADS,
+                       device, slots, done);
 }
 
 // How linear_wg_kernel runs a (M, D) x (U, D)^T call; N == 0 where it
@@ -618,6 +747,7 @@ struct LwPlan {
   long long planes = 0;               // floats of scratch
 };
 
+template <int MODE = kOutIn>
 LwPlan lw_plan(int M, int D, int U, int device) {
   LwPlan p;
   if (M < 1 || D < 1 || U < 1 || D % 4) return p;
@@ -639,9 +769,9 @@ LwPlan lw_plan(int M, int D, int U, int device) {
   const size_t stage = LW_XSTAGE + (size_t)2 * N * 128;
   const size_t fixed = 1024 + 16 * LW_MAX_STAGES;   // alignment, mbarriers
   if (fixed + 2 * stage > cap) return p;
-  const int resident = N == 64    ? lw_resident<64>(device)
-                       : N == 128 ? lw_resident<128>(device)
-                                  : lw_resident<200>(device);
+  const int resident = N == 64    ? lw_resident<64, MODE>(device)
+                       : N == 128 ? lw_resident<128, MODE>(device)
+                                  : lw_resident<200, MODE>(device);
   if (!resident) return p;
   p.N = N;
   p.NT = (int)nt;
@@ -656,10 +786,11 @@ LwPlan lw_plan(int M, int D, int U, int device) {
   return p;
 }
 
-template <int N>
+template <int N, int MODE>
 int launch_lw(const LwPlan& p, const float* x, const float* w,
               const float* bias, float* out, int M, int D, int U, int relu,
-              float* scratch, cudaStream_t s) {
+              float* scratch, cudaStream_t s, const float* x0,
+              const float* xl) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint32_t unit[2] = {1, 1};
@@ -676,10 +807,28 @@ int launch_lw(const LwPlan& p, const float* x, const float* w,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS ||
       encode_planes(encode, &wmap, scratch, p.Kp, p.JB, N) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  const LwArgs a{w, bias, out, scratch, M, D, U, relu,
-                 p.JB, p.Kp, p.NT, p.units, p.stages};
-  return launch_cooperative(linear_wg_kernel<N>, p.grid, LW_THREADS, p.smem,
-                            s, a, xmap, wmap);
+  const LwArgs a{w, bias, out, scratch, M, D, U, relu, p.JB,
+                 p.Kp, p.NT, p.units, p.stages, x0, xl};
+  return launch_cooperative(linear_wg_kernel<N, MODE>, p.grid, LW_THREADS,
+                            p.smem, s, a, xmap, wmap);
+}
+
+// launch_lw at the plan's pass width; x0 and xl only for kCross
+template <int MODE>
+int run_lw(const LwPlan& p, const float* x, const float* w,
+           const float* bias, float* out, int M, int D, int U, int relu,
+           float* scratch, cudaStream_t s, const float* x0 = nullptr,
+           const float* xl = nullptr) {
+  if (p.N == 64)
+    return launch_lw<64, MODE>(p, x, w, bias, out, M, D, U, relu, scratch,
+                               s, x0, xl);
+  if (p.N == 128)
+    return launch_lw<128, MODE>(p, x, w, bias, out, M, D, U, relu, scratch,
+                                s, x0, xl);
+  if (p.N == 200)
+    return launch_lw<200, MODE>(p, x, w, bias, out, M, D, U, relu, scratch,
+                                s, x0, xl);
+  return cudaErrorNotSupported;
 }
 
 }  // namespace
@@ -750,15 +899,47 @@ int multi_dense_wg_f32(const float* x, const float* w, const float* bias,
       device < 0 || device >= kMaxDevices)
     return cudaErrorInvalidValue;
   CUDA_TRY(use_device(device));
-  const LwPlan p = lw_plan(B, D, U, device);
+  return run_lw<kOutIn>(lw_plan(B, D, U, device), x, w, bias, out, B, D, U,
+                        relu, scratch, static_cast<cudaStream_t>(stream));
+}
+
+// Floats of scratch that cross_wg_f32 takes for x (B, D) at rank R besides
+// u's B * R: the larger of its two products' weight planes; 0 where
+// linear_wg_kernel cannot run both on `device`.
+long long cross_wg_scratch(int B, int D, int R, int device) {
+  if (device < 0 || device >= kMaxDevices || use_device(device) != cudaSuccess)
+    return 0;
+  const long long p1 = lw_plan<kInOut>(B, D, R, device).planes;
+  const long long p2 = lw_plan<kCross>(B, R, D, device).planes;
+  return p1 && p2 ? (p1 > p2 ? p1 : p2) : 0;
+}
+
+// One layer of DCN-V2's low-rank cross, out (B, D) = x0 * ((x V) W + bias)
+// + x, as two launches of linear_wg_kernel on one stream: u = x V into the
+// scratch past the planes, then u W with the cross epilogue.  x and x0
+// (B, D) 16-byte aligned, v (D, R) and w (R, D) in their (in, out)
+// storage, bias (D) or null, D % 4 == 0 and R % 4 == 0 (TMA reads x's and
+// u's rows); scratch, 16-byte aligned, holds cross_wg_scratch(B, D, R) +
+// B * R floats, its planes shared by the two launches in turn.  All f32,
+// contiguous; out may be x (the epilogue reads each element of x before
+// the same thread writes that element of out), and x0 only where x is.
+// Returns a cudaError_t, cudaErrorNotSupported where the device cannot
+// run it.
+int cross_wg_f32(const float* x, const float* x0, const float* v,
+                 const float* w, const float* bias, float* out, int B, int D,
+                 int R, float* scratch, int device, void* stream) {
+  if (B < 1 || D < 1 || R < 1 || D % 4 || R % 4 || !aligned(x, 16) ||
+      !aligned(x0, 16) || !scratch || !aligned(scratch, 16) || device < 0 ||
+      device >= kMaxDevices)
+    return cudaErrorInvalidValue;
+  CUDA_TRY(use_device(device));
+  const LwPlan p1 = lw_plan<kInOut>(B, D, R, device);
+  const LwPlan p2 = lw_plan<kCross>(B, R, D, device);
+  if (!p1.N || !p2.N) return cudaErrorNotSupported;
+  float* u = scratch + (p1.planes > p2.planes ? p1.planes : p2.planes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.N == 64)
-    return launch_lw<64>(p, x, w, bias, out, B, D, U, relu, scratch, s);
-  if (p.N == 128)
-    return launch_lw<128>(p, x, w, bias, out, B, D, U, relu, scratch, s);
-  if (p.N == 200)
-    return launch_lw<200>(p, x, w, bias, out, B, D, U, relu, scratch, s);
-  return cudaErrorNotSupported;
+  CUDA_TRY(run_lw<kInOut>(p1, x, v, nullptr, u, B, D, R, 0, scratch, s));
+  return run_lw<kCross>(p2, u, w, bias, out, B, R, D, 0, scratch, s, x0, x);
 }
 
 }  // extern "C"

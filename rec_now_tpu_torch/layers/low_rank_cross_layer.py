@@ -11,9 +11,19 @@ DCN-mix (experts, a gate, tanh).
 
 Parameters in the port's (in, out) layout, stacked by layer:
 ``v_kernels`` (L, D, r) and ``w_kernels`` (L, r, D), each layer
-glorot-uniform on its own fans, and ``biases`` (L, D), zeros.  A layer
-is two float32 products and one fused multiply-add (``addmm`` with the
-bias, then ``addcmul``).
+glorot-uniform on its own fans, and ``biases`` (L, D), zeros.
+
+Where no gradient is recorded (``torch.inference_mode`` or
+``torch.no_grad``), each layer runs on B8's ``wgmma`` kernel where
+``ops/multi_dense_kernel.py``'s ``cross_wg`` takes it (CUDA float32
+inputs of a shape its plan takes): two launches, the weights read in
+their (in, out) storage, ``x0 * (. + b_l) + x_l`` in the second one's
+epilogue, each layer past the first written over its x_l, so the stack
+allocates one (B, D) output.  Every other layer, and every layer while a
+gradient is recorded, is two float32 products and one fused
+multiply-add (``addmm`` with the bias, then ``addcmul``), counted in
+``cross.torch``.  The choice rests on the inputs' device, type, grad
+mode, shapes and alignment alone.
 
 Symbols: B batch, D in-dim, r low rank, L num_layers.
 """
@@ -24,8 +34,10 @@ from typing import Union
 import torch
 from torch import nn
 
+from rec_now_tpu_torch.core import profiling
 from rec_now_tpu_torch.core.config import (glorot_uniform, resolve_device,
                                            zeros)
+from rec_now_tpu_torch.ops import multi_dense_kernel as mk
 
 
 class LowRankCrossLayer(nn.Module):
@@ -46,9 +58,17 @@ class LowRankCrossLayer(nn.Module):
         self.biases = nn.Parameter(zeros((num_layers, in_dim)).to(device))
 
     def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        wgmma = not torch.is_grad_enabled()
         x = x0
         for i in range(self.num_layers):
-            xw = torch.addmm(self.biases[i], x @ self.v_kernels[i],
-                             self.w_kernels[i])
-            x = torch.addcmul(x, x0, xw)
+            # past layer 0, x_l is this call's own: x_{l+1} goes over it
+            y = (mk.cross_wg(x, x0, self.v_kernels[i], self.w_kernels[i],
+                             self.biases[i], None if i == 0 else x)
+                 if wgmma else None)
+            if y is None:
+                profiling.count("cross.torch")
+                xw = torch.addmm(self.biases[i], x @ self.v_kernels[i],
+                                 self.w_kernels[i])
+                y = torch.addcmul(x, x0, xw)
+            x = y
         return x

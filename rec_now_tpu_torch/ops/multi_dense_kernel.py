@@ -23,6 +23,14 @@ or no activation fused, f32.
   own way.  ``linear_wg.launches`` counts its launches, each also counted
   in ``multi_dense.wgmma``.  ``models/tower.py``'s ``DNNTower`` asks it
   for each layer when no gradient is recorded.
+* :func:`cross_wg` -- one layer of DCN-V2's low-rank cross,
+  ``x0 * ((x V) W + b) + x``, as two launches of the same kernel through
+  one C call: ``u = x V``, then ``u W`` with ``x0 * (. + b) + x`` in the
+  epilogue, V and W read in their (in, out) storage; None where
+  :func:`cross_plan` refuses the call.  ``cross_wg.launches`` counts its
+  launches (two a layer), each layer also counted once in
+  ``cross.wgmma``.  ``layers/low_rank_cross_layer.py`` asks it for each
+  layer when no gradient is recorded.
 * :func:`multi_dense` -- the same as a ``torch.autograd.Function`` (the
   CUDA path of ``ops/multi_dense_op.py``).  Its backward is
   :func:`multi_dense_bwd_plain`, plain PyTorch matmuls, as the JAX
@@ -98,6 +106,10 @@ def _lib() -> ctypes.CDLL:
         lib.multi_dense_wg_f32.restype = i32
         lib.multi_dense_wg_scratch.argtypes = [i32] * 4
         lib.multi_dense_wg_scratch.restype = ctypes.c_longlong
+        lib.cross_wg_f32.argtypes = [ptr] * 6 + [i32] * 3 + [ptr, i32, ptr]
+        lib.cross_wg_f32.restype = i32
+        lib.cross_wg_scratch.argtypes = [i32] * 4
+        lib.cross_wg_scratch.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -120,6 +132,27 @@ def wgmma_plan(b: int, d: int, u: int, aligned: bool) -> bool:
     :data:`WGMMA_MIN_OUTPUTS` outputs.  Shapes and alignment alone
     decide."""
     return aligned and d % 4 == 0 and b * u >= WGMMA_MIN_OUTPUTS
+
+
+# the least b * min(d, r) that cross_plan gives the wgmma kernel for a
+# (b, d) cross layer of rank r: each of its two products' units is a
+# 128-row tile walking all of its depth, so the narrower one sets how many
+# units fill the card.  Device ms on an H100 (torch.profiler), the two
+# launches against x @ V, addmm and addcmul in float32, 3,456 wide at rank
+# 512, B = 1,024, 2,048, 4,096, 8,192: 0.2065 / 0.1962, 0.2507 / 0.3776,
+# 0.3452 / 0.7351, 0.6590 / 1.3455 (``chip_smoke.py`` phase 3 prints
+# these): the library wins at 1,024 x 512 = 2^19, the kernel from 2^20
+CROSS_MIN_OUTPUTS = 2 ** 20
+
+
+def cross_plan(b: int, d: int, r: int, aligned: bool) -> bool:
+    """True where the card runs a (b, d) low-rank cross layer of rank r
+    on B8's ``wgmma`` kernel: both products' inputs on the 16-byte grid
+    that TMA reads (d % 4 == 0 and r % 4 == 0, x and x0 ``aligned`` to
+    16 bytes) and b * min(d, r) at least :data:`CROSS_MIN_OUTPUTS`.
+    Shapes and alignment alone decide."""
+    return (aligned and d % 4 == 0 and r % 4 == 0
+            and b * min(d, r) >= CROSS_MIN_OUTPUTS)
 
 
 def takes_gate_kernel(nx: int, n: int, d: int, u: int) -> bool:
@@ -231,6 +264,89 @@ def _linear_wg(x: torch.Tensor, weight: torch.Tensor,
 
 
 linear_wg.launches = 0
+
+
+def cross_wg(x: torch.Tensor, x0: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, b: Optional[torch.Tensor],
+             out: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """One low-rank cross layer, ``x0 * ((x @ v) @ w + b) + x`` with x and
+    x0 (B, D), v (D, r), w (r, D) and b (D,) or None, on B8's ``wgmma``
+    kernel -> (B, D), written into ``out`` where given: a contiguous
+    float32 (B, D) on x's device, x itself allowed (each element of x is
+    read before the same thread writes that element of out), never x0
+    unless x is x0.  None unless x and x0 are contiguous float32 CUDA
+    matrices of one shape, v and w contiguous and :func:`cross_plan` takes
+    the call.  v, w and b are ``LowRankCrossLayer``'s, float32 on x's
+    device."""
+    if not (x.is_cuda and x.dtype == torch.float32 and x.dim() == 2
+            and x.is_contiguous() and x0.is_contiguous()
+            and x0.dtype == torch.float32 and x0.shape == x.shape
+            and v.is_contiguous() and w.is_contiguous()
+            and cross_plan(x.shape[0], x.shape[1], v.shape[-1],
+                           (x.data_ptr() | x0.data_ptr()) % 16 == 0)):
+        return None
+    return _cross_wg(x, x0, v, w, b, out)
+
+
+# floats of scratch the cross's two launches share for their weight planes,
+# by (d, r, device); 0 where the device cannot run them (the launch then
+# raises)
+_cross_scratch: Dict[Tuple[int, int, int], int] = {}
+
+
+def _cross_wg(x: torch.Tensor, x0: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, b: Optional[torch.Tensor],
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`cross_wg`'s two launches at any size the kernel takes (x's
+    and x0's rows on the 16-byte grid, r % 4 == 0); raises on anything
+    else."""
+    dev = x.device
+    for name, t, ndim in (("x", x, 2), ("x0", x0, 2), ("v", v, 2),
+                          ("w", w, 2)):
+        check_input(name, t, ndim, dev)
+    (bs, d), r = x.shape, v.shape[1]
+    if (x0.shape != x.shape or v.shape[0] != d
+            or tuple(w.shape) != (r, d)):
+        raise ValueError(f"x {tuple(x.shape)}, x0 {tuple(x0.shape)}, v "
+                         f"{tuple(v.shape)} and w {tuple(w.shape)} do not "
+                         f"fit: expected x0 as x, v ({d}, r), w (r, {d})")
+    if b is not None:
+        check_input("b", b, 1, dev)
+        if b.shape[0] != d:
+            raise ValueError(f"b {tuple(b.shape)} is not ({d},)")
+    if d % 4 or r % 4 or (x.data_ptr() | x0.data_ptr()) % 16:
+        raise ValueError("the wgmma kernel reads x's and u's rows by TMA: "
+                         "D % 4 == 0, r % 4 == 0 and x, x0 16-byte aligned")
+    if out is not None:
+        check_input("out", out, 2, dev)
+        if out.shape != x.shape or (out.data_ptr() == x0.data_ptr()
+                                    and x0.data_ptr() != x.data_ptr()):
+            raise ValueError(f"out {tuple(out.shape)} is not x's shape, or "
+                             f"is x0 while x is not")
+    if bs == 0:
+        return x.new_empty((bs, d)) if out is None else out
+    lib = _lib()
+    key = (d, r, dev.index)
+    floats = _cross_scratch.get(key)
+    if floats is None:
+        floats = _cross_scratch[key] = lib.cross_wg_scratch(bs, d, r,
+                                                            dev.index)
+    if out is None:                  # one allocation: out, then scratch
+        buf = x.new_empty(bs * d + floats + bs * r)
+        out, scratch = buf[:bs * d].view(bs, d), buf[bs * d:]
+    else:
+        scratch = x.new_empty(floats + bs * r)
+    rc = lib.cross_wg_f32(x.data_ptr(), x0.data_ptr(), v.data_ptr(),
+                          w.data_ptr(), None if b is None else b.data_ptr(),
+                          out.data_ptr(), bs, d, r, scratch.data_ptr(),
+                          dev.index, _build.stream_of(x))
+    check_rc(lib, rc, "multi_dense")
+    cross_wg.launches += 2
+    profiling.count("cross.wgmma")
+    return out
+
+
+cross_wg.launches = 0
 
 
 class _MultiDense(torch.autograd.Function):

@@ -1,6 +1,8 @@
 """DLRM-DCNv2 on the port: the per-field, multi-hot ``FeatureConfig``, the
 pooled lookup ``gather_pool_rows`` (plain version; the kernel on the
-card), DCN-V2's low-rank cross layer, and ``DLRMDCNv2Model`` served
+card), DCN-V2's low-rank cross layer (its torch ops; B8's ``wgmma``
+kernel through ``cross_wg`` on the card, and where the layer falls back),
+and ``DLRMDCNv2Model`` served
 through ``build_scorer`` against the benchmark's plain reference
 (``port_bench/reference/dlrm-dcnv2-criteo1tb.py``, loaded by path) on
 seeded random weights; and the paths that refuse the new layout.
@@ -12,8 +14,10 @@ tests/test_torch_dlrm_dcnv2.py -q -m cuda``.
 Tolerances: id arithmetic exact; the plain lookup against a Python loop
 of float32 adds in the same column order exact; the cross layer against
 its formula in float64 1e-6 of the largest output (float32 products of
-width 12); the model against the reference 1e-5 of the largest logit
-(both float32, sums in other orders: the pooled rows, ``addmm``'s bias);
+width 12), on the card's kernel 2e-6 (split TF32, sums in other orders,
+the epilogue's multiply-add fused); the model against the reference 1e-5
+of the largest logit (both float32, sums in other orders: the pooled
+rows, ``addmm``'s bias);
 the kernel against the plain version exact (the same adds in the same
 order, no fused multiply-add), the served logits on the card against the
 CPU's 1e-5 of the largest (float32 products in other orders).
@@ -32,6 +36,7 @@ from rec_now_tpu_torch.layers import LowRankCrossLayer
 from rec_now_tpu_torch.models import (CANDCNModel, DLRMDCNv2Model,
                                       FeatureConfig)
 from rec_now_tpu_torch.ops import gather_kernel as gk
+from rec_now_tpu_torch.ops import multi_dense_kernel as mk
 from rec_now_tpu_torch.serving import ServingState, WireScorer, build_scorer
 from rec_now_tpu_torch.training import Trainer, TrainerConfig
 
@@ -187,6 +192,101 @@ def test_low_rank_cross_layer_is_its_formula():
     got = layer(x0).detach()
     assert float((got.double() - x).abs().max()) <= 1e-6 * float(
         x.abs().max())
+
+
+def _counter(name):
+    return profiling.span_report()["counters"].get(name, 0)
+
+
+def _cross_by_hand(layer, x0):
+    """The three torch ops of every layer, as the layer ran them before it
+    asked cross_wg."""
+    x = x0
+    for i in range(layer.num_layers):
+        xw = torch.addmm(layer.biases[i], x @ layer.v_kernels[i],
+                         layer.w_kernels[i])
+        x = torch.addcmul(x, x0, xw)
+    return x
+
+
+# (b, d, r, aligned, taken): DLRM-DCNv2's cross (3,456 wide, rank 512) at
+# B = 8,192 and at the least batch the plan takes; its rows off the 16-byte
+# grid; a width and a rank off the 4-float grid; a narrow rank that keeps
+# b * min(d, r) small; an empty batch
+CROSS_PLAN_CASES = [
+    (8192, 3456, 512, True, True),
+    (mk.CROSS_MIN_OUTPUTS // 512, 3456, 512, True, True),
+    (mk.CROSS_MIN_OUTPUTS // 512 - 1, 3456, 512, True, False),
+    (8192, 3456, 512, False, False),
+    (8192, 3458, 512, True, False),
+    (8192, 3456, 514, True, False),
+    (8192, 3456, 4, True, False),
+    (0, 3456, 512, True, False)]
+
+
+@pytest.mark.parametrize("b,d,r,aligned,taken", CROSS_PLAN_CASES)
+def test_cross_plan_decides_by_shape_and_alignment(b, d, r, aligned, taken):
+    assert mk.cross_plan(b, d, r, aligned) is taken
+
+
+@pytest.mark.parametrize("case", ["cpu", "grad", "d_not_4", "unaligned"])
+def test_cross_layer_falls_back_where_cross_wg_refuses(monkeypatch, case):
+    """LowRankCrossLayer asks cross_wg for each layer (x_l, x0, the
+    layer's own v, w and b, and x_l as the output past layer 0) where no
+    gradient is recorded, never where one is; where the answer is None it
+    runs today's addmm and addcmul,
+    counted once a layer in ``cross.torch``, to the same numbers.  Each
+    case refuses for its own reason: CPU tensors, a gradient recorded, a
+    width off the 4-float grid, x0 off the 16-byte grid (the plan's
+    verdict at DLRM-DCNv2's widths beside it)."""
+    asked = []
+
+    def spy(x, x0, v, w, b, out=None):
+        y = real(x, x0, v, w, b, out)
+        asked.append((tuple(x.shape), x0, v, w, b, y, out is x,
+                      out is None))
+        return y
+
+    real = mk.cross_wg
+    monkeypatch.setattr(mk, "cross_wg", spy)
+    d = 14 if case == "d_not_4" else 12
+    gen = torch.Generator().manual_seed(11)
+    layer = LowRankCrossLayer(d, 4, 3, gen, device="cpu")
+    with torch.no_grad():
+        layer.biases.uniform_(-1, 1, generator=gen)
+    x0 = torch.randn(9, d, generator=gen)
+    if case == "unaligned":
+        x0 = torch.empty(x0.numel() + 1)[1:].view(9, d).copy_(x0)
+        assert x0.data_ptr() % 16
+    wide = 3458 if case == "d_not_4" else 3456
+    assert mk.cross_plan(8192, wide, 512, case != "unaligned") is (
+        case in ("cpu", "grad"))
+    profiling.enable()
+    try:
+        before = _counter("cross.torch")
+        if case == "grad":
+            got = layer(x0)
+            assert got.requires_grad
+        else:
+            with torch.no_grad():
+                got = layer(x0)
+        assert _counter("cross.torch") - before == 3
+        assert _counter("cross.wgmma") == 0
+    finally:
+        profiling.disable()
+    if case == "grad":
+        assert asked == []
+    else:
+        def where(t):                      # a layer's slice of a parameter
+            return t.data_ptr(), tuple(t.shape)
+
+        assert [(s, x0_ is x0, where(v), where(w), where(b), y, onto_x,
+                 fresh) for s, x0_, v, w, b, y, onto_x, fresh in asked] == [
+            ((9, d), True, where(layer.v_kernels[i]),
+             where(layer.w_kernels[i]), where(layer.biases[i]), None,
+             i > 0, i == 0) for i in range(3)]
+    with torch.no_grad():
+        assert torch.equal(got.detach(), _cross_by_hand(layer, x0))
 
 
 # -- the model through build_scorer against the benchmark's reference -------
@@ -457,3 +557,121 @@ def test_xdeepfm_tower_takes_what_the_plan_decides(dev):
         assert _wgmma_launches() - before == want and slow.requires_grad
         assert float((fast - slow.detach()).abs().max()) <= 1e-5 * float(
             slow.detach().abs().max())
+
+
+def _cross_f64(x, x0, v, w, b):
+    y = x0.double() * (x.double() @ v.double() @ w.double()
+                       + (0 if b is None else b.double())) + x.double()
+    return y
+
+
+def _within(got, want, tol=2e-6):
+    """got within tol of max|want| where want is a number, NaN where it
+    is NaN."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    err = float((got.double() - want)[~nan].abs().max())
+    assert err <= tol * float(want[~nan].abs().max())
+
+
+# (b, d, r): DLRM-DCNv2's cross (3,456 wide, rank 512) at B = 300, off
+# the 128-row tile, and 512, the kernel forced (below cross_plan's least
+# b * min(d, r)); a width off the 32-float k-block with a rank off every
+# pass width (product 1's passes of 64, product 2's of 128); a width
+# below one pass; one row
+CROSS_SHAPES = [(300, 3456, 512), (512, 3456, 512), (257, 420, 132),
+                (77, 36, 20), (1, 36, 20)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,r", CROSS_SHAPES)
+def test_cross_wg_matches_float64(dev, b, d, r):
+    """One cross layer on B8's wgmma kernel, x0 * ((x V) W + b) + x with V
+    and W in their (in, out) storage: 2e-6 of the largest output from
+    float64, as layer 0 (x is x0) and a later layer, with a nonzero bias
+    and without; each call two launches and one ``cross.wgmma``; a repeat
+    bit-equal, and written over x (``out=x``) the same bits."""
+    gen = torch.Generator().manual_seed(b + d + r)
+    x0 = torch.randn(b, d, generator=gen).to(dev)
+    x = torch.randn(b, d, generator=gen).to(dev)
+    v = (torch.randn(d, r, generator=gen) / d ** 0.5).to(dev)
+    w = (torch.randn(r, d, generator=gen) / r ** 0.5).to(dev)
+    bias = torch.randn(d, generator=gen).to(dev)
+    profiling.enable()
+    try:
+        for xl in (x0, x):
+            for bb in (bias, None):
+                launches, layers = mk.cross_wg.launches, _counter(
+                    "cross.wgmma")
+                got = mk._cross_wg(xl, x0, v, w, bb)
+                assert mk.cross_wg.launches == launches + 2
+                assert _counter("cross.wgmma") == layers + 1
+                _within(got, _cross_f64(xl, x0, v, w, bb))
+        assert torch.equal(got, mk._cross_wg(x, x0, v, w, None))
+        over = x.clone()
+        assert mk._cross_wg(over, x0, v, w, None, over) is over
+        assert torch.equal(over, got)
+    finally:
+        profiling.disable()
+
+
+@pytest.mark.cuda
+def test_cross_wg_carries_a_nan_in_x0(dev):
+    """A NaN in x0 at layer 0 (x is x0) makes its row NaN, as through
+    x @ V, addmm and addcmul; every other row stays within 2e-6."""
+    gen = torch.Generator().manual_seed(13)
+    b, d, r = 200, 420, 132
+    x0 = torch.randn(b, d, generator=gen)
+    x0[5, 7] = float("nan")
+    x0 = x0.to(dev)
+    v = (torch.randn(d, r, generator=gen) / d ** 0.5).to(dev)
+    w = (torch.randn(r, d, generator=gen) / r ** 0.5).to(dev)
+    bias = torch.randn(d, generator=gen).to(dev)
+    got = mk._cross_wg(x0, x0, v, w, bias)
+    want = _cross_f64(x0, x0, v, w, bias)
+    assert torch.isnan(want[5]).all() and not torch.isnan(want[6:]).any()
+    _within(got, want)
+    torch_ops = torch.addcmul(x0, x0, torch.addmm(bias, x0 @ v, w))
+    assert torch.equal(torch.isnan(got), torch.isnan(torch_ops))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d,r", [(257, 420, 132), (300, 3456, 512)])
+def test_cross_layer_on_the_card_is_its_formula(monkeypatch, dev, b, d, r):
+    """cross_wg refuses this batch (below cross_plan's least b * min(d,
+    r)); with that least set to 0, LowRankCrossLayer's three layers with
+    no gradient recorded run on the kernel: 2e-6 of the largest output
+    from the float64 formula, two launches and one ``cross.wgmma`` a
+    layer, no ``cross.torch``; with a gradient recorded the torch ops, one
+    ``cross.torch`` a layer and no launch, within 1e-5."""
+    gen = torch.Generator().manual_seed(17)
+    layer = LowRankCrossLayer(d, r, 3, gen, device=dev)
+    with torch.no_grad():
+        layer.biases.copy_(torch.rand(3, d, generator=gen) * 2 - 1)
+    x0 = torch.randn(b, d, generator=gen).to(dev)
+    assert mk.cross_wg(x0, x0, layer.v_kernels[0], layer.w_kernels[0],
+                       layer.biases[0]) is None
+    monkeypatch.setattr(mk, "CROSS_MIN_OUTPUTS", 0)
+    profiling.enable()
+    try:
+        counts = (mk.cross_wg.launches, _counter("cross.wgmma"),
+                  _counter("cross.torch"))
+        with torch.inference_mode():
+            fast = layer(x0)
+        assert (mk.cross_wg.launches, _counter("cross.wgmma"),
+                _counter("cross.torch")) == (counts[0] + 6, counts[1] + 3,
+                                             counts[2])
+        slow = layer(x0)
+        assert slow.requires_grad
+        assert (mk.cross_wg.launches, _counter("cross.wgmma"),
+                _counter("cross.torch")) == (counts[0] + 6, counts[1] + 3,
+                                             counts[2] + 3)
+    finally:
+        profiling.disable()
+    v, w, bias = (t.detach().double() for t in
+                  (layer.v_kernels, layer.w_kernels, layer.biases))
+    want = x0.double()
+    for i in range(3):
+        want = x0.double() * (want @ v[i] @ w[i] + bias[i]) + want
+    _within(fast, want)
+    _within(slow.detach(), fast, 1e-5)
