@@ -13,8 +13,10 @@ Phases, each of which ends the script with a non-zero exit on failure:
    xDeepFM config-3 shapes (B = 8192, D = 16, F = 26, CIN (64, 64);
    the pair loss on a ``SyntheticCriteo`` batch; the Adagrad pass over
    the 2.6M x 16 table), at config 4's (the multi-expert dense at its
-   four distinct banks, B = 8192; the listwise loss on the same batch
-   on its one-block sort path and forced onto its sweep, at B = 8193 (the
+   four distinct banks, B = 8192, and at the PLE cell's two, each timed
+   beside its bound, one forward's six launches summed for each model;
+   the listwise loss on the same batch on its one-block sort path and
+   forced onto its sweep, at B = 8193 (the
    sweep), on ids at the int32 ends, one group and singletons at 8192, a
    {+1, -1} group and degenerate batches, graded labels at thresholds 0.3
    and -0.25 on both paths, each repeated bit for bit, and
@@ -128,7 +130,12 @@ recorded (serving, eval) launches B8's wgmma kernel once for each
    the over arch's four) and six for the cross (two a layer) and no
    other counted kernel, the logits against its forward on the plain
    pooled lookup with its towers on nn.Linear and its cross on torch's
-   ops;
+   ops; then PLE at MTReclib's AliExpress widths (``PLEModel``: 16
+   one-hot fields of PLE_ROWS rows and 63 dense floats, 128 wide) at
+   B = 8192: one B11 launch, six B8 bank launches a request, each
+   counted ``multi_dense.tc``, the towers' wgmma layers, and (2, B)
+   logits of two requests, every example, against the same model on
+   the CPU, failing unless one expert of each bank visibly moves them;
 5. each run's first training step (B = 2048, full-width model and
    tables, its launches exact) on the card against the same step on the
    CPU: the losses, every gradient and every param after Adam, each
@@ -300,6 +307,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import functools
 import io
@@ -353,6 +361,9 @@ DLRM_HOTNESS = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
                 12, 100, 27, 10, 3, 1, 1)
 POOL_ROW_CAP = 1 << 22
 POOL_DIM = 128
+# PLE at MTReclib's AliExpress widths: 16 one-hot fields of this many
+# rows (the benchmark's cell holds 4,000,000), 63 dense floats, 128 wide
+PLE_ROWS = 1 << 20
 # phase 8: the flagship training setting (bench.py:38-57) through the CLI
 CLI_FLAGSHIP = ["--model", "dcnv2", "--batch-size", "8192",
                 "--pairwise-weight", "0.5", "--occurance-power", "-0.5",
@@ -381,6 +392,13 @@ MD_BANKS = (("MMoE experts layer 0", 1, 4, 429, 128, True, 1),
             ("edge: shared, N*U = 16", 1, 4, 429, 4, False, 0),
             ("edge: shared, N*U = 17", 1, 1, 429, 17, False, 0),
             ("edge: per-expert, N*U = 8", 2, 2, 429, 4, False, 0))
+# PLE at MTReclib's AliExpress widths (the benchmark's ple-aliexpress cell)
+# at B = 8192, its six launches a forward: three banks of 4 experts a level
+# (the shared one, one a task), every expert Linear -> ReLU; level 1's
+# banks each read the one (B, 2,176) input, level 2's each its own (B,
+# 512) gated output
+PLE_BANKS = (("PLE AliExpress level 1", 1, 4, 2176, 512, True, 3),
+             ("PLE AliExpress level 2", 1, 4, 512, 256, True, 3))
 # the main paths' DNNTower layers (what, in, out) at B = 8192, each one
 # launch of B8's wgmma kernel (linear_wg) on nn.Linear's weights, bias and
 # ReLU in its epilogue: DLRM-DCNv2's over arch (passes of 128 units), its
@@ -1274,6 +1292,90 @@ def dcn_eval_launches(b: int = 8192) -> dict:
     from rec_now_tpu_torch.models import DCNv2Model, FeatureConfig
     return {"gather_rows": 1, "linear_wg": tower_launches(
         DCNv2Model(FeatureConfig(), device="cpu"), b)}
+
+
+def serve_ple(torch, np, counted, dev, card) -> None:
+    """PLE at MTReclib's AliExpress widths on a per-field one-hot layout
+    with 63 dense floats through ``build_scorer`` at B = 8192: every
+    request one B11 launch, six B8 bank launches (three banks a level)
+    on the split-TF32 tile (``multi_dense.tc``; booked in the kernels
+    line as ``multi_dense_ple``), the towers' layers that wgmma_plan
+    takes, and no other counted kernel; (2, B) logits finite and, on
+    every example of two requests, equal to the same model on the CPU,
+    failing unless one expert of each bank moves those logits by more
+    than the tolerance."""
+    from rec_now_tpu_torch.core import profiling
+    from rec_now_tpu_torch.embedding.table import EmbeddingTable
+    from rec_now_tpu_torch.models import FeatureConfig, PLEModel
+    from rec_now_tpu_torch.serving import ServingState, build_scorer
+    fc = FeatureConfig(num_dense=63, num_sparse=16, embedding_dim=128,
+                       field_rows=(PLE_ROWS,) * 16, hotness=(1,) * 16)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    table_t = torch.rand(fc.total_rows, 128, generator=gen,
+                         device=dev).sub_(0.5)
+    model = PLEModel(fc, device=dev, seed=30)
+    state = ServingState(dict(model.named_parameters()), table_t)
+    score = build_scorer(model, fc, EmbeddingTable(fc.total_rows, 128,
+                                                   device=dev), device=dev)
+    reqs = pooled_requests(np, fc, 8192, 4, 30)
+    score(state, *reqs[0])                          # warm-up, not counted
+    torch.cuda.synchronize()
+
+    def tiles():
+        return profiling.span_report()["counters"].get("multi_dense.tc", 0)
+
+    def requests():
+        times, outs = [], []
+        for dense, raw in reqs:
+            t0 = time.perf_counter()
+            outs.append(score(state, dense, raw))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times, outs
+
+    towers, before = tower_launches(model, 8192), tiles()
+    times, outs = counted(f"serve PLE (B=8192, 16 one-hot fields, 63 dense "
+                          f"floats), {len(reqs)} requests", len(reqs),
+                          {"gather_rows": 1, "multi_dense": 6,
+                           "linear_wg": towers}, requests,
+                          book={"multi_dense": "multi_dense_ple"})
+    if tiles() - before != 6 * len(reqs):
+        fail(f"PLE: {tiles() - before} multi_dense.tc launches, expected "
+             f"6 for each of {len(reqs)} requests")
+    print(f"  6 B8 bank launches a request on the split-TF32 tile, {towers} "
+          f"B8 wgmma launches for the towers' layers that wgmma_plan takes")
+    cpu_model = PLEModel(fc, device="cpu", seed=30)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    for i, ((dense, raw), out) in enumerate(zip(reqs[:2], outs[:2])):
+        if tuple(out.shape) != (2, 8192) or not torch.isfinite(out).all():
+            fail(f"PLE: bad logits {tuple(out.shape)}")
+        ids = fc.global_ids(torch.from_numpy(raw).to(dev))
+        args = torch.from_numpy(dense), table_t[ids].cpu()
+        with torch.no_grad():
+            want = cpu_model(*args)
+        compare("PLE served vs the same model on the CPU", out.cpu(), want,
+                floor=0.0)
+        if i:
+            continue
+        # what one expert of each bank adds to the compared logits: the
+        # same model with that expert's weight and bias zeroed
+        for lvl in range(2):
+            for name in getattr(cpu_model.ple, f"ple_layer_{lvl}"):
+                cut = copy.deepcopy(cpu_model)
+                bank = getattr(cut.ple, f"ple_layer_{lvl}")[name]
+                with torch.no_grad():
+                    bank["MultiDenseLayer_0"].kernel[0].zero_()
+                    bank["MultiDenseLayer_0"].bias[0].zero_()
+                    visible(f"level {lvl + 1} {name}'s expert 0 in the "
+                            f"logits", want - cut(*args),
+                            float(want.abs().max()))
+    ms = statistics.median(times)
+    print(f"  {ms:.3f} ms/request (median of {len(times)}), "
+          f"{8192 / ms * 1e3:.0f} examples/s at B=8192, requests in "
+          f"pageable memory [{card}]")
+    del state, table_t, model
+    torch.cuda.empty_cache()
 
 
 def serve_pooled(torch, np, counted, dev, card) -> None:
@@ -3705,45 +3807,57 @@ def main() -> int:
           f"{b_ms:.4f} ({b_by}), {100 * b_ms / on_dev:.1f}% of the device "
           f"time [{card}]")
     print("multi_dense vs plain:")
-    err = 0.0
-    t = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, t_ops=0.0, t_bytes=0.0,
-             flops=0, nbytes=0)
-    for name, nx, n, d, u, relu, times in MD_BANKS:
-        act = "relu" if relu else None
-        x = rand(nx, B, d)
-        w, bias = rand(n, d, u, scale=d ** -0.5), rand(n, 1, u)
-        for bb in (bias, None):
-            err = max(err, compare(
-                f"{name} ({nx}, {B}, {d}) x ({n}, {d}, {u}) relu={relu} "
-                f"bias={bb is not None}", mk.multi_dense_fused(x, w, bb, relu),
-                mk.multi_dense_xla(x, w, bb, act), floor=0.0))
-        xe = x.expand(n, B, d)
-        ms = cuda_ms(torch, lambda: mk.multi_dense_fused(x, w, bias, relu))
-        pms = cuda_ms(torch, lambda: mk.multi_dense_xla(x, w, bias, act))
-        lms = cuda_ms(torch, lambda: torch.baddbmm(bias, xe, w))
-        fl, nb = multi_dense_work(nx, n, B, d, u)
-        # the tile runs three TF32 products per multiply-add on the
-        # tensor cores; the gate kernel f32 FMAs
-        gate = mk.takes_gate_kernel(nx, n, d, u)
-        ops, peak, kind = ((fl, PEAK_F32_FLOPS, "f32") if gate
-                           else (3 * fl, PEAK_TF32_FLOPS, "ops, split TF32"))
-        b_ms, b_by = bound_ms(ops, nb, peak)
-        print(f"  {name}: {'gate kernel' if gate else 'split-TF32 tile'} "
-              f"{ms:.4f} ms, {pms:.4f} ms plain, {lms:.4f} ms torch.baddbmm;"
-              f" bound {b_ms:.4f} ms ({kind if b_by == 'operations' else b_by}"
-              f") = {b_ms / ms:.1%} of the kernel's time; f32 SIMT bound "
-              f"{bound_ms(fl, nb)[0]:.4f} ms; x{times} per forward [{card}]")
-        if b_ms > ms:
-            fail(f"multi_dense {name} ran under its bound: the bound or "
-                 f"the count is wrong")
-        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                       ("t_ops", ops / peak), ("t_bytes", nb / PEAK_BYTES),
-                       ("flops", fl), ("nbytes", nb)):
-            t[key] += times * v
+    # one forward's launches of each model: config 4's (the entry
+    # multi_dense), PLE's at the cell's shapes (multi_dense_ple)
+    fwd = {}
+    for key, what, banks in (("multi_dense", "config 4", MD_BANKS),
+                             ("multi_dense_ple", "PLE AliExpress",
+                              PLE_BANKS)):
+        t = fwd[key] = dict(what=what, err=0.0, ms=0.0, plain_ms=0.0,
+                            library_ms=0.0, t_ops=0.0, t_bytes=0.0, flops=0,
+                            nbytes=0, launches=0)
+        for name, nx, n, d, u, relu, times in banks:
+            act = "relu" if relu else None
+            x = rand(nx, B, d)
+            w, bias = rand(n, d, u, scale=d ** -0.5), rand(n, 1, u)
+            for bb in (bias, None):
+                t["err"] = max(t["err"], compare(
+                    f"{name} ({nx}, {B}, {d}) x ({n}, {d}, {u}) relu={relu} "
+                    f"bias={bb is not None}",
+                    mk.multi_dense_fused(x, w, bb, relu),
+                    mk.multi_dense_xla(x, w, bb, act), floor=0.0))
+            xe = x.expand(n, B, d)
+            ms = cuda_ms(torch, lambda: mk.multi_dense_fused(x, w, bias,
+                                                             relu))
+            pms = cuda_ms(torch, lambda: mk.multi_dense_xla(x, w, bias, act))
+            lms = cuda_ms(torch, lambda: torch.baddbmm(bias, xe, w))
+            fl, nb = multi_dense_work(nx, n, B, d, u)
+            # the tile runs three TF32 products per multiply-add on the
+            # tensor cores; the gate kernel f32 FMAs
+            gate = mk.takes_gate_kernel(nx, n, d, u)
+            ops, peak, kind = ((fl, PEAK_F32_FLOPS, "f32") if gate
+                               else (3 * fl, PEAK_TF32_FLOPS,
+                                     "ops, split TF32"))
+            b_ms, b_by = bound_ms(ops, nb, peak)
+            print(f"  {name}: {'gate kernel' if gate else 'split-TF32 tile'}"
+                  f" {ms:.4f} ms, {pms:.4f} ms plain, {lms:.4f} ms "
+                  f"torch.baddbmm; bound {b_ms:.4f} ms "
+                  f"({kind if b_by == 'operations' else b_by}) = "
+                  f"{b_ms / ms:.1%} of the kernel's time; f32 SIMT bound "
+                  f"{bound_ms(fl, nb)[0]:.4f} ms; x{times} per forward "
+                  f"[{card}]")
+            if b_ms > ms:
+                fail(f"multi_dense {name} ran under its bound: the bound or "
+                     f"the count is wrong")
+            for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("t_ops", ops / peak), ("t_bytes", nb / PEAK_BYTES),
+                         ("flops", fl), ("nbytes", nb), ("launches", 1)):
+                t[k] += times * v
     # ragged shapes (B = 1, odd D, U between the tile widths) and the
     # dispatch edges at other B: N * U = 16 with W too deep for the gate
     # kernel's shared memory (the tile), a per-expert input with N * U = 8
     # (the tile), D % 4 == 0 with U % 4 == 0 (16-byte copies) per expert
+    t = fwd["multi_dense"]
     for nx, n, b, d, u in ((1, 4, 1, 429, 128), (4, 4, 1000, 128, 64),
                            (1, 2, 1000, 429, 4), (1, 3, 777, 77, 17),
                            (3, 3, 1001, 45, 200), (1, 1, 1, 13, 5),
@@ -3752,31 +3866,33 @@ def main() -> int:
         x = rand(nx, b, d)
         w, bias = rand(n, d, u, scale=d ** -0.5), rand(n, 1, u)
         for relu in (True, False):
-            err = max(err, compare(
+            t["err"] = max(t["err"], compare(
                 f"ragged ({nx}, {b}, {d}) x ({n}, {d}, {u}) relu={relu}",
                 mk.multi_dense_fused(x, w, bias, relu),
                 mk.multi_dense_xla(x, w, bias, "relu" if relu else None),
                 floor=0.0))
         # x off the 16-byte grid: the tile's 4-byte copies
-        err = max(err, compare(
+        t["err"] = max(t["err"], compare(
             f"ragged ({nx}, {b}, {d}) x ({n}, {d}, {u}), x misaligned",
             mk.multi_dense_fused(misaligned(x), w, bias, False),
             mk.multi_dense_xla(x, w, bias, None), floor=0.0))
-    t_ops, t_bytes = t["t_ops"], t["t_bytes"]
-    b_ms = max(t_ops, t_bytes) * 1e3
-    b_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"  one forward's six launches: {t['flops'] / 1e9:.3f} GFLOP, "
-          f"{t['nbytes'] / 1e6:.1f} MB: kernel {t['ms']:.4f} ms, "
-          f"torch.baddbmm {t['library_ms']:.4f} ms; bound {b_ms:.4f} ms "
-          f"(ops, split TF32 {t_ops * 1e3:.4f}; bytes {t_bytes * 1e3:.4f}) "
-          f"= {b_ms / t['ms']:.1%}; f32 SIMT bound "
-          f"{bound_ms(t['flops'], t['nbytes'])[0]:.4f} ms [{card}]")
-    kern["multi_dense"] = dict(
-        name="multi_dense", route="cuda",
-        source="rec_now_tpu_torch/csrc/multi_dense.cu",
-        replaces=f"{MD_TPU}:75", max_abs_err=err, ms=t["ms"],
-        plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-        library_ms=t["library_ms"])
+    for key, t in fwd.items():
+        t_ops, t_bytes = t["t_ops"], t["t_bytes"]
+        b_ms = max(t_ops, t_bytes) * 1e3
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"  one {t['what']} forward's {t['launches']} launches: "
+              f"{t['flops'] / 1e9:.3f} GFLOP, {t['nbytes'] / 1e6:.1f} MB: "
+              f"kernel {t['ms']:.4f} ms, torch.baddbmm "
+              f"{t['library_ms']:.4f} ms; bound {b_ms:.4f} ms (ops, split "
+              f"TF32 {t_ops * 1e3:.4f}; bytes {t_bytes * 1e3:.4f}) = "
+              f"{b_ms / t['ms']:.1%}; f32 SIMT bound "
+              f"{bound_ms(t['flops'], t['nbytes'])[0]:.4f} ms [{card}]")
+        kern[key] = dict(
+            name=key, route="cuda",
+            source="rec_now_tpu_torch/csrc/multi_dense.cu",
+            replaces=f"{MD_TPU}:75", max_abs_err=t["err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=t["library_ms"])
     wg = tower_rows(torch, mk, rand, B, card)
     kern["linear_wg"] = dict(
         name="linear_wg", route="cuda",
@@ -4275,13 +4391,14 @@ def main() -> int:
     for v in kern.values():
         v["launches"] = v["launches_per_step"] = 0
 
-    def counted(what: str, units: int, per_unit: dict, run, extra=None):
+    def counted(what: str, units: int, per_unit: dict, run, extra=None,
+                book=None):
         """``run()`` with every launch count set to 0 just before it and
         read just after: each kernel must have launched ``per_unit`` times
         (0 where not named) for each of ``units``, and ``extra`` times
         more in all where named there; the counts go to the kernels' JSON
-        line."""
-        extra = extra or {}
+        line, under the entry ``book`` names for a kernel where given."""
+        extra, book = extra or {}, book or {}
         for fn in counter.values():
             fn.launches = 0
         result = run()
@@ -4292,7 +4409,7 @@ def main() -> int:
                 fail(f"{what}: {n} launched {c} times, expected "
                      f"{per_unit.get(n, 0)} for each of {units} and "
                      f"{extra.get(n, 0)} more")
-            kern[n]["launches"] += c
+            kern[book.get(n, n)]["launches"] += c
         return result
 
     def check_cin(model, batch) -> None:
@@ -4577,6 +4694,7 @@ def main() -> int:
         if run["serve"] is not None:
             serve(run)
     serve_pooled(torch, np, counted, dev, card)
+    serve_ple(torch, np, counted, dev, card)
 
     # -- 5. one training step: card vs CPU, kernels on its own tensors -------
     step_batch = next(data.batches(2048, 1, seed=3))

@@ -9,6 +9,18 @@ the shared tasks' gates.  Above the first layer a shared task's bank
 reads every task's previous output, a special task's its own and the
 shared ones, concatenated.
 
+One option, off by default (the form above, the JAX layer's), gives
+the PLE paper's network (Tang et al., RecSys 2020; MTReclib's
+``PLEModel``): with ``paper_form`` each task's bank and gate above the
+first layer read that task's own gated output of the layer below,
+g^{k,l-1} for a special task k and g^{s,l-1} for a shared one, not a
+concatenation; and every bank layer, the last included, ends in ReLU
+(the paper's experts are Linear -> ReLU), fused by B8 as the others are.
+
+The gates' expert order is the same either way: a special task's own
+experts, then the shared ones; a shared task's every bank in task order
+(shared first).
+
 Submodules carry the Flax names with ``/`` as nesting:
 ``ple_layer_{l}.task_{name}.MultiDenseLayer_{i}`` and
 ``ple_gate_{l}.task_{name}.dense`` (an ``nn.Linear``, glorot weight and
@@ -53,7 +65,8 @@ class PLELayer(nn.Module):
                  list_of_dnn_dims: Sequence[Any],
                  list_of_num_experts_per_task: Any,
                  generator: torch.Generator, num_shared_task: int = 1,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 paper_form: bool = False):
         super().__init__()
         device = resolve_device(device)
         if not isinstance(list_of_dnn_dims, (list, tuple)):
@@ -71,6 +84,7 @@ class PLELayer(nn.Module):
         self.names = ([f"shared_{i}" for i in range(num_shared_task)]
                       + [f"special_{i}" for i in range(num_task)])
         self.num_layer = num_layer
+        self.paper_form = paper_form
 
         out_dims = [in_dim] * num_total        # each task's previous output
         for l in range(num_layer):
@@ -82,6 +96,8 @@ class PLELayer(nn.Module):
             for t in range(num_total):
                 if is_first:
                     d_in = in_dim
+                elif paper_form:
+                    d_in = out_dims[t]
                 elif self.is_shared[t]:
                     d_in = sum(out_dims)
                 else:
@@ -92,7 +108,8 @@ class PLELayer(nn.Module):
                     last_dnn = i == len(self.dnn_dims[l]) - 1
                     bank[f"MultiDenseLayer_{i}"] = MultiDenseLayer(
                         d, dim, n_per_task[t], generator,
-                        activation=None if last_dnn else "relu",
+                        activation=("relu" if paper_form or not last_dnn
+                                    else None),
                         device=device)
                     d = dim
                 banks[f"task_{self.names[t]}"] = bank
@@ -118,6 +135,8 @@ class PLELayer(nn.Module):
             for t in range(num_total):
                 if is_first:
                     x = inputs
+                elif self.paper_form:
+                    x = last_outputs[t]
                 elif self.is_shared[t]:
                     x = torch.cat(last_outputs, dim=-1)
                 else:

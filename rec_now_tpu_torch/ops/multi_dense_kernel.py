@@ -15,7 +15,9 @@ or no activation fused, f32.
 * :func:`multi_dense_fused` -- the forward alone: the kernel for a CUDA
   tensor, :func:`multi_dense_xla` for a CPU tensor.
   ``multi_dense_fused.launches`` counts the kernel's launches, each also
-  counted in ``multi_dense.mma`` (``core/profiling.count``).
+  counted in ``multi_dense.mma`` (``core/profiling.count``) and, by the
+  kernel it took (:func:`takes_gate_kernel`), in ``multi_dense.tc`` (the
+  split-TF32 tile) or ``multi_dense.gate`` (the f32 gate kernel).
 * :func:`linear_wg` -- one ``nn.Linear`` layer, ``x (B, D) W^T + b``
   with ReLU or none, on B8's ``wgmma`` kernel (``csrc/multi_dense.cu``
   (c)), the weight read in ``nn.Linear``'s own (U, D) storage; None where
@@ -47,6 +49,7 @@ Symbols: B batch, D in-dim, N experts, U out-dim.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -155,9 +158,11 @@ def cross_plan(b: int, d: int, r: int, aligned: bool) -> bool:
             and b * min(d, r) >= CROSS_MIN_OUTPUTS)
 
 
+@functools.lru_cache(maxsize=None)
 def takes_gate_kernel(nx: int, n: int, d: int, u: int) -> bool:
     """True where the card runs a (nx, B, d) x (n, d, u) call on the f32
-    gate kernel, False where on the split-TF32 tile (builds the library)."""
+    gate kernel, False where on the split-TF32 tile (builds the library;
+    the shape alone decides, so each shape asks the library once)."""
     return _lib().multi_dense_gate_columns(nx, n, d, u) > 0
 
 
@@ -189,14 +194,16 @@ def multi_dense_fused(inputs: torch.Tensor, kernel: torch.Tensor,
     if b == 0:
         return out
     lib = _lib()
-    rc = lib.multi_dense_f32(inputs.data_ptr(), inputs.shape[0],
-                             kernel.data_ptr(),
+    nx = inputs.shape[0]
+    rc = lib.multi_dense_f32(inputs.data_ptr(), nx, kernel.data_ptr(),
                              None if bias is None else bias.data_ptr(),
                              out.data_ptr(), n, b, d, u, int(relu),
                              dev.index, _build.stream_of(inputs))
     check_rc(lib, rc, "multi_dense")
     multi_dense_fused.launches += 1
     profiling.count("multi_dense.mma")
+    profiling.count("multi_dense.gate" if takes_gate_kernel(nx, n, d, u)
+                    else "multi_dense.tc")
     return out
 
 

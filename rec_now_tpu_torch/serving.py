@@ -38,9 +38,10 @@ per-field multi-hot ``FeatureConfig``, its lookup sum-pooled by
 layout) and ``CANDCNModel`` (config 5, with
 ``can_table=EmbeddingTable(fc.rows_per_field, can_dim)`` and
 ``can_param_field=8`` to the scorer) score (B,).  A multi-task model
-(``MultiTaskModel``) scores (T, B): one row of logits
-per task, served from domain 0 as in the JAX scorer, which passes no
-domain.
+scores (T, B), one row of logits per task: ``MultiTaskModel`` (config
+4), served from domain 0 as in the JAX scorer, which passes no domain,
+and ``PLEModel`` (PLE at MTReclib's AliExpress widths, on a per-field
+one-hot ``FeatureConfig`` with dense floats, looked up by B11).
 """
 from __future__ import annotations
 
