@@ -14,7 +14,11 @@ Phases, each of which ends the script with a non-zero exit on failure:
    the pair loss on a ``SyntheticCriteo`` batch; the Adagrad pass over
    the 2.6M x 16 table), at config 4's (the multi-expert dense at its
    four distinct banks, B = 8192, and at the PLE cell's two, each timed
-   beside its bound, one forward's six launches summed for each model;
+   beside its bound, one forward's six launches summed for each model,
+   the PLE banks on their wgmma design also on the device beside the
+   split-TF32 tile forced, and takes_wgmma_bank's crossover: shared
+   banks of D = 64-2,176 at B = 64-32,768 on both designs, forced,
+   beside the predicate's choice;
    the listwise loss on the same batch on its one-block sort path and
    forced onto its sweep, at B = 8193 (the
    sweep), on ids at the int32 ends, one group and singletons at 8192, a
@@ -133,7 +137,8 @@ recorded (serving, eval) launches B8's wgmma kernel once for each
    ops; then PLE at MTReclib's AliExpress widths (``PLEModel``: 16
    one-hot fields of PLE_ROWS rows and 63 dense floats, 128 wide) at
    B = 8192: one B11 launch, six B8 bank launches a request, each
-   counted ``multi_dense.tc``, the towers' wgmma layers, and (2, B)
+   counted ``multi_dense.tc`` and ``multi_dense.tc_wgmma`` (the banks'
+   wgmma design), the towers' wgmma layers, and (2, B)
    logits of two requests, every example, against the same model on
    the CPU, failing unless one expert of each bank visibly moves them;
 5. each run's first training step (B = 2048, full-width model and
@@ -399,6 +404,13 @@ MD_BANKS = (("MMoE experts layer 0", 1, 4, 429, 128, True, 1),
 # 512) gated output
 PLE_BANKS = (("PLE AliExpress level 1", 1, 4, 2176, 512, True, 3),
              ("PLE AliExpress level 2", 1, 4, 512, 256, True, 3))
+# takes_wgmma_bank's crossover: shared-input banks (N, D, U) timed on the
+# banks' wgmma design and on the split-TF32 tile (both forced) at each
+# batch: the PLE cell's two, then shallower ones down to D = 64, config
+# 4's PLE experts (D = 128) among them
+BANK_CROSSOVER = ((4, 2176, 512), (4, 512, 256), (2, 256, 64), (2, 192, 64),
+                  (2, 128, 64), (4, 64, 512))
+BANK_CROSSOVER_B = (64, 1024, 8192, 32768)
 # the main paths' DNNTower layers (what, in, out) at B = 8192, each one
 # launch of B8's wgmma kernel (linear_wg) on nn.Linear's weights, bias and
 # ReLU in its epilogue: DLRM-DCNv2's over arch (passes of 128 units), its
@@ -1263,6 +1275,27 @@ def cross_rows(torch, mk, rand, b: int, card: str) -> dict:
     return tot
 
 
+def bank_crossover(torch, mk, rand, card: str) -> None:
+    """takes_wgmma_bank's crossover: each shared-input bank of
+    BANK_CROSSOVER at each batch of BANK_CROSSOVER_B with ReLU, on the
+    banks' wgmma design and on the split-TF32 tile (both forced), device
+    ms (torch.profiler) beside the design the predicate picks."""
+    print("takes_wgmma_bank's crossover, device ms (torch.profiler), wgmma "
+          "design / split-TF32 tile:")
+    for n, d, u in BANK_CROSSOVER:
+        w, bias = rand(n, d, u, scale=d ** -0.5), rand(n, 1, u)
+        for b in BANK_CROSSOVER_B:
+            x = rand(1, b, d)
+            wd, td = (profiled_ms(torch, lambda: mk._multi_dense_fused(
+                x, w, bias, True, forced)) for forced in (True, False))
+            taken = mk.takes_wgmma_bank(1, n, b, d, u, True)
+            print(f"  (1, {b}, {d}) x ({n}, {d}, {u}), {b * n * u:,} "
+                  f"outputs: {wd:.4f} / {td:.4f}; the predicate takes "
+                  f"{'the wgmma design' if taken else 'the tile'}"
+                  f"{'' if (wd <= td) == taken else ', the slower'} "
+                  f"[{card}]")
+
+
 def cross_launches(model, b: int) -> int:
     """B8 launches of ``model``'s low-rank cross layers at batch ``b`` with
     no gradient recorded: two for each layer that cross_plan takes (x and
@@ -1298,9 +1331,10 @@ def serve_ple(torch, np, counted, dev, card) -> None:
     """PLE at MTReclib's AliExpress widths on a per-field one-hot layout
     with 63 dense floats through ``build_scorer`` at B = 8192: every
     request one B11 launch, six B8 bank launches (three banks a level)
-    on the split-TF32 tile (``multi_dense.tc``; booked in the kernels
-    line as ``multi_dense_ple``), the towers' layers that wgmma_plan
-    takes, and no other counted kernel; (2, B) logits finite and, on
+    on the banks' wgmma design (each counted ``multi_dense.tc`` and
+    ``multi_dense.tc_wgmma``; booked in the kernels line as
+    ``multi_dense_ple``), the towers' layers that wgmma_plan takes, and
+    no other counted kernel; (2, B) logits finite and, on
     every example of two requests, equal to the same model on the CPU,
     failing unless one expert of each bank moves those logits by more
     than the tolerance."""
@@ -1322,7 +1356,8 @@ def serve_ple(torch, np, counted, dev, card) -> None:
     torch.cuda.synchronize()
 
     def tiles():
-        return profiling.span_report()["counters"].get("multi_dense.tc", 0)
+        c = profiling.span_report()["counters"]
+        return c.get("multi_dense.tc", 0), c.get("multi_dense.tc_wgmma", 0)
 
     def requests():
         times, outs = [], []
@@ -1339,11 +1374,13 @@ def serve_ple(torch, np, counted, dev, card) -> None:
                           {"gather_rows": 1, "multi_dense": 6,
                            "linear_wg": towers}, requests,
                           book={"multi_dense": "multi_dense_ple"})
-    if tiles() - before != 6 * len(reqs):
-        fail(f"PLE: {tiles() - before} multi_dense.tc launches, expected "
-             f"6 for each of {len(reqs)} requests")
-    print(f"  6 B8 bank launches a request on the split-TF32 tile, {towers} "
-          f"B8 wgmma launches for the towers' layers that wgmma_plan takes")
+    got = tuple(a - b for a, b in zip(tiles(), before))
+    if got != (6 * len(reqs),) * 2:
+        fail(f"PLE: (multi_dense.tc, multi_dense.tc_wgmma) launches {got}, "
+             f"expected 6 each for each of {len(reqs)} requests")
+    print(f"  6 B8 bank launches a request on the banks' wgmma design "
+          f"(multi_dense.tc and multi_dense.tc_wgmma {got}), {towers} B8 "
+          f"wgmma launches for the towers' layers that wgmma_plan takes")
     cpu_model = PLEModel(fc, device="cpu", seed=30)
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                model.state_dict().items()})
@@ -3815,7 +3852,8 @@ def main() -> int:
                               PLE_BANKS)):
         t = fwd[key] = dict(what=what, err=0.0, ms=0.0, plain_ms=0.0,
                             library_ms=0.0, t_ops=0.0, t_bytes=0.0, flops=0,
-                            nbytes=0, launches=0)
+                            nbytes=0, launches=0, tile_ms=0.0, device_ms=0.0,
+                            tile_device_ms=0.0)
         for name, nx, n, d, u, relu, times in banks:
             act = "relu" if relu else None
             x = rand(nx, B, d)
@@ -3829,6 +3867,7 @@ def main() -> int:
             xe = x.expand(n, B, d)
             ms = cuda_ms(torch, lambda: mk.multi_dense_fused(x, w, bias,
                                                              relu))
+            wg = mk.takes_wgmma_bank(nx, n, B, d, u, x.data_ptr() % 16 == 0)
             pms = cuda_ms(torch, lambda: mk.multi_dense_xla(x, w, bias, act))
             lms = cuda_ms(torch, lambda: torch.baddbmm(bias, xe, w))
             fl, nb = multi_dense_work(nx, n, B, d, u)
@@ -3839,9 +3878,10 @@ def main() -> int:
                                else (3 * fl, PEAK_TF32_FLOPS,
                                      "ops, split TF32"))
             b_ms, b_by = bound_ms(ops, nb, peak)
-            print(f"  {name}: {'gate kernel' if gate else 'split-TF32 tile'}"
-                  f" {ms:.4f} ms, {pms:.4f} ms plain, {lms:.4f} ms "
-                  f"torch.baddbmm; bound {b_ms:.4f} ms "
+            design = ("gate kernel" if gate else "wgmma design" if wg
+                      else "split-TF32 tile")
+            print(f"  {name}: {design} {ms:.4f} ms, {pms:.4f} ms plain, "
+                  f"{lms:.4f} ms torch.baddbmm; bound {b_ms:.4f} ms "
                   f"({kind if b_by == 'operations' else b_by}) = "
                   f"{b_ms / ms:.1%} of the kernel's time; f32 SIMT bound "
                   f"{bound_ms(fl, nb)[0]:.4f} ms; x{times} per forward "
@@ -3849,6 +3889,18 @@ def main() -> int:
             if b_ms > ms:
                 fail(f"multi_dense {name} ran under its bound: the bound or "
                      f"the count is wrong")
+            if wg:          # beside it, the tile it replaced, both on device
+                dms = profiled_ms(torch, lambda: mk.multi_dense_fused(
+                    x, w, bias, relu))
+                tile = (lambda: mk._multi_dense_fused(x, w, bias, relu,
+                                                      False))
+                tms, tdms = cuda_ms(torch, tile), profiled_ms(torch, tile)
+                print(f"    device {dms:.4f} ms = {b_ms / dms:.1%} of the "
+                      f"bound; the split-TF32 tile forced {tms:.4f} ms, "
+                      f"device {tdms:.4f} = {b_ms / tdms:.1%} [{card}]")
+                t["tile_ms"] += times * tms
+                t["device_ms"] += times * dms
+                t["tile_device_ms"] += times * tdms
             for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                          ("t_ops", ops / peak), ("t_bytes", nb / PEAK_BYTES),
                          ("flops", fl), ("nbytes", nb), ("launches", 1)):
@@ -3887,12 +3939,19 @@ def main() -> int:
               f"TF32 {t_ops * 1e3:.4f}; bytes {t_bytes * 1e3:.4f}) = "
               f"{b_ms / t['ms']:.1%}; f32 SIMT bound "
               f"{bound_ms(t['flops'], t['nbytes'])[0]:.4f} ms [{card}]")
+        if t["tile_ms"]:
+            print(f"    on the wgmma design: device {t['device_ms']:.4f} ms "
+                  f"= {b_ms / t['device_ms']:.1%} of the bound; the "
+                  f"split-TF32 tile forced {t['tile_ms']:.4f} ms, device "
+                  f"{t['tile_device_ms']:.4f} = "
+                  f"{b_ms / t['tile_device_ms']:.1%} [{card}]")
         kern[key] = dict(
             name=key, route="cuda",
             source="rec_now_tpu_torch/csrc/multi_dense.cu",
             replaces=f"{MD_TPU}:75", max_abs_err=t["err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=t["library_ms"])
+    bank_crossover(torch, mk, rand, card)
     wg = tower_rows(torch, mk, rand, B, card)
     kern["linear_wg"] = dict(
         name="linear_wg", route="cuda",

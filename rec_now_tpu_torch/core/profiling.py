@@ -66,7 +66,11 @@ kernels.build         ``ops/_build``: an nvcc run (in               always
                       ``build_all``, all of its runs at once)
 kernels.builds        counter: nvcc runs                            always
 multi_dense.wgmma     counters: B8's launches by kernel             always
-multi_dense.mma       (``ops/multi_dense_kernel.py``)
+multi_dense.mma       (``ops/multi_dense_kernel.py``): ``.wgmma``
+multi_dense.tc        ``linear_wg``'s, ``.mma`` every bank call's,
+multi_dense.gate      then ``.tc`` (either tensor-core design of
+multi_dense.tc_wgmma  the banks) or ``.gate``; ``.tc_wgmma`` the
+                      banks' ``wgmma`` design, ``.tc`` too
 ====================  ============================================  ===========
 
 Example (an operator's look at a serving process)::

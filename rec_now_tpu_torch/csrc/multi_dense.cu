@@ -8,14 +8,21 @@
 // the math, not from the TPU blocks: the TPU broadcasts a shared input to
 // (N, B, D) and pads B to its row tile (:62-73); here any B, D, U and N is
 // masked at its edge, with no padding or broadcast copy.  One launch per
-// call, one of three kernels: multi_dense_f32 runs (a) or (b) by shape,
-// multi_dense_wg_f32 runs (c), one weight as nn.Linear stores it, where
-// ops/multi_dense_kernel.py's linear_wg takes the call (DNNTower's layers
+// call, one of four kernels: multi_dense_f32 runs (a), (b) or (d) by shape
+// and by whether the caller hands it scratch (ops/multi_dense_kernel.py's
+// takes_wgmma_bank decides), multi_dense_wg_f32 runs (c), one weight as
+// nn.Linear stores it, where linear_wg takes the call (DNNTower's layers
 // when no gradient is recorded), and cross_wg_f32 runs (c) twice for one
 // layer of DCN-V2's low-rank cross (its cross_wg, LowRankCrossLayer's
-// layers when no gradient is recorded):
+// layers when no gradient is recorded).  The expert banks' two
+// tensor-core designs, (a) and (d), share the kernel name multi_dense_tc:
+// each launch of either is counted multi_dense.tc, those of (d) also
+// multi_dense.tc_wgmma.
 //
-// (a) multi_dense_tc, the expert banks (every call that (b) does not take).
+// (a) multi_dense_tc<BN, WARPS_M, MIN_BLOCKS>, the split-TF32 mma.sync
+//     tile: every bank call that neither (b) nor (d) takes (a per-expert
+//     input, D % 4 != 0 as config 4's MMoE bank at D = 429, x off the
+//     16-byte grid, a shallow or small call).
 //     A shared input is one (B, D) x (D, N*U) product: virtual column c is
 //     expert c / U, unit c % U; a per-expert input is N products of
 //     (B, D) x (D, U) (grid.z).  A block owns a 128-row x BN-column tile
@@ -68,6 +75,22 @@
 //     see "one weight as nn.Linear stores it" below.  Two compile-time
 //     variants serve the low-rank cross: a weight stored (D, U), and the
 //     epilogue x0 * (acc + bias) + x_l; see "the low-rank cross" below.
+//
+// (d) multi_dense_tc<N>, a shared-input bank on (c)'s body (lw_body, mode
+//     kBank): one (B, D) x (D, N * U) product, virtual unit c expert c /
+//     U, unit c % U as in (a).  Phase 1 reads W in its (N, D, U) storage
+//     through kInOut's 32 x 32 transposing tiles, each lane at its own
+//     unit's expert; the epilogue adds the (N, 1, U) bias, applies ReLU
+//     and writes (N, B, U) at expert column / U, with no copy after.  A
+//     pass is the widest of 200, 128 or 64 units that divides U (no pass
+//     straddles two experts), else lw_plan's choice.  TMA reads x, so
+//     D % 4 == 0 and x 16-byte aligned; the caller hands the planes'
+//     scratch (multi_dense_bank_scratch) only where takes_wgmma_bank
+//     takes the call: those, a shared input with N * U > 16, D >= 192 and
+//     B * N * U >= 2^14 (shallower banks lose to (a) at some size: the
+//     split and the grid barrier cost ~1 us more than (a)'s launch).
+//     Bound as (a); the PLE cell's (1, 8,192, 2,176) x (4, 2,176, 512)
+//     bank is 0.44 ms.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -415,6 +438,7 @@ enum LwMode {
   kOutIn,     // W (U, D), nn.Linear's storage; bias and ReLU
   kInOut,     // W (D, U); bias and ReLU
   kCross,     // W (D, U); out = x0 * (acc + bias) + xl
+  kBank,      // an expert bank's W (N, D, ue), U = N * ue; bias and ReLU
 };
 constexpr int LW_WARPS = LW_THREADS / 32;
 constexpr int LW_TILE = 32 * 33;     // a warp's transposing tile, padded
@@ -431,6 +455,7 @@ struct LwArgs {
   int NT, units, stages;
   const float* x0;     // kCross: (M, U), read at the output's positions
   const float* xl;
+  int ue;              // kBank: an expert's units
 };
 
 // x0 and x_l at row m, columns col and col + 1 (0 past M and U): a float2
@@ -494,10 +519,53 @@ __device__ __forceinline__ void cross_epilogue(const LwArgs& a,
   }
 }
 
-template <int N, int MODE = kOutIn>
-__global__ void __launch_bounds__(LW_THREADS, 1)
-linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
-                 const __grid_constant__ CUtensorMap wmap) {
+// kBank's epilogue at a consumer thread's positions (rows m0, m0 + 8;
+// columns n0 + 8c + 2t, + 1): column col of the N * ue units is expert
+// col / ue, unit col % ue, written into out (N, M, ue); the bias (N, 1,
+// ue) is read at col.  A float2 store where ue is even (col is even, so
+// col + 1 is the same expert's next unit).
+template <int R>
+__device__ __forceinline__ void bank_epilogue(const LwArgs& a,
+                                              const float (&tot)[R], int m0,
+                                              int n0, int t) {
+  const bool pairs = (a.ue & 1) == 0;
+  const size_t plane = (size_t)a.M * a.ue;       // an expert's outputs
+#pragma unroll
+  for (int c = 0; c < R / 4; ++c) {
+    const int col = n0 + 8 * c + 2 * t;
+    const float b0 = a.bias && col < a.U ? __ldg(a.bias + col) : 0.f;
+    const float b1 = a.bias && col + 1 < a.U ? __ldg(a.bias + col + 1) : 0.f;
+    const int e0 = col / a.ue, e1 = (col + 1) / a.ue;
+    float* o0 = a.out + e0 * plane + (col - e0 * a.ue);
+    float* o1 = a.out + e1 * plane + (col + 1 - e1 * a.ue);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + 8 * half;
+      float x = tot[4 * c + 2 * half] + b0;
+      float y = tot[4 * c + 2 * half + 1] + b1;
+      if (a.relu) {
+        x = x < 0.f ? 0.f : x;
+        y = y < 0.f ? 0.f : y;
+      }
+      if (m < a.M && col < a.U) {
+        const size_t row = (size_t)m * a.ue;
+        if (pairs) {
+          *reinterpret_cast<float2*>(o0 + row) = make_float2(x, y);
+        } else {
+          o0[row] = x;
+          if (col + 1 < a.U) o1[row] = y;
+        }
+      }
+    }
+  }
+}
+
+// The body of linear_wg_kernel and of the banks' multi_dense_tc<N>, one
+// cooperative launch (see "one weight as nn.Linear stores it" above).
+template <int N, int MODE>
+__device__ __forceinline__ void lw_body(const LwArgs& a,
+                                        const CUtensorMap* xmap,
+                                        const CUtensorMap* wmap) {
   constexpr int R = N / 2;                        // accumulators a thread
   constexpr int STAGE = LW_XSTAGE + 2 * N * 128;  // bytes: x, W hi, W lo
   extern __shared__ unsigned char smem_raw[];
@@ -529,18 +597,29 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
       a.planes[n + e] = __uint_as_float(lo);
     }
     asm volatile("fence.proxy.async.global;" ::: "memory");
-  } else {                           // W (D, U): 32 x 32 tiles, a warp each
+  } else {          // W (D, U), or a bank's (N, D, ue): 32 x 32 tiles a warp
     const int n = a.JB * a.Kp * 32, lane = tid & 31;
     const int ut = (a.Kp + 31) >> 5;                  // unit tiles a k-block
     float* tile = reinterpret_cast<float*>(base) + (tid >> 5) * LW_TILE;
     for (int t = blockIdx.x * LW_WARPS + (tid >> 5); t < a.JB * ut;
          t += gridDim.x * LW_WARPS) {
       const int jb = t / ut, u0 = (t - jb * ut) * 32, u = u0 + lane;
+      if constexpr (MODE == kBank) {  // unit u: expert u / ue's u % ue
+        const int e = u / a.ue;
+        const float* wu = a.w + (size_t)e * a.D * a.ue + (u - e * a.ue);
 #pragma unroll
-      for (int k = 0; k < 32; ++k) {  // row d of W, units u0 .. u0 + 31
-        const int d = 32 * jb + k;
-        tile[k * 33 + lane] =
-            u < a.U && d < a.D ? __ldg(a.w + (size_t)d * a.U + u) : 0.f;
+        for (int k = 0; k < 32; ++k) {
+          const int d = 32 * jb + k;
+          tile[k * 33 + lane] =
+              u < a.U && d < a.D ? __ldg(wu + (size_t)d * a.ue) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {  // row d of W, units u0 .. u0 + 31
+          const int d = 32 * jb + k;
+          tile[k * 33 + lane] =
+              u < a.U && d < a.D ? __ldg(a.w + (size_t)d * a.U + u) : 0.f;
+        }
       }
       __syncwarp();
       const int rows = a.Kp - u0 < 32 ? a.Kp - u0 : 32;
@@ -575,8 +654,8 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
           unsigned char* st = base + slot * STAGE;
           mbar_wait(empty + slot, ph ^ 1);
           mbar_expect(full + slot, STAGE);
-          tma_load2(st, &xmap, full + slot, 32 * jb, LW_ROWS * tile);
-          tma_load4(st + LW_XSTAGE, &wmap, full + slot, 0, nt * N, jb, 0);
+          tma_load2(st, xmap, full + slot, 32 * jb, LW_ROWS * tile);
+          tma_load4(st + LW_XSTAGE, wmap, full + slot, 0, nt * N, jb, 0);
           if (++slot == a.stages) {
             slot = 0;
             ph ^= 1;
@@ -656,6 +735,8 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int i = 0; i < R; ++i) acc[i] = 0.f;
       cross_epilogue<R>(a, tot, m0, n0, t, pair_store);
+    } else if constexpr (MODE == kBank) {
+      bank_epilogue<R>(a, tot, m0, n0, t);
     } else {
 #pragma unroll
       for (int c = 0; c < R / 4; ++c) {
@@ -686,6 +767,33 @@ linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
     }
   }
   if (wg == 0) named_sync(5, 256);   // warpgroup 1's last turn
+}
+
+template <int N, int MODE = kOutIn>
+__global__ void __launch_bounds__(LW_THREADS, 1)
+linear_wg_kernel(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap) {
+  lw_body<N, MODE>(a, &xmap, &wmap);
+}
+
+// (d) the expert banks on wgmma: a shared-input bank as one (M, D) x (D,
+// N * ue) product on lw_body.  It carries (a)'s name as an overload, so
+// that a device trace books both designs as the banks' one kernel.
+template <int N>
+__global__ void __launch_bounds__(LW_THREADS, 1)
+multi_dense_tc(const LwArgs a, const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap) {
+  lw_body<N, kBank>(a, &xmap, &wmap);
+}
+
+using LwKernel = void (*)(LwArgs, CUtensorMap, CUtensorMap);
+
+template <int N, int MODE>
+LwKernel lw_kernel() {
+  if constexpr (MODE == kBank)
+    return multi_dense_tc<N>;
+  else
+    return linear_wg_kernel<N, MODE>;
 }
 
 bool aligned(const void* p, int bytes) {
@@ -725,20 +833,22 @@ cudaError_t launch_gate(const float* x, const float* w, const float* bias,
   return cudaGetLastError();
 }
 
-// Blocks of linear_wg_kernel<N, MODE> that can be resident at once (the
+// Blocks of lw_kernel<N, MODE> that can be resident at once (the
 // cooperative launch's largest grid), 0 where the device cannot launch
 // it cooperatively.
 template <int N, int MODE>
 int lw_resident(int device) {
   static std::atomic<int> slots[kMaxDevices];
   static std::atomic<bool> done[kMaxDevices];
-  return coop_resident((const void*)linear_wg_kernel<N, MODE>, LW_THREADS,
+  return coop_resident((const void*)lw_kernel<N, MODE>(), LW_THREADS,
                        device, slots, done);
 }
 
-// How linear_wg_kernel runs a (M, D) x (U, D)^T call; N == 0 where it
-// cannot: D % 4 != 0, planes past 2^31 floats, or a device without the
-// shared memory or the cooperative launch.
+// How lw_kernel<N, MODE> runs a (M, D) x (U, D)^T call at a pass width
+// `width` (64, 128 or 200), or, where `width` is 0, at the one with the
+// least nt * (N + 32); N == 0 where it cannot: D % 4 != 0, planes past
+// 2^31 floats, or a device without the shared memory or the cooperative
+// launch.
 struct LwPlan {
   int N = 0;                          // units a pass: 64, 128 or 200
   int NT = 0, JB = 0, Kp = 0;         // passes; k-blocks; planes' rows
@@ -747,21 +857,23 @@ struct LwPlan {
   long long planes = 0;               // floats of scratch
 };
 
+constexpr int kWidths[3] = {64, 128, 200};
+
 template <int MODE = kOutIn>
-LwPlan lw_plan(int M, int D, int U, int device) {
+LwPlan lw_plan(int M, int D, int U, int device, int width = 0) {
   LwPlan p;
   if (M < 1 || D < 1 || U < 1 || D % 4) return p;
   int N = 0;
   long long nt = 0, cost = 0;
-  constexpr int kWidths[3] = {64, 128, 200};
   for (const int n : kWidths) {
     const long long k = (U + n - 1) / n;
-    if (!N || k * (n + 32) < cost) {
+    if (width ? n == width : !N || k * (n + 32) < cost) {
       N = n;
       nt = k;
       cost = k * (n + 32);
     }
   }
+  if (!N) return p;
   const long long JB = (D + 31) / 32, Kp = nt * N;
   const long long units = (M + LW_ROWS - 1LL) / LW_ROWS * nt;
   if (2 * JB * Kp * 32 >= (1LL << 31) || units >= (1LL << 31)) return p;
@@ -790,7 +902,7 @@ template <int N, int MODE>
 int launch_lw(const LwPlan& p, const float* x, const float* w,
               const float* bias, float* out, int M, int D, int U, int relu,
               float* scratch, cudaStream_t s, const float* x0,
-              const float* xl) {
+              const float* xl, int ue) {
   const EncodeTiled encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint32_t unit[2] = {1, 1};
@@ -808,27 +920,41 @@ int launch_lw(const LwPlan& p, const float* x, const float* w,
       encode_planes(encode, &wmap, scratch, p.Kp, p.JB, N) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   const LwArgs a{w, bias, out, scratch, M, D, U, relu, p.JB,
-                 p.Kp, p.NT, p.units, p.stages, x0, xl};
-  return launch_cooperative(linear_wg_kernel<N, MODE>, p.grid, LW_THREADS,
+                 p.Kp, p.NT, p.units, p.stages, x0, xl, ue};
+  return launch_cooperative(lw_kernel<N, MODE>(), p.grid, LW_THREADS,
                             p.smem, s, a, xmap, wmap);
 }
 
-// launch_lw at the plan's pass width; x0 and xl only for kCross
+// launch_lw at the plan's pass width; x0 and xl only for kCross, ue only
+// for kBank
 template <int MODE>
 int run_lw(const LwPlan& p, const float* x, const float* w,
            const float* bias, float* out, int M, int D, int U, int relu,
            float* scratch, cudaStream_t s, const float* x0 = nullptr,
-           const float* xl = nullptr) {
+           const float* xl = nullptr, int ue = 0) {
   if (p.N == 64)
     return launch_lw<64, MODE>(p, x, w, bias, out, M, D, U, relu, scratch,
-                               s, x0, xl);
+                               s, x0, xl, ue);
   if (p.N == 128)
     return launch_lw<128, MODE>(p, x, w, bias, out, M, D, U, relu, scratch,
-                                s, x0, xl);
+                                s, x0, xl, ue);
   if (p.N == 200)
     return launch_lw<200, MODE>(p, x, w, bias, out, M, D, U, relu, scratch,
-                                s, x0, xl);
+                                s, x0, xl, ue);
   return cudaErrorNotSupported;
+}
+
+// How multi_dense_tc<N> runs a shared-input bank, (M, D) x (N * U): at
+// the widest pass of 200, 128 or 64 units that divides U, so that no pass
+// straddles two experts and none is padded, else as lw_plan would choose
+// (lw_plan's nt * (N + 32) picks 200 for the PLE cell's 2,048 units: 11
+// passes, 704 units, 5.3 waves of 132; 128 gives 1,024 units, 7.8 waves)
+LwPlan bank_plan(int M, int D, int N, int U, int device) {
+  if ((long long)N * U >= (1LL << 31)) return LwPlan();
+  int width = 0;
+  for (const int n : kWidths)
+    if (U % n == 0) width = n;
+  return lw_plan<kBank>(M, D, N * U, device, width);
 }
 
 }  // namespace
@@ -845,17 +971,40 @@ int multi_dense_gate_columns(int nx, int N, int D, int U) {
   return (long long)D * nup * 4 <= kGateMaxSmem ? nup : 0;
 }
 
+// Floats of scratch that multi_dense_f32 takes to run a shared-input
+// (1, B, D) x (N, D, U) bank on wgmma (d): the split planes of W; 0 where
+// the device cannot run it.
+long long multi_dense_bank_scratch(int N, int B, int D, int U, int device) {
+  if (N < 1 || device < 0 || device >= kMaxDevices ||
+      use_device(device) != cudaSuccess)
+    return 0;
+  return bank_plan(B, D, N, U, device).planes;
+}
+
 // x (NX, B, D) with NX = 1 (shared) or N, w (N, D, U), bias (N, U) or
-// null, out (N, B, U); all f32, contiguous.  relu = 1 fuses ReLU.
-// Returns a cudaError_t.
+// null, out (N, B, U); all f32, contiguous.  relu = 1 fuses ReLU.  With
+// scratch, 16-byte aligned and of multi_dense_bank_scratch(N, B, D, U)
+// floats, a shared input whose rows TMA reads (D % 4 == 0, x 16-byte
+// aligned) runs on wgmma (d); without, the gate kernel (b) takes a shared
+// input with N * U <= 16 and the split-TF32 tile (a) every other call.
+// Returns a cudaError_t, cudaErrorNotSupported where the device cannot
+// run (d).
 int multi_dense_f32(const float* x, int nx, const float* w, const float* bias,
                     float* out, int N, int B, int D, int U, int relu,
-                    int device, void* stream) {
+                    float* scratch, int device, void* stream) {
   if (N < 1 || B < 1 || D < 1 || U < 1 || (nx != 1 && nx != N) ||
       device < 0 || device >= kMaxDevices || (B + kBM - 1) / kBM > 65535)
     return cudaErrorInvalidValue;
   CUDA_TRY(use_device(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (scratch) {
+    if (nx != 1 || D % 4 || !aligned(x, 16) || !aligned(scratch, 16))
+      return cudaErrorInvalidValue;
+    const LwPlan p = bank_plan(B, D, N, U, device);
+    if (!p.N) return cudaErrorNotSupported;
+    return run_lw<kBank>(p, x, w, bias, out, B, D, N * U, relu, scratch, s,
+                         nullptr, nullptr, U);
+  }
   const int nup = multi_dense_gate_columns(nx, N, D, U);
   if (nup == 4)
     return launch_gate<4>(x, w, bias, out, N, B, D, U, relu, device, s);

@@ -13,11 +13,20 @@ or no activation fused, f32.
   normalize each gradient element, so a weight whose gradient nearly
   cancels over the batch shows any change of order at lr scale.
 * :func:`multi_dense_fused` -- the forward alone: the kernel for a CUDA
-  tensor, :func:`multi_dense_xla` for a CPU tensor.
-  ``multi_dense_fused.launches`` counts the kernel's launches, each also
-  counted in ``multi_dense.mma`` (``core/profiling.count``) and, by the
-  kernel it took (:func:`takes_gate_kernel`), in ``multi_dense.tc`` (the
-  split-TF32 tile) or ``multi_dense.gate`` (the f32 gate kernel).
+  tensor, :func:`multi_dense_xla` for a CPU tensor.  A CUDA call runs one
+  of three kernels (``csrc/multi_dense.cu``): the f32 gate kernel for a
+  shared input with N * U <= 16 (:func:`takes_gate_kernel`); a ``wgmma``
+  kernel fed by TMA, W split into TF32 planes once a call inside the
+  launch, for a shared input that :func:`takes_wgmma_bank` takes (D % 4
+  == 0, x 16-byte aligned, N * U > 16, D and B * N * U past the
+  crossover; its passes the widest of 200, 128 or 64 units that divides
+  U); the split-TF32 ``mma.sync`` tile for everything else (per-expert
+  inputs, config 4's banks, shallow or small calls).
+  The two tensor-core designs share the kernel name ``multi_dense_tc``.
+  ``multi_dense_fused.launches`` counts the launches, each also counted
+  in ``multi_dense.mma`` (``core/profiling.count``) and in
+  ``multi_dense.tc`` (either tensor-core design) or ``multi_dense.gate``;
+  a ``wgmma`` launch also in ``multi_dense.tc_wgmma``.
 * :func:`linear_wg` -- one ``nn.Linear`` layer, ``x (B, D) W^T + b``
   with ReLU or none, on B8's ``wgmma`` kernel (``csrc/multi_dense.cu``
   (c)), the weight read in ``nn.Linear``'s own (U, D) storage; None where
@@ -100,8 +109,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.multi_dense_f32.argtypes = ([ptr, i32, ptr, ptr, ptr]
-                                        + [i32] * 6 + [ptr])
+                                        + [i32] * 5 + [ptr, i32, ptr])
         lib.multi_dense_f32.restype = i32
+        lib.multi_dense_bank_scratch.argtypes = [i32] * 5
+        lib.multi_dense_bank_scratch.restype = ctypes.c_longlong
         lib.multi_dense_gate_columns.argtypes = [i32] * 4
         lib.multi_dense_gate_columns.restype = i32
         lib.multi_dense_wg_f32.argtypes = ([ptr] * 4 + [i32] * 4
@@ -161,9 +172,40 @@ def cross_plan(b: int, d: int, r: int, aligned: bool) -> bool:
 @functools.lru_cache(maxsize=None)
 def takes_gate_kernel(nx: int, n: int, d: int, u: int) -> bool:
     """True where the card runs a (nx, B, d) x (n, d, u) call on the f32
-    gate kernel, False where on the split-TF32 tile (builds the library;
+    gate kernel, False where on a tensor-core design (builds the library;
     the shape alone decides, so each shape asks the library once)."""
     return _lib().multi_dense_gate_columns(nx, n, d, u) > 0
+
+
+# where takes_wgmma_bank gives a shared-input bank the wgmma design: its
+# depth D and its outputs B * N * U.  Each call splits all of W behind a
+# grid barrier and then walks D in 128-row units, ~1 us more than the
+# tile's launch, while the tile runs its products at a third of the rate.
+# Device ms on an H100 (torch.profiler), wgmma / tile (chip_smoke.py
+# phase 3 prints the sweep): every bank of D >= 192 measured, from 16,384
+# outputs up, ran faster on wgmma, e.g. (1, 64, 2,176) x (4, 2,176, 512) 0.0866 / 0.3463, (1, 8,192,
+# 512) x (4, 512, 256) 0.0972 / 0.1782, (1, 2,048, 192) x (2, 192, 64)
+# 0.0128 / 0.0147; shallower ones lose at some size: D = 128 at 2^18-2^21
+# outputs for N * U = 128 (0.0127 / 0.0112 at B = 8,192, config 4's PLE
+# experts), D = 64 up to 2^24 (0.0843 / 0.0723), D = 24 everywhere
+BANK_WGMMA_MIN_DEPTH = 192
+BANK_WGMMA_MIN_OUTPUTS = 2 ** 14
+
+
+def takes_wgmma_bank(nx: int, n: int, b: int, d: int, u: int,
+                     aligned: bool) -> bool:
+    """True where :func:`multi_dense_fused` runs a (nx, b, d) x (n, d, u)
+    call on the banks' ``wgmma`` design (counted ``multi_dense.tc_wgmma``
+    besides ``multi_dense.tc``): a shared input (nx == 1) whose rows TMA
+    reads (d % 4 == 0 and x ``aligned`` to 16 bytes), more than 16
+    columns (fewer go to the gate kernel), at least
+    :data:`BANK_WGMMA_MIN_DEPTH` deep and with at least
+    :data:`BANK_WGMMA_MIN_OUTPUTS` outputs.  Shapes and alignment alone
+    decide; ``csrc/multi_dense.cu``'s ``multi_dense_f32`` refuses the
+    design for an input that is not shared or not on the 16-byte grid."""
+    return (nx == 1 and n * u > 16 and d % 4 == 0 and aligned
+            and d >= BANK_WGMMA_MIN_DEPTH
+            and b * n * u >= BANK_WGMMA_MIN_OUTPUTS)
 
 
 def _check(inputs, kernel, bias, dev) -> Tuple[int, int, int, int]:
@@ -188,26 +230,65 @@ def multi_dense_fused(inputs: torch.Tensor, kernel: torch.Tensor,
     if is_cpu(inputs, "multi_dense"):
         return multi_dense_xla(inputs, kernel, bias,
                                "relu" if relu else None)
-    dev = inputs.device
-    n, b, d, u = _check(inputs, kernel, bias, dev)
-    out = inputs.new_empty((n, b, u))           # f32 on inputs' device
-    if b == 0:
-        return out
-    lib = _lib()
-    nx = inputs.shape[0]
-    rc = lib.multi_dense_f32(inputs.data_ptr(), nx, kernel.data_ptr(),
-                             None if bias is None else bias.data_ptr(),
-                             out.data_ptr(), n, b, d, u, int(relu),
-                             dev.index, _build.stream_of(inputs))
-    check_rc(lib, rc, "multi_dense")
-    multi_dense_fused.launches += 1
-    profiling.count("multi_dense.mma")
-    profiling.count("multi_dense.gate" if takes_gate_kernel(nx, n, d, u)
-                    else "multi_dense.tc")
-    return out
+    return _multi_dense_fused(inputs, kernel, bias, relu)
 
 
 multi_dense_fused.launches = 0
+
+# floats of scratch the banks' wgmma design takes (W's split planes), by
+# (n, d, u, device); 0 where the device cannot run it (the tile then runs)
+_bank_scratch: Dict[Tuple[int, int, int, int], int] = {}
+
+
+def _multi_dense_fused(inputs: torch.Tensor, kernel: torch.Tensor,
+                       bias: Optional[torch.Tensor], relu: bool,
+                       wgmma: Optional[bool] = None) -> torch.Tensor:
+    """:func:`multi_dense_fused`'s launch on a CUDA tensor: on the banks'
+    ``wgmma`` design where :func:`takes_wgmma_bank` takes the call, or
+    where ``wgmma`` is True at any size (the tests' seam; it raises
+    unless the input is shared with its rows on the 16-byte grid), and
+    the device runs it; else on the gate kernel or the tile."""
+    dev = inputs.device
+    n, b, d, u = _check(inputs, kernel, bias, dev)
+    nx, aligned = inputs.shape[0], inputs.data_ptr() % 16 == 0
+    if wgmma is None:
+        wgmma = takes_wgmma_bank(nx, n, b, d, u, aligned)
+    elif wgmma and (nx != 1 or d % 4 or not aligned):
+        raise ValueError("the banks' wgmma design reads a shared x's rows "
+                         "by TMA: (1, B, D) with D % 4 == 0, x 16-byte "
+                         "aligned")
+    if b == 0:
+        return inputs.new_empty((n, b, u))
+    lib = _lib()
+    floats = 0
+    if wgmma:
+        key = (n, d, u, dev.index)
+        floats = _bank_scratch.get(key)
+        if floats is None:
+            floats = _bank_scratch[key] = lib.multi_dense_bank_scratch(
+                n, b, d, u, dev.index)
+    if floats:
+        # one allocation: W's planes (a multiple of 64 floats, so that out
+        # stays on the 16-byte grid), then out
+        buf = inputs.new_empty(floats + n * b * u)
+        out = buf[floats:].view(n, b, u)
+    else:
+        out = inputs.new_empty((n, b, u))       # f32 on inputs' device
+    rc = lib.multi_dense_f32(inputs.data_ptr(), nx, kernel.data_ptr(),
+                             None if bias is None else bias.data_ptr(),
+                             out.data_ptr(), n, b, d, u, int(relu),
+                             buf.data_ptr() if floats else None, dev.index,
+                             _build.stream_of(inputs))
+    check_rc(lib, rc, "multi_dense")
+    multi_dense_fused.launches += 1
+    profiling.count("multi_dense.mma")
+    if floats:
+        profiling.count("multi_dense.tc")
+        profiling.count("multi_dense.tc_wgmma")
+    else:
+        profiling.count("multi_dense.gate" if takes_gate_kernel(nx, n, d, u)
+                        else "multi_dense.tc")
+    return out
 
 
 def linear_wg(x: torch.Tensor, weight: torch.Tensor,

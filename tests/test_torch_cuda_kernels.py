@@ -546,9 +546,10 @@ def test_multi_dense_plan_refusals_run_todays_kernel(dev, case):
     """What wgmma_plan refuses is no wgmma launch: linear_wg gives None
     for xDeepFM's 390-wide rows and for rows off the 16-byte grid (the
     tower then runs nn.Linear); an expert bank (N > 1) and a weight stored
-    (1, D, U) run the mma.sync tile as before through multi_dense_fused,
-    counted in ``multi_dense.mma``, within the tile's tolerance of the
-    plain version."""
+    (1, D, U) run the banks' own kernels through multi_dense_fused (at
+    these shapes their wgmma design, ``multi_dense.tc_wgmma``), counted
+    in ``multi_dense.mma``, not ``multi_dense.wgmma``, within the tile's
+    tolerance of the plain version."""
     gen = torch.Generator().manual_seed(7)
     d, u, n = (390, 400, 1) if case == "d390" else (
         (512, 256, 3) if case == "experts" else (512, 256, 1))

@@ -285,30 +285,156 @@ def dev():
 def _counts():
     c = profiling.span_report()["counters"]
     return {k: c.get(k, 0) for k in ("multi_dense.mma", "multi_dense.tc",
-                                     "multi_dense.gate")}
+                                     "multi_dense.gate",
+                                     "multi_dense.tc_wgmma")}
+
+
+def _launched(before):
+    after = _counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def _bank(dev, b, n, d, u, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.rand(1, b, d, generator=gen) - 0.5).to(dev)
+    w = ((torch.rand(n, d, u, generator=gen) - 0.5) * 2
+         * (6 / (d + u)) ** 0.5).to(dev)
+    bias = ((torch.rand(n, 1, u, generator=gen) - 0.5) * 0.2).to(dev)
+    return x, w, bias
+
+
+def _close_f64(got, x, w, bias, relu):
+    want = mk.multi_dense_xla(x.double(), w.double(),
+                              None if bias is None else bias.double(),
+                              "relu" if relu else None)
+    assert got.shape == want.shape
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+# (nx, n, b, d, u, x aligned, taken): the PLE cell's two banks (level 1's
+# three read one x); the same at B off the 128-row tile, at 64 rows and
+# with x off the 16-byte grid; config 4's banks at B = 8,192 (MMoE layer 0
+# at D = 429, layer 1 per expert, the gate bank, PLE's experts at D = 128)
+# and at its training batch of 2,048; the small model's two levels at B =
+# 1,000; per-expert inputs at the cell's widths; N = 1; the depth's edge;
+# 16 columns at many outputs (the gate kernel's, or the tile's where W is
+# too deep for it)
+BANK_ROUTES = [
+    (1, 4, 8192, 2176, 512, True, True),
+    (1, 4, 8192, 512, 256, True, True),
+    (1, 4, 8191, 2176, 512, True, True),
+    (1, 4, 64, 512, 256, True, True),
+    (1, 4, 8192, 2176, 512, False, False),
+    (1, 4, 8192, 429, 128, True, False),
+    (4, 4, 8192, 128, 64, True, False),
+    (1, 2, 8192, 429, 4, True, False),
+    (1, 2, 8192, 128, 64, True, False),
+    (1, 2, 2048, 128, 64, True, False),
+    (1, 2, 1000, 24, 16, True, False),
+    (1, 2, 1000, 16, 8, True, False),
+    (4, 4, 8192, 2176, 512, True, False),
+    (1, 1, 8192, 512, 256, True, True),
+    (1, 2, 8192, 188, 64, True, False),
+    (1, 2, 8192, 192, 64, True, True),
+    (1, 4, 1 << 20, 5000, 4, True, False),
+]
+
+
+@pytest.mark.parametrize("nx,n,b,d,u,aligned,taken", BANK_ROUTES)
+def test_wgmma_bank_routing(nx, n, b, d, u, aligned, taken):
+    """``takes_wgmma_bank`` at the cell's, config 4's and the small
+    model's shapes and at the edges: a shared input, D % 4 == 0, x on
+    the 16-byte grid, more than 16 columns, the crossover's depth and
+    outputs."""
+    assert mk.takes_wgmma_bank(nx, n, b, d, u, aligned) is taken
+
+
+@pytest.mark.parametrize("n,d,u", [(4, 2176, 512), (4, 512, 256),
+                                   (2, 256, 64), (1, 192, 17)])
+def test_wgmma_bank_crossover(n, d, u):
+    """The least batch the predicate gives the wgmma design is the one
+    whose B * N * U reaches ``BANK_WGMMA_MIN_OUTPUTS``, and no batch
+    gives it a bank shallower than ``BANK_WGMMA_MIN_DEPTH``."""
+    least = -(-mk.BANK_WGMMA_MIN_OUTPUTS // (n * u))
+    assert mk.takes_wgmma_bank(1, n, least, d, u, True)
+    assert not mk.takes_wgmma_bank(1, n, least - 1, d, u, True)
+    shallow = mk.BANK_WGMMA_MIN_DEPTH - 4
+    assert not mk.takes_wgmma_bank(1, n, 1 << 20, shallow, u, True)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_bias", [True, False])
 @pytest.mark.parametrize("d,u", [(2176, 512), (512, 256)])
-def test_banks_at_the_cells_shapes(dev, d, u):
+def test_banks_at_the_cells_shapes(dev, d, u, with_bias):
     """Each level's bank as the cell runs it, (1, 8,192, D) x (4, D, U)
-    with ReLU, on B8's split-TF32 tile (counted ``multi_dense.tc``, not
+    with ReLU, bias on and off, on the banks' wgmma design (counted
+    ``multi_dense.tc`` and ``multi_dense.tc_wgmma``, not
     ``multi_dense.gate``), against ``multi_dense_xla`` in float64."""
-    gen = torch.Generator().manual_seed(d + u)
-    x = (torch.rand(1, 8192, d, generator=gen) - 0.5).to(dev)
-    w = ((torch.rand(4, d, u, generator=gen) - 0.5) * 2
-         * (6 / (d + u)) ** 0.5).to(dev)
-    bias = ((torch.rand(4, 1, u, generator=gen) - 0.5) * 0.2).to(dev)
+    x, w, bias = _bank(dev, 8192, 4, d, u, d + u)
+    bias = bias if with_bias else None
     assert not mk.takes_gate_kernel(1, 4, d, u)
+    assert mk.takes_wgmma_bank(1, 4, 8192, d, u, x.data_ptr() % 16 == 0)
     before = _counts()
     got = mk.multi_dense_fused(x, w, bias, True)
-    after = _counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "multi_dense.mma": 1, "multi_dense.tc": 1, "multi_dense.gate": 0}
-    want = mk.multi_dense_xla(x.double(), w.double(), bias.double(), "relu")
-    assert got.shape == (4, 8192, u)
-    assert float((got.double() - want).abs().max()) <= 1e-5 * float(
-        want.abs().max())
+    assert _launched(before) == {
+        "multi_dense.mma": 1, "multi_dense.tc": 1, "multi_dense.gate": 0,
+        "multi_dense.tc_wgmma": 1}
+    _close_f64(got, x, w, bias, True)
+
+
+# (b, n, d, u) forced onto the wgmma design: B off the 128-row tile; U
+# that no pass width divides (passes of 200 straddle the experts of 96
+# units); an odd U (one float a store, pairs across experts); N = 1; D off
+# the 32-float k-block; a single row
+WGMMA_EDGES = [(1000, 4, 512, 256), (300, 4, 64, 96), (257, 3, 40, 17),
+               (777, 1, 512, 256), (129, 2, 36, 64), (1, 4, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,u", WGMMA_EDGES)
+def test_wgmma_bank_edges(dev, b, n, d, u):
+    """The banks' wgmma design at edge shapes, forced below the
+    crossover: ReLU and bias each on and off against float64, each call
+    one ``multi_dense.tc_wgmma`` launch; a repeat bit-equal."""
+    x, w, bias = _bank(dev, b, n, d, u, b + d + u)
+    for bb in (bias, None):
+        for relu in (True, False):
+            before = _counts()
+            got = mk._multi_dense_fused(x, w, bb, relu, True)
+            assert _launched(before) == {
+                "multi_dense.mma": 1, "multi_dense.tc": 1,
+                "multi_dense.gate": 0, "multi_dense.tc_wgmma": 1}
+            _close_f64(got, x, w, bb, relu)
+    assert torch.equal(got, mk._multi_dense_fused(x, w, None, False, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["per_expert", "d429", "off_grid",
+                                  "below", "shallow"])
+def test_wgmma_bank_refusals_stay_on_the_tile(dev, case):
+    """What ``takes_wgmma_bank`` refuses runs the split-TF32 tile as
+    before, ``multi_dense.tc`` +1 and ``multi_dense.tc_wgmma`` +0: a
+    per-expert input, config 4's D = 429, x off the 16-byte grid, one
+    row short of the crossover's outputs, D = 128 (config 4's PLE
+    experts' depth); a repeat bit-equal."""
+    n, u = 4, 256
+    d = {"d429": 429, "shallow": 128}.get(case, 512)
+    b = 8192 if case != "below" else mk.BANK_WGMMA_MIN_OUTPUTS // (n * u) - 1
+    x, w, bias = _bank(dev, b, n, d, u, 31)
+    if case == "per_expert":
+        x = torch.cat([x, x.flip(1), -x, 2 * x])
+    if case == "off_grid":
+        x = torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+    assert not mk.takes_wgmma_bank(x.shape[0], n, b, d, u,
+                                   x.data_ptr() % 16 == 0)
+    before = _counts()
+    got = mk.multi_dense_fused(x, w, bias, True)
+    assert _launched(before) == {
+        "multi_dense.mma": 1, "multi_dense.tc": 1, "multi_dense.gate": 0,
+        "multi_dense.tc_wgmma": 0}
+    assert torch.equal(got, mk.multi_dense_fused(x, w, bias, True))
+    _close_f64(got, x, w, bias, True)
 
 
 @pytest.mark.cuda
@@ -320,9 +446,9 @@ def test_gate_kernel_is_counted_apart(dev):
     assert mk.takes_gate_kernel(1, 2, 64, 4)
     before = _counts()
     mk.multi_dense_fused(x, w, None, False)
-    after = _counts()
-    assert {k: after[k] - before[k] for k in after} == {
-        "multi_dense.mma": 1, "multi_dense.tc": 0, "multi_dense.gate": 1}
+    assert _launched(before) == {
+        "multi_dense.mma": 1, "multi_dense.tc": 0, "multi_dense.gate": 1,
+        "multi_dense.tc_wgmma": 0}
 
 
 @pytest.mark.cuda
@@ -356,7 +482,7 @@ def test_served_model_on_the_card(dev):
             assert got == {k: 0 for k in got}
         else:
             assert got == {"multi_dense.mma": 6, "multi_dense.tc": 3,
-                           "multi_dense.gate": 3}
+                           "multi_dense.gate": 3, "multi_dense.tc_wgmma": 0}
             assert not mk.takes_gate_kernel(1, 2, 24, 16)
             assert mk.takes_gate_kernel(1, 2, 16, 8)
             for name in ("ple", "towers"):
